@@ -1,0 +1,116 @@
+"""Ragged model execution: flat token batches against a paged KV cache.
+
+Port of ``deepspeed_tpu/inference/v2/model_runner.py`` for the dense
+Llama family (Llama, Mistral, Qwen2-style biases, Gemma knobs):
+
+- tokens are a flat ``[T]`` buffer with per-token (slot, position);
+- each layer writes its new K/V into the block pool at
+  ``(block_tables[slot, pos // bs], pos % bs)`` — in place, where the
+  JAX version returns an updated pool — and attends over each token's
+  block table masked to ``pos``, which handles mixed prefill chunks and
+  decodes in one step (Dynamic SplitFuse);
+- the layer stack is a Python loop over the stacked layer params.
+
+Pad tokens carry the pad slot, whose table is all null blocks, so every
+bucket keeps its static shape (ready for CUDA-graph capture later).
+"""
+
+import torch
+import torch.nn.functional as F
+
+from deepspeed_tpu_torch.inference.v2.modules.heuristics import instantiate_attn
+from deepspeed_tpu_torch.models.llama import check_dense, rope_frequencies, rope_scaling_of
+
+
+def _rms(x, scale, eps):
+    x32 = x.float()
+    y = x32 * torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+def _proj(x, w, b=None):
+    y = x @ w
+    if b is not None:
+        y = y + b
+    return y
+
+
+def _rope_flat(x, cos, sin, positions):
+    """x: [T, H, D]; cos/sin tables [maxlen, D/2] fp32; positions [T]."""
+    c = cos[positions][:, None, :]
+    s = sin[positions][:, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def rope_tables(cfg, device):
+    """fp32 cos/sin tables [max_position_embeddings, head_dim/2] on ``device``."""
+    cos, sin = rope_frequencies(cfg.head_dim, cfg.max_position_embeddings, cfg.rope_theta,
+                                scaling=rope_scaling_of(cfg))
+    return torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device)
+
+
+def _paged_attend(q, k, v, kc, vc, batch, attn_fn):
+    """Write the new K/V into this layer's pool slice, then attend over
+    each token's block-tabled context."""
+    bs = kc.shape[1]
+    pos = batch["token_pos"]
+    tab = batch["block_tables"][batch["token_seq"]]  # [T, MB]
+    blk = batch["block_tables"][batch["token_seq"], pos // bs]  # [T]
+    off = pos % bs
+    kc[blk, off] = k.to(kc.dtype)
+    vc[blk, off] = v.to(vc.dtype)
+    return attn_fn(q, kc, vc, tab, pos)
+
+
+def _layer_step(cfg, cos, sin, batch, attn_fn, h, lp, kc, vc):
+    T = h.shape[0]
+    H, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+
+    hn = _rms(h, lp["input_norm"], cfg.rms_norm_eps)
+    q = _proj(hn, lp["wq"], lp.get("bq")).reshape(T, H, Dh)
+    k = _proj(hn, lp["wk"], lp.get("bk")).reshape(T, Hkv, Dh)
+    v = _proj(hn, lp["wv"], lp.get("bv")).reshape(T, Hkv, Dh)
+    q = _rope_flat(q, cos, sin, batch["token_pos"])
+    k = _rope_flat(k, cos, sin, batch["token_pos"])
+
+    out = _paged_attend(q, k, v, kc, vc, batch, attn_fn)
+    h = h + _proj(out.reshape(T, H * Dh), lp["wo"], lp.get("bo"))
+
+    hn2 = _rms(h, lp["post_norm"], cfg.rms_norm_eps)
+    gate = hn2 @ lp["w_gate"]
+    up = hn2 @ lp["w_up"]
+    if cfg.mlp_activation == "gelu_tanh":  # Gemma GeGLU
+        inter = F.gelu(gate, approximate="tanh") * up
+    else:
+        inter = F.silu(gate) * up
+    return h + inter @ lp["w_down"]
+
+
+def ragged_forward(params, kcache, vcache, batch, cfg, dtype=torch.bfloat16,
+                   attn_impl=None, rope=None):
+    """→ (last-token logits [max_seqs, vocab] fp32, kcache, vcache).
+
+    ``kcache``/``vcache``: [L, NB, bs, Hkv, Dh], updated in place and
+    returned; ``batch``: the tensors of ``unpack_batch`` on the params'
+    device. ``attn_impl`` pins an attention implementation by name;
+    ``rope``: precomputed :func:`rope_tables` (built here when None)."""
+    check_dense(cfg)
+    embed = params["embed_tokens"]
+    device = embed.device
+    h = embed[batch["token_ids"]].to(dtype)  # [T, D]
+    if cfg.embedding_multiplier != 1.0:  # Gemma: sqrt(hidden_size)
+        h = h * cfg.embedding_multiplier
+    cos, sin = rope if rope is not None else rope_tables(cfg, device)
+
+    _, attn_fn = instantiate_attn(device, cfg.head_dim, override=attn_impl)
+    layers = params["layers"]
+    for i in range(cfg.num_hidden_layers):
+        lp = {name: w[i] for name, w in layers.items()}
+        h = _layer_step(cfg, cos, sin, batch, attn_fn, h, lp, kcache[i], vcache[i])
+
+    # Selecting the last tokens before the head gives the same rows as the
+    # JAX order (head over all T, then select) at max_seqs/T of the cost.
+    h = _rms(h[batch["last_index"]], params["norm"], cfg.rms_norm_eps)
+    head = params["lm_head"] if "lm_head" in params else embed.t()
+    return (h @ head.to(h.dtype)).float(), kcache, vcache

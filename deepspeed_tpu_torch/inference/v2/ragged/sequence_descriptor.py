@@ -1,0 +1,169 @@
+"""Per-sequence tracking state.
+
+Capability match for the reference's
+``deepspeed/inference/v2/ragged/sequence_descriptor.py``
+(``DSSequenceDescriptor``): host-side bookkeeping of how many tokens a
+sequence has in the KV cache, which cache blocks it owns, and its slot
+in the (fixed-size) batch tables."""
+
+import numpy as np
+
+
+class UnfencedTokenLogError(RuntimeError):
+    """A host read (or host mutation) of a token log that still has
+    device-resident segments pending. Under ``DS_ASYNC_BURST`` the
+    engine appends burst outputs to the log as *device* segments — the
+    host materializes them one burst late, when the pipeline fences.
+    Any consumer of KV content (prefix-cache retire, tier/handoff
+    export, suspend, the n-gram drafter) must go through
+    ``TokenLog.fence()`` first; reading around the fence would
+    content-address KV whose token identity is not on the host yet."""
+
+
+class TokenLog(list):
+    """The per-sequence KV-content token log: a host int list plus an
+    ordered tail of *pending device segments* (zero-arg thunks that
+    materialize to ``list[int]``, appended by the async burst path).
+
+    Fenced (no pending segments) it behaves exactly like the plain list
+    it replaces — every pre-pipeline call site works unchanged. While
+    segments are pending, host reads and host mutations raise
+    :class:`UnfencedTokenLogError`: the log's tail only exists on
+    device, so iterating/slicing/extending it would silently desync the
+    log from the KV content it is supposed to mirror. ``fence()``
+    materializes the pending tail in order (the underlying device
+    arrays are shared with the scheduler's burst fetch, so fencing
+    after the pipeline fence is pure host work).
+
+    Pump-thread owned, like the descriptor itself: appends happen on
+    the engine step path and fences on the same thread (engine.flush /
+    rewind / suspend / propose_drafts all fence before reading)."""
+
+    def __init__(self, items=()):
+        super().__init__(items)
+        self._pending = []
+
+    # ------------------------------------------------- device-segment API
+    @property
+    def pending(self):
+        """True while device segments are waiting to materialize."""
+        return bool(self._pending)
+
+    def append_device(self, thunk):
+        """Queue one device-resident segment: ``thunk()`` → list[int],
+        called at fence time in append order. No device sync here."""
+        self._pending.append(thunk)
+
+    def fence(self):
+        """Materialize every pending device segment into the host list
+        (in order). Idempotent; returns self."""
+        while self._pending:
+            thunk = self._pending.pop(0)
+            super().extend(int(t) for t in thunk())
+        return self
+
+    def _guard(self, op):
+        if self._pending:
+            raise UnfencedTokenLogError(
+                f"token-log {op} with {len(self._pending)} device "
+                f"segment(s) pending — fence() the log (or drain the "
+                f"burst pipeline) before reading KV content")
+
+    # ---------------------------------------------------- guarded reads
+    def __iter__(self):
+        self._guard("iteration")
+        return super().__iter__()
+
+    def __len__(self):
+        self._guard("len()")
+        return super().__len__()
+
+    def __getitem__(self, idx):
+        self._guard("indexing")
+        return super().__getitem__(idx)
+
+    def __add__(self, other):
+        self._guard("concatenation")
+        return [*super().__iter__(), *other]
+
+    # ------------------------------------------------ guarded mutations
+    def append(self, item):
+        self._guard("append")
+        super().append(item)
+
+    def extend(self, items):
+        self._guard("extend")
+        super().extend(items)
+
+    def __delitem__(self, idx):
+        self._guard("truncation")
+        super().__delitem__(idx)
+
+
+class DSSequenceDescriptor:
+
+    def __init__(self, uid: int, block_size: int, slot: int = -1):
+        self.uid = uid
+        # row in the device batch tables; assigned per ragged batch (a
+        # tracked sequence only occupies a slot while it is IN a batch)
+        self.slot = slot
+        self.block_size = block_size
+        self.seen_tokens = 0  # tokens already written to the KV cache
+        # multi-tenant LoRA: the AdapterStore hot slot this sequence's
+        # tokens select in the segmented adapter matmul (0 = base model;
+        # stays 0 whenever LoRA serving is off)
+        self.adapter_slot = 0
+        self.blocks = []  # owned KV block ids, in order
+        self.in_flight_tokens = 0
+        # ---- prefix-cache bookkeeping (zero/empty when caching is off) ----
+        self.cached_tokens = 0   # leading tokens whose KV came from the cache
+        self.shared_blocks = 0   # leading blocks owned by the radix trie
+        # token ids written to the KV cache, in order (== KV content over
+        # [0, seen_tokens)); the engine records these only when a prefix
+        # cache is attached, so retire can content-address the blocks
+        self.tokens = TokenLog()
+
+    @property
+    def tokens(self):
+        return self._tokens
+
+    @tokens.setter
+    def tokens(self, value):
+        # every assignment rebuilds a TokenLog, so the async burst path
+        # can always append device segments regardless of which call
+        # site (creation, resume, prefix-cache lease) last replaced it
+        self._tokens = value if isinstance(value, TokenLog) else TokenLog(value)
+
+    @property
+    def cur_allocated_blocks(self) -> int:
+        return len(self.blocks)
+
+    def blocks_needed(self, new_tokens: int) -> int:
+        """How many more blocks to hold ``new_tokens`` beyond seen."""
+        total = self.seen_tokens + new_tokens
+        need = -(-total // self.block_size)  # ceil
+        return max(0, need - len(self.blocks))
+
+    def extend_blocks(self, block_ids) -> None:
+        self.blocks.extend(int(b) for b in np.atleast_1d(block_ids))
+
+    def advance(self, n_tokens: int) -> None:
+        self.seen_tokens += n_tokens
+
+    def rewind(self, n_tokens: int) -> None:
+        """Roll back the last ``n_tokens`` of KV content (speculative-
+        decode rejection, EOS landing mid-burst): ``seen_tokens``
+        retreats and the token log truncates to stay equal to the KV
+        content over ``[0, seen_tokens)``. Releasing the now-unused
+        trailing blocks is the state manager's job — it owns the pool."""
+        if not 0 <= n_tokens <= self.seen_tokens:
+            raise ValueError(f"cannot rewind {n_tokens} of "
+                             f"{self.seen_tokens} seen tokens")
+        self.seen_tokens -= n_tokens
+        self.tokens.fence()  # a truncation must see the whole log
+        if len(self.tokens) > self.seen_tokens:
+            del self.tokens[self.seen_tokens:]
+
+    def __repr__(self):
+        return (f"DSSequenceDescriptor(uid={self.uid}, slot={self.slot}, "
+                f"seen={self.seen_tokens}, blocks={len(self.blocks)})")

@@ -34,6 +34,8 @@ import pytest  # noqa: E402
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running sweeps excluded from tier-1 (-m 'not slow')")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (the PyTorch port's kernels); skips without one")
 
 
 @pytest.fixture(autouse=True)

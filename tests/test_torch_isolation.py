@@ -1,0 +1,106 @@
+"""The PyTorch port stands alone.
+
+- No file of ``deepspeed_tpu_torch`` (nor ``chip_smoke.py``) imports jax,
+  flax, pydantic or the JAX package (AST scan).
+- Every port module imports in a fresh interpreter where ``jax`` cannot
+  be imported at all.
+- Entry points given no device run on the GPU: on a machine without one
+  they raise instead of quietly running on the CPU.
+- Each config switch of a feature the port does not serve yet raises
+  ``NotImplementedError`` at engine construction, naming its ROADMAP item."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2, DynamicSplitFuseScheduler,
+                                              RaggedInferenceEngineConfig)
+from deepspeed_tpu_torch.models import init_params, llama_config
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "deepspeed_tpu_torch"
+FORBIDDEN = {"jax", "jaxlib", "flax", "pydantic", "deepspeed_tpu", "optax", "orbax"}
+
+
+def _port_files():
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _modules():
+    return sorted(".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+                  for p in PKG.rglob("*.py"))
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_forbidden_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {name}"
+
+
+def test_every_module_imports_without_jax():
+    code = ("import importlib, sys\n"
+            "for name in ('jax', 'jaxlib', 'flax', 'pydantic', 'deepspeed_tpu'):\n"
+            "    sys.modules[name] = None\n"
+            f"for mod in {_modules()!r}:\n"
+            "    importlib.import_module(mod)\n"
+            "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_default_device_is_the_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None would rightly use it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        InferenceEngineV2("debug")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(llama_config("debug"))
+
+
+OFF_SLICE = {
+    "prefix_cache": dict(prefix_cache={"enabled": True}),
+    "kv_tier": dict(kv_tier={"enabled": True}),
+    "spec_decode": dict(spec_decode={"enabled": True}),
+    "lora": dict(lora={"enabled": True}),
+    "structured": dict(structured={"enabled": True}),
+    "async_burst": dict(async_burst={"enabled": True}),
+    "quantization_mode": dict(quantization={"quantization_mode": "int8"}),
+    "tensor_parallel_degree": dict(tensor_parallel_degree=2),
+    "expert_parallel_degree": dict(expert_parallel_degree=2),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(OFF_SLICE))
+def test_off_slice_feature_raises(flag):
+    cfg = RaggedInferenceEngineConfig(**OFF_SLICE[flag])
+    with pytest.raises(NotImplementedError, match=f"{flag}.*ROADMAP.md, port queue item"):
+        InferenceEngineV2("debug", cfg, dtype=torch.float32, device="cpu")
+
+
+def test_off_slice_model_and_sampling_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        InferenceEngineV2("mixtral-debug", device="cpu")
+    eng = InferenceEngineV2("debug", dtype=torch.float32, device="cpu")
+    with pytest.raises(NotImplementedError, match="sampling"):
+        eng.put([1], [[1, 2, 3]], sample={"temperature": 1.0})
+    with pytest.raises(NotImplementedError, match="sampling"):
+        DynamicSplitFuseScheduler(eng, sampling={"temperature": 0.7})
+    sched = DynamicSplitFuseScheduler(eng)
+    with pytest.raises(NotImplementedError, match="sampling"):
+        sched.add_request(1, [1, 2], sample={"temperature": 0.7})
+    cfg = RaggedInferenceEngineConfig(implementation_overrides={"attention": "cuda_paged"})
+    with pytest.raises(ValueError, match="cuda_paged"):
+        InferenceEngineV2("debug", cfg, dtype=torch.float32, device="cpu")
