@@ -37,15 +37,65 @@ each of which fails the run if it fails:
    pool must be empty again at the end. Prints tokens/s, steps, host
    syncs per token and peak memory, then profiles one prefill step and
    one decode burst of the same traffic (device time by kernel, device
-   busy share).
+   busy share);
+6. train kernels — flash attention forward, dK/dV and dQ, and the RMS-norm
+   forward at the training path's shapes (B=4, S=2048, H=16, Dh=128,
+   causal; RMS on [8192, 2048]) and beside them S=1000 (not a tile
+   multiple), 4 packed segments, non-causal, H=32 and Dh=64, all bf16.
+   Each is held against its plain version on the same inputs, element by
+   element at the scale each element lives at (``row_scaled_err``: |got -
+   ref| in units of 2^-8 of |ref| + the rms of its row + the tensor's
+   rms/16): o, dq, dk and dv within ROW_TOL = 6 units. The forward's
+   output is bf16 against the plain version's fp32 (at most 1 unit) and
+   the kernel rounds the p of P·V to bf16 (a random error of ~0.3 units of
+   the row per sigma); the backward's outputs are bf16 on both sides (at
+   most 2 units) and p and ds are rounded to bf16 on both sides, from
+   scores summed in another order, so a rounding may fall the other way
+   (readings up to 2.6 units, ``PERF.md``). Each check must also reject the
+   kernel's output with its last 64-row tile zeroed (~200 units), so a
+   wrong or missing query or key tile cannot pass. lse within 1e-3
+   absolute (fp32, exp2 vs exp and summation order), RMS within one bf16
+   ulp at each element's magnitude. Timed as in phase 3 beside the plain
+   version, one library call (SDPA forward, SDPA's backward through
+   autograd, ``F.rms_norm``) and the bound (max of flops over 989 TFLOP/s
+   and bytes over 3.35 TB/s, flops counted over the valid (q, k) pairs of
+   the case);
+7. train parity — a 2-layer ``"1b"``-width model takes one ``train_batch``
+   (gas 2, B=4, S=2048, bf16, Adam) twice from the same bf16 weights and
+   batch: once through the kernels, once with the model's attention and
+   norms pinned to the plain versions. The two differ by where bf16
+   rounds: the kernels round p and ds to bf16 and take the backward's
+   delta from the bf16 output, the plain versions do neither. The
+   difference reads as noise: 1-2% of each parameter's gradient, in a
+   direction that leaves the global norm within 3e-5. Limits, a few times the
+   readings recorded in ``PERF.md``: each parameter's accumulated fp32
+   gradient (read before the update) within GRAD_LEAF_TOL = 2^-4 of the
+   plain run's in relative L2 norm, the loss within 2e-5 relative, the
+   global grad norm within 2e-4 relative, and at most 1% of the updated
+   fp32 master elements apart by more than lr/2 (Adam's first step is about
+   ±lr per element, so this compares the gradients' signs; the leaf check
+   compares their size);
+8. training — the full 22-layer ``"1b"`` preset (1.24 B params) under
+   ``bench.py``'s ``_train_config(4, 2)`` (bf16, Adam lr 1e-4, ZeRO stage
+   3, gas 2), ``remat_policy="full"``, S=2048, random weights from a
+   seeded generator and one fixed seeded batch: 1 warm-up step and 3 timed
+   ``train_batch`` steps. Every loss must be finite and the loss must fall
+   from the first step to the last; each kernel's launch count must grow
+   by exactly what the path implies per step (flash forward 2·L·gas with
+   the remat recompute, dK/dV and dQ L·gas each, RMS (4·L + 1)·gas); no
+   parameter may be NaN. Prints ms per step, tokens/s, MFU (``bench.py``'s
+   6N + 12·L·S·H flops per token against 989 TFLOP/s), peak memory and a
+   profile of one step (device time by kernel, device busy share).
 
 The last lines are the card, one JSON object with every kernel's numbers
 and, last, ``{"ok": true, "device": {...}}``."""
 
+import contextlib
 import json
 import math
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -56,6 +106,9 @@ BF16_FLOPS_PER_S = 989e12         # H100 SXM, dense
 KERNEL_TOL = 2e-2
 PATH_TOL_ULPS = 2
 N_REQ, PROMPT, NEW, BUDGET, BURST = 16, 128, 64, 512, 16
+TB, TS, TGAS, TLR = 4, 2048, 2, 1e-4  # bench.py's headline training shape, _train_config
+ROW_TOL, LSE_TOL = 6.0, 1e-3  # phase 6, units of row_scaled_err; absolute
+GRAD_LEAF_TOL = 2.0 ** -4     # phase 7, relative L2 norm of each leaf's gradient
 
 
 def log(msg):
@@ -324,6 +377,24 @@ def serving_phase(device):
     return result, launches
 
 
+_CATEGORIES = (  # (category, substrings of the kernel name), first match wins
+    ("flash_attention (K1)", ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")),
+    ("rms_norm (K2)", ("rms_fwd_kernel",)),
+    ("paged_attention (K3)", ("paged_decode_kernel",)),
+    ("gemm", ("nvjet", "gemm", "cutlass", "xmma", "cublas")),
+    ("multi-tensor (Adam, grad accumulation)", ("multi_tensor_apply",)),
+    ("reductions", ("reduce_kernel",)),
+    ("elementwise and copies", ("elementwise", "copy", "cat", "index", "scatter", "gather")),
+)
+
+
+def _category(name):
+    for cat, keys in _CATEGORIES:
+        if any(k in name for k in keys):
+            return cat
+    return "other"
+
+
 def _summarize(prof, wall_ms, forwards):
     from torch.autograd import DeviceType
     rows = []
@@ -337,10 +408,15 @@ def _summarize(prof, wall_ms, forwards):
             rows.append((ev.key, dev_us / 1e3, ev.count))
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
+    by_category = {}
+    for name, ms, _ in rows:
+        cat = _category(name)
+        by_category[cat] = by_category.get(cat, 0.0) + ms
     out = {"forwards": forwards, "wall_ms": wall_ms, "device_ms": busy,
            "device_busy_share": busy / wall_ms if rows else None,
            "kernels_launched": sum(r[2] for r in rows),
-           "top": [{"name": n[:70], "ms": ms, "calls": c} for n, ms, c in rows[:10]]}
+           "by_category_ms": dict(sorted(by_category.items(), key=lambda kv: -kv[1])),
+           "top": [{"name": n[:70], "ms": ms, "calls": c} for n, ms, c in rows[:12]]}
     if not rows:
         out["note"] = "profiler recorded no device time: not measured"
     return out
@@ -373,6 +449,349 @@ def profile_steps(engine):
         log(f"[profile] {kind} {json.dumps(out[kind])}")
     return out
 
+# ---------------------------------------------------------------- phase 6
+def flash_case(seed, B, S, H, D, causal, n_seg, device):
+    """bf16 q/k/v/do [B, S, H, D] and, when ``n_seg``, int32 segment ids
+    [B, S] cutting each row into ``n_seg`` packed sequences."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=device).to(torch.bfloat16)
+
+    seg = None
+    if n_seg:
+        rng = np.random.RandomState(seed)
+        cuts = np.sort(rng.choice(np.arange(1, S), n_seg - 1, replace=False))
+        seg = torch.from_numpy(np.searchsorted(cuts, np.arange(S), side="right")
+                               .astype(np.int32)).repeat(B, 1).to(device)
+    return {"q": rand(B, S, H, D), "k": rand(B, S, H, D), "v": rand(B, S, H, D),
+            "do": rand(B, S, H, D), "seg": seg, "causal": causal}
+
+
+def valid_pairs(c):
+    """(query, key) pairs the mask admits, summed over batch rows."""
+    B, S = c["q"].shape[:2]
+    if c["seg"] is None:
+        sizes = np.full((B, 1), S)
+    else:
+        sizes = np.stack([np.bincount(r) for r in c["seg"].cpu().numpy()])
+    per = sizes * (sizes + 1) // 2 if c["causal"] else sizes * sizes
+    return int(per.sum())
+
+
+def bound(nbytes, flops):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def max_abs(got, want):
+    return (got.float() - want.float()).abs().max().item()
+
+
+def zero_last_tile(x):
+    """``x`` [B, S, H, D] with its last 64 rows of S zeroed: what a kernel
+    that skipped its last query or key tile would return."""
+    y = x.clone()
+    y[:, -64:] = 0
+    return y
+
+
+def flash_kernel_cases(c, name, flush):
+    """Forward, dK/dV and dQ of one case against their plain versions,
+    each timed beside its plain version, the library call and its bound →
+    three result rows."""
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    F = torch.nn.functional
+    q, k, v, do, seg, causal = c["q"], c["k"], c["v"], c["do"], c["seg"], c["causal"]
+    B, S, H, D = q.shape
+    o, lse = fa.flash_fwd(q, k, v, seg, causal)
+    o_ref, lse_ref = fa.flash_fwd_ref(q.float(), k.float(), v.float(), seg, causal)
+    delta = fa.flash_delta(o, do)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, seg, causal)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, seg, causal)
+    dk_ref, dv_ref = fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, seg, causal)
+    dq_ref = fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, seg, causal)
+    torch.cuda.synchronize()
+    for t in (o, lse, dq, dk, dv):
+        if not torch.isfinite(t.float()).all():
+            raise AssertionError(f"flash case {name}: non-finite kernel output")
+    outs = {"o": (o, o_ref), "dq": (dq, dq_ref), "dk": (dk, dk_ref), "dv": (dv, dv_ref)}
+    errs = {t: fa.row_scaled_err(got, ref) for t, (got, ref) in outs.items()}
+    zeroed = {t: fa.row_scaled_err(zero_last_tile(got), ref) for t, (got, ref) in outs.items()}
+    lse_err = max_abs(lse, lse_ref)
+    if max(errs.values()) > ROW_TOL or lse_err > LSE_TOL:
+        raise AssertionError(f"flash case {name}: errors {errs} (units of row_scaled_err, "
+                             f"limit {ROW_TOL}), lse {lse_err} (limit {LSE_TOL})")
+    if min(zeroed.values()) <= ROW_TOL:
+        raise AssertionError(f"flash case {name}: the check passes a zeroed last tile: {zeroed}")
+    shape = {"case": name, "B": B, "S": S, "H": H, "Dh": D, "causal": causal,
+             "segments": 0 if seg is None else int(seg.max().item()) + 1}
+    rows = {
+        "flash_fwd": dict(shape, max_abs_err=max_abs(o, o_ref), row_err=errs["o"],
+                          zeroed_tile_row_err=zeroed["o"], lse_abs_err=lse_err),
+        "flash_bwd_dkv": dict(shape, max_abs_err=max(max_abs(dk, dk_ref), max_abs(dv, dv_ref)),
+                              row_err=max(errs["dk"], errs["dv"]),
+                              zeroed_tile_row_err=min(zeroed["dk"], zeroed["dv"])),
+        "flash_bwd_dq": dict(shape, max_abs_err=max_abs(dq, dq_ref), row_err=errs["dq"],
+                             zeroed_tile_row_err=zeroed["dq"]),
+    }
+    del outs
+    del o_ref, lse_ref, dk_ref, dv_ref, dq_ref
+    pairs = valid_pairs(c)
+    act = B * S * H * D * 2                     # one bf16 [B, S, H, D] tensor
+    stats = B * H * S * 4                       # one fp32 [B, H, S] tensor
+    segb = 0 if seg is None else seg.numel() * 4
+    fwd_b, fwd_f = 4 * act + stats + segb, 4 * D * pairs * H
+    dkv_b, dkv_f = 6 * act + 2 * stats + segb, 8 * D * pairs * H
+    dq_b, dq_f = 5 * act + 2 * stats + segb, 6 * D * pairs * H
+    mask = None
+    if seg is not None:
+        same = seg[:, None, :, None] == seg[:, None, None, :]
+        causal_mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        mask = same & causal_mask if causal else same
+    sq, sk, sv = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    sdo = do.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask,
+                                              is_causal=causal and mask is None)
+
+    s_out = sdpa()
+    lib_bwd = time_ms(lambda: torch.autograd.grad(s_out, (sq, sk, sv), sdo,
+                                                  retain_graph=True), flush)
+    with torch.no_grad():
+        lib_fwd = time_ms(sdpa, flush)
+    for key, fn, plain, nb, nf, lib in (
+            ("flash_fwd", lambda: fa.flash_fwd(q, k, v, seg, causal),
+             lambda: fa.flash_fwd_ref(q, k, v, seg, causal), fwd_b, fwd_f, lib_fwd),
+            ("flash_bwd_dkv", lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, seg, causal),
+             lambda: fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, seg, causal),
+             dkv_b, dkv_f, lib_bwd),
+            ("flash_bwd_dq", lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, seg, causal),
+             lambda: fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, seg, causal),
+             dq_b, dq_f, lib_bwd)):
+        b_ms, b_by = bound(nb, nf)
+        rows[key].update(ms=time_ms(fn, flush), plain_ms=time_ms(plain, flush),
+                         library_ms=lib, bound_ms=b_ms, bound_by=b_by, bytes=nb, flops=nf)
+    rows["flash_fwd"]["library_call"] = "scaled_dot_product_attention forward"
+    for key in ("flash_bwd_dkv", "flash_bwd_dq"):
+        rows[key]["library_call"] = "scaled_dot_product_attention backward (dq, dk, dv)"
+    del s_out, sq, sk, sv
+    return rows
+
+
+def train_kernel_phase(device, flush):
+    from deepspeed_tpu_torch.ops.kernels.fused_norms import rms_norm_fwd, rms_norm_ref
+    F = torch.nn.functional
+    cases = {  # name: (B, S, H, Dh, causal, segments)
+        "path": (TB, TS, 16, 128, True, 0),
+        "s1000": (2, 1000, 16, 128, True, 0),
+        "packed_4_segments": (TB, TS, 16, 128, True, 4),
+        "noncausal": (2, TS, 16, 128, False, 0),
+        "h32": (2, TS, 32, 128, True, 0),
+        "dh64": (TB, TS, 32, 64, True, 0),
+    }
+    out = {"flash_fwd": [], "flash_bwd_dkv": [], "flash_bwd_dq": [], "rms_norm_fwd": []}
+    for i, (name, (B, S, H, D, causal, n_seg)) in enumerate(cases.items()):
+        c = flash_case(10 + i, B, S, H, D, causal, n_seg, device)
+        for key, row in flash_kernel_cases(c, name, flush).items():
+            log(f"[train-kernels] {key} {json.dumps(row)}")
+            out[key].append(row)
+        del c
+        torch.cuda.empty_cache()
+
+    for name, rows, D in (("path", TB * TS, 2048), ("odd_rows", 37, 4104)):
+        g = torch.Generator(device=device).manual_seed(rows)
+        x = (torch.randn(rows, D, generator=g, device=device) * 3).to(torch.bfloat16)
+        scale = (1 + 0.1 * torch.randn(D, generator=g, device=device)).to(torch.bfloat16)
+        got = rms_norm_fwd(x, scale)
+        want = rms_norm_ref(x.float(), scale.float())
+        torch.cuda.synchronize()
+        ulp_ok = (got.float() - want).abs() <= 2.0 ** -7 * want.abs() + 1e-6
+        if not ulp_ok.all():
+            raise AssertionError(f"rms case {name}: {int((~ulp_ok).sum())} elements beyond "
+                                 f"one bf16 ulp")
+        nb = 2 * x.numel() * 2 + D * 2
+        b_ms, b_by = bound(nb, 4 * x.numel())
+        row = {"case": name, "rows": rows, "D": D,
+               "max_abs_err": (got.float() - want).abs().max().item(),
+               "ms": time_ms(lambda: rms_norm_fwd(x, scale), flush),
+               "plain_ms": time_ms(lambda: rms_norm_ref(x, scale), flush),
+               "library_ms": time_ms(lambda: F.rms_norm(x, (D,), scale, 1e-5), flush),
+               "library_call": "torch.nn.functional.rms_norm",
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": nb, "flops": 4 * x.numel()}
+        log(f"[train-kernels] rms_norm_fwd {json.dumps(row)}")
+        out["rms_norm_fwd"].append(row)
+    return out
+
+
+# ---------------------------------------------------------------- phase 7
+@contextlib.contextmanager
+def plain_train_kernels():
+    """Pin the training model's attention and norms to the plain versions
+    (autograd through ``flash_attention_ref`` and ``rms_norm_ref``)."""
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import flash_attention_ref
+    from deepspeed_tpu_torch.ops.kernels.fused_norms import rms_norm_ref
+    saved = llama.flash_attention, llama.fused_rms_norm
+    llama.flash_attention = lambda q, k, v, causal=True: flash_attention_ref(q, k, v, causal)
+    llama.fused_rms_norm = rms_norm_ref
+    try:
+        yield
+    finally:
+        llama.flash_attention, llama.fused_rms_norm = saved
+
+
+def train_config(micro_batch, gas):
+    """``bench.py``'s ``_train_config``: the shared ZeRO-3 bf16 config."""
+    return {"train_batch_size": micro_batch * gas, "train_micro_batch_size_per_gpu": micro_batch,
+            "gradient_accumulation_steps": gas, "bf16": {"enabled": True},
+            "optimizer": {"type": "Adam", "params": {"lr": TLR}},
+            "zero_optimization": {"stage": 3}, "steps_per_print": 1000000}
+
+
+def train_batch_ids(vocab, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    ids = torch.randint(0, vocab, (TB * TGAS, TS), generator=g, device=device, dtype=torch.int32)
+    return ids, ids.clone()
+
+
+def train_parity_phase(device):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import build_llama
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    results = {}
+    for mode in ("kernels", "plain"):
+        model = build_llama("1b", device=device, num_hidden_layers=2,
+                            generator=torch.Generator(device=device).manual_seed(2))
+        engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=train_config(TB, TGAS),
+                                                    device=device)
+        names = [n for n, p in model.named_parameters() if p.requires_grad]
+        grads = capture_grads(engine)
+        before = fa.flash_fwd.launches
+        with plain_train_kernels() if mode == "plain" else contextlib.nullcontext():
+            loss = engine.train_batch(batch=train_batch_ids(model.config.vocab_size, device))
+        torch.cuda.synchronize()
+        launched = fa.flash_fwd.launches - before
+        if (mode == "kernels") != (launched > 0):
+            raise AssertionError(f"train parity {mode}: {launched} flash launches")
+        results[mode] = (loss.item(), engine.global_grad_norm, grads,
+                         [m.clone() for m in engine.master_params])
+        engine.destroy()
+        del model, engine
+        torch.cuda.empty_cache()
+    (lk, nk, gk, mk), (lp, np_, gp, mp) = results["kernels"], results["plain"]
+    leaf = {n: ((a - b).norm() / b.norm()).item() for n, a, b in zip(names, gk, gp)}
+    moved = sum(int(((a - b).abs() > TLR / 2).sum()) for a, b in zip(mk, mp))
+    res = {"loss_kernels": lk, "loss_plain": lp, "loss_rel_diff": abs(lk - lp) / abs(lp),
+           "grad_norm_kernels": nk, "grad_norm_plain": np_,
+           "grad_norm_rel_diff": abs(nk - np_) / np_,
+           "leaf_grad_rel_diff_max": max(leaf.values()),
+           "leaf_grad_rel_diff_worst": max(leaf, key=leaf.get),
+           "master_steps_moved_share": moved / sum(m.numel() for m in mp),
+           "leaf_grad_rel_diff": leaf}
+    log(f"[train-parity] 2-layer 1b width, gas {TGAS}, B={TB}, S={TS}: {json.dumps(res)}")
+    if not (math.isfinite(lk) and math.isfinite(lp)) or res["loss_rel_diff"] > 2e-5 \
+            or res["grad_norm_rel_diff"] > 2e-4 or max(leaf.values()) > GRAD_LEAF_TOL \
+            or res["master_steps_moved_share"] > 0.01:
+        raise AssertionError(f"train parity over its limits: {res}")
+    return res
+
+
+def capture_grads(engine):
+    """→ a list that ``engine.step()`` fills with a copy of the accumulated
+    fp32 gradients, one per parameter, just before it applies them."""
+    grads, step = [], engine.step
+
+    def recording_step(*args, **kwargs):
+        if engine.is_gradient_accumulation_boundary():
+            grads[:] = [g.float().clone() for g in engine._grads_acc]
+        return step(*args, **kwargs)
+
+    engine.step = recording_step
+    return grads
+
+
+# ---------------------------------------------------------------- phase 8
+def model_flops(n_params, tokens, layers, seq, hidden):
+    """``bench.py``'s ``_model_flops``: 6N per token + 12·L·S·H."""
+    return 6.0 * n_params * tokens + 12.0 * layers * seq * hidden * tokens
+
+
+def training_phase(device):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import build_llama
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels.fused_norms import rms_norm_fwd
+    t0 = time.perf_counter()
+    model = build_llama("1b", device=device, remat=True, remat_policy="full",
+                        generator=torch.Generator(device=device).manual_seed(0))
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=train_config(TB, TGAS),
+                                                device=device)
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    log(f"[training] 1b: {n_params / 1e9:.4f} B params, {L} layers, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    batch = train_batch_ids(cfg.vocab_size, device)
+    counters = {"flash_fwd": fa.flash_fwd, "flash_bwd_dkv": fa.flash_bwd_dkv,
+                "flash_bwd_dq": fa.flash_bwd_dq, "rms_norm_fwd": rms_norm_fwd}
+    per_step = {"flash_fwd": 2 * L * TGAS, "flash_bwd_dkv": L * TGAS, "flash_bwd_dq": L * TGAS,
+                "rms_norm_fwd": (4 * L + 1) * TGAS}
+    for fn in counters.values():
+        fn.launches = 0
+    losses = [engine.train_batch(batch=batch).item()]  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        loss = engine.train_batch(batch=batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        losses.append(loss.item())
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for k, n in launches.items():
+        if n != 4 * per_step[k]:
+            raise AssertionError(f"{k}: {n} launches over 4 steps, want 4 x {per_step[k]}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite and falling: {losses}")
+    if any(torch.isnan(p).any().item() for p in model.parameters()):
+        raise AssertionError("NaN in a parameter after training")
+    tokens = TB * TGAS * TS
+    mean_s = float(np.mean(step_s))
+    res = {"layers": L, "params": n_params, "micro_batch": TB, "gas": TGAS, "seq": TS,
+           "tokens_per_step": tokens, "losses": losses, "step_ms": [s * 1e3 for s in step_s],
+           "ms_per_step": mean_s * 1e3, "tokens_per_sec": tokens / mean_s,
+           "mfu": model_flops(n_params, tokens, L, TS, cfg.hidden_size) / mean_s
+           / BF16_FLOPS_PER_S,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches_per_step": per_step, "launches": launches,
+           "grad_norm": engine.global_grad_norm}
+    log(f"[training] {json.dumps(res)}")
+    res["profile"] = profile_train_step(engine, batch)
+    engine.destroy()
+    del model, engine
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+def profile_train_step(engine, batch):
+    """One more ``train_batch`` under torch.profiler → device time by kernel
+    and the device's busy share of the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.train_batch(batch=batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    out = _summarize(prof, wall_ms, 1)
+    log(f"[profile] train_step {json.dumps(out)}")
+    return out
+
+
 
 def main():
     if not torch.cuda.is_available():
@@ -389,8 +808,11 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    for src in build.SOURCES:
-        path, report, seconds = build.build(src)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(build.SOURCES)) as pool:  # one nvcc per source, together
+        built = list(pool.map(build.build, build.SOURCES))
+    log(f"[build] all sources in {time.perf_counter() - t0:.2f} s")
+    for src, (path, report, seconds) in zip(build.SOURCES, built):
         log(f"[build] {src} -> {path.name} in {seconds:.2f} s"
             + ("" if report is not None else " (reused)"))
         for line in (report or "").splitlines():
@@ -399,10 +821,13 @@ def main():
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
     cases = kernel_phase(device, flush)
+    train_cases = train_kernel_phase(device, flush)
     del flush
     torch.cuda.empty_cache()
     parity_phase(device)
     serving, launches = serving_phase(device)
+    train_parity_phase(device)
+    training, train_launches = training_phase(device)
 
     main_case = next(c for c in cases if c["case"] == "serving_decode")
     kernels = [{"name": "paged_decode_attention", "route": "cuda",
@@ -415,6 +840,27 @@ def main():
                 "library_ms": main_case["library_ms"],
                 "shape": "serving decode step: T=16, H=32, Hkv=8, Dh=128, bs=32, ctx 160",
                 "cases": cases}]
+    train_kernels = {
+        "flash_fwd": ("flash_attention.cu", "flash_attention.py:46",
+                      f"training path: B={TB}, S={TS}, H=16, Dh=128, causal, bf16"),
+        "flash_bwd_dkv": ("flash_attention.cu", "flash_attention.py:96",
+                          f"training path: B={TB}, S={TS}, H=16, Dh=128, causal, bf16"),
+        "flash_bwd_dq": ("flash_attention.cu", "flash_attention.py:141",
+                         f"training path: B={TB}, S={TS}, H=16, Dh=128, causal, bf16"),
+        "rms_norm_fwd": ("fused_norms.cu", "fused_norms.py:19",
+                         f"training path: [{TB * TS}, 2048] bf16, bf16 scale"),
+    }
+    for name, (src, replaces, shape) in train_kernels.items():
+        rows = train_cases[name]
+        main_row = next(r for r in rows if r["case"] == "path")
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"deepspeed_tpu_torch/csrc/{src}",
+                        "replaces": f"deepspeed_tpu/ops/pallas/{replaces}",
+                        "launches": train_launches[name],
+                        "max_abs_err": max(r["max_abs_err"] for r in rows),
+                        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+                        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+                        "library_ms": main_row["library_ms"], "shape": shape, "cases": rows})
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,11 @@
-"""JAX param tree → the port's parameter layout.
+"""JAX param tree ↔ the port's parameter layouts.
 
 The one place that knows how the JAX package lays out Llama-family
-weights. ``tree`` is the JAX engine's param tree as nested numpy
+weights. :func:`params_from_jax` builds the serving layout;
+:func:`load_jax_params` fills the training module and
+:func:`params_to_jax` turns the training module's tensors (its params, or
+their grads) back into a JAX-shaped tree, so that tests can compare them
+leaf by leaf. ``tree`` is the JAX engine's param tree as nested numpy
 (``jax.tree.map(np.asarray, params)``):
 
     model.embed_tokens                                      [V, D]
@@ -12,11 +16,16 @@ weights. ``tree`` is the JAX engine's param tree as nested numpy
     model.norm.scale                                        [D]
     lm_head.kernel                                          [D, V] (absent when tied)
 
-Both packages keep projections [in, out] with layers stacked on a
-leading L dim, so the mapping is renaming only."""
+Both packages keep projections [in, out]. The serving layout keeps the
+layers stacked on a leading L dim (renaming only); the training module
+owns one tensor per layer and leaf, named by the JAX path with the layer
+index after ``layers`` (``model.layers.3.self_attn.q_proj.kernel``), so
+the stacked leaves are unstacked one way and restacked the other."""
 
 import numpy as np
 import torch
+
+from deepspeed_tpu_torch.roadmap import not_ported
 
 _ATTN = {"q_proj": ("wq", "bq"), "k_proj": ("wk", "bk"), "v_proj": ("wv", "bv"),
          "o_proj": ("wo", "bo")}
@@ -33,9 +42,7 @@ def params_from_jax(tree):
     model = tree["model"]
     lay = model["layers"]
     if "moe_mlp" in lay:
-        raise NotImplementedError(
-            "MoE param trees are not ported yet: ROADMAP.md, port queue item 3 "
-            "(quantized, MoE and LoRA serving)")
+        raise not_ported("MoE param trees", 3)
     layers = {"input_norm": _t(lay["input_layernorm"]["scale"]),
               "post_norm": _t(lay["post_attention_layernorm"]["scale"])}
     for jname, (w, b) in _ATTN.items():
@@ -49,4 +56,73 @@ def params_from_jax(tree):
            "norm": _t(model["norm"]["scale"])}
     if "lm_head" in tree:
         out["lm_head"] = _t(tree["lm_head"]["kernel"])
+    return out
+
+
+_LAYERS = ("model", "layers")
+
+
+def _flatten(tree, prefix=()):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _flatten(value, prefix + (key,))
+        else:
+            yield prefix + (key,), value
+
+
+def _train_state_from_jax(tree):
+    """JAX tree (nested numpy) → ``{training-module name: CPU tensor}``,
+    the stacked ``model/layers`` leaves split per layer."""
+    out = {}
+    for path, value in _flatten(tree):
+        if path[:2] == _LAYERS:
+            if path[2] == "moe_mlp":
+                raise not_ported("MoE param trees", 3)
+            rest = ".".join(path[2:])
+            for i in range(value.shape[0]):
+                out[f"model.layers.{i}.{rest}"] = _t(value[i])
+        else:
+            out[".".join(path)] = _t(value)
+    return out
+
+
+@torch.no_grad()
+def load_jax_params(module, tree):
+    """Copy a JAX ``LlamaForCausalLM`` param tree into the training
+    ``module`` in place (each tensor keeps the module's device and dtype).
+    Every parameter must be matched by exactly one leaf."""
+    state = _train_state_from_jax(tree)
+    params = dict(module.named_parameters())
+    if set(state) != set(params):
+        raise ValueError(f"param tree does not match the module: missing "
+                         f"{sorted(set(params) - set(state))[:5]}, unexpected "
+                         f"{sorted(set(state) - set(params))[:5]}")
+    for name, p in params.items():
+        if tuple(state[name].shape) != tuple(p.shape):
+            raise ValueError(f"{name}: tree shape {tuple(state[name].shape)} != "
+                             f"{tuple(p.shape)}")
+        p.copy_(state[name])
+    return module
+
+
+def params_to_jax(named):
+    """``{training-module name: tensor}`` (``module.named_parameters()``, or
+    the same names mapped to grads) → the JAX tree's nesting as fp32 numpy,
+    with the per-layer tensors restacked on a leading L dim."""
+    out, stacks = {}, {}
+    for name, t in dict(named).items():
+        arr = t.detach().float().cpu().numpy()
+        parts = name.split(".")
+        if tuple(parts[:2]) == _LAYERS:
+            stacks.setdefault(tuple(parts[3:]), {})[int(parts[2])] = arr
+            continue
+        node = out
+        for key in parts[:-1]:
+            node = node.setdefault(key, {})
+        node[parts[-1]] = arr
+    for rest, per_layer in stacks.items():
+        node = out.setdefault("model", {}).setdefault("layers", {})
+        for key in rest[:-1]:
+            node = node.setdefault(key, {})
+        node[rest[-1]] = np.stack([per_layer[i] for i in range(len(per_layer))])
     return out

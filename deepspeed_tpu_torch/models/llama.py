@@ -1,10 +1,12 @@
-"""Llama-family configuration and serving parameters in PyTorch.
+"""Llama-family configuration, serving parameters and the training model
+in PyTorch.
 
-Port of the parts of ``deepspeed_tpu/models/llama.py`` that serving
-needs: :class:`LlamaConfig` and its presets, the RoPE tables
-(numpy, copied verbatim), GQA ``repeat_kv``, and :func:`init_params`,
-which makes random weights from a seeded ``torch.Generator`` on the
-device in the port's parameter layout:
+Port of ``deepspeed_tpu/models/llama.py``:
+
+- :class:`LlamaConfig` and its presets, the RoPE tables (numpy, copied
+  verbatim) and GQA ``repeat_kv``;
+- serving: :func:`init_params`, random weights from a seeded
+  ``torch.Generator`` on the device in a stacked parameter layout
 
     {"embed_tokens": [V, D],
      "layers": {"input_norm": [L, D], "post_norm": [L, D],
@@ -15,18 +17,35 @@ device in the port's parameter layout:
      "norm": [D],
      "lm_head": [D, V]}            # absent when tie_word_embeddings
 
-Projections are ``x @ w`` with ``w`` stored [in, out] and the layers
-stacked on a leading L dim, as in the JAX param tree;
-``models/convert.py`` maps a JAX tree onto this layout.
-Dense Llama-family models only: MoE presets raise.
+  with projections ``x @ w``, ``w`` stored [in, out] as in the JAX tree;
+- training: the ``nn.Module``s :class:`RMSNorm`, :class:`LlamaAttention`,
+  :class:`LlamaMLP`, :class:`LlamaBlock`, :class:`LlamaModel` and
+  :class:`LlamaForCausalLM` (``forward(input_ids, labels)`` → ``(loss,
+  logits)``, ``(loss, None)`` on the chunked-loss path), built by
+  :func:`build_llama`. Each layer owns its parameters (an
+  ``nn.ModuleList`` of blocks, one ``nn.Parameter`` per leaf, named as the
+  JAX tree's paths: ``model.layers.3.self_attn.q_proj.kernel``): indexing
+  a stacked [L, ...] parameter would make autograd build a full [L, ...]
+  zero gradient for every layer. ``models/convert.py`` unstacks the JAX
+  tree onto it and restacks it.
+
+``models/convert.py`` maps a JAX tree onto either layout. Dense
+Llama-family models only: MoE presets raise.
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.device import resolve_device
+from deepspeed_tpu_torch.ops.kernels.flash_attention import flash_attention
+from deepspeed_tpu_torch.ops.kernels.fused_norms import fused_rms_norm
+from deepspeed_tpu_torch.roadmap import not_ported
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,9 +183,7 @@ def repeat_kv(k, v, n_rep: int):
 
 def check_dense(cfg: LlamaConfig):
     if cfg.moe_num_experts:
-        raise NotImplementedError(
-            "MoE Llama-family models are not ported yet: ROADMAP.md, port queue "
-            "item 3 (quantized, MoE and LoRA serving)")
+        raise not_ported("MoE Llama-family models", 3)
 
 
 def param_shapes(cfg: LlamaConfig):
@@ -214,3 +231,268 @@ def count_params(params) -> int:
     for v in params.values():
         n += count_params(v) if isinstance(v, dict) else v.numel()
     return n
+
+
+# ---------------------------------------------------------------- training
+def check_trainable(cfg: LlamaConfig):
+    """Raise for the training options this port does not run yet."""
+    check_dense(cfg)
+    if cfg.sp_impl != "ulysses":
+        raise not_ported(f"sp_impl={cfg.sp_impl!r} (ring sequence parallelism)", 6)
+    if cfg.offload_params:
+        raise not_ported("offload_params (ZeRO-Infinity parameter streaming)", 12)
+    if cfg.remat and cfg.remat_policy != "full":
+        if cfg.remat_policy in ("dots", "moe"):
+            raise not_ported(f"remat_policy={cfg.remat_policy!r}", 10)
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}: expected 'full', 'dots' "
+                         f"or 'moe'")
+    if cfg.attention_impl not in ("auto", "einsum", "flash"):
+        raise ValueError(f"attention_impl {cfg.attention_impl!r}: auto | einsum | flash")
+    if cfg.mlp_activation not in ("silu", "gelu_tanh"):
+        raise ValueError(f"mlp_activation {cfg.mlp_activation!r}: silu | gelu_tanh")
+
+
+def _param(shape, device, dtype, generator, std):
+    """N(0, std²) from ``generator``, or ones when ``std`` is None."""
+    if std is None:
+        return nn.Parameter(torch.ones(shape, device=device, dtype=dtype))
+    t = torch.empty(shape, device=device, dtype=dtype)
+    return nn.Parameter(t.normal_(0.0, std, generator=generator))
+
+
+class Dense(nn.Module):
+    """``x @ kernel (+ bias)`` with ``kernel`` stored [in, out], as the JAX
+    package's ``QuantDense`` (unquantized). Random init N(0, 1/in)."""
+
+    def __init__(self, d_in, d_out, bias, device, dtype, generator):
+        super().__init__()
+        self.kernel = _param((d_in, d_out), device, dtype, generator, 1.0 / math.sqrt(d_in))
+        self.bias = (nn.Parameter(torch.zeros(d_out, device=device, dtype=dtype))
+                     if bias else None)
+
+    def forward(self, x):
+        y = x @ self.kernel
+        return y if self.bias is None else y + self.bias
+
+
+class RMSNorm(nn.Module):
+    """RMSNorm over the last dim through ``fused_rms_norm`` (the CUDA kernel
+    on the GPU, its plain version on the CPU)."""
+
+    def __init__(self, dim, eps, device, dtype):
+        super().__init__()
+        self.eps = eps
+        self.scale = _param((dim,), device, dtype, None, None)
+
+    def forward(self, x):
+        return fused_rms_norm(x, self.scale, self.eps)
+
+
+def apply_rope(x, cos, sin, positions):
+    """x: [B, S, H, D]; cos/sin: fp32 [T, D/2] tensors; positions: [B or 1, S]."""
+    cos = cos[positions][:, :, None, :]
+    sin = sin[positions][:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def einsum_attention(q, k, v, causal=True):
+    """The JAX package's ``einsum_attention`` (its training branch):
+    [B, S, H, D] → [B, S, H, D]; scores from a matmul in the input dtype,
+    softmax in fp32, probabilities cast back before the product with v."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    if causal:
+        sq, sk = scores.shape[-2:]
+        mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril(diagonal=sk - sq)
+        scores = scores.masked_fill(~mask, torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def local_attention(q, k, v, impl, causal=True):
+    """``attention_impl`` "auto" takes the flash kernel once the [S, S]
+    scores dominate (S ≥ 256) and the einsum path below, as the JAX model
+    does on its kernel path."""
+    if impl == "auto":
+        impl = "flash" if q.shape[1] >= 256 else "einsum"
+    if impl == "flash":
+        return flash_attention(q, k, v, causal=causal)
+    return einsum_attention(q, k, v, causal=causal)
+
+
+class LlamaAttention(nn.Module):
+
+    def __init__(self, cfg, device, dtype, generator):
+        super().__init__()
+        self.config = cfg
+        H, Hkv, Dh, D = (cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim,
+                         cfg.hidden_size)
+        args = (device, dtype, generator)
+        self.q_proj = Dense(D, H * Dh, cfg.attention_bias, *args)
+        self.k_proj = Dense(D, Hkv * Dh, cfg.attention_bias, *args)
+        self.v_proj = Dense(D, Hkv * Dh, cfg.attention_bias, *args)
+        self.o_proj = Dense(H * Dh, D, cfg.attention_out_bias, *args)
+
+    def forward(self, h, positions, cos, sin):
+        cfg = self.config
+        B, S, _ = h.shape
+        H, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+        q = apply_rope(self.q_proj(h).view(B, S, H, Dh), cos, sin, positions)
+        k = apply_rope(self.k_proj(h).view(B, S, Hkv, Dh), cos, sin, positions)
+        v = self.v_proj(h).view(B, S, Hkv, Dh)
+        k, v = repeat_kv(k, v, H // Hkv)
+        out = local_attention(q, k, v, cfg.attention_impl, causal=True)
+        return self.o_proj(out.reshape(B, S, H * Dh))
+
+
+class LlamaMLP(nn.Module):
+
+    def __init__(self, cfg, device, dtype, generator):
+        super().__init__()
+        self.activation = cfg.mlp_activation
+        D, I = cfg.hidden_size, cfg.intermediate_size
+        self.gate_proj = Dense(D, I, False, device, dtype, generator)
+        self.up_proj = Dense(D, I, False, device, dtype, generator)
+        self.down_proj = Dense(I, D, False, device, dtype, generator)
+
+    def forward(self, h):
+        gate = self.gate_proj(h)
+        act = F.silu(gate) if self.activation == "silu" else F.gelu(gate, approximate="tanh")
+        return self.down_proj(act * self.up_proj(h))
+
+
+class LlamaBlock(nn.Module):
+
+    def __init__(self, cfg, device, dtype, generator):
+        super().__init__()
+        self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device, dtype)
+        self.self_attn = LlamaAttention(cfg, device, dtype, generator)
+        self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device, dtype)
+        self.mlp = LlamaMLP(cfg, device, dtype, generator)
+
+    def forward(self, h, positions, cos, sin):
+        h = h + self.self_attn(self.input_layernorm(h), positions, cos, sin)
+        return h + self.mlp(self.post_attention_layernorm(h))
+
+
+class LlamaModel(nn.Module):
+    """Decoder trunk: embeddings, the blocks (each recomputed in the
+    backward when ``remat``: ``remat_policy="full"``, the JAX
+    ``nothing_saveable``), final norm."""
+
+    def __init__(self, cfg, device, dtype, generator):
+        super().__init__()
+        self.config = cfg
+        self.embed_tokens = _param((cfg.vocab_size, cfg.hidden_size), device, dtype, generator,
+                                   0.02)
+        self.layers = nn.ModuleList(LlamaBlock(cfg, device, dtype, generator)
+                                    for _ in range(cfg.num_hidden_layers))
+        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device, dtype)
+        cos, sin = rope_frequencies(cfg.head_dim, cfg.max_position_embeddings, cfg.rope_theta,
+                                    scaling=rope_scaling_of(cfg))
+        self.register_buffer("rope_cos", torch.from_numpy(cos).to(device), persistent=False)
+        self.register_buffer("rope_sin", torch.from_numpy(sin).to(device), persistent=False)
+
+    def forward(self, input_ids):
+        cfg = self.config
+        h = self.embed_tokens[input_ids.long()]
+        if cfg.embedding_multiplier != 1.0:  # Gemma: sqrt(hidden_size)
+            h = h * torch.tensor(cfg.embedding_multiplier, dtype=h.dtype)
+        positions = torch.arange(input_ids.shape[1], device=h.device)[None, :]
+        remat = cfg.remat and torch.is_grad_enabled()
+        for block in self.layers:
+            if remat:
+                h = checkpoint(block, h, positions, self.rope_cos, self.rope_sin,
+                               use_reentrant=False)
+            else:
+                h = block(h, positions, self.rope_cos, self.rope_sin)
+        return self.norm(h)
+
+
+def _ce_chunk_stats(logits, targets):
+    """(masked nll sum fp32, valid-token count) for one loss chunk."""
+    logits = logits.float()
+    mask = targets != -100
+    safe = torch.where(mask, targets, torch.zeros_like(targets)).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    return torch.where(mask, nll, torch.zeros_like(nll)).sum(), mask.sum()
+
+
+def masked_cross_entropy(logits, targets):
+    """Mean token cross entropy in fp32; positions with target -100 are
+    ignored (HF convention)."""
+    s, c = _ce_chunk_stats(logits, targets)
+    return s / c.clamp(min=1).float()
+
+
+def causal_lm_loss(logits, labels):
+    """Next-token cross entropy with -100 ignore mask, fp32."""
+    return masked_cross_entropy(logits[:, :-1], labels[:, 1:])
+
+
+class LlamaForCausalLM(nn.Module):
+    """Causal LM with the next-token shift inside.
+
+    ``forward(input_ids, labels)`` → ``(loss, logits)``; ``forward(input_ids)``
+    → ``logits``. Labels -100 are ignored. For sequences longer than
+    ``2 * config.loss_chunk`` the loss is computed chunk by chunk, each
+    chunk's unembed and cross entropy recomputed in the backward, and the
+    second element is **None**: the [B, S, vocab] logits never exist."""
+
+    def __init__(self, config, device=None, dtype=torch.float32, generator=None):
+        super().__init__()
+        check_trainable(config)
+        device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        self.config = config
+        self.model = LlamaModel(config, device, dtype, generator)
+        self.lm_head = (None if config.tie_word_embeddings else
+                        Dense(config.hidden_size, config.vocab_size, False, device, dtype,
+                              generator))
+
+    def _unembed(self, h):
+        if self.lm_head is None:
+            return h @ self.model.embed_tokens.t()
+        return self.lm_head(h)
+
+    def forward(self, input_ids, labels=None):
+        cfg = self.config
+        h = self.model(input_ids)
+        S = input_ids.shape[1]
+        if labels is not None and cfg.loss_chunk > 0 and S > 2 * cfg.loss_chunk:
+            return self._chunked_causal_loss(h, labels), None
+        logits = self._unembed(h)
+        if labels is None:
+            return logits
+        return causal_lm_loss(logits, labels), logits
+
+    def _chunked_causal_loss(self, h, labels):
+        C = self.config.loss_chunk
+        hs, ls = h[:, :-1], labels[:, 1:]
+        pad = (-hs.shape[1]) % C
+        if pad:
+            hs = F.pad(hs, (0, 0, 0, pad))
+            ls = F.pad(ls, (0, pad), value=-100)
+
+        def step(hc, lc):
+            return _ce_chunk_stats(self._unembed(hc), lc)
+
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        count = torch.zeros((), dtype=torch.int64, device=h.device)
+        for i in range(hs.shape[1] // C):
+            s, c = checkpoint(step, hs[:, i * C:(i + 1) * C], ls[:, i * C:(i + 1) * C],
+                              use_reentrant=False)
+            total, count = total + s, count + c
+        return total / count.clamp(min=1).float()
+
+
+def build_llama(preset_or_config="debug", device=None, dtype=torch.float32, generator=None,
+                **overrides) -> LlamaForCausalLM:
+    """The training model for a preset (or config) with ``overrides``, random
+    weights from ``generator`` (seed 0 when None) on ``device`` (None =
+    CUDA; raises without a GPU)."""
+    return LlamaForCausalLM(llama_config(preset_or_config, **overrides), device, dtype,
+                            generator)

@@ -24,7 +24,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # every kernel source the port has
-SOURCES = ("paged_attention.cu",)
+SOURCES = ("paged_attention.cu", "flash_attention.cu", "fused_norms.cu")
 
 _loaded = {}
 

@@ -9,7 +9,14 @@ The CUDA paged-attention kernel is held against its plain version, in
 fp32 on the same bf16 inputs, at shapes beyond the serving path's: every
 supported group width (G = 1, 2, 3, 4, 6, 8 and 16, which splits over
 two blocks), head dims 8 to 256, pad rows and positions past the table.
-Tolerance: max-abs 2e-2, the kernel's bf16 output rounding."""
+Tolerance: max-abs 2e-2, the kernel's bf16 output rounding.
+
+The flash-attention kernels (forward, dK/dV, dQ) and the RMS-norm forward
+are held against their plain versions element by element at each
+element's scale (limits stated beside each test),
+the wrappers must refuse what the kernels cannot take, and a 2-layer
+bf16 training step through the kernels must match the same step pinned
+to the plain versions."""
 
 import numpy as np
 import pytest
@@ -109,3 +116,217 @@ def test_engine_on_card_matches_plain_attention_engine(cuda, max_tokens, max_seq
     a, b = outs["cuda_paged"], outs["torch_gather"]
     scale = float(np.abs(b).max())
     assert np.abs(a - b).max() <= 2 * 2.0 ** (np.floor(np.log2(scale)) - 7)
+
+
+# ------------------------------------------------- flash attention (K1)
+# Kernel vs its plain version on the same bf16 inputs, element by element
+# at the scale each element lives at (``row_scaled_err``: |got - ref| in
+# units of 2^-8 of |ref| + the rms of its row + the tensor's rms / 16; its
+# docstring derives the bound): o, dq, dk and dv within ROW_TOL units, lse
+# within 1e-3 absolute (fp32, exp2 vs exp and summation order).
+ROW_TOL = 6.0
+FLASH_CASES = {
+    # name: (B, S, H, D, causal, n_segments)
+    "causal_d128": (2, 256, 2, 128, True, 0),
+    "causal_ragged_s": (1, 200, 3, 128, True, 0),
+    "noncausal_d64": (2, 130, 2, 64, False, 0),
+    "segments_causal": (2, 192, 2, 64, True, 3),
+    "segments_noncausal": (1, 160, 2, 128, False, 4),
+}
+
+
+def _flash_inputs(cuda, B, S, H, D, n_seg, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+
+    seg = None
+    if n_seg:
+        rng = np.random.RandomState(seed)
+        cuts = np.sort(rng.choice(np.arange(1, S), n_seg - 1, replace=False))
+        seg = torch.from_numpy(np.searchsorted(cuts, np.arange(S), side="right")
+                               .astype(np.int32)).repeat(B, 1).to(cuda)
+    return rand(B, S, H, D), rand(B, S, H, D), rand(B, S, H, D), rand(B, S, H, D), seg
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_kernels_match_plain(cuda, case):
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    B, S, H, D, causal, n_seg = FLASH_CASES[case]
+    q, k, v, do, seg = _flash_inputs(cuda, B, S, H, D, n_seg)
+    before = (fa.flash_fwd.launches, fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches)
+    o, lse = fa.flash_fwd(q, k, v, seg, causal)
+    o_ref, lse_ref = fa.flash_fwd_ref(q.float(), k.float(), v.float(), seg, causal)
+    delta = fa.flash_delta(o, do)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, seg, causal)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, seg, causal)
+    dk_ref, dv_ref = fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, seg, causal)
+    dq_ref = fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, seg, causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches) == \
+        tuple(n + 1 for n in before)
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    for got, want in ((o, o_ref), (dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        assert torch.isfinite(got.float()).all()
+        assert fa.row_scaled_err(got, want) <= ROW_TOL
+
+
+@pytest.mark.parametrize("case", ["causal_ragged_s", "segments_causal"])
+def test_flash_attention_autograd_matches_reference_grads(cuda, case):
+    """The autograd Function (kernels) against autograd through
+    ``flash_attention_ref`` in fp32 on the same bf16 inputs: the output
+    within ROW_TOL units, and each gradient within 2^-7 of the reference's
+    L2 norm. The reference rounds neither p nor ds to bf16 and takes delta
+    from its fp32 output, where the kernels take it from the bf16 one: in a
+    row that one key dominates, that error is as large as the row's true
+    dq, so the gradients are held by norm here and element by element in
+    ``test_flash_kernels_match_plain``."""
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import (flash_attention,
+                                                                 flash_attention_ref,
+                                                                 row_scaled_err)
+    B, S, H, D, causal, n_seg = FLASH_CASES[case]
+    q, k, v, do, seg = _flash_inputs(cuda, B, S, H, D, n_seg, seed=1)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = flash_attention(*leaves, causal=causal, segment_ids=seg)
+    out.backward(do)
+    ref_leaves = [x.float().requires_grad_(True) for x in (q, k, v)]
+    ref = flash_attention_ref(*ref_leaves, causal=causal, segment_ids=seg)
+    ref.backward(do.float())
+    errs = {"o": row_scaled_err(out, ref)}
+    errs.update({n: ((a.grad.float() - b.grad).norm() / b.grad.norm()).item()
+                 for n, a, b in zip(("dq", "dk", "dv"), leaves, ref_leaves)})
+    assert errs["o"] <= ROW_TOL and max(errs[n] for n in ("dq", "dk", "dv")) <= 2.0 ** -7, errs
+
+
+def test_flash_rejects_what_it_cannot_take(cuda):
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import flash_attention, flash_fwd
+    q, k, v, _, _ = _flash_inputs(cuda, 1, 64, 2, 64, 0)
+    with pytest.raises(TypeError):
+        flash_attention(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError):
+        flash_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                        v[..., :32].contiguous())
+    with pytest.raises(ValueError):
+        flash_attention(q, k[:, :, :1].contiguous(), v[:, :, :1].contiguous())
+    with pytest.raises(ValueError):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(ValueError):
+        flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError):
+        flash_fwd(q.cpu(), k.cpu(), v.cpu())
+
+
+# ------------------------------------------------------------ RMS norm (K2)
+@pytest.mark.parametrize("rows,D,dtype", [(8192, 2048, torch.bfloat16), (37, 64, torch.bfloat16),
+                                          (5, 4104, torch.bfloat16), (33, 2048, torch.float32)])
+def test_rms_kernel_matches_plain(cuda, rows, D, dtype):
+    """Within one unit in the last place of the output dtype at each
+    element's magnitude (the kernel's output rounding, and rsqrtf's
+    2-ulp fp32 error far below it), against the plain version in fp32."""
+    from deepspeed_tpu_torch.ops.kernels.fused_norms import rms_norm_fwd, rms_norm_ref
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    x = (torch.randn(rows, D, generator=g, device=cuda) * 3).to(dtype)
+    scale = (1 + 0.1 * torch.randn(D, generator=g, device=cuda)).to(dtype)
+    before = rms_norm_fwd.launches
+    got = rms_norm_fwd(x, scale)
+    want = rms_norm_ref(x.float(), scale.float())
+    torch.cuda.synchronize()
+    assert rms_norm_fwd.launches == before + 1
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -23
+    assert ((got.float() - want).abs() <= ulp * want.abs() + 1e-6).all()
+
+
+def test_fused_rms_norm_grads_match_plain_autograd(cuda):
+    """Kernel forward + closed-form backward vs autograd through the plain
+    version, in fp32 (relative to each tensor's max-abs, 1e-5)."""
+    from deepspeed_tpu_torch.ops.kernels.fused_norms import fused_rms_norm, rms_norm_ref
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(4, 33, 256, generator=g, device=cuda)
+    scale = 1 + 0.1 * torch.randn(256, generator=g, device=cuda)
+    gy = torch.randn(4, 33, 256, generator=g, device=cuda)
+    a = [x.clone().requires_grad_(True), scale.clone().requires_grad_(True)]
+    fused_rms_norm(*a).backward(gy)
+    b = [x.clone().requires_grad_(True), scale.clone().requires_grad_(True)]
+    rms_norm_ref(*b).backward(gy)
+    for p, r in zip(a, b):
+        assert (p.grad - r.grad).abs().max() <= 1e-5 * r.grad.abs().max()
+
+
+def test_rms_rejects_what_it_cannot_take(cuda):
+    from deepspeed_tpu_torch.ops.kernels.fused_norms import fused_rms_norm
+    x = torch.randn(4, 64, device=cuda, dtype=torch.bfloat16)
+    s = torch.ones(64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        fused_rms_norm(x.half(), s.half())
+    with pytest.raises(TypeError):
+        fused_rms_norm(x, s.float())
+    with pytest.raises(ValueError):
+        fused_rms_norm(x[:, :60].contiguous(), s[:60].contiguous())
+    with pytest.raises(ValueError):
+        fused_rms_norm(x.t().contiguous().t(), s)
+    with pytest.raises(ValueError):
+        fused_rms_norm(x, s.cpu())
+
+
+# ------------------------------------------------------- training parity
+def test_two_layer_training_step_kernels_vs_plain(cuda):
+    """One bf16 ``train_batch`` (gas 2) of a 2-layer model at head_dim 128
+    and S=256 (the flash path) through the kernels, and again from the same
+    weights with attention and norms pinned to their plain versions. Each
+    parameter's accumulated fp32 gradient within 2^-4 of the plain run's
+    in relative L2 norm, loss within 1e-4 relative and grad norm within
+    4e-4 relative (a few times the readings on an H100: bf16 rounds at
+    different places in the two), every kernel launched as the path implies (flash
+    forward twice per layer and micro-batch with the remat recompute, each
+    backward kernel once, RMS 4·L + 1 per micro-batch)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import build_llama, llama
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import fused_norms as fn
+    L, gas = 2, 2
+    cfg = {"train_batch_size": 2 * gas, "train_micro_batch_size_per_gpu": 2,
+           "gradient_accumulation_steps": gas, "bf16": {"enabled": True},
+           "optimizer": {"type": "Adam", "params": {"lr": 1e-4}}, "zero_optimization": {"stage": 3}}
+    ids = torch.randint(0, 512, (2 * gas, 256), generator=torch.Generator(cuda).manual_seed(0),
+                        device=cuda)
+    out = {}
+    for mode in ("kernels", "plain"):
+        model = build_llama("debug", device=cuda, hidden_size=256, intermediate_size=512,
+                            num_attention_heads=2, num_key_value_heads=2, vocab_size=512,
+                            max_position_embeddings=512, num_hidden_layers=L,
+                            generator=torch.Generator(cuda).manual_seed(1))
+        engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg, device=cuda)
+        grads, step = [], engine.step
+
+        def recording_step():  # the accumulated fp32 gradients, before the update
+            grads[:] = [g.float().clone() for g in engine._grads_acc]
+            step()
+
+        engine.step = recording_step
+        before = [f.launches for f in (fa.flash_fwd, fa.flash_bwd_dkv, fa.flash_bwd_dq,
+                                       fn.rms_norm_fwd)]
+        saved = llama.flash_attention, llama.fused_rms_norm
+        if mode == "plain":
+            llama.flash_attention = lambda q, k, v, causal=True: fa.flash_attention_ref(
+                q, k, v, causal)
+            llama.fused_rms_norm = fn.rms_norm_ref
+        try:
+            loss = engine.train_batch(batch=(ids, ids))
+        finally:
+            llama.flash_attention, llama.fused_rms_norm = saved
+        torch.cuda.synchronize()
+        grew = [f.launches - b for f, b in zip(
+            (fa.flash_fwd, fa.flash_bwd_dkv, fa.flash_bwd_dq, fn.rms_norm_fwd), before)]
+        want = [2 * L * gas, L * gas, L * gas, (4 * L + 1) * gas] if mode == "kernels" \
+            else [0, 0, 0, 0]
+        assert grew == want
+        out[mode] = (loss.item(), engine.global_grad_norm, grads)
+    (lk, nk, gk), (lp, np_, gp) = out["kernels"], out["plain"]
+    readings = {"loss_rel": abs(lk - lp) / abs(lp), "grad_norm_rel": abs(nk - np_) / np_,
+                "leaf_grad_rel_max": max(((a - b).norm() / b.norm()).item()
+                                         for a, b in zip(gk, gp))}
+    assert np.isfinite(lk) and readings["loss_rel"] <= 1e-4, readings
+    assert readings["grad_norm_rel"] <= 4e-4 and readings["leaf_grad_rel_max"] <= 2.0 ** -4, \
+        readings

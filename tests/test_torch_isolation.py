@@ -6,8 +6,9 @@
   be imported at all.
 - Entry points given no device run on the GPU: on a machine without one
   they raise instead of quietly running on the CPU.
-- Each config switch of a feature the port does not serve yet raises
-  ``NotImplementedError`` at engine construction, naming its ROADMAP item."""
+- Each config switch of a feature the port does not serve or train yet
+  raises ``NotImplementedError`` at engine (or model) construction, naming
+  its ROADMAP item; so do the training engine's checkpoint methods."""
 
 import ast
 import pathlib
@@ -19,7 +20,8 @@ import torch
 
 from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2, DynamicSplitFuseScheduler,
                                               RaggedInferenceEngineConfig)
-from deepspeed_tpu_torch.models import init_params, llama_config
+import deepspeed_tpu_torch
+from deepspeed_tpu_torch.models import build_llama, init_params, llama_config
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "deepspeed_tpu_torch"
@@ -68,6 +70,11 @@ def test_default_device_is_the_gpu():
         InferenceEngineV2("debug")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_params(llama_config("debug"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_llama("debug")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        deepspeed_tpu_torch.initialize(model=build_llama("debug", device="cpu"),
+                                       config=TRAIN_CONFIG)
 
 
 OFF_SLICE = {
@@ -104,3 +111,49 @@ def test_off_slice_model_and_sampling_raise():
     cfg = RaggedInferenceEngineConfig(implementation_overrides={"attention": "cuda_paged"})
     with pytest.raises(ValueError, match="cuda_paged"):
         InferenceEngineV2("debug", cfg, dtype=torch.float32, device="cpu")
+
+
+TRAIN_CONFIG = {"train_batch_size": 4, "train_micro_batch_size_per_gpu": 2,
+                "bf16": {"enabled": True}, "zero_optimization": {"stage": 3}}
+
+TRAIN_OFF_SLICE = {
+    "fp16": ({"fp16": {"enabled": True}, "bf16": {"enabled": False}}, 9),
+    "offload_optimizer": ({"zero_optimization": {"stage": 3,
+                                                 "offload_optimizer": {"device": "cpu"}}}, 12),
+    "offload_param": ({"zero_optimization": {"stage": 3, "offload_param": {"device": "nvme"}}},
+                      12),
+    "cpu_offload_deprecated": ({"zero_optimization": {"stage": 2, "cpu_offload": True}}, 12),
+    "mesh_data": ({"mesh": {"data_parallel_size": 2}}, 7),
+    "mesh_tensor": ({"mesh": {"tensor_parallel_size": 2}}, 6),
+    "zero_quantized_gradients": ({"zero_optimization": {"stage": 3,
+                                                        "zero_quantized_gradients": True}}, 7),
+    "monitor": ({"tensorboard": {"enabled": True}}, 6),
+    "hybrid_engine": ({"hybrid_engine": {"enabled": True}}, 6),
+    "flops_profiler": ({"flops_profiler": {"enabled": True}}, 6),
+    "optimizer_lamb": ({"optimizer": {"type": "Lamb", "params": {"lr": 1e-3}}}, 11),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(TRAIN_OFF_SLICE))
+def test_off_slice_training_config_raises(flag):
+    extra, item = TRAIN_OFF_SLICE[flag]
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, port queue item {item} "):
+        deepspeed_tpu_torch.initialize(model=build_llama("debug", device="cpu"),
+                                       config={**TRAIN_CONFIG, **extra}, device="cpu")
+
+
+@pytest.mark.parametrize("overrides,item", [
+    (dict(remat_policy="dots"), 10), (dict(sp_impl="ring"), 6), (dict(offload_params=True), 12)])
+def test_off_slice_training_model_raises(overrides, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, port queue item {item} "):
+        build_llama("debug", device="cpu", **overrides)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, port queue item 3 "):
+        build_llama("mixtral-debug", device="cpu")
+
+
+def test_checkpointing_raises():
+    engine, *_ = deepspeed_tpu_torch.initialize(model=build_llama("debug", device="cpu"),
+                                                config=TRAIN_CONFIG, device="cpu")
+    for method in (engine.save_checkpoint, engine.load_checkpoint):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, port queue item 8 "):
+            method("ckpt")
