@@ -87,6 +87,54 @@ each of which fails the run if it fails:
    6N + 12·L·S·H flops per token against 989 TFLOP/s), peak memory and a
    profile of one step (device time by kernel, device busy share).
 
+9. quant/grouped kernels — ``quant_matmul`` (K4) at Mixtral attention shapes
+   ([4096, 4096] and [4096, 1024]; M = 8, 264, 37) for int8, fp8 and fp6,
+   at [4096, 14336] / [14336, 4096] (M = 8, 264; int8, fp6), and at the
+   head [4096, 32000] (M = 8, the decode step's last tokens; int8, fp8,
+   fp6) with the group ``_quantize_grouped`` picks for it, 500; ``gmm``
+   (bf16) and ``gmm_quant`` (int8, fp8, fp6) at Mixtral's expert stacks
+   ([8, 4096, 14336] and [8, 14336, 4096]) over four routings: a decode
+   burst step (8 tokens, top-2: 16 rows), a prefill chunk (264 tokens: 528
+   rows), 16 rows with one expert empty, and all 528 rows on one expert.
+   Group 512 elsewhere, bf16 x. Each case must (a) reproduce ``dequantize_grouped``
+   in bf16 exactly when the x rows are one-hot over K (every K row of one
+   expert for K5), (b) stay within QUANT_TOL = 4 units of
+   ``row_scaled_err`` of its plain version on random x (both round the same
+   bf16 weights; fp32 summation order and the output rounding differ:
+   readings up to 1.51, ``PERF.md``), and (c) have that check reject its
+   output with one 64-column tile (K4) or the busiest expert's rows (K5)
+   zeroed. Timed beside the plain version, the bound (max of flops over
+   989 TFLOP/s and carrier + scale + x + output bytes, touched experts
+   only, over 3.35 TB/s), a library call (``torch.matmul`` on the
+   pre-dequantized bf16 weight for K4; ``torch._grouped_mm`` on the bf16
+   stack for K5, or the sum of per-expert ``torch.matmul`` times where
+   this torch refuses it) and the unfused path (dequantize the stack,
+   then the bf16 grouped kernel; for K4 the plain version is that path);
+10. quant/MoE parity — a 2-layer Mixtral-8x7B-width engine with int8, fp6
+   and bf16 experts, each run twice from the same bf16 weights: through
+   the kernels, and with ``quant_matmul``, ``gmm`` and ``gmm_quant``
+   pinned to their plain versions. The plain run replays the kernel run's
+   expert choices (with its own gate values), since a near-tie in the
+   router falls either way under the two runs' bf16 roundings and sends a
+   token through another expert; the count of such ties is printed. A
+   prefill put and a mixed put must give last-token logits within
+   MOE_PATH_TOL_ULPS = 8 bf16 ulps at the largest logit's magnitude
+   (readings 1.25-2.16); every launch count must be what the path implies;
+11. quantized MoE serving — the full 32-layer ``mixtral-8x7b`` preset
+   (46.7 B params) in int8, weights drawn into carriers by
+   ``init_quantized_params`` from a seeded generator, under ``bench.py``'s
+   ``bench_serving_2b_moe`` traffic: 8 requests x 256-token prompts x 64
+   new tokens, block 32, token budget 264, bursts of 16. Every request must
+   get 64 in-vocab tokens, the pool must be empty at the end, ``quant_matmul``
+   must launch (4 per layer + 1 for the head) per forward and ``gmm_quant``
+   3 per layer per forward (so every MoE FFN went through the kernels), and peak memory
+   must stay under the card's. Prints tokens/s, ms per forward, host syncs
+   per token, resident bytes, peak memory and a profile of one prefill step
+   and one decode burst;
+12. bf16 MoE serving — the same preset and traffic in bf16 at 8 of 32
+   layers (the bf16 model does not fit one card at full depth); ``gmm``
+   must launch 3 per layer per forward. Same prints.
+
 The last lines are the card, one JSON object with every kernel's numbers
 and, last, ``{"ok": true, "device": {...}}``."""
 
@@ -109,6 +157,16 @@ N_REQ, PROMPT, NEW, BUDGET, BURST = 16, 128, 64, 512, 16
 TB, TS, TGAS, TLR = 4, 2048, 2, 1e-4  # bench.py's headline training shape, _train_config
 ROW_TOL, LSE_TOL = 6.0, 1e-3  # phase 6, units of row_scaled_err; absolute
 GRAD_LEAF_TOL = 2.0 ** -4     # phase 7, relative L2 norm of each leaf's gradient
+QUANT_TOL = 4.0               # phase 9, units of row_scaled_err
+MOE_PATH_TOL_ULPS = 8         # phase 10
+# bench.py's bench_serving_2b_moe traffic: 8 requests x 256-token prompts x 64 new
+# tokens, token budget prompt_len + n_req, bursts of 16 (KV block BS = 32)
+MOE_N_REQ, MOE_PROMPT, MOE_NEW, MOE_BURST = 8, 256, 64, 16
+MOE_BUDGET = MOE_PROMPT + MOE_N_REQ
+MOE_BF16_LAYERS = 8           # phase 12: bf16 Mixtral-8x7B fits one card at 8 of 32 layers
+ATTN_SHAPES = ((4096, 4096), (4096, 1024))   # Mixtral [K, N]: q and o; k and v
+MLP_SHAPES = ((4096, 14336), (14336, 4096))  # a dense quantized MLP; the expert stacks'
+HEAD_SHAPE = (4096, 32000)                   # Mixtral's lm_head [K, N]: groups of 500
 
 
 def log(msg):
@@ -294,18 +352,18 @@ def parity_phase(device):
 
 
 # ---------------------------------------------------------------- phase 5
-def add_requests(engine, n, plen, ntok, seed):
+def add_requests(engine, n, plen, ntok, seed, budget=BUDGET, burst=BURST):
     from deepspeed_tpu_torch.inference.v2 import DynamicSplitFuseScheduler
     rng = np.random.RandomState(seed)
-    sched = DynamicSplitFuseScheduler(engine, token_budget=BUDGET, max_burst=BURST)
+    sched = DynamicSplitFuseScheduler(engine, token_budget=budget, max_burst=burst)
     for uid in range(n):
         sched.add_request(uid, rng.randint(0, engine.model_config.vocab_size,
                                            size=plen).astype(np.int32), max_new_tokens=ntok)
     return sched
 
 
-def run_requests(engine, n, plen, ntok, seed):
-    sched = add_requests(engine, n, plen, ntok, seed)
+def run_requests(engine, n, plen, ntok, seed, budget=BUDGET, burst=BURST):
+    sched = add_requests(engine, n, plen, ntok, seed, budget, burst)
     steps = 0
     while sched.has_work:
         sched.step()
@@ -377,7 +435,10 @@ def serving_phase(device):
     return result, launches
 
 
-_CATEGORIES = (  # (category, substrings of the kernel name), first match wins
+_CATEGORIES = (  # (category, name patterns: a substring, or a tuple of substrings that must
+    # all appear), first match wins; K4 and K5 are instances of one template ("qgemm")
+    ("quant_matmul (K4)", (("qgemm_kernel", "false>"), "reduce_splits_kernel")),
+    ("grouped_matmul (K5)", (("qgemm_kernel", "true>"),)),
     ("flash_attention (K1)", ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")),
     ("rms_norm (K2)", ("rms_fwd_kernel",)),
     ("paged_attention (K3)", ("paged_decode_kernel",)),
@@ -390,7 +451,8 @@ _CATEGORIES = (  # (category, substrings of the kernel name), first match wins
 
 def _category(name):
     for cat, keys in _CATEGORIES:
-        if any(k in name for k in keys):
+        if any(all(k in name for k in ((key,) if isinstance(key, str) else key))
+               for key in keys):
             return cat
     return "other"
 
@@ -422,13 +484,15 @@ def _summarize(prof, wall_ms, forwards):
     return out
 
 
-def profile_steps(engine):
-    """The same traffic once more, with torch.profiler around two
-    scheduler steps only (its post-processing grows with the events): the
-    first (a 512-token prefill step) and the first decode burst. → device
-    time by kernel and the device's busy share of each step's wall time."""
+def profile_steps(engine, traffic=(N_REQ, PROMPT, NEW, BUDGET, BURST)):
+    """The same traffic (requests, prompt, new tokens, budget, burst) once
+    more, with torch.profiler around two scheduler steps only (its
+    post-processing grows with the events): the first (a full-budget
+    prefill step) and the first decode burst. → device time by kernel and
+    the device's busy share of each step's wall time."""
     from torch.profiler import ProfilerActivity, profile
-    sched = add_requests(engine, N_REQ, PROMPT, NEW, seed=0)
+    n, plen, ntok, budget, burst = traffic
+    sched = add_requests(engine, n, plen, ntok, 0, budget, burst)
     out = {}
     while sched.has_work:
         live = [r for r in sched.requests.values() if not r.done]
@@ -793,6 +857,405 @@ def profile_train_step(engine, batch):
 
 
 
+# ---------------------------------------------------------------- phase 9
+def quant_inputs(seed, M, shape, scheme, device):
+    """bf16 x [M, K] and the ``scheme`` carriers of a random bf16 weight of
+    ``shape`` ([K, N], or [E, K, N]), grouped as the serving path groups
+    it: 512, or the largest width under it that divides N (500 for the
+    head)."""
+    from deepspeed_tpu_torch.inference.quantization.quantization import _quantize_grouped
+    g = torch.Generator(device=device).manual_seed(seed)
+    w = torch.randn(shape, generator=g, device=device, dtype=torch.bfloat16) * 0.02
+    x = torch.randn(M, shape[-2], generator=g, device=device).to(torch.bfloat16)
+    return x, (w if scheme == "bf16" else _quantize_grouped(w, scheme, 512))
+
+
+def carrier_bytes(q, experts):
+    """Bytes of the listed experts of a stack: bf16 weights, or quantized
+    carriers and their scales."""
+    if isinstance(q, torch.Tensor):
+        return q[0].nbytes * len(experts)
+    return (q.values[0].nbytes + q.scales[0].nbytes) * len(experts)
+
+
+def zero_col_tile(y):
+    """``y`` with one 64-column tile zeroed (the middle one): what a kernel
+    that skipped a column tile would return."""
+    z = y.clone()
+    c = (y.shape[-1] // 64 // 2) * 64
+    z[..., c:c + 64] = 0
+    return z
+
+
+def quant_matmul_cases(device, flush):
+    """K4 at the Mixtral serving shapes, for every scheme. → rows."""
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import row_scaled_err
+    from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import (dequantize_grouped,
+                                                                     quant_matmul,
+                                                                     quant_matmul_ref)
+    cases = [(scheme, M, K, N) for scheme in ("int8", "fp8", "fp6")
+             for (K, N) in ATTN_SHAPES for M in (8, 264, 37)]
+    cases += [(scheme, M, K, N) for scheme in ("int8", "fp6") for (K, N) in MLP_SHAPES
+              for M in (8, 264)]
+    cases += [(scheme, 8) + HEAD_SHAPE for scheme in ("int8", "fp8", "fp6")]
+    rows, exact_done = [], set()
+    for i, (scheme, M, K, N) in enumerate(cases):
+        x, q = quant_inputs(100 + i, M, (K, N), scheme, device)
+        v, sc = q.values, q.scales
+        name = f"quant_matmul {scheme} M={M} [{K}, {N}]"
+        got = quant_matmul(x, v, sc, scheme)
+        want = quant_matmul_ref(x, v, sc, scheme)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError(f"{name}: non-finite kernel output")
+        err = row_scaled_err(got, want.float())
+        zerr = row_scaled_err(zero_col_tile(got), want.float())
+        if err > QUANT_TOL or zerr <= QUANT_TOL:
+            raise AssertionError(f"{name}: row_scaled_err {err} (limit {QUANT_TOL}), zeroed "
+                                 f"tile {zerr} (must exceed it)")
+        row = {"case": f"{scheme}_M{M}_{K}x{N}", "scheme": scheme, "M": M, "K": K, "N": N,
+               "group": N // sc.shape[-1], "max_abs_err": max_abs(got, want), "row_err": err,
+               "zeroed_tile_row_err": zerr}
+        w_bf16 = dequantize_grouped(v, sc, scheme, torch.bfloat16)
+        if (scheme, K, N) not in exact_done:  # (a) one-hot rows: exact decode
+            eye = torch.eye(K, device=device, dtype=torch.bfloat16)
+            exact = torch.equal(quant_matmul(eye, v, sc, scheme), w_bf16)
+            del eye
+            if not exact:
+                raise AssertionError(f"{name}: one-hot rows do not reproduce "
+                                     f"dequantize_grouped exactly")
+            exact_done.add((scheme, K, N))
+            row["one_hot_exact"] = True
+        nbytes = q.nbytes() + x.nbytes + M * N * 2
+        b_ms, b_by = bound(nbytes, 2 * M * K * N)
+        row.update(ms=time_ms(lambda: quant_matmul(x, v, sc, scheme), flush),
+                   plain_ms=time_ms(lambda: quant_matmul_ref(x, v, sc, scheme), flush),
+                   library_ms=time_ms(lambda: x @ w_bf16, flush),
+                   library_call="torch.matmul on the pre-dequantized bf16 weight",
+                   bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=2 * M * K * N)
+        row["unfused_ms"] = row["plain_ms"]  # the plain version is dequantize, then matmul
+        log(f"[quant-kernels] {json.dumps(row)}")
+        rows.append(row)
+        del x, q, v, sc, w_bf16, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def routing_sizes(case, device):
+    """Rows per expert of a routing case over E = 8 → int64 [8] on device."""
+    rng = np.random.RandomState(len(case))
+    if case in ("decode", "prefill"):  # 8 or 264 tokens, top-2 of 8 experts
+        tokens = 8 if case == "decode" else 264
+        idx = np.concatenate([rng.choice(8, 2, replace=False) for _ in range(tokens)])
+    elif case == "empty_expert":       # 16 rows over every expert but 6
+        idx = rng.choice([0, 1, 2, 3, 4, 5, 7], 16)
+    else:                              # all 528 prefill rows on expert 3
+        idx = np.full(528, 3)
+    return torch.from_numpy(np.bincount(idx, minlength=8)).to(device)
+
+
+def grouped_cases(device, flush):
+    """gmm (bf16) and gmm_quant (int8, fp8, fp6) at Mixtral's expert
+    shapes over four routings. → {"gmm": rows, "gmm_quant": rows}."""
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import row_scaled_err
+    from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import dequantize_grouped, row_tile
+    out = {"gmm": [], "gmm_quant": []}
+    for si, (wname, (K, N)) in enumerate(zip(("w1", "w2"), MLP_SHAPES)):
+        for scheme in ("bf16", "int8", "fp8", "fp6"):
+            _, q = quant_inputs(200 + si, 1, (8, K, N), scheme, device)
+            quant = scheme != "bf16"
+            w_bf16 = (dequantize_grouped(q.values, q.scales, scheme, torch.bfloat16) if quant
+                      else q)
+            kernel = gm.gmm_quant if quant else gm.gmm
+            key = "gmm_quant" if quant else "gmm"
+
+            def run(xp, te, tm, used):
+                if quant:
+                    return gm.gmm_quant(xp, q.values, q.scales, te, scheme, torch.bfloat16, tm,
+                                        used)
+                return gm.gmm(xp, q, te, tm, used)
+
+            def plain(xp, te, tm, used):
+                if quant:
+                    return gm.gmm_quant_ref(xp, q.values, q.scales, te, scheme, torch.bfloat16,
+                                            tm, used)
+                return gm.gmm_ref(xp, q, te, tm, used)
+
+            # (a) expert 5 takes one-hot rows over all of K: exact decode
+            sizes = torch.zeros(8, dtype=torch.int64, device=device)
+            sizes[5] = K
+            dst, te, Mp = gm.pad_groups_to_tiles(sizes, K, 64)
+            xp = torch.zeros((Mp, K), dtype=torch.bfloat16, device=device)
+            xp[dst.long()] = torch.eye(K, device=device, dtype=torch.bfloat16)
+            got = run(xp, te, 64, gm.used_tiles(sizes, 64))
+            if not torch.equal(got[:K], w_bf16[5]) or got[K:].any():
+                raise AssertionError(f"{key} {scheme} {wname}: one-hot rows do not reproduce "
+                                     f"the expert's weight exactly")
+            del xp, got
+            for case in ("decode", "prefill", "empty_expert", "one_expert"):
+                sizes = routing_sizes(case, device)
+                n = int(sizes.sum())
+                tm = row_tile(-(-n // 8))
+                dst, te, Mp = gm.pad_groups_to_tiles(sizes, n, tm)
+                used = gm.used_tiles(sizes, tm)
+                g = torch.Generator(device=device).manual_seed(7)
+                xs = torch.randn(n, K, generator=g, device=device).to(torch.bfloat16)
+                xp = torch.zeros((Mp, K), dtype=torch.bfloat16, device=device)
+                xp[dst.long()] = xs
+                name = f"{key} {scheme} {wname} {case}"
+                got = run(xp, te, tm, used)
+                want = plain(xp, te, tm, used)
+                torch.cuda.synchronize()
+                if not torch.isfinite(got.float()).all():
+                    raise AssertionError(f"{name}: non-finite kernel output")
+                err = row_scaled_err(got, want.float())
+                # (c) the rows of the busiest expert zeroed
+                busiest = int(sizes.argmax())
+                start = int(((sizes[:busiest] + tm - 1) // tm * tm).sum())
+                zeroed = got.clone()
+                zeroed[start:start + int(sizes[busiest])] = 0
+                zerr = row_scaled_err(zeroed, want.float())
+                if err > QUANT_TOL or zerr <= QUANT_TOL:
+                    raise AssertionError(f"{name}: row_scaled_err {err} (limit {QUANT_TOL}), "
+                                         f"zeroed expert {zerr} (must exceed it)")
+                touched = [e for e in range(8) if int(sizes[e])]
+                nbytes = carrier_bytes(q, touched) + 2 * n * (K + N) + te.nbytes + 4
+                b_ms, b_by = bound(nbytes, 2 * n * K * N)
+                row = {"case": f"{scheme}_{wname}_{case}", "scheme": scheme, "weight": wname,
+                       "rows": n, "tm": tm, "padded_rows": Mp, "K": K, "N": N,
+                       "experts_touched": len(touched), "max_abs_err": max_abs(got, want),
+                       "row_err": err, "zeroed_expert_row_err": zerr, "one_hot_exact": True,
+                       "ms": time_ms(lambda: run(xp, te, tm, used), flush),
+                       "plain_ms": time_ms(lambda: plain(xp, te, tm, used), flush, iters=5),
+                       "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                       "flops": 2 * n * K * N}
+                row.update(grouped_library(xs, w_bf16, sizes, flush))
+                if quant:  # dequantize the stack, then the bf16 grouped kernel
+                    row["unfused_ms"] = time_ms(lambda: gm.gmm(
+                        xp, dequantize_grouped(q.values, q.scales, scheme, torch.bfloat16), te,
+                        tm, used), flush, iters=5)
+                log(f"[grouped-kernels] {key} {json.dumps(row)}")
+                out[key].append(row)
+                del xs, xp, got, want, zeroed
+            del q, w_bf16
+            torch.cuda.empty_cache()
+    return out
+
+
+def grouped_library(xs, w_bf16, sizes, flush):
+    """The yardstick for one grouped GEMM: ``torch._grouped_mm`` over the
+    sorted rows and the bf16 stack where this torch has it and takes the
+    case, else the sum of per-expert ``torch.matmul`` times."""
+    offs = torch.cumsum(sizes, 0).to(torch.int32)
+    if hasattr(torch, "_grouped_mm"):
+        w_col = w_bf16.transpose(-2, -1).contiguous().transpose(-2, -1)
+        try:
+            torch._grouped_mm(xs, w_col, offs=offs)
+            torch.cuda.synchronize()
+        except RuntimeError as exc:  # this torch refuses the case: the per-expert sum below
+            log(f"[grouped-kernels] torch._grouped_mm refused the case: {str(exc)[:120]}")
+        else:
+            ms = time_ms(lambda: torch._grouped_mm(xs, w_col, offs=offs), flush)
+            return {"library_ms": ms, "library_call": "torch._grouped_mm"}
+    bounds = [0] + offs.tolist()
+    total = 0.0
+    for e in range(w_bf16.shape[0]):
+        if bounds[e + 1] > bounds[e]:
+            xe = xs[bounds[e]:bounds[e + 1]]
+            total += time_ms(lambda: xe @ w_bf16[e], flush)
+    return {"library_ms": total, "library_call": "sum of per-expert torch.matmul"}
+
+
+# ---------------------------------------------------------------- phase 10
+@contextlib.contextmanager
+def plain_serving_kernels():
+    """Pin the serving path's quantized and grouped GEMMs to their plain
+    versions (``quant_matmul_ref``, ``gmm_ref``, ``gmm_quant_ref``)."""
+    from deepspeed_tpu_torch.inference.quantization import quantization as qmod
+    from deepspeed_tpu_torch.ops.kernels import fused_quant_matmul as fq
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    saved = qmod.quant_matmul, gm.gmm, gm.gmm_quant
+    qmod.quant_matmul, gm.gmm, gm.gmm_quant = fq.quant_matmul_ref, gm.gmm_ref, gm.gmm_quant_ref
+    try:
+        yield
+    finally:
+        qmod.quant_matmul, gm.gmm, gm.gmm_quant = saved
+
+
+@contextlib.contextmanager
+def routing(record, replay):
+    """Record each MoE layer's top-k experts (``replay`` False), or make
+    the router take the recorded ones, in call order, with its own gate
+    values at those experts (``replay`` True). Yields a one-element list
+    that counts the tokens whose own top-k set differed from the recorded
+    one: near-ties that the two runs' bf16 roundings break differently."""
+    from deepspeed_tpu_torch.inference.v2 import model_runner as mr
+    orig, calls, flips = mr.top_k, iter(record), [0]
+
+    def top_k(gates, k):
+        vals, idx = orig(gates, k)
+        if not replay:
+            record.append(idx)
+            return vals, idx
+        want = next(calls)
+        flips[0] += int((idx.sort(-1).values != want.sort(-1).values).any(-1).sum())
+        return gates.gather(-1, want), want
+
+    mr.top_k = top_k
+    try:
+        yield flips
+    finally:
+        mr.top_k = orig
+
+
+def moe_counters():
+    from deepspeed_tpu_torch.ops.kernels import fused_quant_matmul as fq
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    return {"quant_matmul": fq.quant_matmul, "gmm": gm.gmm, "gmm_quant": gm.gmm_quant}
+
+
+def moe_launches_per_forward(L, mode):
+    """What one forward of an L-layer MoE model launches: quant_matmul 4
+    per layer (q, k, v, o) and 1 for the head; three grouped GEMMs per
+    layer, gmm_quant when quantized, gmm in bf16."""
+    quant = mode != "none"
+    return {"quant_matmul": (4 * L + 1) if quant else 0, "gmm": 0 if quant else 3 * L,
+            "gmm_quant": 3 * L if quant else 0}
+
+
+def moe_parity_phase(device):
+    from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig, InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.models import init_params, llama_config
+    L = 2
+    cfg = llama_config("mixtral-8x7b", num_hidden_layers=L)
+    params = init_params(cfg, device, torch.bfloat16, torch.Generator(device=device).manual_seed(5))
+    sm = DSStateManagerConfig(max_ragged_batch_size=255, max_ragged_sequence_count=7,
+                              max_tracked_sequences=8, max_context=256)
+    rng = np.random.RandomState(9)
+    toks = [rng.randint(0, cfg.vocab_size, n).astype(np.int32) for n in (100, 37, 64, 50, 9)]
+    counters = moe_counters()
+    res = {}
+    for mode in ("int8", "fp6", "none"):
+        logits, record = {}, []
+        for pin in ("kernels", "plain"):
+            eng = InferenceEngineV2(cfg, RaggedInferenceEngineConfig(
+                kv_block_size=BS, state_manager=sm, quantization={"quantization_mode": mode}),
+                params=params, device=device)
+            before = {k: f.launches for k, f in counters.items()}
+            f0 = eng.forward_steps
+            with plain_serving_kernels() if pin == "plain" else contextlib.nullcontext(), \
+                    routing(record, replay=pin == "plain") as flips:
+                first = eng.put([0, 1, 2], toks[:3])
+                mixed = eng.put([0, 1, 3, 2], [[11], [12], toks[3], toks[4]])
+            torch.cuda.synchronize()
+            fwd = eng.forward_steps - f0
+            grew = {k: f.launches - before[k] for k, f in counters.items()}
+            per = moe_launches_per_forward(L, mode)
+            want = {k: (per[k] * fwd if pin == "kernels" else 0) for k in counters}
+            if grew != want:
+                raise AssertionError(f"moe parity {mode} {pin}: launches {grew}, want {want}")
+            logits[pin] = (first, mixed)
+            eng.destroy()
+            del eng
+            torch.cuda.empty_cache()
+        errs = []
+        for a, b in zip(logits["kernels"], logits["plain"]):
+            if a.shape != b.shape or not (np.isfinite(a).all() and np.isfinite(b).all()):
+                raise AssertionError(f"moe parity {mode}: bad logits shape or non-finite values")
+            errs.append(float(np.abs(a - b).max()))
+        scale = max(float(np.abs(b).max()) for b in logits["plain"])
+        ulp = 2.0 ** (math.floor(math.log2(scale)) - 7)
+        res[mode] = {"prefill_abs": errs[0], "mixed_abs": errs[1], "ulps": max(errs) / ulp,
+                     "logit_scale": scale, "routing_near_ties": flips[0],
+                     "router_rows": sum(int(r.shape[0]) for r in record)}
+        log(f"[moe-parity] 2-layer mixtral-8x7b width, {mode}, kernels vs plain: "
+            f"{json.dumps(res[mode])} (limit {MOE_PATH_TOL_ULPS} ulps)")
+        if max(errs) > MOE_PATH_TOL_ULPS * ulp:
+            raise AssertionError(f"moe parity {mode}: logits differ by {max(errs) / ulp} ulps")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------- phases 11, 12
+def moe_serving_phase(device, mode, layers):
+    """The ``mixtral-8x7b`` preset at ``layers`` layers, ``mode`` weights,
+    under the quantized-MoE lane's traffic. → (result, launches)."""
+    from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig, InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.models import llama_config
+    from deepspeed_tpu_torch.models.llama import count_params
+    cfg = llama_config("mixtral-8x7b", num_hidden_layers=layers)
+    L = cfg.num_hidden_layers
+    tag = f"moe-serving {mode} {L}L"
+    ecfg = RaggedInferenceEngineConfig(
+        kv_block_size=BS, quantization={"quantization_mode": mode},
+        state_manager=DSStateManagerConfig(max_ragged_batch_size=MOE_BUDGET,
+                                           max_ragged_sequence_count=MOE_N_REQ,
+                                           max_tracked_sequences=MOE_N_REQ,
+                                           max_context=MOE_PROMPT + MOE_NEW))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = InferenceEngineV2(cfg, ecfg, device=device,
+                               generator=torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    build = {"params": count_params(engine.params), "resident_param_bytes": engine.quantized_bytes,
+             "kv_pool_bytes": engine.kv_cache.bytes(), "build_s": time.perf_counter() - t0,
+             "build_peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "allocated_gb": torch.cuda.memory_allocated() / 1e9}
+    log(f"[{tag}] built: {json.dumps(build)}")
+    traffic = (MOE_N_REQ, MOE_PROMPT, MOE_NEW, MOE_BUDGET, MOE_BURST)
+    free0 = engine.free_blocks
+    run_requests(engine, 2, 16, MOE_NEW // 2, 1, MOE_BUDGET, MOE_BURST)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    syncs0, toks0, fwd0 = engine.host_syncs, engine.tokens_emitted, engine.forward_steps
+    counters = moe_counters()
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    streams, steps = run_requests(engine, MOE_N_REQ, MOE_PROMPT, MOE_NEW, 0, MOE_BUDGET,
+                                  MOE_BURST)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items()}
+    fwd = engine.forward_steps - fwd0
+    per = moe_launches_per_forward(L, mode)
+    if launches != {k: per[k] * fwd for k in per} or fwd == 0:
+        raise AssertionError(f"{tag}: launches {launches} over {fwd} forwards, want "
+                             f"{per} per forward")
+    if sorted(streams) != list(range(MOE_N_REQ)):
+        raise AssertionError(f"{tag}: requests served: {sorted(streams)}")
+    for uid, toks_u in streams.items():
+        if len(toks_u) != MOE_NEW or not all(0 <= t < cfg.vocab_size for t in toks_u):
+            raise AssertionError(f"{tag}: request {uid}: {len(toks_u)} tokens, want "
+                                 f"{MOE_NEW} in vocab")
+    if engine.free_blocks != free0:
+        raise AssertionError(f"{tag}: free blocks {engine.free_blocks} != {free0}")
+    peak = torch.cuda.max_memory_allocated()
+    card = torch.cuda.get_device_properties(device).total_memory
+    if peak >= card:
+        raise AssertionError(f"{tag}: peak memory {peak} >= the card's {card}")
+    syncs, toks = engine.host_syncs - syncs0, engine.tokens_emitted - toks0
+    result = dict(build, mode=mode, layers=L, requests=MOE_N_REQ, prompt_len=MOE_PROMPT,
+                  new_tokens=MOE_NEW, token_budget=MOE_BUDGET, max_burst=MOE_BURST,
+                  steps=steps, forward_steps=fwd, time_s=dt, ms_per_forward=dt * 1e3 / fwd,
+                  gen_tokens_per_sec=MOE_N_REQ * MOE_NEW / dt,
+                  total_tokens_per_sec=MOE_N_REQ * (MOE_PROMPT + MOE_NEW) / dt,
+                  host_syncs=syncs, syncs_per_token=syncs / max(toks, 1),
+                  launches=launches, launches_per_forward=per,
+                  peak_memory_gb=peak / 1e9, card_memory_gb=card / 1e9)
+    log(f"[{tag}] {json.dumps(result)}")
+    log(f"[{tag}] request 0 first tokens: {streams[0][:8]}")
+    result["profile"] = profile_steps(engine, traffic)
+    engine.destroy()
+    del engine
+    torch.cuda.empty_cache()
+    return result, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU", file=sys.stderr)
@@ -829,6 +1292,17 @@ def main():
     train_parity_phase(device)
     training, train_launches = training_phase(device)
 
+    # quantized and MoE serving; every earlier engine and training state is gone
+    torch.cuda.empty_cache()
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    qmm_cases = quant_matmul_cases(device, flush)
+    grouped = grouped_cases(device, flush)
+    del flush
+    torch.cuda.empty_cache()
+    moe_parity_phase(device)
+    _, int8_launches = moe_serving_phase(device, "int8", 32)
+    _, bf16_launches = moe_serving_phase(device, "none", MOE_BF16_LAYERS)
+
     main_case = next(c for c in cases if c["case"] == "serving_decode")
     kernels = [{"name": "paged_decode_attention", "route": "cuda",
                 "source": "deepspeed_tpu_torch/csrc/paged_attention.cu",
@@ -858,6 +1332,26 @@ def main():
                         "replaces": f"deepspeed_tpu/ops/pallas/{replaces}",
                         "launches": train_launches[name],
                         "max_abs_err": max(r["max_abs_err"] for r in rows),
+                        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+                        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+                        "library_ms": main_row["library_ms"], "shape": shape, "cases": rows})
+    slice3 = {  # name: (source, TPU kernel, cases, main case, launches, shape)
+        "quant_matmul": ("fused_quant_matmul.cu", "fused_quant_matmul.py:90", qmm_cases,
+                         "int8_M8_{}x{}".format(*ATTN_SHAPES[0]), int8_launches["quant_matmul"],
+                         "serving decode step: M=8 x [4096, 4096] int8, group 512 (q, o)"),
+        "gmm": ("grouped_matmul.cu", "grouped_matmul.py:40", grouped["gmm"], "bf16_w1_decode",
+                bf16_launches["gmm"],
+                "decode: 16 rows (8 tokens, top-2) over [8, 4096, 14336] bf16 experts"),
+        "gmm_quant": ("grouped_matmul.cu", "grouped_matmul.py:200", grouped["gmm_quant"],
+                      "int8_w1_decode", int8_launches["gmm_quant"],
+                      "decode: 16 rows (8 tokens, top-2) over [8, 4096, 14336] int8 experts"),
+    }
+    for name, (src, replaces, rows, main_name, n, shape) in slice3.items():
+        main_row = next(r for r in rows if r["case"] == main_name)
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"deepspeed_tpu_torch/csrc/{src}",
+                        "replaces": f"deepspeed_tpu/ops/pallas/{replaces}",
+                        "launches": n, "max_abs_err": max(r["max_abs_err"] for r in rows),
                         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
                         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
                         "library_ms": main_row["library_ms"], "shape": shape, "cases": rows})

@@ -2,9 +2,11 @@
 
 Port of ``deepspeed_tpu/inference/v2/config_v2.py`` as dataclasses with
 the same field names and defaults. Sections may be given as dicts. The
-port's engine serves the greedy bf16 dense path only: it raises
-``NotImplementedError`` at construction for a config that turns on a
-feature outside it (see ``engine_v2.unported_features``)."""
+port's engine serves greedy decoding of dense and MoE models, in bf16 or
+with weight-only quantized weights (``quantization.quantization_mode``
+``"int8"``, ``"fp8"`` or ``"fp6"``); it raises ``NotImplementedError``
+at construction for a config that turns on a feature outside that (see
+``engine_v2.unported_features``)."""
 
 from dataclasses import dataclass, field
 

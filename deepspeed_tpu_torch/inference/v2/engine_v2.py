@@ -1,7 +1,10 @@
 """InferenceEngineV2: ragged (continuous-batching) serving engine.
 
 Port of ``deepspeed_tpu/inference/v2/engine_v2.py`` for greedy serving
-of dense Llama-family models: ``put`` runs one ragged batch (mixed
+of Llama-family models, dense or MoE (dropless top-k), with bf16 weights
+or weight-only quantized ones (``quantization.quantization_mode`` of
+``"int8"``, ``"fp8"`` or ``"fp6"``: grouped carriers that the fused
+kernels consume in place): ``put`` runs one ragged batch (mixed
 prefill chunks and decodes, the Dynamic SplitFuse model) and returns
 last-token logits or on-device greedy tokens; ``decode_burst`` runs
 ``k`` greedy decode steps with the argmax staying on the device and one
@@ -18,6 +21,9 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.device import resolve_device
+from deepspeed_tpu_torch.inference.quantization.quantization import (QuantizedWeight,
+                                                                     quantize_params_tree,
+                                                                     quantized_bytes)
 from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
 from deepspeed_tpu_torch.inference.v2.model_runner import ragged_forward, rope_tables
 from deepspeed_tpu_torch.inference.v2.modules.heuristics import instantiate_attn
@@ -25,10 +31,12 @@ from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import NULL_BLOCK, Blocked
 from deepspeed_tpu_torch.inference.v2.ragged.ragged_manager import DSStateManager
 from deepspeed_tpu_torch.inference.v2.ragged.ragged_wrapper import (RaggedBatchWrapper,
                                                                     unpack_batch)
-from deepspeed_tpu_torch.models.llama import check_dense, init_params, llama_config
+from deepspeed_tpu_torch.models.llama import (check_servable, init_params,
+                                              init_quantized_params, llama_config)
+from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import SCHEMES
 from deepspeed_tpu_torch.utils.logging import logger
 
-_QUEUE3 = "ROADMAP.md, port queue item 3 (quantized, MoE and LoRA serving)"
+_QUEUE16 = "ROADMAP.md, port queue item 16 (LoRA serving, slice 4)"
 _QUEUE4 = "ROADMAP.md, port queue item 4 (serving features on the ragged engine)"
 _QUEUE5 = "ROADMAP.md, port queue item 5 (tensor- and expert-parallel serving)"
 
@@ -41,9 +49,7 @@ def unported_features(config):
         if getattr(config, name).enabled:
             out.append((name, _QUEUE4))
     if config.lora.enabled:
-        out.append(("lora", _QUEUE3))
-    if config.quantization.quantization_mode not in ("none", "", None):
-        out.append((f"quantization_mode={config.quantization.quantization_mode!r}", _QUEUE3))
+        out.append(("lora", _QUEUE16))
     for name in ("tensor_parallel_degree", "expert_parallel_degree"):
         if int(getattr(config, name)) > 1:
             out.append((f"{name}={getattr(config, name)}", _QUEUE5))
@@ -69,22 +75,33 @@ class InferenceEngineV2:
         """``model_config``: a ``LlamaConfig`` or a preset name. ``params``:
         the port's param dict (``models.llama`` layout; ``models.convert``
         maps a JAX tree onto it), moved and cast to ``device``/``dtype``
-        here; None makes random weights from ``generator`` (seed 0 when
-        None). ``device=None`` is the GPU and raises without one."""
+        here, and quantized leaf by leaf when the config names a
+        ``quantization_mode`` (leaves that already are carriers are kept);
+        None makes random weights from ``generator`` (seed 0 when None),
+        drawn straight into carriers when quantized. ``device=None`` is
+        the GPU and raises without one."""
         self._config = config or RaggedInferenceEngineConfig()
         missing = unported_features(self._config)
         if missing:
             raise NotImplementedError(
                 "not ported yet: " + "; ".join(f"{f} ({item})" for f, item in missing))
+        qmode = self._config.quantization.quantization_mode
+        self._qmode = None if qmode in ("none", "", None) else qmode
+        if self._qmode is not None and self._qmode not in SCHEMES:
+            raise ValueError(f"quantization_mode={qmode!r}: the engine serves 'none' or one of "
+                             f"{SCHEMES}")
         sm = self._config.state_manager
         self.device = resolve_device(device)
         self.dtype = dtype
         cfg = llama_config(model_config)
-        check_dense(cfg)
+        check_servable(cfg)
         self.model_config = cfg
-        if params is None:
+        if params is None and self._qmode is not None:
+            params = init_quantized_params(cfg, self._qmode, self.device, dtype, generator)
+        elif params is None:
             params = init_params(cfg, self.device, dtype, generator)
         self.params = self._place_params(params)
+        self.quantized_bytes = quantized_bytes(self.params)
 
         self.max_tokens = int(sm.max_ragged_batch_size)
         self.max_seqs = int(sm.max_ragged_sequence_count)
@@ -131,11 +148,23 @@ class InferenceEngineV2:
         logger.info(f"InferenceEngineV2: max_tokens={self.max_tokens} "
                     f"max_seqs={self.max_seqs} kv_blocks={num_blocks} "
                     f"block_size={self.block_size} attention={self.attn_impl_name} "
+                    f"quantization={self._qmode or 'none'} "
+                    f"param_bytes={self.quantized_bytes/1e6:.1f}MB "
                     f"kv_bytes={self.kv_cache.bytes()/1e6:.1f}MB")
 
     # ------------------------------------------------------------------
     def _place_params(self, params):
+        """Move the params to the device in the serving dtype; quantize
+        them leaf by leaf first when the config asks (the JAX engine's
+        ``_place_params``). Carriers are never cast: ``float8_e4m3fn``
+        counts as floating point, and the cast would destroy it."""
+        if self._qmode is not None:
+            return quantize_params_tree(params, self._qmode, dequant_dtype=self.dtype,
+                                        device=self.device)
+
         def place(x):
+            if isinstance(x, QuantizedWeight):
+                return x.to(self.device)
             x = torch.as_tensor(x)
             dtype = self.dtype if x.is_floating_point() else x.dtype
             return x.to(device=self.device, dtype=dtype)

@@ -1,7 +1,8 @@
 """Ragged model execution: flat token batches against a paged KV cache.
 
-Port of ``deepspeed_tpu/inference/v2/model_runner.py`` for the dense
-Llama family (Llama, Mistral, Qwen2-style biases, Gemma knobs):
+Port of ``deepspeed_tpu/inference/v2/model_runner.py`` for the Llama
+family (Llama, Mistral, Mixtral-style MoE, Qwen2-style biases, Gemma
+knobs), with dense or weight-only quantized params:
 
 - tokens are a flat ``[T]`` buffer with per-token (slot, position);
 - each layer writes its new K/V into the block pool at
@@ -9,7 +10,13 @@ Llama family (Llama, Mistral, Qwen2-style biases, Gemma knobs):
   JAX version returns an updated pool — and attends over each token's
   block table masked to ``pos``, which handles mixed prefill chunks and
   decodes in one step (Dynamic SplitFuse);
-- the layer stack is a Python loop over the stacked layer params.
+- the layer stack is a Python loop over the stacked layer params;
+- quantized carriers (``inference/quantization``) stay quantized: every
+  projection runs through the fused dequant-matmul kernel
+  (``matmul_any``), the MoE expert stacks through the grouped kernels
+  (``ops/grouped_gemm``), and only the router, one small [D, E] slice a
+  layer, is dequantized; the embedding decodes just the gathered rows,
+  and the head goes through the fused kernel too.
 
 Pad tokens carry the pad slot, whose table is all null blocks, so every
 bucket keeps its static shape (ready for CUDA-graph capture later).
@@ -18,8 +25,12 @@ bucket keeps its static shape (ready for CUDA-graph capture later).
 import torch
 import torch.nn.functional as F
 
+from deepspeed_tpu_torch.inference.quantization.quantization import (QuantizedWeight,
+                                                                     dequantize_grouped,
+                                                                     matmul_any)
 from deepspeed_tpu_torch.inference.v2.modules.heuristics import instantiate_attn
-from deepspeed_tpu_torch.models.llama import check_dense, rope_frequencies, rope_scaling_of
+from deepspeed_tpu_torch.models.llama import check_servable, rope_frequencies, rope_scaling_of
+from deepspeed_tpu_torch.ops.grouped_gemm import dropless_moe_ffn
 
 
 def _rms(x, scale, eps):
@@ -29,9 +40,11 @@ def _rms(x, scale, eps):
 
 
 def _proj(x, w, b=None):
-    y = x @ w
+    """``x @ w (+ b)`` for a dense ``w`` or a carrier (the fused kernel),
+    in x's dtype."""
+    y = matmul_any(x, w, dtype=x.dtype)
     if b is not None:
-        y = y + b
+        y = y + b.to(x.dtype)
     return y
 
 
@@ -78,13 +91,48 @@ def _layer_step(cfg, cos, sin, batch, attn_fn, h, lp, kc, vc):
     h = h + _proj(out.reshape(T, H * Dh), lp["wo"], lp.get("bo"))
 
     hn2 = _rms(h, lp["post_norm"], cfg.rms_norm_eps)
-    gate = hn2 @ lp["w_gate"]
-    up = hn2 @ lp["w_up"]
+    if "gate_wg" in lp:
+        return h + _moe_mlp(hn2, lp, cfg.moe_top_k)
+    gate = _proj(hn2, lp["w_gate"])
+    up = _proj(hn2, lp["w_up"])
     if cfg.mlp_activation == "gelu_tanh":  # Gemma GeGLU
         inter = F.gelu(gate, approximate="tanh") * up
     else:
         inter = F.silu(gate) * up
-    return h + inter @ lp["w_down"]
+    return h + _proj(inter, lp["w_down"])
+
+
+def top_k(gates, k):
+    """``jax.lax.top_k`` over the last dim: the k largest, ties to the
+    lowest index (a stable descending sort keeps that order, which
+    ``torch.topk`` does not promise)."""
+    vals, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _moe_mlp(x, lp, k):
+    """Dropless top-k MoE over the flat [T, D] batch, in the JAX order of
+    roundings: the router dequantized to x's dtype and only then taken to
+    fp32, an fp32 softmax, top-k, renormalization by max(sum, 1e-9), and
+    the combine in x's dtype (``dropless_moe_ffn``)."""
+    gk = lp["gate_wg"]
+    if isinstance(gk, QuantizedWeight):
+        gk = gk.dequantized(x.dtype)
+    gates = torch.softmax(x.float() @ gk.float(), dim=-1)
+    topk_vals, topk_idx = top_k(gates, k)
+    if k > 1:
+        topk_vals = topk_vals / topk_vals.sum(-1, keepdim=True).clamp(min=1e-9)
+    return dropless_moe_ffn(x, topk_idx, topk_vals, lp["experts_w1"], lp["experts_w3"],
+                            lp["experts_w2"], num_experts=gates.shape[-1])
+
+
+def _embed(embed, ids, dtype):
+    """Rows ``ids`` of the embedding in ``dtype``; a carrier decodes only
+    the gathered rows (grouped dequantization is elementwise, so the bits
+    equal those of decoding the whole table first)."""
+    if isinstance(embed, QuantizedWeight):
+        return dequantize_grouped(embed.values[ids], embed.scales[ids], embed.scheme, dtype)
+    return embed[ids].to(dtype)
 
 
 def ragged_forward(params, kcache, vcache, batch, cfg, dtype=torch.bfloat16,
@@ -95,10 +143,10 @@ def ragged_forward(params, kcache, vcache, batch, cfg, dtype=torch.bfloat16,
     returned; ``batch``: the tensors of ``unpack_batch`` on the params'
     device. ``attn_impl`` pins an attention implementation by name;
     ``rope``: precomputed :func:`rope_tables` (built here when None)."""
-    check_dense(cfg)
+    check_servable(cfg)
     embed = params["embed_tokens"]
     device = embed.device
-    h = embed[batch["token_ids"]].to(dtype)  # [T, D]
+    h = _embed(embed, batch["token_ids"], dtype)  # [T, D]
     if cfg.embedding_multiplier != 1.0:  # Gemma: sqrt(hidden_size)
         h = h * cfg.embedding_multiplier
     cos, sin = rope if rope is not None else rope_tables(cfg, device)
@@ -106,11 +154,13 @@ def ragged_forward(params, kcache, vcache, batch, cfg, dtype=torch.bfloat16,
     _, attn_fn = instantiate_attn(device, cfg.head_dim, override=attn_impl)
     layers = params["layers"]
     for i in range(cfg.num_hidden_layers):
-        lp = {name: w[i] for name, w in layers.items()}
+        lp = {name: w[i] for name, w in layers.items()}  # a carrier's [i] is a carrier
         h = _layer_step(cfg, cos, sin, batch, attn_fn, h, lp, kcache[i], vcache[i])
 
     # Selecting the last tokens before the head gives the same rows as the
     # JAX order (head over all T, then select) at max_seqs/T of the cost.
     h = _rms(h[batch["last_index"]], params["norm"], cfg.rms_norm_eps)
-    head = params["lm_head"] if "lm_head" in params else embed.t()
-    return (h @ head.to(h.dtype)).float(), kcache, vcache
+    if "lm_head" in params:
+        return _proj(h, params["lm_head"]).float(), kcache, vcache
+    table = embed.dequantized(h.dtype) if isinstance(embed, QuantizedWeight) else embed
+    return (h @ table.t().to(h.dtype)).float(), kcache, vcache

@@ -13,6 +13,9 @@ leaf by leaf. ``tree`` is the JAX engine's param tree as nested numpy
     model.layers.self_attn.{q,k,v,o}_proj.kernel            [L, in, out]
     model.layers.self_attn.{q,k,v,o}_proj.bias              [L, out] (optional)
     model.layers.mlp.{gate,up,down}_proj.kernel             [L, in, out]
+    model.layers.moe_mlp.deepspeed_moe.gate.wg.kernel       [L, D, E]     (MoE, in
+    model.layers.moe_mlp.deepspeed_moe.experts_w{1,3}       [L, E, D, I]   place of
+    model.layers.moe_mlp.deepspeed_moe.experts_w2           [L, E, I, D]   mlp)
     model.norm.scale                                        [D]
     lm_head.kernel                                          [D, V] (absent when tied)
 
@@ -20,7 +23,12 @@ Both packages keep projections [in, out]. The serving layout keeps the
 layers stacked on a leading L dim (renaming only); the training module
 owns one tensor per layer and leaf, named by the JAX path with the layer
 index after ``layers`` (``model.layers.3.self_attn.q_proj.kernel``), so
-the stacked leaves are unstacked one way and restacked the other."""
+the stacked leaves are unstacked one way and restacked the other.
+
+A serving tree may hold the JAX package's grouped ``QuantizedWeight``
+leaves (``quantize_params_tree``'s output): :func:`params_from_jax` turns
+each into the port's carrier byte for byte (``float8_e4m3fn`` through a
+uint8 view, which ``torch.from_numpy`` needs)."""
 
 import numpy as np
 import torch
@@ -32,17 +40,36 @@ _ATTN = {"q_proj": ("wq", "bq"), "k_proj": ("wk", "bk"), "v_proj": ("wv", "bv"),
 _MLP = {"gate_proj": "w_gate", "up_proj": "w_up", "down_proj": "w_down"}
 
 
+_EXPERTS = ("experts_w1", "experts_w3", "experts_w2")  # the same names in both layouts
+
+
 def _t(x):
+    if hasattr(x, "values") and hasattr(x, "scales") and hasattr(x, "scheme"):
+        return carrier_from_jax(x)
     return torch.from_numpy(np.array(x, copy=True))
 
 
+def carrier_from_jax(qw):
+    """The JAX package's ``QuantizedWeight`` → the port's, same bytes."""
+    from deepspeed_tpu_torch.inference.quantization.quantization import QuantizedWeight
+    if qw.layout != "grouped":
+        raise not_ported(f"the {qw.layout!r} quantized layout", 18)
+    values = np.array(qw.values, copy=True)
+    if values.dtype.name == "float8_e4m3fn":
+        vt = torch.from_numpy(values.view(np.uint8)).view(torch.float8_e4m3fn)
+    else:
+        vt = torch.from_numpy(values)
+    return QuantizedWeight(vt, torch.from_numpy(np.array(qw.scales, copy=True)),
+                           tuple(qw.shape), qw.scheme,
+                           dequant_dtype=getattr(torch, np.dtype(qw.dequant_dtype).name))
+
+
 def params_from_jax(tree):
-    """→ the port's params (CPU tensors, the tree's dtypes); the engine
-    moves and casts them to its device and dtype."""
+    """→ the port's params (CPU tensors, the tree's dtypes; quantized
+    leaves as the port's carriers); the engine moves and casts them to
+    its device and dtype."""
     model = tree["model"]
     lay = model["layers"]
-    if "moe_mlp" in lay:
-        raise not_ported("MoE param trees", 3)
     layers = {"input_norm": _t(lay["input_layernorm"]["scale"]),
               "post_norm": _t(lay["post_attention_layernorm"]["scale"])}
     for jname, (w, b) in _ATTN.items():
@@ -50,8 +77,14 @@ def params_from_jax(tree):
         layers[w] = _t(p["kernel"])
         if "bias" in p:
             layers[b] = _t(p["bias"])
-    for jname, w in _MLP.items():
-        layers[w] = _t(lay["mlp"][jname]["kernel"])
+    if "moe_mlp" in lay:
+        moe = lay["moe_mlp"]["deepspeed_moe"]
+        layers["gate_wg"] = _t(moe["gate"]["wg"]["kernel"])
+        for name in _EXPERTS:
+            layers[name] = _t(moe[name])
+    else:
+        for jname, w in _MLP.items():
+            layers[w] = _t(lay["mlp"][jname]["kernel"])
     out = {"embed_tokens": _t(model["embed_tokens"]), "layers": layers,
            "norm": _t(model["norm"]["scale"])}
     if "lm_head" in tree:
@@ -77,7 +110,7 @@ def _train_state_from_jax(tree):
     for path, value in _flatten(tree):
         if path[:2] == _LAYERS:
             if path[2] == "moe_mlp":
-                raise not_ported("MoE param trees", 3)
+                raise not_ported("MoE training", 17)
             rest = ".".join(path[2:])
             for i in range(value.shape[0]):
                 out[f"model.layers.{i}.{rest}"] = _t(value[i])

@@ -17,7 +17,13 @@ Port of ``deepspeed_tpu/models/llama.py``:
      "norm": [D],
      "lm_head": [D, V]}            # absent when tie_word_embeddings
 
-  with projections ``x @ w``, ``w`` stored [in, out] as in the JAX tree;
+  with projections ``x @ w``, ``w`` stored [in, out] as in the JAX tree.
+  An MoE model (``moe_num_experts`` E > 0) has, in place of the dense
+  MLP, the router ``"gate_wg": [L, D, E]`` and the expert stacks
+  ``"experts_w1"``/``"experts_w3": [L, E, D, I]`` (gate, up) and
+  ``"experts_w2": [L, E, I, D]`` (down). :func:`init_quantized_params`
+  draws the same layout as grouped quantized carriers, one layer at a
+  time;
 - training: the ``nn.Module``s :class:`RMSNorm`, :class:`LlamaAttention`,
   :class:`LlamaMLP`, :class:`LlamaBlock`, :class:`LlamaModel` and
   :class:`LlamaForCausalLM` (``forward(input_ids, labels)`` → ``(loss,
@@ -29,12 +35,14 @@ Port of ``deepspeed_tpu/models/llama.py``:
   zero gradient for every layer. ``models/convert.py`` unstacks the JAX
   tree onto it and restacks it.
 
-``models/convert.py`` maps a JAX tree onto either layout. Dense
-Llama-family models only: MoE presets raise.
+``models/convert.py`` maps a JAX tree onto either layout. Serving takes
+dense and MoE models; training takes dense models only (MoE training
+raises, ROADMAP.md port queue item 17).
 """
 
 import dataclasses
 import math
+import re
 
 import numpy as np
 import torch
@@ -181,21 +189,28 @@ def repeat_kv(k, v, n_rep: int):
     return k.repeat_interleave(n_rep, dim=-2), v.repeat_interleave(n_rep, dim=-2)
 
 
-def check_dense(cfg: LlamaConfig):
-    if cfg.moe_num_experts:
-        raise not_ported("MoE Llama-family models", 3)
+def check_servable(cfg: LlamaConfig):
+    """Raise for a config the serving path cannot run."""
+    if cfg.moe_num_experts and not 1 <= cfg.moe_top_k <= cfg.moe_num_experts:
+        raise ValueError(f"moe_top_k={cfg.moe_top_k} must lie in [1, moe_num_experts="
+                         f"{cfg.moe_num_experts}]")
 
 
 def param_shapes(cfg: LlamaConfig):
     """{name: shape} of the port's parameter layout (module docstring)."""
-    check_dense(cfg)
+    check_servable(cfg)
     L, D, I, V = (cfg.num_hidden_layers, cfg.hidden_size, cfg.intermediate_size,
                   cfg.vocab_size)
     H, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     layers = {"input_norm": (L, D), "post_norm": (L, D),
               "wq": (L, D, H * Dh), "wk": (L, D, Hkv * Dh), "wv": (L, D, Hkv * Dh),
-              "wo": (L, H * Dh, D),
-              "w_gate": (L, D, I), "w_up": (L, D, I), "w_down": (L, I, D)}
+              "wo": (L, H * Dh, D)}
+    E = cfg.moe_num_experts
+    if E:
+        layers.update(gate_wg=(L, D, E), experts_w1=(L, E, D, I), experts_w3=(L, E, D, I),
+                      experts_w2=(L, E, I, D))
+    else:
+        layers.update(w_gate=(L, D, I), w_up=(L, D, I), w_down=(L, I, D))
     if cfg.attention_bias:
         layers.update(bq=(L, H * Dh), bk=(L, Hkv * Dh), bv=(L, Hkv * Dh))
         if cfg.attention_out_bias:
@@ -226,17 +241,75 @@ def init_params(cfg: LlamaConfig, device=None, dtype=torch.bfloat16, generator=N
     return out
 
 
+def init_quantized_params(cfg: LlamaConfig, scheme, device=None, dtype=torch.bfloat16,
+                          generator=None, std=0.02, group_size=512):
+    """Random serving weights as grouped ``scheme`` carriers (int8, fp8 or
+    fp6) on ``device`` (None = CUDA; raises without a GPU), drawn as
+    :func:`init_params` draws them, in ``dtype``, one layer's leaf at a
+    time: each slice is quantized into the stacked carriers and let go,
+    so the full-precision tree never exists (Mixtral-8x7B's is ~93 GB in
+    bf16). Leaves the quantizer passes over (norm scales, biases, a last
+    dim with no legal group) stay in ``dtype``."""
+    from deepspeed_tpu_torch.inference.quantization.quantization import (QUANTIZED_LEAVES,
+                                                                         QuantizedWeight,
+                                                                         _quantize_grouped)
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    pat = re.compile(QUANTIZED_LEAVES)
+
+    def draw(name, shape):
+        if name.endswith("norm"):
+            return torch.ones(shape, device=device, dtype=dtype)
+        return torch.randn(shape, generator=generator, device=device, dtype=dtype) * std
+
+    def quantize(name, shape):
+        if not pat.search(name):
+            return draw(name, shape)
+        first = _quantize_grouped(draw(name, shape[1:]), scheme, group_size, dtype)
+        if not isinstance(first, QuantizedWeight):  # no legal group: the leaf stays dense
+            return torch.stack([first] + [draw(name, shape[1:]) for _ in range(shape[0] - 1)])
+        values = torch.empty((shape[0],) + tuple(first.values.shape), dtype=first.values.dtype,
+                             device=device)
+        scales = torch.empty((shape[0],) + tuple(first.scales.shape), dtype=torch.float32,
+                             device=device)
+        values[0], scales[0] = first.values, first.scales
+        del first
+        for i in range(1, shape[0]):
+            q = _quantize_grouped(draw(name, shape[1:]), scheme, group_size, dtype)
+            values[i], scales[i] = q.values, q.scales
+            del q
+        return QuantizedWeight(values, scales, shape, scheme, dequant_dtype=dtype)
+
+    shapes = param_shapes(cfg)
+    out = {}
+    for k, s in shapes.items():
+        if k == "layers":
+            continue
+        # the embedding and the head are one slab each: quantize them whole
+        w = draw(k, s)
+        out[k] = (_quantize_grouped(w, scheme, group_size, dtype) if pat.search(k) and
+                  len(s) >= 2 else w)
+        del w
+    out["layers"] = {k: quantize(k, s) for k, s in shapes["layers"].items()}
+    return out
+
+
 def count_params(params) -> int:
     n = 0
     for v in params.values():
-        n += count_params(v) if isinstance(v, dict) else v.numel()
+        if isinstance(v, dict):
+            n += count_params(v)
+        else:
+            n += math.prod(v.shape)
     return n
 
 
 # ---------------------------------------------------------------- training
 def check_trainable(cfg: LlamaConfig):
     """Raise for the training options this port does not run yet."""
-    check_dense(cfg)
+    if cfg.moe_num_experts:
+        raise not_ported("MoE training (the grouped-GEMM backward kernels)", 17)
     if cfg.sp_impl != "ulysses":
         raise not_ported(f"sp_impl={cfg.sp_impl!r} (ring sequence parallelism)", 6)
     if cfg.offload_params:

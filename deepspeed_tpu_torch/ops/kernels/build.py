@@ -4,8 +4,8 @@ Each ``.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, which the kernel modules load with
 ``ctypes`` (no PyTorch headers, so a build takes seconds). Libraries go into
 ``build/torch_kernels/`` at the root of the checkout, named by a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged one is
-reused. Nothing is built at import time: the first call that needs a kernel
+source, the headers it may include (``csrc/*.cuh``) and the flags, so an
+edited source is rebuilt and an unchanged one is reused. Nothing is built at import time: the first call that needs a kernel
 builds it, or :func:`build` builds one ahead of use.
 """
 
@@ -24,7 +24,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # every kernel source the port has
-SOURCES = ("paged_attention.cu", "flash_attention.cu", "fused_norms.cu")
+SOURCES = ("paged_attention.cu", "flash_attention.cu", "fused_norms.cu",
+           "fused_quant_matmul.cu", "grouped_matmul.cu")
 
 _loaded = {}
 
@@ -51,7 +52,10 @@ def build(source):
     seconds)``: what nvcc printed (ptxas registers and spills; None when
     the library was reused) and the wall seconds of its run."""
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     out = BUILD_DIR / f"{Path(source).stem}_{digest}.so"
     if out.exists():
         return out, None, 0.0

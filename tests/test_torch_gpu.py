@@ -330,3 +330,185 @@ def test_two_layer_training_step_kernels_vs_plain(cuda):
     assert np.isfinite(lk) and readings["loss_rel"] <= 1e-4, readings
     assert readings["grad_norm_rel"] <= 4e-4 and readings["leaf_grad_rel_max"] <= 2.0 ** -4, \
         readings
+
+
+# ------------------------------------ quantized matmul (K4), grouped (K5)
+# Kernel vs its plain version on the same bf16 x and the same carriers:
+# both round the same bf16 weights (decode * scale, rounded once) and
+# differ only in fp32 summation order and the output's bf16 rounding, so
+# ``row_scaled_err`` stays within QUANT_TOL units; with one-hot x rows
+# only one product per output is nonzero, and the kernel must reproduce
+# ``dequantize_grouped`` in bf16 exactly.
+QUANT_TOL = 4.0
+SCHEMES = ("int8", "fp8", "fp6")
+
+
+def _carrier(shape, scheme, group, device, seed):
+    from deepspeed_tpu_torch.inference.quantization.quantization import _quantize_grouped
+    g = torch.Generator(device).manual_seed(seed)
+    w = torch.randn(shape, generator=g, device=device) * 0.05
+    q = _quantize_grouped(w, scheme, group)
+    assert q.values.is_cuda
+    return q
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+@pytest.mark.parametrize("M,K,N,group", [
+    (1, 64, 64, 64),        # M = 1, N = one group
+    (37, 100, 20, 20),      # odd M and K; fp6 rows of 15 bytes, N < one tile
+    (8, 4096, 1024, 512),   # decode, the K loop split over blocks
+    (16, 320, 200, 8),      # group 8 (the router's), N past a tile edge
+    (264, 256, 4096, 512),  # a prefill chunk, 64-row tiles
+])
+def test_quant_matmul_kernel_matches_plain(cuda, scheme, M, K, N, group):
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import row_scaled_err
+    from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import (quant_matmul,
+                                                                     quant_matmul_ref)
+    q = _carrier((K, N), scheme, group, cuda, M + K)
+    x = torch.randn(M, K, generator=torch.Generator(cuda).manual_seed(1),
+                    device=cuda).to(torch.bfloat16)
+    before = quant_matmul.launches
+    got = quant_matmul(x, q.values, q.scales, scheme)
+    want = quant_matmul_ref(x, q.values, q.scales, scheme)
+    torch.cuda.synchronize()
+    assert quant_matmul.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    err = row_scaled_err(got, want.float())
+    assert err <= QUANT_TOL, f"row_scaled_err {err}"
+    eye = torch.eye(K, device=cuda, dtype=torch.bfloat16)
+    assert torch.equal(quant_matmul(eye, q.values, q.scales, scheme),
+                       q.dequantized(torch.bfloat16))
+
+
+def _gmm_case(sizes, K, tm, device, seed):
+    """x rows of each expert's group placed into the tile-aligned layout
+    → (xp [Mp, K] bf16, tile_experts, used_tiles)."""
+    from deepspeed_tpu_torch.ops.kernels.grouped_matmul import pad_groups_to_tiles, used_tiles
+    sizes_t = torch.tensor(sizes, device=device)
+    n = int(sum(sizes))
+    dst, te, Mp = pad_groups_to_tiles(sizes_t, n, tm)
+    xp = torch.zeros((Mp, K), dtype=torch.bfloat16, device=device)
+    xp[dst.long()] = torch.randn(n, K, generator=torch.Generator(device).manual_seed(seed),
+                                 device=device).to(torch.bfloat16)
+    return xp, te, used_tiles(sizes_t, tm)
+
+
+@pytest.mark.parametrize("scheme", ("bf16",) + SCHEMES)
+@pytest.mark.parametrize("sizes,K,N,tm", [
+    ((2, 0, 5, 1, 3, 0, 2, 3), 256, 512, 16),   # decode: 16 rows, two experts empty
+    ((70, 0, 33, 1), 128, 200, 64),              # prefill tiles; N past a tile edge
+    ((0, 0, 40, 0), 96, 36, 16),                 # every row on one expert; fp6 rows of 27 bytes
+])
+def test_grouped_kernel_matches_plain(cuda, scheme, sizes, K, N, tm):
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import row_scaled_err
+    xp, te, used = _gmm_case(sizes, K, tm, cuda, 5)
+    E = len(sizes)
+    if scheme == "bf16":
+        w = (torch.randn(E, K, N, generator=torch.Generator(cuda).manual_seed(2), device=cuda)
+             * 0.05).to(torch.bfloat16)
+        kernel, fn = gm.gmm, (lambda x: gm.gmm(x, w, te, tm, used))
+        want = gm.gmm_ref(xp, w, te, tm, used)
+    else:
+        q = _carrier((E, K, N), scheme, 4 if N % 8 else 8, cuda, 3)
+        kernel = gm.gmm_quant
+        fn = (lambda x: gm.gmm_quant(x, q.values, q.scales, te, scheme, torch.bfloat16, tm, used))
+        want = gm.gmm_quant_ref(xp, q.values, q.scales, te, scheme, torch.bfloat16, tm, used)
+    before = kernel.launches
+    got = fn(xp)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    n_used = int(used) * tm
+    assert not got[n_used:].any()  # tiles without rows are written as zeros
+    err = row_scaled_err(got[:n_used], want[:n_used].float())
+    assert err <= QUANT_TOL, f"row_scaled_err {err}"
+
+
+def test_quant_kernels_refuse_what_they_cannot_take(cuda):
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import quant_matmul
+    q = _carrier((64, 128), "fp6", 32, cuda, 0)
+    x = torch.randn(4, 64, device=cuda, dtype=torch.bfloat16)
+    before = quant_matmul.launches
+    with pytest.raises(TypeError):
+        quant_matmul(x.float(), q.values, q.scales, "fp6")        # fp32 x: no fallback
+    with pytest.raises(TypeError):
+        quant_matmul(x, q.values, q.scales, "fp6", dequant_dtype=torch.float32)
+    with pytest.raises(ValueError):
+        quant_matmul(x, q.values[:, :45], q.scales, "fp6")        # strided carriers
+    with pytest.raises(ValueError):
+        quant_matmul(x, q.values.cpu(), q.scales, "fp6")
+    with pytest.raises(ValueError):
+        quant_matmul(x, q.values, q.scales[:, :3].contiguous(), "fp6")  # 128 % 3: no groups
+    stacked = _carrier((2, 64, 128), "int8", 32, cuda, 1)
+    with pytest.raises(ValueError):
+        stacked.matmul(x)                                          # a stack: no dequantize-then-matmul
+    assert quant_matmul.launches == before
+    xp, te, used = _gmm_case((3, 5), 64, 16, cuda, 0)
+    w = torch.zeros(2, 64, 32, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        gm.gmm(xp, w, te, 32, used)                                # a tile it is not built for
+    with pytest.raises(ValueError):
+        gm.gmm(xp, w.float(), te, 16, used)
+    with pytest.raises(TypeError):
+        gm.gmm(xp, w, te.long(), 16, used)
+    with pytest.raises(TypeError):
+        gm.gmm_quant(xp.float(), q.values[None], q.scales[None], te, "fp6", tm=16)
+
+
+@pytest.mark.parametrize("mode", ["int8", "none"])
+def test_moe_engine_on_card_matches_plain_engine(cuda, mode):
+    """``mixtral-debug`` (bf16; int8 carriers, or bf16 experts) through the
+    kernels vs the same weights with ``quant_matmul``, ``gmm`` and
+    ``gmm_quant`` pinned to their plain versions: last-token logits of a
+    prefill put and a mixed put within 4 bf16 ulps of their magnitude
+    (the kernels and cuBLAS sum in other orders, and a few roundings of
+    bf16 activations may fall the other way through 2 layers), each
+    kernel launched as the path implies, and a decode burst served."""
+    import contextlib
+    from deepspeed_tpu_torch.inference import quantization as qpkg
+    from deepspeed_tpu_torch.inference.quantization import quantization as qmod
+    from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig, InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.models import init_params, llama_config
+    from deepspeed_tpu_torch.ops.kernels import fused_quant_matmul as fq
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    assert qpkg.QuantizedWeight is qmod.QuantizedWeight
+    cfg = llama_config("mixtral-debug")
+    params = init_params(cfg, cuda, torch.bfloat16, torch.Generator(cuda).manual_seed(4),
+                         std=0.05)
+    ecfg = RaggedInferenceEngineConfig(
+        kv_block_size=16, quantization={"quantization_mode": mode},
+        state_manager=DSStateManagerConfig(max_ragged_batch_size=64, max_ragged_sequence_count=4,
+                                           max_tracked_sequences=4, max_context=96))
+
+    @contextlib.contextmanager
+    def plain():
+        saved = qmod.quant_matmul, gm.gmm, gm.gmm_quant
+        qmod.quant_matmul = fq.quant_matmul_ref
+        gm.gmm, gm.gmm_quant = gm.gmm_ref, gm.gmm_quant_ref
+        try:
+            yield
+        finally:
+            qmod.quant_matmul, gm.gmm, gm.gmm_quant = saved
+
+    outs, L = {}, cfg.num_hidden_layers
+    for pin in ("kernels", "plain"):
+        eng = InferenceEngineV2(cfg, ecfg, params=params, device=cuda)
+        counts = [fq.quant_matmul.launches, gm.gmm.launches, gm.gmm_quant.launches]
+        with plain() if pin == "plain" else contextlib.nullcontext():
+            first = eng.put([0, 1, 2], [np.arange(40) % 200, np.arange(7) + 3, [5, 6]])
+            mixed = eng.put([0, 1, 3], [[9], [10], np.arange(20) + 30])
+            burst = eng.decode_burst([0, 1, 2, 3], [[1], [2], [3], [4]], 3)
+        torch.cuda.synchronize()
+        grew = [fq.quant_matmul.launches - counts[0], gm.gmm.launches - counts[1],
+                gm.gmm_quant.launches - counts[2]]
+        fwd = 2 + 3
+        want = ([(4 * L + 1) * fwd, 0, 3 * L * fwd] if mode == "int8" else [0, 3 * L * fwd, 0])
+        assert grew == (want if pin == "kernels" else [0, 0, 0]), (pin, grew)
+        assert burst.shape == (3, 4) and (burst >= 0).all() and (burst < cfg.vocab_size).all()
+        outs[pin] = np.stack([first, mixed])
+    a, b = outs["kernels"], outs["plain"]
+    scale = float(np.abs(b).max())
+    ulps = np.abs(a - b).max() / 2.0 ** (np.floor(np.log2(scale)) - 7)
+    assert ulps <= 4, f"{ulps} bf16 ulps"

@@ -8,7 +8,8 @@
   they raise instead of quietly running on the CPU.
 - Each config switch of a feature the port does not serve or train yet
   raises ``NotImplementedError`` at engine (or model) construction, naming
-  its ROADMAP item; so do the training engine's checkpoint methods."""
+  its ROADMAP item (MoE models serve, and train only once item 17 is
+  ported); so do the training engine's checkpoint methods."""
 
 import ast
 import pathlib
@@ -22,6 +23,7 @@ from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2, DynamicSplitFus
                                               RaggedInferenceEngineConfig)
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch.models import build_llama, init_params, llama_config
+from deepspeed_tpu_torch.models.llama import init_quantized_params
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "deepspeed_tpu_torch"
@@ -63,6 +65,23 @@ def test_every_module_imports_without_jax():
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
 
 
+SLICE3_MODULES = ("deepspeed_tpu_torch.ops.fp_quantizer.quantize",
+                  "deepspeed_tpu_torch.inference.quantization.quantization",
+                  "deepspeed_tpu_torch.ops.kernels.fused_quant_matmul",
+                  "deepspeed_tpu_torch.ops.kernels.grouped_matmul",
+                  "deepspeed_tpu_torch.ops.grouped_gemm")
+
+
+def test_scans_cover_the_quantized_moe_slice():
+    """The AST scan and the jax-free import above reach the quantized and
+    MoE serving modules and their CUDA sources' wrappers."""
+    assert set(SLICE3_MODULES) <= set(_modules())
+    from deepspeed_tpu_torch.ops.kernels import build
+    assert {"fused_quant_matmul.cu", "grouped_matmul.cu"} <= set(build.SOURCES)
+    for src in build.SOURCES:
+        assert (build.CSRC / src).exists(), src
+
+
 def test_default_device_is_the_gpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None would rightly use it")
@@ -70,6 +89,8 @@ def test_default_device_is_the_gpu():
         InferenceEngineV2("debug")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_params(llama_config("debug"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_quantized_params(llama_config("mixtral-debug"), "int8")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_llama("debug")
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -84,7 +105,6 @@ OFF_SLICE = {
     "lora": dict(lora={"enabled": True}),
     "structured": dict(structured={"enabled": True}),
     "async_burst": dict(async_burst={"enabled": True}),
-    "quantization_mode": dict(quantization={"quantization_mode": "int8"}),
     "tensor_parallel_degree": dict(tensor_parallel_degree=2),
     "expert_parallel_degree": dict(expert_parallel_degree=2),
 }
@@ -98,8 +118,6 @@ def test_off_slice_feature_raises(flag):
 
 
 def test_off_slice_model_and_sampling_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        InferenceEngineV2("mixtral-debug", device="cpu")
     eng = InferenceEngineV2("debug", dtype=torch.float32, device="cpu")
     with pytest.raises(NotImplementedError, match="sampling"):
         eng.put([1], [[1, 2, 3]], sample={"temperature": 1.0})
@@ -147,7 +165,7 @@ def test_off_slice_training_config_raises(flag):
 def test_off_slice_training_model_raises(overrides, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, port queue item {item} "):
         build_llama("debug", device="cpu", **overrides)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, port queue item 3 "):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, port queue item 17 "):
         build_llama("mixtral-debug", device="cpu")
 
 
