@@ -134,6 +134,66 @@ each of which fails the run if it fails:
 12. bf16 MoE serving — the same preset and traffic in bf16 at 8 of 32
    layers (the bf16 model does not fit one card at full depth); ``gmm``
    must launch 3 per layer per forward. Same prints.
+13. LoRA kernel — ``lora_delta`` (K6) at the Mistral-7B LoRA sites, q_proj
+   (and o_proj) [4096 -> 4096] and k_proj (and v_proj) [4096 -> 1024],
+   rank buckets 8 and 16, 9 slots (8 adapters and the base), bf16: the
+   decode step (T = 16, the 8 adapters round-robin) and a prefill chunk
+   (T = 512 over 16 sequences) at each, and at q_proj rank 8 all-base and
+   one-adapter batches, T = 37 as a view 2 bytes off alignment, and
+   adapters of rank 5 padded to the bucket. Each case must (a) stay within
+   LORA_TOL = 4 units of ``row_scaled_err`` of the plain version over the
+   adapter rows (both sum fp32 products in other orders and round the
+   scaled delta once to bf16: at most 2 units), (b) have that check reject
+   the output with one slot's rows zeroed, (c) give 4 rows computed alone
+   the same bits as in the mixed launch (row independence), and (d) leave
+   base rows bitwise equal to y, the fused add being exactly round(y +
+   delta). Timed beside the plain version, the layout (once per forward),
+   the wrapper's host time per call (the all-base case, whose tiles exit at
+   once),
+   the bound (adapter rows' x, the touched slots' A and B, their y rows
+   both ways, over 3.35 TB/s; fp32 FMAs over 67 TFLOP/s) and the library
+   yardstick: two ``torch._grouped_mm`` calls over the slot-sorted,
+   tile-padded rows (or per-slot ``torch.matmul`` times where this torch
+   refuses them);
+14. LoRA parity — a 2-layer Mistral-7B-width engine with the LoRA lane's
+   8 adapters, through the kernel and with ``lora_delta`` pinned to its
+   plain version, same weights: a prefill put and a mixed prefill+decode
+   put (odd buckets 255 and 7) must give last-token logits within
+   PATH_TOL_ULPS bf16 ulps, and the same puts with every request on the
+   base must differ from the adapter run by more than 10x that (the check
+   is not vacuous); K6 launches 4 x L per forward;
+15. LoRA serving — the full 32-layer ``mistral-7b`` with LoRA on under
+   ``bench.py``'s ``bench_serving_2b_lora`` traffic: 8 adapters of rank 8
+   and alpha 16 on q, k, v and o (N(0, 0.02²) from a seeded generator),
+   hot set 8, rank bucket 8, 16 requests x 128-token prompts x 64 new
+   tokens, block 32, budget 512, bursts of 16. A warm-up, a base-only run
+   (every request on slot 0, same engine), the single-adapter run and the
+   mixed run (request i on adapter 1 + i % 8), in turn with the same
+   traffic through an engine with LoRA off on the same weights (slice 1's
+   path), whose streams the base-only run must reproduce bit for bit (a
+   slot-0 tile leaves the projection untouched). The four runs go three
+   times in turn and medians are printed: the forward is host-bound, and
+   one run's speed varies by ~20% on that machine. Every request must get
+   64 in-vocab tokens, each run's streams must repeat in every round, K6
+   must launch 4 x 32 per forward in every LoRA run and the pool must be
+   empty at the end. Then: isolation at fixed shapes (the
+   mixed trace again with requests 3-14 on other adapters and 15 on the
+   base: requests 0-2's streams bit-identical); slot moves (a 9th adapter
+   evicts the least recently used one, which comes back in another slot:
+   its requests' streams in a re-run of the mixed trace unchanged); a
+   staged promotion (a 10th adapter, rank 5, prefetched and then bound:
+   one ``stage_hit``, its slab rows bitwise the padded bf16 payload). The
+   solo runs of the lane's isolation check are printed as a reading, not
+   asserted: a request alone runs at smaller token buckets, where cuBLAS
+   may pick another algorithm for the base GEMMs, so its bits may move
+   for a reason that is not LoRA's. The engine is built with prefetch on
+   for that check; the scheduler never kicks a prefetch, so the runs are
+   the lane's (prefetch off). Prints tokens/s of each run,
+   ``multi_vs_single``, the LoRA overhead against base-only and against
+   LoRA off, ms per
+   forward, host syncs per token, hot hit rate, promotions, peak memory,
+   and a profile of one prefill step and one decode burst (K6's device ms
+   and share, kernels per forward, busy share).
 
 The last lines are the card, one JSON object with every kernel's numbers
 and, last, ``{"ok": true, "device": {...}}``."""
@@ -167,6 +227,14 @@ MOE_BF16_LAYERS = 8           # phase 12: bf16 Mixtral-8x7B fits one card at 8 o
 ATTN_SHAPES = ((4096, 4096), (4096, 1024))   # Mixtral [K, N]: q and o; k and v
 MLP_SHAPES = ((4096, 14336), (14336, 4096))  # a dense quantized MLP; the expert stacks'
 HEAD_SHAPE = (4096, 32000)                   # Mixtral's lm_head [K, N]: groups of 500
+FP32_FLOPS_PER_S = 67e12      # H100 SXM, fp32 outside the tensor cores
+# bench.py's bench_serving_2b_lora: 8 adapters of rank 8, alpha 16 (scale 2), on q, k, v
+# and o, N(0, 0.02²) weights; hot set 8; the serving traffic of phase 5
+LORA_N_ADAPTERS, LORA_RANK, LORA_ALPHA, LORA_INIT = 8, 8, 16.0, 0.02
+LORA_SHAPES = {"q_proj": (4096, 4096), "k_proj": (4096, 1024)}  # Mistral-7B [K, N]; o, v alike
+LORA_TOL = 4.0                # phase 13, units of row_scaled_err
+LORA_PATH_TOL_ULPS = PATH_TOL_ULPS  # phase 14
+LORA_ROUNDS = 3               # phase 15: each run in turn, three times
 
 
 def log(msg):
@@ -352,13 +420,14 @@ def parity_phase(device):
 
 
 # ---------------------------------------------------------------- phase 5
-def add_requests(engine, n, plen, ntok, seed, budget=BUDGET, burst=BURST):
+def add_requests(engine, n, plen, ntok, seed, budget=BUDGET, burst=BURST, adapters=None):
     from deepspeed_tpu_torch.inference.v2 import DynamicSplitFuseScheduler
     rng = np.random.RandomState(seed)
     sched = DynamicSplitFuseScheduler(engine, token_budget=budget, max_burst=burst)
     for uid in range(n):
         sched.add_request(uid, rng.randint(0, engine.model_config.vocab_size,
-                                           size=plen).astype(np.int32), max_new_tokens=ntok)
+                                           size=plen).astype(np.int32), max_new_tokens=ntok,
+                          adapter_id=None if adapters is None else adapters[uid])
     return sched
 
 
@@ -437,6 +506,7 @@ def serving_phase(device):
 
 _CATEGORIES = (  # (category, name patterns: a substring, or a tuple of substrings that must
     # all appear), first match wins; K4 and K5 are instances of one template ("qgemm")
+    ("lora_delta (K6)", ("lora_kernel",)),
     ("quant_matmul (K4)", (("qgemm_kernel", "false>"), "reduce_splits_kernel")),
     ("grouped_matmul (K5)", (("qgemm_kernel", "true>"),)),
     ("flash_attention (K1)", ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")),
@@ -484,15 +554,16 @@ def _summarize(prof, wall_ms, forwards):
     return out
 
 
-def profile_steps(engine, traffic=(N_REQ, PROMPT, NEW, BUDGET, BURST)):
+def profile_steps(engine, traffic=(N_REQ, PROMPT, NEW, BUDGET, BURST), adapters=None):
     """The same traffic (requests, prompt, new tokens, budget, burst) once
     more, with torch.profiler around two scheduler steps only (its
     post-processing grows with the events): the first (a full-budget
-    prefill step) and the first decode burst. → device time by kernel and
-    the device's busy share of each step's wall time."""
+    prefill step) and the first decode burst. ``adapters`` gives request
+    i its adapter id. → device time by kernel and the device's busy share
+    of each step's wall time."""
     from torch.profiler import ProfilerActivity, profile
     n, plen, ntok, budget, burst = traffic
-    sched = add_requests(engine, n, plen, ntok, 0, budget, burst)
+    sched = add_requests(engine, n, plen, ntok, 0, budget, burst, adapters)
     out = {}
     while sched.has_work:
         live = [r for r in sched.requests.values() if not r.done]
@@ -1256,6 +1327,420 @@ def moe_serving_phase(device, mode, layers):
     return result, launches
 
 
+# ---------------------------------------------------------------- phase 13
+def lora_inputs(seed, T, K, N, r, slots, device, offset=0, true_rank=None):
+    """bf16 x [T, K] (a view ``offset`` elements into a larger buffer), y
+    [T, N] (the base projection), the hot slabs of one layer of one site,
+    a [S, K, r] / b [S, r, N] bf16 with slot 0 zero, and fp32 scales:
+    ``alpha / true_rank`` with alpha 16 (the LoRA lane's), the adapters'
+    columns past ``true_rank`` zero (the store's rank padding)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    S = LORA_N_ADAPTERS + 1
+    buf = torch.randn(T * K + offset, generator=g, device=device).to(torch.bfloat16)
+    x = buf[offset:].view(T, K)
+    y = torch.randn(T, N, generator=g, device=device).to(torch.bfloat16)
+    a = torch.randn(S, K, r, generator=g, device=device) * LORA_INIT
+    b = torch.randn(S, r, N, generator=g, device=device) * LORA_INIT
+    tr = true_rank or r
+    a[:, :, tr:], b[:, tr:], a[0], b[0] = 0, 0, 0, 0
+    scales = torch.full((S,), LORA_ALPHA / tr, device=device)
+    scales[0] = 0
+    return (x, y, a.to(torch.bfloat16).contiguous(), b.to(torch.bfloat16).contiguous(), scales,
+            torch.as_tensor(slots, dtype=torch.int32, device=device))
+
+
+def lora_slots(kind, T):
+    """Adapter slot per token: ``rr`` decode rows round-robin over the 8
+    adapters; ``chunk`` 16 sequences of T/16 tokens, sequence i on
+    adapter 1 + i % 8; ``base`` all 0; ``one`` all on adapter 1."""
+    if kind == "rr":
+        return 1 + np.arange(T) % LORA_N_ADAPTERS
+    if kind == "chunk":
+        return 1 + (np.arange(T) // (T // 16)) % LORA_N_ADAPTERS
+    return np.full(T, 0 if kind == "base" else 1)
+
+
+def lora_bound(T_a, K, N, r, touched):
+    """(ms, by, bytes, flops): the adapter rows' x read once, the touched
+    slots' A and B read once, their y rows read and written once (bf16),
+    and fp32 FMAs at the card's fp32 rate (no tensor cores: an mma would
+    round h to bf16)."""
+    nbytes = 2 * (T_a * K + touched * (K * r + r * N) + 2 * T_a * N)
+    flops = 2 * T_a * r * (K + N)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+def lora_library(x, slots, a, b, flush):
+    """The yardstick: two ``torch._grouped_mm`` calls over the slot-sorted,
+    tile-padded rows (``x @ A_g`` then ``h @ B_g``, the layout made
+    outside the timing; h rounds to bf16 between them), where this torch
+    takes them, else the sum of per-slot ``torch.matmul`` times."""
+    from deepspeed_tpu_torch.ops.kernels.lora_matmul import segment_tokens
+    S = a.shape[0]
+    order, dst, _, Mp = segment_tokens(slots, S, 16)
+    xp = torch.zeros((Mp, x.shape[1]), dtype=x.dtype, device=x.device)
+    xp[dst.long()] = x[order.long()]
+    sizes = torch.bincount(slots.long(), minlength=S)
+    offs = torch.cumsum((sizes + 15) // 16 * 16, 0).to(torch.int32)
+    if hasattr(torch, "_grouped_mm"):
+        a_col = a.transpose(-2, -1).contiguous().transpose(-2, -1)
+        b_col = b.transpose(-2, -1).contiguous().transpose(-2, -1)
+
+        def two():
+            return torch._grouped_mm(torch._grouped_mm(xp, a_col, offs=offs), b_col, offs=offs)
+        try:
+            two()
+            torch.cuda.synchronize()
+        except RuntimeError as exc:  # this torch refuses the case: the per-slot sum below
+            log(f"[lora-kernels] torch._grouped_mm refused the case: {str(exc)[:120]}")
+        else:
+            return {"library_ms": time_ms(two, flush), "library_call": "2 x torch._grouped_mm"}
+    total = 0.0
+    for s in range(1, S):
+        xs = x[slots == s]
+        if xs.shape[0]:
+            total += time_ms(lambda: (xs @ a[s]) @ b[s], flush)
+    return {"library_ms": total, "library_call": "sum of per-slot torch.matmul"}
+
+
+def lora_kernel_cases(device, flush):
+    """K6 at the Mistral-7B LoRA sites over the decode step, a prefill
+    chunk, all-base and one-adapter batches, an odd T as an unaligned
+    view and a rank below its bucket. → rows."""
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import row_scaled_err
+    from deepspeed_tpu_torch.ops.kernels.lora_matmul import (lora_delta, lora_delta_ref,
+                                                             lora_layout)
+    cases = [(f"{kind}_{site}_r{r}", T, K, N, r, kind, 0, None)
+             for site, (K, N) in LORA_SHAPES.items() for r in (8, 16)
+             for kind, T in (("rr", 16), ("chunk", 512))]
+    K, N = LORA_SHAPES["q_proj"]
+    cases += [("base_q_proj_r8", 16, K, N, 8, "base", 0, None),
+              ("one_q_proj_r8", 16, K, N, 8, "one", 0, None),
+              ("odd37_q_proj_r8", 37, K, N, 8, "rr", 1, None),     # x 2 bytes off alignment
+              ("rank5_q_proj_r8", 16, K, N, 8, "rr", 0, 5)]
+    rows = []
+    for i, (name, T, K, N, r, kind, offset, true_rank) in enumerate(cases):
+        slots = lora_slots(kind, T)
+        x, y, a, b, sc, s = lora_inputs(200 + i, T, K, N, r, slots, device, offset, true_rank)
+        lay = lora_layout(s, a.shape[0])
+        got = lora_delta(x, torch.zeros_like(y), a, b, sc, lay)
+        fused = lora_delta(x, y.clone(), a, b, sc, lay)
+        want = lora_delta_ref(x, s, a, b, sc)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError(f"lora case {name}: non-finite kernel output")
+        base, row = s == 0, {"case": name, "T": T, "K": K, "N": N, "rank_bucket": r,
+                             "true_rank": true_rank or r, "slots": kind}
+        if not torch.equal(fused[base], y[base]) or got[base].any():  # (d)
+            raise AssertionError(f"lora case {name}: base rows are not the base projection")
+        if not torch.equal(fused, (y.float() + got.float()).to(y.dtype)):
+            raise AssertionError(f"lora case {name}: the fused add is not round(y + delta)")
+        if kind != "base":
+            err = row_scaled_err(got[~base], want[~base].float())             # (a)
+            zeroed = got.clone()
+            zeroed[s == int(s[0])] = 0
+            zerr = row_scaled_err(zeroed[~base], want[~base].float())         # (b)
+            if err > LORA_TOL or zerr <= LORA_TOL:
+                raise AssertionError(f"lora case {name}: row_scaled_err {err} (limit "
+                                     f"{LORA_TOL}), zeroed slot {zerr} (must exceed it)")
+            picks = [0, T // 3, T // 2 + 1, T - 1]                             # (c)
+            for t in picks:
+                solo = lora_delta(x[t:t + 1], torch.zeros_like(y[t:t + 1]), a, b, sc,
+                                  lora_layout(s[t:t + 1], a.shape[0]))
+                if not torch.equal(solo[0], got[t]):
+                    raise AssertionError(f"lora case {name}: row {t} alone differs from the "
+                                         f"mixed launch")
+            row.update(max_abs_err=max_abs(got, want), row_err=err, zeroed_slot_row_err=zerr,
+                       solo_rows_bitwise=len(picks))
+        else:
+            row.update(max_abs_err=max_abs(got, want))
+        touched = len(set(slots.tolist()) - {0})
+        b_ms, b_by, nbytes, flops = lora_bound(int((~base).sum()), K, N, r, touched)
+        yt = y.clone()
+        if kind == "base":  # every tile exits at once: the wrapper's host time per call
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                lora_delta(x, yt, a, b, sc, lay)
+            row["host_us_per_call"] = (time.perf_counter() - t0) / 200 * 1e6
+            torch.cuda.synchronize()
+        row.update(ms=time_ms(lambda: lora_delta(x, yt, a, b, sc, lay), flush),
+                   plain_ms=time_ms(lambda: y + lora_delta_ref(x, s, a, b, sc), flush),
+                   layout_ms=time_ms(lambda: lora_layout(s, a.shape[0]), flush),
+                   bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
+                   **lora_library(x, s, a, b, flush))
+        log(f"[lora-kernels] {json.dumps(row)}")
+        rows.append(row)
+        del x, y, a, b, sc, s, got, fused, want, yt
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------- phases 14, 15
+def lora_engine(cfg, device, budget, max_seqs, max_ctx, params=None, prefetch=False):
+    """A ragged engine with LoRA on (hot set 8, rank bucket 8) and the
+    LoRA lane's 8 adapters registered (rank 8, alpha 16, N(0, 0.02²) from
+    a seeded numpy generator). → (engine, layers of adapter 1..8)."""
+    from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig, InferenceEngineV2,
+                                                  LoRAServingConfig, RaggedInferenceEngineConfig)
+    ecfg = RaggedInferenceEngineConfig(
+        kv_block_size=BS,
+        lora=LoRAServingConfig(enabled=True, hot_set=LORA_N_ADAPTERS, max_rank=LORA_RANK,
+                               prefetch=prefetch),
+        state_manager=DSStateManagerConfig(max_ragged_batch_size=budget,
+                                           max_ragged_sequence_count=max_seqs,
+                                           max_tracked_sequences=max_seqs,
+                                           max_context=max_ctx))
+    engine = InferenceEngineV2(cfg, ecfg, params=params, device=device,
+                               generator=torch.Generator(device=device).manual_seed(0))
+    for aid in range(1, LORA_N_ADAPTERS + 1):
+        engine.register_adapter(aid, lora_adapter(engine.lora_store, aid, LORA_RANK),
+                                alpha=LORA_ALPHA)
+    return engine
+
+
+def lora_adapter(store, seed, r):
+    rs = np.random.RandomState(seed)
+    return {site: (rs.randn(store.num_layers, din, r).astype(np.float32) * LORA_INIT,
+                   rs.randn(store.num_layers, r, dout).astype(np.float32) * LORA_INIT)
+            for site, (din, dout) in store.dims.items()}
+
+
+@contextlib.contextmanager
+def plain_lora():
+    """Pin the runner's LoRA delta to its plain version."""
+    from deepspeed_tpu_torch.inference.v2 import model_runner as mr
+    from deepspeed_tpu_torch.ops.kernels.lora_matmul import lora_delta_ref
+    saved = mr.lora_delta
+    mr.lora_delta = lambda x, y, a, b, sc, lay: y.add_(lora_delta_ref(x, lay.slots, a, b, sc))
+    try:
+        yield
+    finally:
+        mr.lora_delta = saved
+
+
+def lora_parity_phase(device):
+    from deepspeed_tpu_torch.models import init_params, llama_config
+    from deepspeed_tpu_torch.ops.kernels.lora_matmul import lora_delta
+    cfg = llama_config("mistral-7b", num_hidden_layers=2)
+    L = cfg.num_hidden_layers
+    params = init_params(cfg, device, torch.bfloat16,
+                         torch.Generator(device=device).manual_seed(1))
+    rng = np.random.RandomState(7)
+    toks = [rng.randint(0, cfg.vocab_size, n).astype(np.int32) for n in (100, 37, 64, 50, 9)]
+    logits = {}
+    for run in ("kernel", "plain", "base"):
+        engine = lora_engine(cfg, device, 255, 7, 256, params=params)
+        if run != "base":
+            for uid in range(4):
+                engine.bind_adapter(uid, 1 + 2 * uid)  # adapters 1, 3, 5, 7
+        lora_delta.launches = 0
+        with plain_lora() if run == "plain" else contextlib.nullcontext():
+            first = engine.put([0, 1, 2], toks[:3])
+            mixed = engine.put([0, 1, 3, 2], [[11], [12], toks[3], toks[4]])
+        torch.cuda.synchronize()
+        want = 0 if run == "plain" else 2 * 4 * L
+        if lora_delta.launches != want:
+            raise AssertionError(f"lora parity {run}: {lora_delta.launches} launches, want {want}")
+        logits[run] = (first, mixed)
+        engine.destroy()
+    errs = [float(np.abs(a - b).max()) for a, b in zip(logits["kernel"], logits["plain"])]
+    moved = [float(np.abs(a - b).max()) for a, b in zip(logits["base"], logits["plain"])]
+    scale = max(float(np.abs(b).max()) for b in logits["plain"])
+    ulp = 2.0 ** (math.floor(math.log2(scale)) - 7)
+    result = {"kernel_vs_plain_ulps": max(errs) / ulp, "base_vs_adapters_ulps": min(moved) / ulp,
+              "tol_ulps": LORA_PATH_TOL_ULPS, "logit_scale": scale, "launches_per_forward": 4 * L}
+    log(f"[lora-parity] 2-layer mistral-7b width, 8 adapters: {json.dumps(result)}")
+    if max(errs) > LORA_PATH_TOL_ULPS * ulp:
+        raise AssertionError(f"lora parity: logits differ by {max(errs) / ulp} ulps")
+    if min(moved) <= 10 * LORA_PATH_TOL_ULPS * ulp:
+        raise AssertionError(f"lora parity is vacuous: the adapters move the logits by only "
+                             f"{min(moved) / ulp} ulps")
+    del params
+    torch.cuda.empty_cache()
+    return result
+
+
+def lora_run(engine, prompts, adapters, uids):
+    """One scheduler run of ``prompts`` with ``adapters[i]`` (None = base)
+    under uids from ``uids`` → (streams by request index, seconds, forwards)."""
+    from deepspeed_tpu_torch.inference.v2 import DynamicSplitFuseScheduler
+    sched = DynamicSplitFuseScheduler(engine, token_budget=BUDGET, max_burst=BURST)
+    mine = []
+    for p, aid in zip(prompts, adapters):
+        mine.append(next(uids))
+        sched.add_request(mine[-1], p, max_new_tokens=NEW, adapter_id=aid)
+    f0 = engine.forward_steps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sched.run_to_completion()
+    torch.cuda.synchronize()
+    return [list(out[u]) for u in mine], time.perf_counter() - t0, engine.forward_steps - f0
+
+
+def lora_serving_phase(device):
+    from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig, InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.models import llama_config
+    from deepspeed_tpu_torch.ops.kernels.lora_matmul import lora_delta
+    cfg = llama_config("mistral-7b")
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    t0 = time.perf_counter()
+    engine = lora_engine(cfg, device, BUDGET, N_REQ, PROMPT + NEW, prefetch=True)
+    store = engine.lora_store
+    torch.cuda.synchronize()
+    log(f"[lora-serving] mistral-7b + {LORA_N_ADAPTERS} adapters (rank {LORA_RANK}, alpha "
+        f"{LORA_ALPHA}): built in {time.perf_counter() - t0:.2f} s, hot slabs "
+        f"{sum(t.nbytes for d in store.slabs()[:2] for t in d.values()) / 1e6:.1f} MB")
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(3, V, size=PROMPT).astype(np.int32) for _ in range(N_REQ)]
+    uids = iter(range(1_000_000))
+    free0 = engine.free_blocks
+    lora_run(engine, [prompts[0][:PROMPT // 2], prompts[1]], [1, 2], uids)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    # the same weights with LoRA off (slice 1's path), in turn with the LoRA
+    # runs, for the cost of turning LoRA on; the host-bound forward varies
+    # from run to run, so every run goes LORA_ROUNDS times and medians count
+    off = InferenceEngineV2(cfg, RaggedInferenceEngineConfig(
+        kv_block_size=BS, state_manager=DSStateManagerConfig(
+            max_ragged_batch_size=BUDGET, max_ragged_sequence_count=N_REQ,
+            max_tracked_sequences=N_REQ, max_context=PROMPT + NEW)),
+        params=engine.params, device=device)
+    lora_run(off, [prompts[0][:PROMPT // 2], prompts[1]], [None, None], uids)  # warm-up
+    mix = [1 + i % LORA_N_ADAPTERS for i in range(N_REQ)]
+    order = (("lora_off", [None] * N_REQ), ("base_only", [None] * N_REQ),
+             ("single", [1] * N_REQ), ("mixed", mix))
+    samples, streams = {name: [] for name, _ in order}, {}
+    for rnd in range(LORA_ROUNDS):
+        for name, adapters in order:
+            eng = off if name == "lora_off" else engine
+            syncs0, toks0 = eng.host_syncs, eng.tokens_emitted
+            hits0, misses0 = store.hot_hits, store.hot_misses
+            lora_delta.launches = 0
+            got, dt, fwd = lora_run(eng, prompts, adapters, uids)
+            launches = lora_delta.launches
+            if launches != (0 if eng is off else 4 * L * fwd) or fwd == 0:
+                raise AssertionError(f"lora serving {name}: {launches} K6 launches over {fwd} "
+                                     f"forwards, want {0 if eng is off else 4 * L} per forward")
+            for i, t in enumerate(got):
+                if len(t) != NEW or not all(0 <= v < V for v in t):
+                    raise AssertionError(f"lora serving {name}: request {i}: {len(t)} tokens")
+            if streams.setdefault(name, got) != got:
+                raise AssertionError(f"lora serving {name}: round {rnd} changed the streams")
+            binds = store.hot_hits - hits0 + store.hot_misses - misses0
+            samples[name].append({
+                "time_s": dt, "forward_steps": fwd, "ms_per_forward": dt * 1e3 / fwd,
+                "gen_tokens_per_sec": N_REQ * NEW / dt,
+                "syncs_per_token": (eng.host_syncs - syncs0) / max(eng.tokens_emitted - toks0, 1),
+                "k6_launches": launches,
+                "hot_hit_rate": (store.hot_hits - hits0) / binds if binds else None})
+            log(f"[lora-serving] round {rnd} {name}: {json.dumps(samples[name][-1])}")
+    if streams["base_only"] != streams["lora_off"]:
+        raise AssertionError("lora serving: with every request on the base, LoRA on must give "
+                             "the LoRA-off streams bit for bit")
+    if streams["single"] == streams["base_only"]:
+        raise AssertionError("lora serving: adapter 1 left every stream as the base model's")
+    off.destroy()
+    runs = {}
+    for name, rows in samples.items():
+        tps = sorted(r["gen_tokens_per_sec"] for r in rows)
+        runs[name] = {"gen_tokens_per_sec_median": float(np.median(tps)),
+                      "gen_tokens_per_sec_min": tps[0], "gen_tokens_per_sec_max": tps[-1],
+                      "ms_per_forward_median": float(np.median([r["ms_per_forward"]
+                                                                for r in rows])),
+                      "forward_steps": rows[0]["forward_steps"],
+                      "syncs_per_token": rows[0]["syncs_per_token"],
+                      "k6_launches": rows[0]["k6_launches"],
+                      "hot_hit_rate_first_round": rows[0]["hot_hit_rate"]}
+
+    # isolation at fixed shapes: requests 3.. on other adapters, one on the base
+    rot = mix[:3] + [1 + (a % LORA_N_ADAPTERS) for a in mix[3:-1]] + [None]
+    rerun, _, _ = lora_run(engine, prompts, rot, uids)
+    for i in range(3):
+        if rerun[i] != streams["mixed"][i]:
+            raise AssertionError(f"lora isolation: request {i} (adapter {mix[i]}) changed "
+                                 f"when its batchmates' adapters changed")
+    solo = [lora_run(engine, [prompts[i]], [mix[i]], uids)[0][0] == streams["mixed"][i]
+            for i in range(3)]
+    log(f"[lora-serving] isolation: 3 of 3 streams bit-identical at fixed shapes; solo runs "
+        f"(smaller buckets, a reading only) identical: {solo}")
+
+    # slot moves: adapter 9 evicts the least recently used adapter X, then X
+    # comes back and evicts the next one, so it lands in another slot
+    engine.register_adapter(9, lora_adapter(store, 9, LORA_RANK), alpha=LORA_ALPHA)
+    probe = next(uids)
+    slot_of = dict(store._hot)  # adapter -> slot, read only
+    store.bind(probe, 9)
+    store.release(probe)
+    x_id = (set(slot_of) - set(store.hot_set())).pop()
+    slot_x, slot_new = slot_of[x_id], engine.bind_adapter(probe, x_id)
+    store.release(probe)
+    if slot_new == slot_x:
+        raise AssertionError(f"lora slot move: adapter {x_id} came back in slot {slot_x}")
+    moved, _, _ = lora_run(engine, prompts, mix, uids)
+    idx = [i for i, a in enumerate(mix) if a == x_id]
+    if any(moved[i] != streams["mixed"][i] for i in idx):
+        raise AssertionError(f"lora slot move: adapter {x_id}'s streams changed with its slot")
+
+    # staged promotion: a 10th adapter of rank 5 (padded to 8), prefetched, then bound
+    layers = lora_adapter(store, 10, 5)
+    engine.register_adapter(10, layers, alpha=LORA_ALPHA)
+    staged0, hits0 = store.stats()["prefetched"], store.stats()["stage_hits"]
+    engine.prefetch_adapter(10)
+    t_wait = time.perf_counter()
+    while store.stats()["prefetched"] == staged0:
+        if time.perf_counter() - t_wait > 30:
+            raise AssertionError("lora staged promotion: the prefetch worker staged nothing")
+        time.sleep(0.01)
+    slot = engine.bind_adapter(probe, 10)
+    if store.stats()["stage_hits"] != hits0 + 1:
+        raise AssertionError("lora staged promotion: the bind did not use the staged copy")
+    a_slabs, b_slabs, scales = store.slabs()
+    for site, (la, lb) in layers.items():
+        want_a = torch.from_numpy(np.pad(la, ((0, 0), (0, 0), (0, LORA_RANK - 5)))).to(
+            torch.bfloat16).to(device)
+        want_b = torch.from_numpy(np.pad(lb, ((0, 0), (0, LORA_RANK - 5), (0, 0)))).to(
+            torch.bfloat16).to(device)
+        if not (torch.equal(a_slabs[site][:, slot], want_a) and
+                torch.equal(b_slabs[site][:, slot], want_b)):
+            raise AssertionError(f"lora staged promotion: slot {slot} {site} rows differ from "
+                                 f"the padded payload")
+    if float(scales[slot]) != float(np.float32(LORA_ALPHA / 5)):
+        raise AssertionError(f"lora staged promotion: scale {float(scales[slot])}")
+    store.release(probe)
+    if engine.free_blocks != free0:
+        raise AssertionError(f"lora serving: free blocks {engine.free_blocks} != {free0}")
+
+    stats = store.stats()
+    result = {"requests": N_REQ, "prompt_len": PROMPT, "new_tokens": NEW, "adapters":
+              LORA_N_ADAPTERS, "rank": LORA_RANK, "alpha": LORA_ALPHA, "runs": runs,
+              "multi_vs_single": runs["mixed"]["gen_tokens_per_sec_median"] /
+              runs["single"]["gen_tokens_per_sec_median"],
+              "lora_overhead_vs_base": runs["base_only"]["gen_tokens_per_sec_median"] /
+              runs["mixed"]["gen_tokens_per_sec_median"] - 1,
+              "lora_on_vs_off": runs["lora_off"]["gen_tokens_per_sec_median"] /
+              runs["mixed"]["gen_tokens_per_sec_median"] - 1,
+              "promotions": stats["promotions"], "evictions": stats["evictions"],
+              "stage_hits": stats["stage_hits"], "solo_identical": solo,
+              "slot_move": {"adapter": x_id, "from": slot_x, "to": slot_new},
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"[lora-serving] {json.dumps(result)}")
+    result["profile"] = profile_steps(engine, adapters=mix)
+    burst = result["profile"]["decode_burst"]
+    k6_ms = burst["by_category_ms"].get("lora_delta (K6)", 0.0)
+    result["decode_burst"] = {"k6_device_ms": k6_ms,
+                              "k6_share_of_device": (k6_ms / burst["device_ms"]
+                                                     if burst["device_ms"] else None),
+                              "kernels_per_forward": burst["kernels_launched"] / burst["forwards"],
+                              "busy_share": burst["device_busy_share"]}
+    log(f"[lora-serving] decode burst: {json.dumps(result['decode_burst'])}")
+    engine.destroy()
+    del engine
+    torch.cuda.empty_cache()
+    return result, samples["mixed"][0]["k6_launches"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU", file=sys.stderr)
@@ -1302,6 +1787,15 @@ def main():
     moe_parity_phase(device)
     _, int8_launches = moe_serving_phase(device, "int8", 32)
     _, bf16_launches = moe_serving_phase(device, "none", MOE_BF16_LAYERS)
+
+    # multi-tenant LoRA serving of Mistral-7B
+    torch.cuda.empty_cache()
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    lora_cases = lora_kernel_cases(device, flush)
+    del flush
+    torch.cuda.empty_cache()
+    lora_parity_phase(device)
+    _, lora_launches = lora_serving_phase(device)
 
     main_case = next(c for c in cases if c["case"] == "serving_decode")
     kernels = [{"name": "paged_decode_attention", "route": "cuda",
@@ -1355,6 +1849,17 @@ def main():
                         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
                         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
                         "library_ms": main_row["library_ms"], "shape": shape, "cases": rows})
+    main_row = next(r for r in lora_cases if r["case"] == "rr_q_proj_r8")
+    kernels.append({"name": "lora_delta", "route": "cuda",
+                    "source": "deepspeed_tpu_torch/csrc/lora_matmul.cu",
+                    "replaces": "deepspeed_tpu/ops/pallas/lora_matmul.py:45",
+                    "launches": lora_launches,
+                    "max_abs_err": max(r["max_abs_err"] for r in lora_cases),
+                    "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+                    "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+                    "library_ms": main_row["library_ms"],
+                    "shape": "serving decode step: T=16 (8 adapters x 2 tokens), q_proj "
+                             "[4096, 4096], rank 8, 9 slots, bf16", "cases": lora_cases})
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,9 +4,10 @@ Port of ``deepspeed_tpu/inference/v2/config_v2.py`` as dataclasses with
 the same field names and defaults. Sections may be given as dicts. The
 port's engine serves greedy decoding of dense and MoE models, in bf16 or
 with weight-only quantized weights (``quantization.quantization_mode``
-``"int8"``, ``"fp8"`` or ``"fp6"``); it raises ``NotImplementedError``
-at construction for a config that turns on a feature outside that (see
-``engine_v2.unported_features``)."""
+``"int8"``, ``"fp8"`` or ``"fp6"``), with or without multi-tenant LoRA
+(``lora``); it raises ``NotImplementedError`` at construction for a
+config that turns on a feature outside that, a non-empty
+``lora.publish_root`` included (see ``engine_v2.unported_features``)."""
 
 from dataclasses import dataclass, field
 

@@ -13,6 +13,15 @@ sequence state. The batch metadata crosses host→device as one packed
 int32 vector per step (per burst for ``decode_burst``), byte-identical
 to the JAX engine's.
 
+Multi-tenant LoRA (``lora.enabled``): an :class:`AdapterStore` holds the
+hot adapter slabs on the engine's device; ``register_adapter`` installs
+an adapter in the host tier, ``bind_adapter`` (the scheduler calls it at
+``add_request(adapter_id=)``) leases its hot slot to a sequence, every
+batch re-resolves each sequence's slot into the adapter row of the packed
+vector, and ``flush`` drops the lease. Off, nothing changes: the wire
+format and the forward are the pre-LoRA ones. The adapter disk tier
+(``publish_root``, ``adopt_adapter``) raises.
+
 Features outside this slice raise ``NotImplementedError`` at
 construction (:func:`unported_features`), as does a sampled ``sample=``
 at call time. The ``DS_*`` environment kill switches are not read."""
@@ -34,9 +43,10 @@ from deepspeed_tpu_torch.inference.v2.ragged.ragged_wrapper import (RaggedBatchW
 from deepspeed_tpu_torch.models.llama import (check_servable, init_params,
                                               init_quantized_params, llama_config)
 from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import SCHEMES
+from deepspeed_tpu_torch.serving.lora import (AdapterStore, lora_hot_set, lora_max_rank,
+                                             lora_serving_enabled)
 from deepspeed_tpu_torch.utils.logging import logger
 
-_QUEUE16 = "ROADMAP.md, port queue item 16 (LoRA serving, slice 4)"
 _QUEUE4 = "ROADMAP.md, port queue item 4 (serving features on the ragged engine)"
 _QUEUE5 = "ROADMAP.md, port queue item 5 (tensor- and expert-parallel serving)"
 
@@ -48,19 +58,22 @@ def unported_features(config):
     for name in ("prefix_cache", "kv_tier", "spec_decode", "structured", "async_burst"):
         if getattr(config, name).enabled:
             out.append((name, _QUEUE4))
-    if config.lora.enabled:
-        out.append(("lora", _QUEUE16))
+    if config.lora.enabled and config.lora.publish_root:
+        out.append(("lora.publish_root (the adapter disk tier)", _QUEUE4))
     for name in ("tensor_parallel_degree", "expert_parallel_degree"):
         if int(getattr(config, name)) > 1:
             out.append((f"{name}={getattr(config, name)}", _QUEUE5))
     return out
 
 
-def _burst_layout(ms, mb):
+def _burst_layout(ms, mb, lora=False):
     """Wire format of the greedy decode-burst metadata vector: field →
     (start, end) offsets into the flat int32 vector (the JAX engine's
-    ``_burst_layout`` with LoRA, sampling and async entry off)."""
+    ``_burst_layout`` with sampling and async entry off). ``lora``
+    appends the per-sequence adapter-slot row."""
     fields = [("tokens0", ms), ("token_seq", ms), ("pos0", ms), ("tables", (ms + 1) * mb)]
+    if lora:
+        fields.append(("seq_adapters", ms + 1))
     o, lay = 0, {}
     for name, size in fields:
         lay[name] = (o, o + size)
@@ -130,8 +143,23 @@ class InferenceEngineV2:
         # positions are bounded by BOTH the block table and the RoPE table
         self.max_ctx_tokens = min(self.max_blocks_per_seq * self.block_size,
                                   int(cfg.max_position_embeddings))
+        # Multi-tenant LoRA: per-request adapter ids bind to hot slots of
+        # the store, whose slabs live on the engine's device in its dtype
+        self.lora_store = None
+        if lora_serving_enabled(self._config.lora):
+            lcfg = self._config.lora
+            H, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+            dims = {"q_proj": (cfg.hidden_size, H * Dh),
+                    "k_proj": (cfg.hidden_size, Hkv * Dh),
+                    "v_proj": (cfg.hidden_size, Hkv * Dh),
+                    "o_proj": (H * Dh, cfg.hidden_size)}
+            self.lora_store = AdapterStore(
+                dims, cfg.num_hidden_layers, n_hot=lora_hot_set(lcfg),
+                max_rank=lora_max_rank(lcfg), host_bytes=int(lcfg.host_bytes),
+                prefetch=bool(lcfg.prefetch), dtype=dtype, device=self.device)
         self._batch = RaggedBatchWrapper(self.max_tokens, self.max_seqs,
-                                         self.max_blocks_per_seq)
+                                         self.max_blocks_per_seq,
+                                         lora=self.lora_store is not None)
         self._attn_impl = (self._config.implementation_overrides or {}).get("attention")
         # resolve the attention implementation now, so a config no
         # implementation serves fails here and not mid-request
@@ -149,6 +177,7 @@ class InferenceEngineV2:
                     f"max_seqs={self.max_seqs} kv_blocks={num_blocks} "
                     f"block_size={self.block_size} attention={self.attn_impl_name} "
                     f"quantization={self._qmode or 'none'} "
+                    f"lora={'on' if self.lora_store is not None else 'off'} "
                     f"param_bytes={self.quantized_bytes/1e6:.1f}MB "
                     f"kv_bytes={self.kv_cache.bytes()/1e6:.1f}MB")
 
@@ -173,9 +202,13 @@ class InferenceEngineV2:
 
     def _forward(self, batch):
         self.forward_steps += 1
+        lora = None
+        if self.lora_store is not None:
+            a, b, scales = self.lora_store.slabs()
+            lora = (a, b, scales, batch["seq_adapters"])
         logits, _, _ = ragged_forward(self.params, self.kv_cache.k, self.kv_cache.v, batch,
                                       self.model_config, self.dtype,
-                                      attn_impl=self._attn_impl, rope=self._rope)
+                                      attn_impl=self._attn_impl, rope=self._rope, lora=lora)
         return logits
 
     # ------------------------------------------------------------------
@@ -223,6 +256,10 @@ class InferenceEngineV2:
         for i, (uid, tokens) in enumerate(zip(batch_uids, batch_tokens)):
             desc = self.state_manager.get_or_create_sequence(uid)
             desc.slot = i  # slots are per-batch rows in the device tables
+            if self.lora_store is not None:
+                # re-resolve per batch: an eviction between steps may have
+                # moved the adapter to another slot
+                desc.adapter_slot = self.lora_store.slot_of(uid)
             self.state_manager.allocate_for(desc, len(tokens))
             self._batch.insert_sequence(desc, tokens)
             desc.advance(len(tokens))
@@ -231,7 +268,8 @@ class InferenceEngineV2:
         # runs the small step; prefill chunks run the full-budget one
         bucket = self.max_seqs if total <= self.max_seqs else self.max_tokens
         packed = torch.from_numpy(self._batch.finalize_packed(bucket=bucket)).to(self.device)
-        logits = self._forward(unpack_batch(packed, self.max_seqs, self.max_blocks_per_seq))
+        logits = self._forward(unpack_batch(packed, self.max_seqs, self.max_blocks_per_seq,
+                                            lora=self.lora_store is not None))
         out = logits.argmax(dim=-1).to(torch.int32) if mode == "greedy" else logits
         self.count_host_sync()
         self.tokens_emitted += len(batch_uids)
@@ -306,12 +344,17 @@ class InferenceEngineV2:
         if err is not None:
             raise err
 
+        lora_on = self.lora_store is not None
         tokens0 = np.zeros(ms, np.int32)
         token_seq = np.full(ms, ms, np.int32)   # pad rows write the null slot
         pos0 = np.zeros(ms, np.int32)
         tables = np.full((ms + 1, mb), NULL_BLOCK, np.int32)
+        adapters = np.zeros(ms + 1, np.int32)   # pad row stays slot 0 = base
         for i, (desc, tok) in enumerate(zip(descs, batch_tokens)):
             desc.slot = i
+            if lora_on:
+                desc.adapter_slot = self.lora_store.slot_of(desc.uid)
+                adapters[i] = desc.adapter_slot
             self.state_manager.allocate_for(desc, k)
             self.count_host_sync()
             tokens0[i] = int(np.asarray(tok).reshape(-1)[-1])
@@ -319,13 +362,16 @@ class InferenceEngineV2:
             pos0[i] = desc.seen_tokens
             tables[i, :len(desc.blocks)] = desc.blocks
             desc.advance(k)
-        meta = torch.from_numpy(np.concatenate([tokens0, token_seq, pos0, tables.ravel()]))
+        parts = [tokens0, token_seq, pos0, tables.ravel()] + ([adapters] if lora_on else [])
+        meta = torch.from_numpy(np.concatenate(parts))
         meta = meta.to(self.device)  # the one host→device copy of the burst
-        lay = _burst_layout(ms, mb)
+        lay = _burst_layout(ms, mb, lora=lora_on)
         toks = meta[slice(*lay["tokens0"])]
         batch = {"token_seq": meta[slice(*lay["token_seq"])],
                  "block_tables": meta[slice(*lay["tables"])].reshape(ms + 1, mb),
                  "last_index": torch.arange(ms, dtype=torch.int32, device=self.device)}
+        if lora_on:
+            batch["seq_adapters"] = meta[slice(*lay["seq_adapters"])]
         pos0 = meta[slice(*lay["pos0"])]
         out = torch.empty((k, ms), dtype=torch.int32, device=self.device)
         for i in range(k):
@@ -345,6 +391,51 @@ class InferenceEngineV2:
         self.state_manager.rewind_sequence(desc, int(n_tokens))
         return desc.seen_tokens
 
+    def bind_adapter(self, uid, adapter_id):
+        """Pin ``uid``'s tokens to ``adapter_id``'s hot slot for the
+        sequence's lifetime (promoting the adapter from the host tier if
+        cold — may evict an unleased LRU hot adapter). ``adapter_id``
+        falsy → base model, slot 0. The lease holds the slot until
+        :meth:`flush`; → the bound slot index."""
+        if not adapter_id:
+            return 0
+        if self.lora_store is None:
+            raise RuntimeError("adapter routing requires LoRA serving (config.lora.enabled)")
+        slot = self.lora_store.bind(uid, int(adapter_id))
+        desc = self.state_manager.query(uid)
+        if desc is not None:
+            desc.adapter_slot = slot
+        return slot
+
+    def has_adapter(self, adapter_id):
+        """True when ``adapter_id`` is hot (servable without a promotion)."""
+        return self.lora_store is not None and self.lora_store.has_adapter(int(adapter_id))
+
+    def knows_adapter(self, adapter_id):
+        """True when any tier can serve ``adapter_id``."""
+        return self.lora_store is not None and self.lora_store.known(int(adapter_id))
+
+    def prefetch_adapter(self, adapter_id):
+        """Fire-and-forget: stage ``adapter_id``'s padded slab rows on the
+        store's prefetch worker so a later bind's host→device copy
+        overlaps queueing (no-op without a store). Safe from any thread."""
+        if self.lora_store is not None:
+            self.lora_store.prefetch(int(adapter_id))
+
+    def register_adapter(self, adapter_id, layers, alpha, version=0):
+        """Install adapter weights ``{site: (a [L, in, r], b [L, r, out])}``
+        (numpy) into the host tier; the first bind promotes them."""
+        if self.lora_store is None:
+            raise RuntimeError("LoRA serving is disabled")
+        self.lora_store.register(int(adapter_id), layers, alpha, version=version)
+
+    def adopt_adapter(self, adapter_id, version=None):
+        """Adopting a published adapter version needs the disk tier, which
+        is not ported yet: raises."""
+        if self.lora_store is None:
+            raise RuntimeError("LoRA serving is disabled")
+        return self.lora_store.adopt(int(adapter_id), version=version)
+
     def query(self, uid):
         """→ (seen_tokens, max_new_before_realloc) parity surface."""
         desc = self.state_manager.query(uid)
@@ -358,6 +449,8 @@ class InferenceEngineV2:
         if self.state_manager.query(uid) is None:
             raise KeyError(f"unknown sequence {uid}")
         self.state_manager.flush_sequence(uid)
+        if self.lora_store is not None:
+            self.lora_store.release(uid)  # drop the adapter-slot lease
 
     def destroy(self):
         """Drop the params and the KV pool (back-to-back engine builds)."""
@@ -365,6 +458,9 @@ class InferenceEngineV2:
         self.kv_cache = None
         self.state_manager = None
         self._rope = None
+        if self.lora_store is not None:
+            self.lora_store.shutdown()  # stop the adapter prefetch worker
+        self.lora_store = None
 
     @property
     def free_blocks(self):

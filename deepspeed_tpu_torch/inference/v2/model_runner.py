@@ -16,7 +16,12 @@ knobs), with dense or weight-only quantized params:
   (``matmul_any``), the MoE expert stacks through the grouped kernels
   (``ops/grouped_gemm``), and only the router, one small [D, E] slice a
   layer, is dequantized; the embedding decodes just the gathered rows,
-  and the head goes through the fused kernel too.
+  and the head goes through the fused kernel too;
+- multi-tenant LoRA (``lora=``): each attention projection adds every
+  token's adapter delta through the segmented LoRA kernel
+  (``ops/kernels/lora_matmul``), whatever carrier the base weight is; the
+  tokens' segmentation by adapter slot is computed once per forward and
+  serves all 4 x L calls (the slots are the same at every layer and site).
 
 Pad tokens carry the pad slot, whose table is all null blocks, so every
 bucket keeps its static shape (ready for CUDA-graph capture later).
@@ -31,6 +36,7 @@ from deepspeed_tpu_torch.inference.quantization.quantization import (QuantizedWe
 from deepspeed_tpu_torch.inference.v2.modules.heuristics import instantiate_attn
 from deepspeed_tpu_torch.models.llama import check_servable, rope_frequencies, rope_scaling_of
 from deepspeed_tpu_torch.ops.grouped_gemm import dropless_moe_ffn
+from deepspeed_tpu_torch.ops.kernels.lora_matmul import lora_delta, lora_layout
 
 
 def _rms(x, scale, eps):
@@ -45,6 +51,17 @@ def _proj(x, w, b=None):
     y = matmul_any(x, w, dtype=x.dtype)
     if b is not None:
         y = y + b.to(x.dtype)
+    return y
+
+
+def _lproj(x, w, b, site, lora):
+    """:func:`_proj`, then, at a LoRA site, ``y += delta`` in place:
+    ``lora`` is None or this layer's ``(a {site: [S, in, r]}, b {site:
+    [S, r, out]}, scales [S], layout)``."""
+    y = _proj(x, w, b)
+    if lora is not None and site in lora[0]:
+        la, lb, scales, layout = lora
+        lora_delta(x, y, la[site], lb[site], scales, layout)
     return y
 
 
@@ -76,19 +93,19 @@ def _paged_attend(q, k, v, kc, vc, batch, attn_fn):
     return attn_fn(q, kc, vc, tab, pos)
 
 
-def _layer_step(cfg, cos, sin, batch, attn_fn, h, lp, kc, vc):
+def _layer_step(cfg, cos, sin, batch, attn_fn, h, lp, kc, vc, lora=None):
     T = h.shape[0]
     H, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
 
     hn = _rms(h, lp["input_norm"], cfg.rms_norm_eps)
-    q = _proj(hn, lp["wq"], lp.get("bq")).reshape(T, H, Dh)
-    k = _proj(hn, lp["wk"], lp.get("bk")).reshape(T, Hkv, Dh)
-    v = _proj(hn, lp["wv"], lp.get("bv")).reshape(T, Hkv, Dh)
+    q = _lproj(hn, lp["wq"], lp.get("bq"), "q_proj", lora).reshape(T, H, Dh)
+    k = _lproj(hn, lp["wk"], lp.get("bk"), "k_proj", lora).reshape(T, Hkv, Dh)
+    v = _lproj(hn, lp["wv"], lp.get("bv"), "v_proj", lora).reshape(T, Hkv, Dh)
     q = _rope_flat(q, cos, sin, batch["token_pos"])
     k = _rope_flat(k, cos, sin, batch["token_pos"])
 
     out = _paged_attend(q, k, v, kc, vc, batch, attn_fn)
-    h = h + _proj(out.reshape(T, H * Dh), lp["wo"], lp.get("bo"))
+    h = h + _lproj(out.reshape(T, H * Dh), lp["wo"], lp.get("bo"), "o_proj", lora)
 
     hn2 = _rms(h, lp["post_norm"], cfg.rms_norm_eps)
     if "gate_wg" in lp:
@@ -136,13 +153,18 @@ def _embed(embed, ids, dtype):
 
 
 def ragged_forward(params, kcache, vcache, batch, cfg, dtype=torch.bfloat16,
-                   attn_impl=None, rope=None):
+                   attn_impl=None, rope=None, lora=None):
     """→ (last-token logits [max_seqs, vocab] fp32, kcache, vcache).
 
     ``kcache``/``vcache``: [L, NB, bs, Hkv, Dh], updated in place and
     returned; ``batch``: the tensors of ``unpack_batch`` on the params'
     device. ``attn_impl`` pins an attention implementation by name;
-    ``rope``: precomputed :func:`rope_tables` (built here when None)."""
+    ``rope``: precomputed :func:`rope_tables` (built here when None).
+    ``lora``: None (the exact pre-LoRA forward) or ``(a, b, scales,
+    seq_adapters)`` — the per-site hot slabs ``a[site] [L, S, in, r]`` /
+    ``b[site] [L, S, r, out]``, per-slot ``scales [S]`` fp32, and the
+    batch's per-sequence adapter slots ``seq_adapters [max_seqs + 1]``
+    (pad row = slot 0 = base)."""
     check_servable(cfg)
     embed = params["embed_tokens"]
     device = embed.device
@@ -152,10 +174,17 @@ def ragged_forward(params, kcache, vcache, batch, cfg, dtype=torch.bfloat16,
     cos, sin = rope if rope is not None else rope_tables(cfg, device)
 
     _, attn_fn = instantiate_attn(device, cfg.head_dim, override=attn_impl)
+    layout = None
+    if lora is not None:
+        la, lb, scales, seq_adapters = lora
+        # per-token slot: pad tokens take the pad row, which is slot 0 (base)
+        layout = lora_layout(seq_adapters[batch["token_seq"]], scales.shape[0])
     layers = params["layers"]
     for i in range(cfg.num_hidden_layers):
         lp = {name: w[i] for name, w in layers.items()}  # a carrier's [i] is a carrier
-        h = _layer_step(cfg, cos, sin, batch, attn_fn, h, lp, kcache[i], vcache[i])
+        lora_i = None if layout is None else (
+            {s: a[i] for s, a in la.items()}, {s: b[i] for s, b in lb.items()}, scales, layout)
+        h = _layer_step(cfg, cos, sin, batch, attn_fn, h, lp, kcache[i], vcache[i], lora_i)
 
     # Selecting the last tokens before the head gives the same rows as the
     # JAX order (head over all T, then select) at max_seqs/T of the cost.

@@ -19,10 +19,14 @@ from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import NULL_BLOCK
 
 class RaggedBatchWrapper:
 
-    def __init__(self, max_tokens, max_seqs, max_blocks_per_seq):
+    def __init__(self, max_tokens, max_seqs, max_blocks_per_seq, lora=False):
         self.max_tokens = max_tokens
         self.max_seqs = max_seqs
         self.max_blocks = max_blocks_per_seq
+        # multi-tenant LoRA: also pack a per-sequence adapter-slot row.
+        # Strictly opt-in — off, the packed vector is byte-identical to
+        # the pre-LoRA wire format.
+        self.lora = bool(lora)
         self.clear()
 
     def clear(self):
@@ -33,6 +37,9 @@ class RaggedBatchWrapper:
         self.block_tables = np.full((self.max_seqs + 1, self.max_blocks), NULL_BLOCK, np.int32)
         self.last_index = np.zeros(self.max_seqs, np.int32)
         self.seq_valid = np.zeros(self.max_seqs, bool)
+        if self.lora:
+            # pad row (max_seqs) stays 0 = the base slot
+            self.seq_adapters = np.zeros(self.max_seqs + 1, np.int32)
         self._cursor = 0
         self._order = []  # slots in insertion order
 
@@ -63,6 +70,8 @@ class RaggedBatchWrapper:
         self.block_tables[desc.slot, :len(blocks)] = blocks
         self.last_index[desc.slot] = self._cursor + n - 1
         self.seq_valid[desc.slot] = True
+        if self.lora:
+            self.seq_adapters[desc.slot] = desc.adapter_slot
         self._cursor += n
         self._order.append(desc.slot)
 
@@ -95,23 +104,29 @@ class RaggedBatchWrapper:
             raise ValueError(f"bucket {bucket} must cover the {self._cursor} batched "
                              f"tokens and not exceed max_tokens={self.max_tokens} — "
                              f"a smaller bucket would silently truncate the batch")
-        return np.concatenate([
+        parts = [
             self.token_ids[:bucket], self.token_seq[:bucket], self.token_pos[:bucket],
             self.block_tables.ravel(), self.last_index,
-            np.asarray([self._cursor], np.int32)])
+            np.asarray([self._cursor], np.int32)]
+        if self.lora:
+            parts.append(self.seq_adapters)
+        return np.concatenate(parts)
 
     def slots_in_order(self):
         return list(self._order)
 
 
-def unpack_batch(packed, max_seqs, max_blocks):
+def unpack_batch(packed, max_seqs, max_blocks, lora=False):
     """Inverse of :meth:`RaggedBatchWrapper.finalize_packed`: views of
     the flat (device) tensor back into the step's dict. The token-bucket
-    length is derived from the vector's size. The JAX package's LoRA
-    adapter row and sampling-spec rows are not part of this wire format
-    yet; they come with the slices that port those features."""
+    length is derived from the vector's size. ``lora`` must match the
+    wrapper's flag: on, the trailing per-sequence adapter-slot row comes
+    out as ``seq_adapters``. The JAX package's sampling-spec rows are not
+    part of this wire format yet; they come with the slice that ports
+    sampling."""
     ms, mb = max_seqs, max_blocks
-    mt = (packed.shape[0] - (ms + 1) * mb - ms - 1) // 3
+    extra = (ms + 1) if lora else 0
+    mt = (packed.shape[0] - (ms + 1) * mb - ms - 1 - extra) // 3
     o = 0
     token_ids = packed[o:o + mt]; o += mt
     token_seq = packed[o:o + mt]; o += mt
@@ -119,6 +134,9 @@ def unpack_batch(packed, max_seqs, max_blocks):
     block_tables = packed[o:o + (ms + 1) * mb].reshape(ms + 1, mb); o += (ms + 1) * mb
     last_index = packed[o:o + ms]; o += ms
     num_tokens = packed[o]
-    return {"token_ids": token_ids, "token_seq": token_seq, "token_pos": token_pos,
-            "block_tables": block_tables, "last_index": last_index,
-            "num_tokens": num_tokens}
+    out = {"token_ids": token_ids, "token_seq": token_seq, "token_pos": token_pos,
+           "block_tables": block_tables, "last_index": last_index,
+           "num_tokens": num_tokens}
+    if lora:
+        out["seq_adapters"] = packed[o + 1:o + 2 + ms]
+    return out

@@ -25,7 +25,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # every kernel source the port has
 SOURCES = ("paged_attention.cu", "flash_attention.cu", "fused_norms.cu",
-           "fused_quant_matmul.cu", "grouped_matmul.cu")
+           "fused_quant_matmul.cu", "grouped_matmul.cu", "lora_matmul.cu")
 
 _loaded = {}
 

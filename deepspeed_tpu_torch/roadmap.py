@@ -2,6 +2,7 @@
 the errors that name an item when a caller asks for what is not ported."""
 
 PORT_QUEUE = {
+    4: "serving features on the ragged engine",
     5: "tensor- and expert-parallel serving",
     6: "the GPT family and the rest of the surface",
     7: "ZeRO 1/2/3 across processes over NCCL",
@@ -10,7 +11,6 @@ PORT_QUEUE = {
     10: "remat policies 'dots' and 'moe'",
     11: "the other optimizers",
     12: "offload",
-    16: "LoRA serving, slice 4",
     17: "MoE training",
     18: "the flat quantized layout and the FP_Quantize API",
 }

@@ -16,7 +16,10 @@ are held against their plain versions element by element at each
 element's scale (limits stated beside each test),
 the wrappers must refuse what the kernels cannot take, and a 2-layer
 bf16 training step through the kernels must match the same step pinned
-to the plain versions."""
+to the plain versions. So must the quantized and grouped matmuls and the
+segmented LoRA delta (which must also be bitwise row independent), each
+with an engine through the kernels against one pinned to the plain
+versions."""
 
 import numpy as np
 import pytest
@@ -512,3 +515,162 @@ def test_moe_engine_on_card_matches_plain_engine(cuda, mode):
     scale = float(np.abs(b).max())
     ulps = np.abs(a - b).max() / 2.0 ** (np.floor(np.log2(scale)) - 7)
     assert ulps <= 4, f"{ulps} bf16 ulps"
+
+
+# ------------------------------------------------- segmented LoRA delta (K6)
+# The kernel's delta (added into zeros) against the plain version on the
+# same inputs, element by element at each element's scale (``row_scaled_err``)
+# over the rows of adapter tokens: both sum fp32 products in other orders
+# and round the scaled result once to x's dtype (at most 2 units in bf16).
+# Base rows must be exactly zero, and the fused add ``y + delta`` must equal
+# rounding ``float(y) + float(delta)`` once.
+LORA_TOL = 4.0
+LORA_CASES = {
+    # name: (T, K, N, S, r, dtype, slots: "rr" round-robin over S-1 adapters, "base", "one")
+    "decode_q": (16, 4096, 4096, 9, 8, torch.bfloat16, "rr"),
+    "decode_kv_r16": (16, 4096, 1024, 9, 16, torch.bfloat16, "rr"),
+    "prefill": (512, 4096, 4096, 9, 8, torch.bfloat16, "rr"),
+    "odd_t_n_r5": (37, 300, 1000, 5, 5, torch.bfloat16, "rr"),   # scalar A rows, ragged N
+    "rank1_fp32": (23, 128, 96, 3, 1, torch.float32, "rr"),
+    "rank64_fp32": (20, 256, 520, 4, 64, torch.float32, "rr"),
+    "rank64_bf16": (33, 512, 512, 3, 64, torch.bfloat16, "one"),
+    "all_base": (40, 256, 256, 5, 8, torch.bfloat16, "base"),
+}
+
+
+def _lora_case(device, T, K, N, S, r, dtype, slots, seed=0, offset=0):
+    """x [T, K] (a view ``offset`` elements into a larger buffer when
+    given), slots, slabs a [S, K, r] / b [S, r, N] (slot 0 zero), fp32
+    scales, all seeded."""
+    g = torch.Generator(device).manual_seed(seed)
+    buf = torch.randn(T * K + offset, generator=g, device=device).to(dtype)
+    x = buf[offset:].view(T, K)
+    a = (torch.randn(S, K, r, generator=g, device=device) * 0.05).to(dtype)
+    b = (torch.randn(S, r, N, generator=g, device=device) * 0.05).to(dtype)
+    scales = torch.rand(S, generator=g, device=device) + 0.5
+    a[0], b[0], scales[0] = 0, 0, 0
+    if slots == "rr":
+        s = torch.arange(T, device=device) % (S - 1) + 1
+        s[::5] = 0  # some base rows among the adapters'
+    elif slots == "one":
+        s = torch.full((T,), S - 1, device=device)
+    else:
+        s = torch.zeros(T, device=device)
+    return x, s.to(torch.int32), a, b, scales
+
+
+@pytest.mark.parametrize("case", sorted(LORA_CASES))
+def test_lora_kernel_matches_plain(cuda, case):
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import row_scaled_err
+    from deepspeed_tpu_torch.ops.kernels.lora_matmul import (apply_lora_delta, lora_delta,
+                                                             lora_delta_ref, lora_layout)
+    T, K, N, S, r, dtype, kind = LORA_CASES[case]
+    x, slots, a, b, scales = _lora_case(cuda, T, K, N, S, r, dtype, kind, offset=T % 7)
+    before = lora_delta.launches
+    got = apply_lora_delta(x, slots, a, b, scales)
+    want = lora_delta_ref(x, slots, a, b, scales)
+    torch.cuda.synchronize()
+    assert lora_delta.launches == before + 1
+    assert got.dtype == dtype and got.shape == (T, N)
+    base = slots == 0
+    assert not got[base].any()
+    if kind != "base":
+        err = row_scaled_err(got[~base], want[~base].float())
+        assert err <= LORA_TOL, f"row_scaled_err {err}"
+    y = torch.randn(T, N, generator=torch.Generator(cuda).manual_seed(9), device=cuda).to(dtype)
+    fused = lora_delta(x, y.clone(), a, b, scales, lora_layout(slots, S))
+    assert torch.equal(fused, (y.float() + got.float()).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_lora_kernel_rows_bitwise_independent(cuda, dtype):
+    from deepspeed_tpu_torch.ops.kernels.lora_matmul import apply_lora_delta
+    x, slots, a, b, scales = _lora_case(cuda, 45, 4096, 1024, 9, 8, dtype, "rr", seed=2)
+    mixed = apply_lora_delta(x, slots, a, b, scales)
+    for t in range(0, 45, 4):
+        solo = apply_lora_delta(x[t:t + 1], slots[t:t + 1], a, b, scales)
+        assert torch.equal(solo[0], mixed[t]), f"row {t}"
+    assert torch.equal(apply_lora_delta(x[:17], slots[:17], a, b, scales), mixed[:17])
+    perm = torch.randperm(45, generator=torch.Generator().manual_seed(0)).to(cuda)
+    assert torch.equal(apply_lora_delta(x[perm], slots[perm], a, b, scales), mixed[perm])
+
+
+def test_lora_kernel_refuses_what_it_cannot_take(cuda):
+    from deepspeed_tpu_torch.ops.kernels.lora_matmul import (apply_lora_delta, lora_delta,
+                                                             lora_layout)
+    x, slots, a, b, scales = _lora_case(cuda, 8, 64, 32, 3, 4, torch.bfloat16, "rr")
+    y = torch.zeros(8, 32, dtype=torch.bfloat16, device=cuda)
+    lay = lora_layout(slots, 3)
+    with pytest.raises(TypeError):
+        apply_lora_delta(x.half(), slots, a.half(), b.half(), scales)
+    with pytest.raises(TypeError):
+        lora_delta(x, y.float(), a, b, scales, lay)
+    with pytest.raises(TypeError):
+        lora_delta(x, y, a, b, scales.bfloat16(), lay)
+    with pytest.raises(ValueError):  # over the largest rank bucket
+        x2, s2, a2, b2, sc2 = _lora_case(cuda, 8, 64, 32, 3, 65, torch.bfloat16, "rr")
+        apply_lora_delta(x2, s2, a2, b2, sc2)
+    with pytest.raises(ValueError):
+        lora_delta(x, y, a.transpose(1, 2).contiguous().transpose(1, 2), b, scales, lay)
+    with pytest.raises(ValueError):
+        lora_delta(x.t().contiguous().t(), y, a, b, scales, lay)
+    with pytest.raises(ValueError):
+        lora_delta(x, y, a, b, scales, lora_layout(slots, 3, tm=8))
+    with pytest.raises(ValueError):
+        lora_delta(x[:7], y[:7], a, b, scales, lay)
+
+
+def test_lora_engine_on_card_matches_plain_engine(cuda):
+    """A 2-layer bf16 engine with 3 adapters through the kernel vs the
+    same weights and adapters with ``lora_delta`` pinned to its plain
+    version: last-token logits of a prefill put and a mixed put within 4
+    bf16 ulps of their magnitude (the base path is the same cuBLAS calls
+    on both sides; the deltas differ by summation order and a rounding
+    may fall the other way through 2 layers), 4 x L launches per
+    forward, and the adapters move the logits far more than that."""
+    from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig, InferenceEngineV2,
+                                                  LoRAServingConfig, RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.inference.v2 import model_runner
+    from deepspeed_tpu_torch.models import init_params, llama_config
+    from deepspeed_tpu_torch.ops.kernels import lora_matmul as lm
+    cfg = llama_config("debug", hidden_size=256, num_attention_heads=4,
+                       num_key_value_heads=2, num_hidden_layers=2)
+    params = init_params(cfg, cuda, torch.bfloat16, torch.Generator(cuda).manual_seed(3),
+                         std=0.05)
+    ecfg = RaggedInferenceEngineConfig(
+        kv_block_size=16, lora=LoRAServingConfig(enabled=True, hot_set=4, max_rank=8,
+                                                 prefetch=False),
+        state_manager=DSStateManagerConfig(max_ragged_batch_size=63, max_ragged_sequence_count=3,
+                                           max_tracked_sequences=4, max_context=96))
+
+    def plain(x, y, a, b, scales, layout):
+        return y.add_(lm.lora_delta_ref(x, layout.slots, a, b, scales))
+
+    outs, L = {}, cfg.num_hidden_layers
+    for pin in ("kernel", "plain", "base"):
+        eng = InferenceEngineV2(cfg, ecfg, params=params, device=cuda)
+        st = eng.lora_store
+        for aid, r in ((1, 8), (2, 3), (3, 5)):
+            rs = np.random.RandomState(aid)
+            eng.register_adapter(aid, {s: (rs.randn(L, i, r).astype(np.float32) * 0.2,
+                                           rs.randn(L, r, o).astype(np.float32) * 0.2)
+                                       for s, (i, o) in st.dims.items()}, alpha=2.0 * r)
+        if pin != "base":
+            for uid, aid in ((0, 1), (1, 2), (3, 3)):
+                eng.bind_adapter(uid, aid)
+        before = lm.lora_delta.launches
+        saved = model_runner.lora_delta
+        model_runner.lora_delta = plain if pin == "plain" else saved
+        try:
+            first = eng.put([0, 1, 2], [np.arange(40) % 200, np.arange(7) + 3, [5, 6]])
+            mixed = eng.put([0, 1, 3], [[9], [10], np.arange(20) + 30])
+        finally:
+            model_runner.lora_delta = saved
+        torch.cuda.synchronize()
+        assert lm.lora_delta.launches - before == (0 if pin == "plain" else 2 * 4 * L), pin
+        outs[pin] = np.stack([first, mixed])
+        eng.destroy()
+    a, b = outs["kernel"], outs["plain"]
+    ulp = 2.0 ** (np.floor(np.log2(float(np.abs(b).max()))) - 7)
+    assert np.abs(a - b).max() / ulp <= 4, f"{np.abs(a - b).max() / ulp} bf16 ulps"
+    assert np.abs(outs["base"] - b).max() / ulp > 40

@@ -102,7 +102,7 @@ OFF_SLICE = {
     "prefix_cache": dict(prefix_cache={"enabled": True}),
     "kv_tier": dict(kv_tier={"enabled": True}),
     "spec_decode": dict(spec_decode={"enabled": True}),
-    "lora": dict(lora={"enabled": True}),
+    "lora": dict(lora={"enabled": True, "publish_root": "adapters"}),  # the disk tier
     "structured": dict(structured={"enabled": True}),
     "async_burst": dict(async_burst={"enabled": True}),
     "tensor_parallel_degree": dict(tensor_parallel_degree=2),
