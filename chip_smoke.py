@@ -195,6 +195,53 @@ each of which fails the run if it fails:
    and a profile of one prefill step and one decode burst (K6's device ms
    and share, kernels per forward, busy share).
 
+16. K7 kernels — ``quantize_int8`` and ``dequantize_int8`` (``csrc/
+   quantization.cu``) at the KV tier's shapes: one of k or v of n = 1, 2,
+   12 and 16 Mistral-7B blocks ([32, n, 32, 8, 128]; the tier lane demotes
+   2 blocks a time and promotes 12 at once), groups of one (layer, block)
+   slab (32768 values) and of 2048, bf16 and fp32 input, and stochastic
+   rounding. Values, scales and the dequantized bf16 output must equal the
+   plain versions bit for bit (the contract: true divisions, rounding half
+   to even, the stochastic hash computed alike), and the comparison must
+   catch one flipped code; stochastic codes must each be the floor or the
+   ceiling of x / scale. Timed beside the plain versions and the bound
+   (each value read and written once plus 4 bytes a group, over 3.35 TB/s);
+   no single PyTorch call computes grouped absmax-scaled int8 (library
+   null). Then the device→host copy of a demoted handle's k into pageable,
+   freshly pinned and cached pinned memory (the tier's records are pinned),
+   as a reading;
+17. tier parity — a 2-layer Mistral-7B-width engine with an int8 KV tier
+   under the tier lane's trace (below), through K7 and with K7 pinned to its
+   plain versions: streams, prefix hits, a probe request's logits and the
+   measured quantization error bitwise; each demotion launches 2 quantize
+   and 2 dequantize kernels (k and v, and their measured error), each
+   quantized restore 2 dequantize kernels;
+18. KV tier serving — the full 32-layer ``mistral-7b`` in bf16, weights
+   built once from a seeded generator for every engine of the phase:
+   (a) ``bench.py``'s ``bench_serving_2b_prefix`` traffic (8 requests x (512
+   shared + 32) prompt x 64 new, block 32, budget 552, bursts of 16), a cold
+   and a warm fleet on one engine with the prefix cache: cold vs warm
+   tokens/s and ``warm_prefill_frac``; (b) ``bench_serving_2b_kv_tier``'s
+   three phases (4 requests each; A shares a 512-token system prompt, B is
+   disjoint and overflows the 81-block pool, A' returns; 544 + 64 tokens,
+   budget 548, bursts of 16; host budget 4 GiB) on five engines: a control
+   whose 256-block pool evicts nothing, the tier off, a bf16 tier, an int8
+   tier, and a bf16 tier with its prefetch worker off. Gates: both bf16
+   tiers' streams equal the control's bit for bit (A' gets the same cached
+   tokens, hence the same shapes); every promoted block equals its demoted
+   bytes (a device copy at demotion); the tier saves at least twice the
+   A'-phase prefill tokens of the tier-off run; the no-prefetch tier stages
+   nothing; no block leaks. Readings: tokens/s per phase, demoted /
+   promoted / prefetched blocks, stage hits, prefetch wait, bytes and ms
+   per demotion (gather, quantize, device→host copy) and per promotion
+   (host→device copies and the restore: from staged copies, and from host
+   records with prefetch off), the store's peak bytes beside the pinned
+   host memory the allocator holds, the probe's own host time, the int8
+   tier's error and agreement with the control, host syncs per token, peak
+   memory; (c) one request suspended mid-decode and resumed
+   (its KV to host memory and back) must continue the uninterrupted stream
+   bit for bit.
+
 The last lines are the card, one JSON object with every kernel's numbers
 and, last, ``{"ok": true, "device": {...}}``."""
 
@@ -235,6 +282,16 @@ LORA_SHAPES = {"q_proj": (4096, 4096), "k_proj": (4096, 1024)}  # Mistral-7B [K,
 LORA_TOL = 4.0                # phase 13, units of row_scaled_err
 LORA_PATH_TOL_ULPS = PATH_TOL_ULPS  # phase 14
 LORA_ROUNDS = 3               # phase 15: each run in turn, three times
+K7_LAYERS = 32                # phase 16: Mistral-7B's layers in one demoted handle
+K7_GROUP = 2048               # phase 16: quantize_int8's default group, beside the slab
+# bench.py's bench_serving_2b_prefix (phase 18 a) and bench_serving_2b_kv_tier (18 b)
+PFX_N_REQ, PFX_SYS, PFX_SFX, PFX_NEW, PFX_BURST = 8, 512, 32, 64, 16
+TIER_N_REQ, TIER_SYS, TIER_SFX, TIER_NEW, TIER_BURST = 4, 512, 32, 64, 16
+TIER_PROMPT = TIER_SYS + TIER_SFX
+TIER_BUDGET = TIER_PROMPT + TIER_N_REQ
+TIER_KV_BLOCKS = TIER_N_REQ * -(-(TIER_PROMPT + TIER_NEW) // BS) + 1 + 4  # 81: B evicts A
+TIER_CONTROL_BLOCKS = 256     # nothing is evicted: A's and B's retired chains fit beside B
+TIER_HOST_BYTES = 4 << 30
 
 
 def log(msg):
@@ -1741,6 +1798,598 @@ def lora_serving_phase(device):
     return result, samples["mixed"][0]["k6_launches"]
 
 
+# ---------------------------------------------------------------- phase 16
+def k7_bound(n_values, in_bytes, out_bytes, groups):
+    """Least time for a K7 call: each value read once and written once,
+    plus one fp32 scale a group, over the card's memory rate."""
+    nbytes = n_values * (in_bytes + out_bytes) + 4 * groups
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", nbytes
+
+
+def k7_cases(device, flush):
+    """K7 at the tier's shapes: one of k or v of n Mistral-7B blocks,
+    [32, n, 32, 8, 128], groups of one (layer, block) slab and of 2048,
+    bf16 and fp32 input, and stochastic rounding; n = 2 is what a demotion
+    of the tier lane quantizes, n = 12 what its promotion dequantizes. Kernel and plain version
+    must agree bit for bit (values, scales, dequantized output), and the
+    comparison must see one flipped code. → rows."""
+    from deepspeed_tpu_torch.ops.kernels import quantization as tq
+    slab = BS * HKV * DH
+    cases = [(f"{'slab' if gs == slab else 'g' + str(gs)}_{name}_n{n}", n, gs, dt, False)
+             for n in (1, 2, 16) for gs in (slab, K7_GROUP)
+             for name, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32))]
+    cases += [("slab_bf16_n12", 12, slab, torch.bfloat16, False),
+              ("slab_bf16_n16_stochastic", 16, slab, torch.bfloat16, True)]
+    rows = []
+    for i, (name, n, gs, dtype, stochastic) in enumerate(cases):
+        g = torch.Generator(device=device).manual_seed(300 + i)
+        x = (torch.randn((K7_LAYERS, n, BS, HKV, DH), generator=g, device=device) * 2).to(dtype)
+        x[:, :, :, 0] = 0  # a zero head in every slab
+        v, s, shape = tq.quantize_int8(x, gs, stochastic=stochastic, seed=i)
+        groups = x.reshape(-1, gs)
+        rv, rs = tq.quantize_int8_ref(groups, stochastic, i)
+        deq = tq.dequantize_int8(v, s, shape, dtype=torch.bfloat16)
+        rdeq = tq.dequantize_int8_ref(rv, rs, torch.bfloat16).reshape(shape)
+        torch.cuda.synchronize()
+        flipped = v.clone()
+        flipped.view(-1)[v.numel() // 3] ^= 1
+        same = (torch.equal(v, rv), torch.equal(s.view(torch.int32), rs.view(torch.int32)),
+                torch.equal(deq, rdeq))
+        if not all(same) or torch.equal(flipped, rv):
+            raise AssertionError(f"k7 case {name}: values/scales/dequant bitwise {same}, "
+                                 f"flipped code caught {not torch.equal(flipped, rv)}")
+        if stochastic:  # every code is the floor or the ceiling of x / scale
+            scaled = groups.float() / s[:, None]
+            q = v.float()
+            if not bool(((q == scaled.floor().clamp(-127, 127)) |
+                         (q == scaled.ceil().clamp(-127, 127))).all()):
+                raise AssertionError(f"k7 case {name}: a code is neither floor nor ceil")
+        N, G, eb = x.numel(), groups.shape[0], x.element_size()
+        qb_ms, qb_by, qbytes = k7_bound(N, eb, 1, G)
+        db_ms, db_by, dbytes = k7_bound(N, 1, 2, G)
+        row = {"case": name, "blocks": n, "group": gs, "dtype": str(dtype).split(".")[-1],
+               "stochastic": stochastic, "values": N, "groups": G,
+               "bitwise": True, "flipped_code_caught": True,
+               "quant_max_abs_err": max(max_abs(v, rv), max_abs(s, rs)),
+               "max_abs_err": max_abs(deq, rdeq),
+               "ms": time_ms(lambda: tq.quantize_int8(x, gs, stochastic=stochastic), flush),
+               "plain_ms": time_ms(lambda: tq.quantize_int8_ref(groups, stochastic), flush),
+               "bound_ms": qb_ms, "bound_by": qb_by, "bytes": qbytes, "library_ms": None,
+               "dequant_ms": time_ms(lambda: tq.dequantize_int8(v, s, shape), flush),
+               "dequant_plain_ms": time_ms(lambda: tq.dequantize_int8_ref(v, s), flush),
+               "dequant_bound_ms": db_ms, "dequant_bytes": dbytes}
+        log(f"[k7-kernels] {json.dumps(row)}")
+        rows.append(row)
+        del x, v, s, groups, rv, rs, deq, rdeq, flipped
+    torch.cuda.empty_cache()
+    return rows
+
+
+def empty_host_cache():
+    """Give the caching host allocator's free pinned blocks back (torch
+    builds name it differently); → whether one was found."""
+    for name in ("_host_emptyCache", "_accelerator_emptyHostCache"):
+        if hasattr(torch._C, name):
+            getattr(torch._C, name)()
+            return True
+    return False
+
+
+def host_pinned_stats():
+    """The caching host allocator's byte counters (pinned memory it owns,
+    cached blocks included, and what callers hold), where this torch has
+    them: a record of n bytes locks its power-of-two rounding."""
+    stats = getattr(torch.cuda, "host_memory_stats", lambda: {})()
+    return {k: v for k, v in stats.items()
+            if k.split(".")[0] in ("allocated_bytes", "active_bytes", "allocations")
+            and k.split(".")[-1] in ("current", "peak")} | \
+        {k: stats[k] for k in ("num_host_alloc", "host_alloc_time.avg", "host_alloc_time.total")
+         if k in stats}
+
+
+def host_copy_readings(device):
+    """Device→host copy of a demoted handle's k (1, 2 and 16 Mistral-7B
+    blocks, bf16): into pageable memory, into freshly pinned memory (the
+    pinning included, the host allocator's cache emptied first) and into
+    pinned memory the allocator has cached, which is what the tier's copies
+    (``kv_cache.to_host``) get once the store has turned over. → readings."""
+    out = {"host_cache_emptied": empty_host_cache()}
+    for n in (1, 2, 16):
+        x = torch.randn((32, n, BS, HKV, DH), device=device).to(torch.bfloat16)
+        ms = {"pageable": [], "pinned_fresh": [], "pinned_cached": []}
+
+        def pinned():
+            torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(x, non_blocking=True)
+            torch.cuda.synchronize()
+        for _ in range(2):
+            for kind, fn in (("pageable", x.cpu), ("pinned_fresh", pinned),
+                             ("pinned_cached", pinned)):
+                if kind == "pinned_fresh":
+                    empty_host_cache()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                ms[kind].append((time.perf_counter() - t0) * 1e3)
+        out[f"n{n}"] = {"bytes": x.numel() * 2, **{f"{k}_ms": min(v) for k, v in ms.items()}}
+        out[f"n{n}"]["pageable_gb_per_s"] = x.numel() * 2 / min(ms["pageable"]) / 1e6
+        out[f"n{n}"]["pinned_cached_gb_per_s"] = x.numel() * 2 / min(ms["pinned_cached"]) / 1e6
+        del x
+    log(f"[kv-tier] host copy of one handle's k: {json.dumps(out)}")
+    return out
+
+
+# ---------------------------------------------------------------- phase 17
+@contextlib.contextmanager
+def plain_k7():
+    """Pin K7's launchers to the plain versions (no launch counted)."""
+    from deepspeed_tpu_torch.ops.kernels import quantization as tq
+    saved = tq._quant_kernel, tq._dequant_kernel
+
+    def dequant(values, scales, out, rows):
+        deq = tq.dequantize_int8_ref(values, scales, out.dtype)
+        if rows is None:
+            out.copy_(deq)
+        else:
+            out[rows.long()] = deq
+    tq._quant_kernel = lambda groups, stochastic, seed: tq.quantize_int8_ref(groups, stochastic,
+                                                                              seed)
+    tq._dequant_kernel = dequant
+    try:
+        yield
+    finally:
+        tq._quant_kernel, tq._dequant_kernel = saved
+
+
+def tier_engine(cfg, device, params, mode, num_kv_blocks=TIER_KV_BLOCKS, prefetch=True):
+    """A Mistral-7B-width engine under the tier lane's sizing: prefix cache
+    on; ``mode`` "off" (no tier), "bf16" or "int8" tier storage; the tier's
+    prefetch worker on unless ``prefetch`` is false."""
+    from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig, InferenceEngineV2,
+                                                  KVTierConfig, PrefixCacheConfig,
+                                                  RaggedInferenceEngineConfig)
+    ecfg = RaggedInferenceEngineConfig(
+        kv_block_size=BS, num_kv_blocks=num_kv_blocks,
+        prefix_cache=PrefixCacheConfig(enabled=True),
+        kv_tier=KVTierConfig(enabled=mode != "off", host_bytes=TIER_HOST_BYTES,
+                             quantize=mode == "int8", prefetch=prefetch),
+        state_manager=DSStateManagerConfig(max_ragged_batch_size=TIER_BUDGET,
+                                           max_ragged_sequence_count=TIER_N_REQ,
+                                           max_tracked_sequences=TIER_N_REQ + 1,
+                                           max_context=TIER_PROMPT + TIER_NEW))
+    return InferenceEngineV2(cfg, ecfg, params=params, device=device)
+
+
+def tier_traffic(vocab):
+    """``bench_serving_2b_kv_tier``'s three phases: A shares a system
+    prompt, B is disjoint, A' returns with new suffixes."""
+    rng = np.random.RandomState(0)
+    system = rng.randint(0, vocab, size=TIER_SYS).astype(np.int32)
+    suffixes = [rng.randint(0, vocab, size=TIER_SFX).astype(np.int32)
+                for _ in range(2 * TIER_N_REQ)]
+    disjoint = [rng.randint(0, vocab, size=TIER_PROMPT).astype(np.int32)
+                for _ in range(TIER_N_REQ)]
+    return system, {"A": [np.concatenate([system, s]) for s in suffixes[:TIER_N_REQ]],
+                    "B": disjoint,
+                    "A'": [np.concatenate([system, s]) for s in suffixes[TIER_N_REQ:]]}
+
+
+def tier_fleet(engine, uid0, prompts, new=None):
+    """One scheduler run → (streams, seconds, prefix-cached tokens, forwards)."""
+    from deepspeed_tpu_torch.inference.v2 import DynamicSplitFuseScheduler
+    sched = DynamicSplitFuseScheduler(engine, token_budget=TIER_BUDGET, max_burst=TIER_BURST)
+    for i, p in enumerate(prompts):
+        sched.add_request(uid0 + i, p, max_new_tokens=new or TIER_NEW)
+    f0 = engine.forward_steps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sched.run_to_completion()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    cached = sum(sched.requests[uid0 + i].prefix_cached_tokens for i in range(len(prompts)))
+    return [list(out[uid0 + i]) for i in range(len(prompts))], dt, cached, \
+        engine.forward_steps - f0
+
+
+def device_ids(blocks, device):
+    """Block ids as a device tensor without a host sync (from pinned memory;
+    ``torch.tensor(..., device=)`` waits for the stream)."""
+    return torch.tensor(blocks, dtype=torch.int64).pin_memory().to(device, non_blocking=True)
+
+
+class TierProbe:
+    """Instruments one engine's tier with no host sync of its own: each
+    demotion's victims' KV is copied on the device (by chained identity)
+    before it leaves the pool, each promotion's restored blocks are copied
+    on the device after it, and :meth:`readings` holds the two against each
+    other after the run. Times each demotion (host clock: it ends in the
+    device→host copy) and each promotion (CUDA events on the serving stream,
+    read at the end, and the host clock: the whole of it, the restore alone,
+    and the demotions that made room in it, host clock; the rest is the
+    claims and the host→device copies), tracks the store's peak bytes, and
+    counts its own host time (``probe_host_ms``), which the engine's tokens/s
+    include."""
+
+    def __init__(self, engine):
+        self.engine, self.tier, self.cache = engine, engine.kv_tier, engine.kv_cache
+        self.snap, self.pending, self.checks = {}, [], []
+        self.demote_ms, self.demote_bytes, self.promotions = [], [], []
+        self.store_peak, self.own_s, self._start, self._evict_ms = 0, 0.0, None, 0.0
+        pc = engine.prefix_cache
+        demote, claim, unclaim = self.tier.demote, self.tier.claim, self.tier.unclaim
+        restore, promote = self.cache.restore, pc._promote_tier_hits_locked
+
+        def p_demote(victims):
+            t0 = time.perf_counter()
+            if victims:
+                ids = device_ids([b for _, _, b in victims], self.cache.device)
+                k, v = self.cache.k.index_select(1, ids), self.cache.v.index_select(1, ids)
+                for i, (pk, toks, _) in enumerate(victims):
+                    self.snap[(pk, tuple(toks))] = (k[:, i], v[:, i])
+            bytes0 = self.tier.store.stats()["bytes_resident"]
+            t1 = time.perf_counter()
+            demote(victims)
+            t2 = time.perf_counter()
+            if victims:
+                self.demote_ms.append((t2 - t1) * 1e3)
+                if self._start is not None:
+                    self._evict_ms += (t2 - t1) * 1e3
+                resident = self.tier.store.stats()["bytes_resident"]
+                self.demote_bytes.append(resident - bytes0)
+                self.store_peak = max(self.store_peak, resident)
+            self.own_s += (t1 - t0) + (time.perf_counter() - t2)
+
+        def p_claim(parent_key, tokens):
+            item = claim(parent_key, tokens)
+            if item is not None:
+                self.pending.append((parent_key, tuple(int(t) for t in tokens)))
+            return item
+
+        def p_unclaim(item):
+            rec = item["record"]
+            self.pending.remove((rec["parent_key"], tuple(rec["tokens"])))
+            return unclaim(item)
+
+        def p_promote(prompt_tokens, max_blocks):
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            self._start, self._evict_ms = (start, time.perf_counter()), 0.0
+            try:
+                return promote(prompt_tokens, max_blocks)
+            finally:
+                self._start = None
+
+        def p_restore(handle):
+            if self._start is None:  # a resume, not a promotion
+                return restore(handle)
+            mid, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            mid.record()
+            blocks = restore(handle)
+            end.record()
+            t0 = time.perf_counter()
+            start, h0 = self._start
+            nbytes = sum(handle[n].nbytes for n in ("k", "v", "k_scales", "v_scales")
+                         if n in handle)
+            self.promotions.append((start, mid, end, (t0 - h0) * 1e3, self._evict_ms, nbytes,
+                                    len(blocks)))
+            ids = device_ids(blocks, self.cache.device)
+            k, v = self.cache.k.index_select(1, ids), self.cache.v.index_select(1, ids)
+            self.checks += [(key, k[:, i], v[:, i]) for i, key in enumerate(self.pending)]
+            self.pending = []
+            self.own_s += time.perf_counter() - t0
+            return blocks
+
+        self.tier.demote, self.tier.claim, self.tier.unclaim = p_demote, p_claim, p_unclaim
+        self.cache.restore, pc._promote_tier_hits_locked = p_restore, p_promote
+
+    def readings(self):
+        torch.cuda.synchronize()
+        p_ms = [s.elapsed_time(e) for s, _, e, *_ in self.promotions]
+        err = max((max(max_abs(k, self.snap[key][0]), max_abs(v, self.snap[key][1]))
+                   for key, k, v in self.checks), default=0.0)
+        out = {"demotions": len(self.demote_ms), "promotions": len(self.promotions),
+               "demote_ms_mean": float(np.mean(self.demote_ms)) if self.demote_ms else None,
+               "demote_d2h_bytes_mean": float(np.mean(self.demote_bytes))
+               if self.demote_bytes else None,
+               "blocks_per_demotion": len(self.snap) / max(len(self.demote_ms), 1),
+               "store_bytes_peak": self.store_peak,
+               "promote_ms": p_ms, "promote_host_ms": [p[3] for p in self.promotions],
+               "promote_restore_ms": [m.elapsed_time(e) for _, m, e, *_ in self.promotions],
+               "promote_evict_host_ms": [p[4] for p in self.promotions],
+               "promote_bytes": [p[5] for p in self.promotions],
+               "promote_blocks": [p[6] for p in self.promotions],
+               "promoted_blocks_checked": len(self.checks),
+               "promoted_vs_demoted_max_abs": err, "probe_host_ms": self.own_s * 1e3}
+        self.snap, self.checks = {}, []
+        return out
+
+
+def tier_trace(engine, traffic, uid0=0):
+    """The three phases on ``engine`` → per-phase readings and streams."""
+    out = {}
+    for j, (phase, prompts) in enumerate(traffic.items()):
+        streams, dt, cached, fwd = tier_fleet(engine, uid0 + 100 * j, prompts)
+        for i, t in enumerate(streams):
+            if len(t) != TIER_NEW or not all(0 <= v < engine.model_config.vocab_size
+                                             for v in t):
+                raise AssertionError(f"tier trace {phase}: request {i}: {len(t)} tokens")
+        out[phase] = {"streams": streams, "time_s": dt, "forward_steps": fwd,
+                      "prefix_cached_tokens": cached,
+                      "gen_tokens_per_sec": len(prompts) * TIER_NEW / dt}
+    return out
+
+
+def tier_parity_phase(device):
+    """An int8-tier engine at Mistral-7B width, 2 layers, under the tier
+    lane's trace through K7 and with K7 pinned to its plain versions:
+    streams, prefix hits and a probe's logits bitwise; each demotion
+    launches 2 quantize and 2 dequantize kernels, each quantized restore
+    2 dequantize kernels."""
+    from deepspeed_tpu_torch.models import init_params, llama_config
+    from deepspeed_tpu_torch.ops.kernels import quantization as tq
+    cfg = llama_config("mistral-7b", num_hidden_layers=2)
+    params = init_params(cfg, device, torch.bfloat16,
+                         torch.Generator(device=device).manual_seed(5))
+    system, traffic = tier_traffic(cfg.vocab_size)
+    probe = np.concatenate([system, np.arange(7, 7 + TIER_SFX, dtype=np.int32)])
+    results = {}
+    for pin in ("kernel", "plain"):
+        engine = tier_engine(cfg, device, params, "int8", prefetch=False)
+        probe_obj = TierProbe(engine)
+        tq.quantize_int8.launches = tq.dequantize_int8.launches = 0
+        with plain_k7() if pin == "plain" else contextlib.nullcontext():
+            trace = tier_trace(engine, traffic)
+            got = engine.prefix_match(999, probe)
+            logits = engine.put([999], [probe[got:]])
+            engine.flush(999)
+        torch.cuda.synchronize()
+        r = probe_obj.readings()
+        launched = (tq.quantize_int8.launches, tq.dequantize_int8.launches)
+        want = (0, 0) if pin == "plain" else (2 * r["demotions"],
+                                              2 * r["demotions"] + 2 * r["promotions"])
+        if launched != want or r["demotions"] == 0 or r["promotions"] == 0:
+            raise AssertionError(f"tier parity {pin}: launches {launched}, want {want} "
+                                 f"({r['demotions']} demotions, {r['promotions']} promotions)")
+        results[pin] = (trace, logits, engine.kv_tier.stats(), r)
+        engine.destroy()
+    (tk, lk, sk, rk), (tp, lp, sp, _) = results["kernel"], results["plain"]
+    for phase in tk:
+        if tk[phase]["streams"] != tp[phase]["streams"] or \
+                tk[phase]["prefix_cached_tokens"] != tp[phase]["prefix_cached_tokens"]:
+            raise AssertionError(f"tier parity: phase {phase} differs, kernel vs plain")
+    if not np.array_equal(lk, lp) or sk["quant_error_max"] != sp["quant_error_max"]:
+        raise AssertionError("tier parity: probe logits or quant_error_max differ")
+    result = {"layers": 2, "demotions": rk["demotions"], "promotions": rk["promotions"],
+              "quantize_launches_per_demotion": 2, "dequantize_launches_per_demotion": 2,
+              "dequantize_launches_per_promotion": 2, "quant_error_max": sk["quant_error_max"],
+              "streams_bitwise": True, "logits_bitwise": True,
+              "promoted_vs_demoted_max_abs": rk["promoted_vs_demoted_max_abs"]}
+    log(f"[tier-parity] 2-layer mistral-7b width, int8 tier: {json.dumps(result)}")
+    del params
+    torch.cuda.empty_cache()
+    return result
+
+
+# ---------------------------------------------------------------- phase 18
+def prefix_lane(cfg, device, params):
+    """``bench_serving_2b_prefix``: 8 requests share a 512-token system
+    prompt + 32-token suffixes; a cold fleet fills the trie, a warm fleet
+    on the same engine leases it."""
+    from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig, InferenceEngineV2,
+                                                  PrefixCacheConfig, RaggedInferenceEngineConfig)
+    plen = PFX_SYS + PFX_SFX
+    budget = plen + PFX_N_REQ
+    engine = InferenceEngineV2(cfg, RaggedInferenceEngineConfig(
+        kv_block_size=BS, prefix_cache=PrefixCacheConfig(enabled=True),
+        state_manager=DSStateManagerConfig(max_ragged_batch_size=budget,
+                                           max_ragged_sequence_count=PFX_N_REQ,
+                                           max_tracked_sequences=PFX_N_REQ,
+                                           max_context=plen + PFX_NEW)),
+        params=params, device=device)
+    from deepspeed_tpu_torch.inference.v2 import DynamicSplitFuseScheduler
+    rng = np.random.RandomState(0)
+    system = rng.randint(0, cfg.vocab_size, size=PFX_SYS).astype(np.int32)
+    total = engine.free_blocks
+
+    def fleet(uid0, n, plen_sys, plen_sfx, ntok):
+        sched = DynamicSplitFuseScheduler(engine, token_budget=budget, max_burst=PFX_BURST)
+        for i in range(n):
+            sfx = rng.randint(0, cfg.vocab_size, size=plen_sfx).astype(np.int32)
+            sched.add_request(uid0 + i, np.concatenate([system[:plen_sys], sfx]),
+                              max_new_tokens=ntok)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sched.run_to_completion()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        for uid, t in out.items():
+            if len(t) != ntok or not all(0 <= v < cfg.vocab_size for v in t):
+                raise AssertionError(f"prefix lane: request {uid}: {len(t)} tokens")
+        prefilled = sum(len(r.prompt) - r.prefix_cached_tokens for r in sched.requests.values())
+        return dt, prefilled
+
+    fleet(10_000, 2, 16, 16, 32)  # warm-up; random prompts that cannot match the system one
+    torch.cuda.reset_peak_memory_stats()
+    syncs0, toks0 = engine.host_syncs, engine.tokens_emitted
+    cold_dt, cold_prefill = fleet(0, PFX_N_REQ, PFX_SYS, PFX_SFX, PFX_NEW)
+    warm_dt, warm_prefill = fleet(PFX_N_REQ, PFX_N_REQ, PFX_SYS, PFX_SFX, PFX_NEW)
+    gen = PFX_N_REQ * PFX_NEW
+    stats = engine.prefix_cache.stats()
+    if engine.free_blocks + engine.evictable_blocks != total:
+        raise AssertionError("prefix lane: blocks leaked")
+    if warm_prefill >= cold_prefill:
+        raise AssertionError(f"prefix lane: warm prefill {warm_prefill} >= cold {cold_prefill}")
+    result = {"requests": PFX_N_REQ, "system_prompt_len": PFX_SYS, "suffix_len": PFX_SFX,
+              "new_tokens": PFX_NEW, "cold_prefill_tokens": cold_prefill,
+              "warm_prefill_tokens": warm_prefill,
+              "warm_prefill_frac": warm_prefill / cold_prefill,
+              "cold_gen_tokens_per_sec": gen / cold_dt, "warm_gen_tokens_per_sec": gen / warm_dt,
+              "warm_vs_cold_speedup": cold_dt / warm_dt,
+              "cache": {k: stats[k] for k in ("hit_rate", "tokens_saved", "cached_blocks",
+                                              "evictions")},
+              "syncs_per_token": (engine.host_syncs - syncs0) / max(engine.tokens_emitted - toks0,
+                                                                    1),
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"[prefix-lane] {json.dumps(result)}")
+    engine.destroy()
+    torch.cuda.empty_cache()
+    return result
+
+
+def suspend_check(engine, system, vocab):
+    """Suspend one request mid-decode and resume it: its stream must be
+    the uninterrupted one (same prompt, same cached prefix, same shapes)."""
+    rng = np.random.RandomState(9)
+    prompt = np.concatenate([system, rng.randint(0, vocab, size=BS - 1).astype(np.int32)])
+    runs, readings = [], {}
+
+    def allocs():  # fresh pinned allocations so far, their host µs, blocks demoted so far
+        st = host_pinned_stats()
+        return np.array([st.get("num_host_alloc", 0), st.get("host_alloc_time.total", 0),
+                         engine.kv_tier.stats()["demoted_blocks"] if engine.kv_tier else 0])
+    for uid, pause in ((700, True), (701, False)):
+        cached = engine.prefix_match(uid, prompt)
+        toks = [int(engine.put([uid], [prompt[cached:]], sample="greedy")[0])]
+        for step in range(4):
+            if pause and step == 2:
+                torch.cuda.synchronize()
+                a0 = allocs()
+                t0 = time.perf_counter()
+                engine.suspend(uid)
+                readings["suspend_ms"] = (time.perf_counter() - t0) * 1e3
+                a1 = allocs()
+                readings["suspended_blocks"] = engine.suspended_blocks(uid)
+                readings["host_bytes"] = sum(t.nbytes for t in
+                                             engine._suspended[uid]["handle"].values())
+                t0 = time.perf_counter()
+                engine.resume(uid)
+                torch.cuda.synchronize()
+                readings["resume_ms"] = (time.perf_counter() - t0) * 1e3
+                for what, d in (("suspend", a1 - a0), ("resume", allocs() - a1)):
+                    readings[f"{what}_fresh_pinned"] = int(d[0])
+                    readings[f"{what}_pinning_ms"] = float(d[1]) / 1e3
+                    readings[f"{what}_demoted_blocks"] = int(d[2])
+            toks += [int(t) for t in engine.decode_burst([uid], [toks[-1]], TIER_NEW // 4)[:, 0]]
+        engine.flush(uid)
+        runs.append((cached, toks))
+    if runs[0] != runs[1]:
+        raise AssertionError("suspend/resume: the resumed stream differs from the "
+                             "uninterrupted one")
+    readings.update(cached_tokens=runs[0][0], tokens=len(runs[0][1]), bitwise=True)
+    log(f"[suspend] {json.dumps(readings)}")
+    return readings
+
+
+TIER_MODES = {"control": ("off", TIER_CONTROL_BLOCKS, True), "off": ("off", TIER_KV_BLOCKS, True),
+              "bf16": ("bf16", TIER_KV_BLOCKS, True), "int8": ("int8", TIER_KV_BLOCKS, True),
+              "bf16_no_prefetch": ("bf16", TIER_KV_BLOCKS, False)}
+
+
+def tier_lane(cfg, device, params):
+    """``bench_serving_2b_kv_tier`` on five engines from the same weights:
+    a control whose pool evicts nothing, the lane's pool with the tier
+    off, with a bf16 tier, with an int8 tier, and with a bf16 tier whose
+    prefetch worker is off (its promotion copies the host records)."""
+    from deepspeed_tpu_torch.ops.kernels import quantization as tq
+    system, traffic = tier_traffic(cfg.vocab_size)
+    runs, launches, probes, suspend = {}, None, {}, None
+    for mode, (storage, num_kv_blocks, prefetch) in TIER_MODES.items():
+        engine = tier_engine(cfg, device, params, storage, num_kv_blocks=num_kv_blocks,
+                             prefetch=prefetch)
+        total = engine.free_blocks
+        tier_fleet(engine, 10_000, [p[:48] for p in traffic["B"][:2]], new=16)  # warm-up
+        probe = TierProbe(engine) if engine.kv_tier is not None else None
+        empty_host_cache()
+        getattr(torch.cuda, "reset_peak_host_memory_stats", lambda: None)()
+        torch.cuda.reset_peak_memory_stats()
+        syncs0, toks0 = engine.host_syncs, engine.tokens_emitted
+        tq.quantize_int8.launches = tq.dequantize_int8.launches = 0
+        trace = tier_trace(engine, traffic)
+        if mode == "int8":
+            launches = {"quantize_int8": tq.quantize_int8.launches,
+                        "dequantize_int8": tq.dequantize_int8.launches}
+        run = {"phases": {p: {k: v for k, v in r.items() if k != "streams"}
+                          for p, r in trace.items()},
+               "streams": {p: r["streams"] for p, r in trace.items()},
+               "syncs_per_token": (engine.host_syncs - syncs0) /
+               max(engine.tokens_emitted - toks0, 1),
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "prefix": engine.prefix_cache.stats()}
+        if engine.kv_tier is not None:
+            run["tier"] = engine.kv_tier.stats()
+            run["host_pinned"] = host_pinned_stats()
+            probes[mode] = probe.readings()
+        if mode == "control" and run["prefix"]["evictions"]:
+            raise AssertionError("tier lane: the control engine evicted cached blocks")
+        if mode == "bf16":
+            suspend = suspend_check(engine, system, cfg.vocab_size)
+        if engine.free_blocks + engine.evictable_blocks != total:
+            raise AssertionError(f"tier lane {mode}: blocks leaked")
+        log(f"[tier-lane] {mode}: {json.dumps({k: v for k, v in run.items() if k != 'streams'})}")
+        if probe is not None:
+            log(f"[tier-lane] {mode} demote/promote: {json.dumps(probes[mode])}")
+        runs[mode] = run
+        engine.destroy()
+        torch.cuda.empty_cache()
+    # gates: the bf16 tiers serve the control's streams and restore the demoted bytes
+    for mode in ("bf16", "bf16_no_prefetch"):
+        if runs[mode]["streams"] != runs["control"]["streams"]:
+            raise AssertionError(f"tier lane: {mode}-tier streams differ from the control "
+                                 f"engine's")
+        if probes[mode]["promoted_blocks_checked"] == 0 or \
+                probes[mode]["promoted_vs_demoted_max_abs"] != 0.0:
+            raise AssertionError(f"tier lane {mode}: promoted blocks differ from the demoted "
+                                 f"ones ({probes[mode]})")
+    if runs["bf16_no_prefetch"]["tier"]["stage_hits"] or \
+            runs["bf16_no_prefetch"]["tier"]["prefetched_blocks"]:
+        raise AssertionError("tier lane: the no-prefetch tier staged copies")
+    saved_on = runs["bf16"]["phases"]["A'"]["prefix_cached_tokens"]
+    saved_off = runs["off"]["phases"]["A'"]["prefix_cached_tokens"]
+    if saved_on < 2 * max(saved_off, 1):
+        raise AssertionError(f"tier lane: A' prefill saved {saved_on} with the tier vs "
+                             f"{saved_off} without, want >= 2x")
+
+    def agree(a, b):
+        return sum(x == y for p in a["streams"] for x, y in zip(a["streams"][p],
+                                                                 b["streams"][p]))
+    result = {"requests_per_phase": TIER_N_REQ, "system_prompt_len": TIER_SYS,
+              "suffix_len": TIER_SFX, "new_tokens": TIER_NEW, "num_kv_blocks": TIER_KV_BLOCKS,
+              "control_blocks": TIER_CONTROL_BLOCKS,
+              "return_prefill_saved_tier_off": saved_off,
+              "return_prefill_saved_bf16_tier": saved_on,
+              "return_prefill_saved_int8_tier":
+                  runs["int8"]["phases"]["A'"]["prefix_cached_tokens"],
+              "tokens_saved_ratio": saved_on / max(saved_off, 1),
+              "promotion_from_host_records": {
+                  k: v for k, v in probes["bf16_no_prefetch"].items() if k.startswith("promote")},
+              "promotion_from_staged_copies": {
+                  k: v for k, v in probes["bf16"].items() if k.startswith("promote")},
+              "streams_agreeing_of_12": {"bf16_vs_off": agree(runs["bf16"], runs["off"]),
+                                         "off_vs_control": agree(runs["off"], runs["control"]),
+                                         "bf16_vs_control": agree(runs["bf16"], runs["control"]),
+                                         "int8_vs_control": agree(runs["int8"], runs["control"])},
+              "runs": {m: {k: v for k, v in r.items() if k != "streams"}
+                       for m, r in runs.items()},
+              "demote_promote": probes, "suspend": suspend, "k7_launches": launches}
+    log(f"[tier-lane] {json.dumps({k: v for k, v in result.items() if k != 'runs'})}")
+    return result, launches
+
+
+def kv_tier_phase(device):
+    """Phase 18: Mistral-7B, 32 layers, bf16, seeded weights built once."""
+    from deepspeed_tpu_torch.models import init_params, llama_config
+    cfg = llama_config("mistral-7b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, device, torch.bfloat16,
+                         torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"[kv-tier] mistral-7b weights built in {time.perf_counter() - t0:.2f} s")
+    prefix = prefix_lane(cfg, device, params)
+    tier, launches = tier_lane(cfg, device, params)
+    del params
+    torch.cuda.empty_cache()
+    return {"prefix_lane": prefix, "tier_lane": tier}, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU", file=sys.stderr)
@@ -1796,6 +2445,16 @@ def main():
     torch.cuda.empty_cache()
     lora_parity_phase(device)
     _, lora_launches = lora_serving_phase(device)
+
+    # the radix prefix cache, the host KV spill tier (bf16, int8) and suspend/resume
+    torch.cuda.empty_cache()
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    k7_rows = k7_cases(device, flush)
+    del flush
+    host_copy_readings(device)
+    torch.cuda.empty_cache()
+    tier_parity_phase(device)
+    _, k7_launches = kv_tier_phase(device)
 
     main_case = next(c for c in cases if c["case"] == "serving_decode")
     kernels = [{"name": "paged_decode_attention", "route": "cuda",
@@ -1860,6 +2519,29 @@ def main():
                     "library_ms": main_row["library_ms"],
                     "shape": "serving decode step: T=16 (8 adapters x 2 tokens), q_proj "
                              "[4096, 4096], rank 8, 9 slots, bf16", "cases": lora_cases})
+    main_row = next(r for r in k7_rows if r["case"] == "slab_bf16_n2")
+    kernels.append({"name": "quantize_int8", "route": "cuda",
+                    "source": "deepspeed_tpu_torch/csrc/quantization.cu",
+                    "replaces": "deepspeed_tpu/ops/pallas/quantization.py:28",
+                    "launches": k7_launches["quantize_int8"],
+                    "max_abs_err": max(r["quant_max_abs_err"] for r in k7_rows),
+                    "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+                    "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+                    "library_ms": None,
+                    "shape": "KV tier demotion: one of k, v of 2 Mistral-7B blocks "
+                             "[32, 2, 32, 8, 128] bf16, one group a (layer, block) slab",
+                    "cases": k7_rows})
+    main_row = next(r for r in k7_rows if r["case"] == "slab_bf16_n12")
+    kernels.append({"name": "dequantize_int8", "route": "cuda",
+                    "source": "deepspeed_tpu_torch/csrc/quantization.cu",
+                    "replaces": "deepspeed_tpu/ops/pallas/quantization.py:48",
+                    "launches": k7_launches["dequantize_int8"],
+                    "max_abs_err": max(r["max_abs_err"] for r in k7_rows),
+                    "ms": main_row["dequant_ms"], "plain_ms": main_row["dequant_plain_ms"],
+                    "bound_ms": main_row["dequant_bound_ms"], "bound_by": "bytes",
+                    "library_ms": None,
+                    "shape": "KV tier promotion: 12 Mistral-7B blocks' int8 k [32, 12, 32, 8, "
+                             "128] -> bf16, one scale a (layer, block) slab"})
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -22,6 +22,18 @@ vector, and ``flush`` drops the lease. Off, nothing changes: the wire
 format and the forward are the pre-LoRA ones. The adapter disk tier
 (``publish_root``, ``adopt_adapter``) raises.
 
+Radix prefix cache (``prefix_cache.enabled``): retired sequences' full
+blocks become content-addressable, and ``prefix_match`` (the scheduler
+calls it when it first plans a request) starts a sequence past its
+longest cached prompt prefix. Host KV spill tier (``kv_tier.enabled``,
+on top of the prefix cache): blocks the cache evicts under pressure are
+demoted to host RAM, in the pool dtype or as int8 (``kv_tier.quantize``,
+kernel K7 on the device), and promoted back when a prompt's match
+continues into them; ``prefetch_prefix`` stages them on a worker,
+``export_prefix``/``import_prefix`` carry a cached prefix between
+engines as a validated handoff record. ``suspend``/``resume`` swap a live
+sequence's KV to host memory and back.
+
 Features outside this slice raise ``NotImplementedError`` at
 construction (:func:`unported_features`), as does a sampled ``sample=``
 at call time. The ``DS_*`` environment kill switches are not read."""
@@ -34,8 +46,12 @@ from deepspeed_tpu_torch.inference.quantization.quantization import (QuantizedWe
                                                                      quantize_params_tree,
                                                                      quantized_bytes)
 from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
+from deepspeed_tpu_torch.inference.v2.kv_tier import (TierManager, kv_tier_bytes, kv_tier_enabled,
+                                                      kv_tier_quantized)
 from deepspeed_tpu_torch.inference.v2.model_runner import ragged_forward, rope_tables
 from deepspeed_tpu_torch.inference.v2.modules.heuristics import instantiate_attn
+from deepspeed_tpu_torch.inference.v2.prefix_cache import (PrefixCacheManager,
+                                                           prefix_cache_enabled)
 from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import NULL_BLOCK, BlockedKVCache
 from deepspeed_tpu_torch.inference.v2.ragged.ragged_manager import DSStateManager
 from deepspeed_tpu_torch.inference.v2.ragged.ragged_wrapper import (RaggedBatchWrapper,
@@ -55,7 +71,7 @@ def unported_features(config):
     """→ [(feature, roadmap item)] the config turns on that the port
     does not serve yet."""
     out = []
-    for name in ("prefix_cache", "kv_tier", "spec_decode", "structured", "async_burst"):
+    for name in ("spec_decode", "structured", "async_burst"):
         if getattr(config, name).enabled:
             out.append((name, _QUEUE4))
     if config.lora.enabled and config.lora.publish_root:
@@ -140,6 +156,48 @@ class InferenceEngineV2:
                                        cfg.num_key_value_heads, cfg.head_dim, dtype=dtype,
                                        device=self.device)
         self.state_manager = DSStateManager(self.kv_cache, int(sm.max_tracked_sequences))
+        # host_syncs counts executions of the host-sync sites the JAX engine
+        # marks (one per put for the input tokens, one per put or burst for
+        # the results, one per burst entry token) and the spill tier's
+        # device->host copies; tokens_emitted counts tokens handed to
+        # callers. forward_steps counts ragged forwards.
+        self.host_syncs = 0
+        self.tokens_emitted = 0
+        self.forward_steps = 0
+        # Radix prefix cache (cross-request KV reuse): retired sequences'
+        # full blocks become content-addressable and new prompts start
+        # past their longest cached prefix.
+        self.prefix_cache = None
+        if prefix_cache_enabled(self._config.prefix_cache):
+            self.prefix_cache = PrefixCacheManager(
+                self.kv_cache,
+                max_cached_blocks=int(self._config.prefix_cache.max_cached_blocks))
+            self.state_manager.attach_prefix_cache(self.prefix_cache)
+        # Host-RAM KV spill tier (tier-2): trie eviction demotes blocks
+        # into a byte-budgeted host store instead of dropping them. Layered
+        # on the prefix cache (tier-2 keys ARE the trie's chained hashes),
+        # so without a prefix cache it cannot exist.
+        self.kv_tier = None
+        if kv_tier_enabled(self._config.kv_tier):
+            if self.prefix_cache is None:
+                logger.warning(
+                    "kv_tier enabled but the prefix cache is off — the "
+                    "spill tier stores evicted TRIE blocks, so it is "
+                    "inert without one; skipping")
+            else:
+                tier_cfg = self._config.kv_tier
+                self.kv_tier = TierManager(
+                    self.prefix_cache,
+                    capacity_bytes=kv_tier_bytes(tier_cfg),
+                    quantize=kv_tier_quantized(tier_cfg),
+                    quant_group_size=int(tier_cfg.quant_group_size),
+                    prefetch=bool(tier_cfg.prefetch),
+                    count_sync=self.count_host_sync)
+                self.prefix_cache.attach_tier(self.kv_tier)
+        # the per-sequence KV-content token log feeds the prefix cache's
+        # retire-time content addressing
+        self._log_tokens = self.prefix_cache is not None
+        self._suspended = {}  # uid -> {"handle": host KV, "seen_tokens", "tokens"}
         # positions are bounded by BOTH the block table and the RoPE table
         self.max_ctx_tokens = min(self.max_blocks_per_seq * self.block_size,
                                   int(cfg.max_position_embeddings))
@@ -166,18 +224,14 @@ class InferenceEngineV2:
         self.attn_impl_name, _ = instantiate_attn(self.device, cfg.head_dim,
                                                   override=self._attn_impl)
         self._rope = rope_tables(cfg, self.device)
-        # host_syncs counts executions of the host-sync sites the JAX engine
-        # marks (one per put for the input tokens, one per put or burst for
-        # the results, one per burst entry token); tokens_emitted counts
-        # tokens handed to callers. forward_steps counts ragged forwards.
-        self.host_syncs = 0
-        self.tokens_emitted = 0
-        self.forward_steps = 0
+        tier = "off" if self.kv_tier is None else "int8" if self.kv_tier.quantize else "on"
         logger.info(f"InferenceEngineV2: max_tokens={self.max_tokens} "
                     f"max_seqs={self.max_seqs} kv_blocks={num_blocks} "
                     f"block_size={self.block_size} attention={self.attn_impl_name} "
                     f"quantization={self._qmode or 'none'} "
                     f"lora={'on' if self.lora_store is not None else 'off'} "
+                    f"prefix_cache={'on' if self.prefix_cache is not None else 'off'} "
+                    f"kv_tier={tier} "
                     f"param_bytes={self.quantized_bytes/1e6:.1f}MB "
                     f"kv_bytes={self.kv_cache.bytes()/1e6:.1f}MB")
 
@@ -244,9 +298,10 @@ class InferenceEngineV2:
                                  f"max_context={self.max_ctx_tokens}")
             blocks_needed += (desc.blocks_needed(len(tokens)) if desc is not None
                               else -(-len(tokens) // self.block_size))
-        if blocks_needed > self.kv_cache.free_blocks:
+        if blocks_needed > self._reclaimable_blocks():
             raise RuntimeError(f"KV pool exhausted: need {blocks_needed} blocks, "
-                               f"{self.kv_cache.free_blocks} free — flush() sequences first")
+                               f"{self._reclaimable_blocks()} reclaimable — "
+                               f"flush() sequences first")
         if new_seqs + self.state_manager.n_tracked_sequences > \
                 self.state_manager.max_tracked_sequences:
             raise RuntimeError("max_tracked_sequences exceeded for this batch")
@@ -263,6 +318,10 @@ class InferenceEngineV2:
             self.state_manager.allocate_for(desc, len(tokens))
             self._batch.insert_sequence(desc, tokens)
             desc.advance(len(tokens))
+            if self._log_tokens:
+                # content log: retire-time insertion into the prefix trie
+                desc.tokens.fence()
+                desc.tokens.extend(int(t) for t in tokens)
             slots.append(desc.slot)
         # decode bucket: a batch of ≤ max_seqs tokens (pure decode round)
         # runs the small step; prefill chunks run the full-budget one
@@ -312,10 +371,11 @@ class InferenceEngineV2:
                     f"max_context={self.max_ctx_tokens}")
             need += desc.blocks_needed(k)
             descs.append(desc)
-        if need > self.kv_cache.free_blocks:
+        if need > self._reclaimable_blocks():
             return None, RuntimeError(
                 f"KV pool exhausted: need {need} blocks, "
-                f"{self.kv_cache.free_blocks} free — flush() sequences first")
+                f"{self._reclaimable_blocks()} reclaimable — "
+                f"flush() sequences first")
         return descs, None
 
     def can_burst(self, batch_uids, k):
@@ -380,7 +440,16 @@ class InferenceEngineV2:
             out[i] = toks
         self.count_host_sync()
         self.tokens_emitted += k * len(batch_uids)
-        return out.cpu().numpy()[:, :len(batch_uids)]  # the one device→host copy
+        toks = out.cpu().numpy()[:, :len(batch_uids)]  # the one device→host copy
+        if self._log_tokens:
+            # log what the burst WROTE to the KV cache: step i writes its
+            # input token's KV, so positions [seen, seen+k) hold the entry
+            # token followed by the first k-1 outputs
+            for i, desc in enumerate(descs):
+                desc.tokens.fence()
+                desc.tokens.append(int(tokens0[i]))
+                desc.tokens.extend(int(t) for t in toks[:-1, i])
+        return toks
 
     def rewind(self, uid, n_tokens):
         """Roll ``uid`` back by ``n_tokens`` of KV content; now-unused
@@ -390,6 +459,71 @@ class InferenceEngineV2:
             raise KeyError(f"unknown sequence {uid}")
         self.state_manager.rewind_sequence(desc, int(n_tokens))
         return desc.seen_tokens
+
+    def _reclaimable_blocks(self):
+        """Blocks an allocation can actually obtain right now: the free
+        list plus unreferenced cached blocks the prefix cache will evict
+        under pressure. Every pool-exhaustion check compares against this
+        — cached-but-evictable blocks must never cause a spurious reject."""
+        free = self.kv_cache.free_blocks
+        if self.prefix_cache is not None:
+            free += self.prefix_cache.evictable_blocks
+        return free
+
+    @property
+    def evictable_blocks(self):
+        """Unreferenced prefix-cache blocks (0 without a cache)."""
+        return self.prefix_cache.evictable_blocks if self.prefix_cache is not None else 0
+
+    def prefix_match(self, uid, prompt_tokens):
+        """Start tracking ``uid`` with its longest cached prompt prefix
+        pre-populated (no-op returning 0 when the prefix cache is off or
+        the sequence already exists). → the number of leading prompt
+        tokens whose KV is already in the pool; the caller starts
+        prefill at that offset. Always capped one token short of the
+        prompt, so the last prompt token is recomputed and first-token
+        logits exist."""
+        if self.prefix_cache is None:
+            return 0
+        desc = self.state_manager.query(uid)
+        if desc is not None:
+            return desc.cached_tokens
+        prompt = [int(t) for t in np.atleast_1d(np.asarray(prompt_tokens))]
+        desc = self.state_manager.get_or_create_sequence(uid, prompt_tokens=prompt)
+        return desc.cached_tokens
+
+    def prefix_match_len(self, prompt_tokens):
+        """Read-only twin of :meth:`prefix_match`: → leading tokens of
+        ``prompt_tokens`` whose KV is cached (either tier), without
+        creating a sequence, taking a lease or touching hit-rate stats."""
+        if self.prefix_cache is None:
+            return 0
+        prompt = [int(t) for t in np.atleast_1d(np.asarray(prompt_tokens))]
+        return self.prefix_cache.match_len(prompt)
+
+    def prefetch_prefix(self, prompt_tokens):
+        """Fire-and-forget: stage this prompt's tier-2 KV extension on
+        the spill tier's prefetch worker so the host→device copy
+        overlaps queueing (no-op without a tier). Safe from any thread."""
+        if self.kv_tier is not None:
+            self.kv_tier.prefetch([int(t) for t in np.atleast_1d(np.asarray(prompt_tokens))])
+
+    def export_prefix(self, prompt_tokens, max_blocks=None):
+        """→ a handoff record of this prompt's cached prefix (chained-key
+        identities plus host KV, int8 when the tier quantizes), or None
+        when no spill tier is attached or nothing is cached."""
+        if self.kv_tier is None:
+            return None
+        prompt = [int(t) for t in np.atleast_1d(np.asarray(prompt_tokens))]
+        return self.kv_tier.export_chain(prompt, max_blocks=max_blocks)
+
+    def import_prefix(self, record):
+        """Adopt another engine's exported prefix into the local spill
+        tier (validated; raises KVTierCorruptionError on a forged/torn
+        record). Safe from any thread. → blocks adopted (0 tierless)."""
+        if self.kv_tier is None or record is None:
+            return 0
+        return self.kv_tier.import_chain(record)
 
     def bind_adapter(self, uid, adapter_id):
         """Pin ``uid``'s tokens to ``adapter_id``'s hot slot for the
@@ -445,12 +579,85 @@ class InferenceEngineV2:
         return desc.seen_tokens, room
 
     def flush(self, uid):
-        """Discard everything the engine holds for ``uid``."""
-        if self.state_manager.query(uid) is None:
+        """Discard everything the engine holds for ``uid`` — live KV
+        blocks (retired into the prefix cache when it is on) AND any
+        suspended host copy."""
+        suspended = self._suspended.pop(uid, None) is not None
+        desc = self.state_manager.query(uid)
+        if desc is not None:
+            desc.tokens.fence()
+            self.state_manager.flush_sequence(uid)
+        elif not suspended:
             raise KeyError(f"unknown sequence {uid}")
-        self.state_manager.flush_sequence(uid)
         if self.lora_store is not None:
             self.lora_store.release(uid)  # drop the adapter-slot lease
+
+    def suspend(self, uid):
+        """Swap a live sequence's KV blocks to host memory and release
+        them for other sequences. The sequence stops being tracked until
+        :meth:`resume`."""
+        desc = self.state_manager.query(uid)
+        if desc is None:
+            raise KeyError(f"unknown sequence {uid}")
+        if uid in self._suspended:
+            raise ValueError(f"sequence {uid} is already suspended")
+        # Shared prefix blocks belong to the radix trie and other live
+        # sequences may attend over them: copy their KV into the handle
+        # but leave the blocks cached (decref only). The resumed sequence
+        # gets private copies.
+        shared = desc.blocks[:desc.shared_blocks]
+        desc.tokens.fence()
+        handle = self.kv_cache.offload(desc.blocks, keep=shared)
+        self.count_host_sync()
+        if self.prefix_cache is not None:
+            self.prefix_cache.release_lease(uid)
+        self._suspended[uid] = {"handle": handle, "seen_tokens": desc.seen_tokens,
+                                "tokens": list(desc.tokens)}
+        desc.blocks = []  # freed by offload / kept by the trie; never double-free
+        desc.shared_blocks = 0
+        self.state_manager.drop_sequence(uid)
+
+    def is_suspended(self, uid):
+        """True when ``uid``'s KV lives in a suspended host copy."""
+        return uid in self._suspended
+
+    def suspended_blocks(self, uid):
+        """Pool blocks a :meth:`resume` of ``uid`` would need."""
+        ent = self._suspended.get(uid)
+        if ent is None:
+            raise KeyError(f"sequence {uid} is not suspended")
+        return int(ent["handle"]["k"].shape[1])
+
+    def resume(self, uid):
+        """Restore a suspended sequence's KV into freshly reserved blocks
+        (ids may differ; the descriptor re-points at them) and resume
+        tracking — decode continues exactly where it stopped."""
+        ent = self._suspended.get(uid)
+        if ent is None:
+            raise KeyError(f"sequence {uid} is not suspended")
+        # validate everything before restore() writes the pool
+        if self.state_manager.query(uid) is not None:
+            raise ValueError(f"sequence {uid} was re-registered live while "
+                             f"suspended; flush() it before resume()")
+        n = ent["handle"]["k"].shape[1]
+        if n > self._reclaimable_blocks():
+            raise RuntimeError(f"KV pool exhausted: resume needs {n} blocks, "
+                               f"{self._reclaimable_blocks()} reclaimable")
+        if self.state_manager.n_tracked_sequences >= \
+                self.state_manager.max_tracked_sequences:
+            raise RuntimeError("max_tracked_sequences exceeded; flush() a live "
+                               "sequence before resume()")
+        if self.prefix_cache is not None:
+            self.prefix_cache.ensure_free(n)
+        blocks = self.kv_cache.restore(ent["handle"])
+        del self._suspended[uid]
+        desc = self.state_manager.get_or_create_sequence(uid)
+        desc.extend_blocks(blocks)
+        desc.seen_tokens = ent["seen_tokens"]
+        # every restored block is private (shared_blocks stays 0); the
+        # token log survives suspension so retire can still cache them
+        desc.tokens = list(ent.get("tokens", ()))
+        return desc.seen_tokens
 
     def destroy(self):
         """Drop the params and the KV pool (back-to-back engine builds)."""
@@ -458,6 +665,11 @@ class InferenceEngineV2:
         self.kv_cache = None
         self.state_manager = None
         self._rope = None
+        self.prefix_cache = None
+        if self.kv_tier is not None:
+            self.kv_tier.shutdown()  # stop the prefetch worker + drop host KV
+        self.kv_tier = None
+        self._suspended = {}
         if self.lora_store is not None:
             self.lora_store.shutdown()  # stop the adapter prefetch worker
         self.lora_store = None

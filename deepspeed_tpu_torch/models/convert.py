@@ -28,7 +28,13 @@ the stacked leaves are unstacked one way and restacked the other.
 A serving tree may hold the JAX package's grouped ``QuantizedWeight``
 leaves (``quantize_params_tree``'s output): :func:`params_from_jax` turns
 each into the port's carrier byte for byte (``float8_e4m3fn`` through a
-uint8 view, which ``torch.from_numpy`` needs)."""
+uint8 view, which ``torch.from_numpy`` needs).
+
+KV offload handles and handoff records (``BlockedKVCache.offload``,
+``TierManager.export_chain``) carry over with :func:`kv_handle_from_jax`
+and back with :func:`kv_handle_to_jax`: the same dicts with numpy arrays
+(bf16 as ``ml_dtypes.bfloat16``) on the JAX side and CPU tensors on the
+port's, byte for byte."""
 
 import numpy as np
 import torch
@@ -159,3 +165,41 @@ def params_to_jax(named):
             node = node.setdefault(key, {})
         node[rest[-1]] = np.stack([per_layer[i] for i in range(len(per_layer))])
     return out
+
+
+_HANDLE_ARRAYS = ("k", "v", "k_scales", "v_scales", "quant_error")
+
+
+def _tensor_from_np(a):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _np_from_tensor(t):
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # the JAX side's bf16 numpy dtype; only its callers need it
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy().copy()
+
+
+def _convert_kv(obj, conv):
+    if isinstance(obj, dict) and "entries" in obj:  # a handoff record
+        return dict(obj, entries=[dict(e, handle=_convert_kv(e["handle"], conv))
+                                  if isinstance(e, dict) and "handle" in e else e
+                                  for e in obj["entries"]])
+    return {k: (conv(v) if k in _HANDLE_ARRAYS else v) for k, v in obj.items()}
+
+
+def kv_handle_from_jax(obj):
+    """A JAX offload handle or handoff record (numpy arrays) → the port's
+    (CPU tensors, same dtypes and bytes)."""
+    return _convert_kv(obj, _tensor_from_np)
+
+
+def kv_handle_to_jax(obj):
+    """Inverse of :func:`kv_handle_from_jax`: the port's handle or record
+    → numpy arrays as the JAX package holds them."""
+    return _convert_kv(obj, _np_from_tensor)

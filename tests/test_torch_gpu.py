@@ -19,7 +19,11 @@ bf16 training step through the kernels must match the same step pinned
 to the plain versions. So must the quantized and grouped matmuls and the
 segmented LoRA delta (which must also be bitwise row independent), each
 with an engine through the kernels against one pinned to the plain
-versions."""
+versions. The int8 group quantize/dequantize kernels (K7) must equal their
+plain versions bit for bit, stochastic rounding included, a quantized
+restore must write the same pool bytes as on the CPU, and an engine with
+an int8 KV tier must serve bit for bit as one pinned to the plain
+versions, with the launches its demotions and promotions imply."""
 
 import numpy as np
 import pytest
@@ -674,3 +678,236 @@ def test_lora_engine_on_card_matches_plain_engine(cuda):
     ulp = 2.0 ** (np.floor(np.log2(float(np.abs(b).max()))) - 7)
     assert np.abs(a - b).max() / ulp <= 4, f"{np.abs(a - b).max() / ulp} bf16 ulps"
     assert np.abs(outs["base"] - b).max() / ulp > 40
+
+
+# ------------------------------------------------------------ K7: int8 quantize
+K7_CASES = {  # name: (shape, group, dtype, stochastic)
+    "slab_bf16_n1": ((32, 1, 32, 8, 128), 0, torch.bfloat16, False),
+    "slab_bf16_n16": ((32, 16, 32, 8, 128), 0, torch.bfloat16, False),
+    "g2048_bf16_n16": ((32, 16, 32, 8, 128), 2048, torch.bfloat16, False),
+    "slab_fp32_n4": ((32, 4, 32, 8, 128), 0, torch.float32, False),
+    "g64_bf16": ((4, 3, 16, 2, 64), 64, torch.bfloat16, False),
+    "g256_padded_fp32": ((1000,), 256, torch.float32, False),
+    "g1000_fp32_scalar": ((3, 1000), 1000, torch.float32, False),
+    "g65536_fp32_unstaged": ((4, 65536), 65536, torch.float32, False),
+    "slab_bf16_stochastic": ((32, 4, 32, 8, 128), 0, torch.bfloat16, True),
+    "g64_fp32_stochastic": ((4, 3, 16, 2, 64), 64, torch.float32, True),
+}
+
+
+def _k7_input(cuda, shape, dtype, seed=0):
+    g = torch.Generator(cuda).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=cuda) * 3
+    x.view(-1)[: x.numel() // 7] = 0  # zeros, and with small groups whole zero groups
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("case", sorted(K7_CASES))
+def test_int8_quant_kernels_match_plain_bitwise(cuda, case):
+    from deepspeed_tpu_torch.ops.kernels import quantization as tq
+    shape, group, dtype, stochastic = K7_CASES[case]
+    x = _k7_input(cuda, shape, dtype)
+    gs = group or int(np.prod(shape[2:]))
+    before = (tq.quantize_int8.launches, tq.dequantize_int8.launches)
+    v, s, sh = tq.quantize_int8(x, gs, stochastic=stochastic, seed=5)
+    groups, _ = tq._group_view(x, gs)
+    rv, rs = tq.quantize_int8_ref(groups, stochastic, 5)
+    assert torch.equal(v, rv), f"{int((v != rv).sum())} codes differ"
+    assert torch.equal(s.view(torch.int32), rs.view(torch.int32))
+    for out in (torch.bfloat16, torch.float32):
+        d = tq.dequantize_int8(v, s, sh, dtype=out)
+        want = tq.dequantize_int8_ref(v, s, out).reshape(-1)[:x.numel()].reshape(sh)
+        assert torch.equal(d, want)
+    assert (tq.quantize_int8.launches - before[0], tq.dequantize_int8.launches - before[1]) \
+        == (1, 2)
+    flipped = v.clone()
+    flipped.view(-1)[v.numel() // 2] ^= 1
+    assert not torch.equal(flipped, rv)  # the exact comparison sees one code
+
+
+def test_int8_quant_kernel_on_unaligned_view(cuda):
+    from deepspeed_tpu_torch.ops.kernels import quantization as tq
+    base = _k7_input(cuda, (4 * 2048 + 1,), torch.bfloat16)
+    x = base[1:]  # 2 bytes off the 16-byte alignment: the element path
+    v, s, _ = tq.quantize_int8(x, 2048)
+    rv, rs = tq.quantize_int8_ref(x.reshape(-1, 2048))
+    assert torch.equal(v, rv) and torch.equal(s, rs)
+
+
+def test_dequantize_rows_and_quantized_restore_match_cpu(cuda):
+    from deepspeed_tpu_torch.inference.v2.ragged import BlockedKVCache
+    from deepspeed_tpu_torch.ops.kernels import quantization as tq
+    rng = np.random.RandomState(1)
+    L, n, bs, H, D = 2, 3, 32, 8, 128
+    for per_block in (1, 16):
+        q = {"k": torch.from_numpy(rng.randint(-127, 128, (L, n, bs, H, D)).astype(np.int8)),
+             "v": torch.from_numpy(rng.randint(-127, 128, (L, n, bs, H, D)).astype(np.int8)),
+             "k_scales": torch.from_numpy(rng.rand(L, n, per_block).astype(np.float32)),
+             "v_scales": torch.from_numpy(rng.rand(L, n, per_block).astype(np.float32)),
+             "quantized": True}
+        pools = {}
+        for dev in ("cpu", cuda):
+            pool = BlockedKVCache(L, 8, bs, H, D, dtype=torch.bfloat16, device=dev)
+            pool.reserve(2)  # restore into ids 3, 4, 5
+            before = tq.dequantize_int8.launches
+            assert list(pool.restore(q)) == [3, 4, 5]
+            launched = tq.dequantize_int8.launches - before
+            assert launched == (2 if dev == cuda else 0)
+            pools[str(dev)] = (pool.k.cpu(), pool.v.cpu())
+        for a, b in zip(pools["cpu"], pools[str(cuda)]):
+            assert torch.equal(a, b)
+
+
+def test_int8_quant_kernels_refuse_what_they_cannot_take(cuda):
+    from deepspeed_tpu_torch.ops.kernels import quantization as tq
+    with pytest.raises(TypeError):
+        tq.quantize_int8(torch.zeros(64, dtype=torch.float16, device=cuda), 64)
+    v, s, sh = tq.quantize_int8(torch.randn(128, device=cuda), 64)
+    with pytest.raises(TypeError):
+        tq.dequantize_int8(v, s, sh, dtype=torch.float16)
+    with pytest.raises(ValueError):
+        tq.dequantize_int8_rows(v, s, torch.zeros(4, 32, device=cuda),
+                                torch.zeros(2, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError):
+        tq.dequantize_int8_rows(v, s.cpu(), torch.zeros(4, 64, device=cuda),
+                                torch.zeros(2, dtype=torch.int32, device=cuda))
+
+
+def _plain_k7(tq):
+    """Pin K7's launchers to the plain versions (no launch counted)."""
+    def quant(groups, stochastic, seed):
+        return tq.quantize_int8_ref(groups, stochastic, seed)
+
+    def dequant(values, scales, out, rows):
+        deq = tq.dequantize_int8_ref(values, scales, out.dtype)
+        if rows is None:
+            out.copy_(deq)
+        else:
+            out[rows.long()] = deq
+    return quant, dequant
+
+
+def test_int8_tier_engine_on_card_matches_plain_engine(cuda, monkeypatch):
+    """A 2-layer bf16 engine (8 KV heads of 128, block 32: one slab is
+    Mistral-7B's 32768 values) with an int8 KV tier, under a three-phase
+    trace that demotes and promotes: through K7 and with K7 pinned to its
+    plain versions, the streams and a probe request's logits are
+    bitwise equal; each demotion launches 2 quantize and 2 dequantize
+    kernels (k and v, and their measured error) and each quantized restore
+    2 dequantize kernels."""
+    from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig,
+                                                  DynamicSplitFuseScheduler, InferenceEngineV2,
+                                                  KVTierConfig, PrefixCacheConfig,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.models import init_params, llama_config
+    from deepspeed_tpu_torch.ops.kernels import quantization as tq
+    cfg = llama_config("debug", vocab_size=1000, hidden_size=1024, intermediate_size=2048,
+                       num_attention_heads=8, num_key_value_heads=8, num_hidden_layers=2,
+                       max_position_embeddings=512)
+    params = init_params(cfg, cuda, torch.bfloat16, torch.Generator(cuda).manual_seed(2))
+    n_req, prompt_len, new = 3, 4 * 32 + 16, 16
+    per_seq = -(-(prompt_len + new) // 32)
+    ecfg = RaggedInferenceEngineConfig(
+        kv_block_size=32, num_kv_blocks=n_req * per_seq + 1 + 2,
+        prefix_cache=PrefixCacheConfig(enabled=True),
+        kv_tier=KVTierConfig(enabled=True, quantize=True, prefetch=False),
+        state_manager=DSStateManagerConfig(max_ragged_batch_size=prompt_len + n_req,
+                                           max_ragged_sequence_count=n_req,
+                                           max_tracked_sequences=n_req + 1,
+                                           max_context=prompt_len + new))
+    rng = np.random.RandomState(0)
+    system = rng.randint(0, 1000, 4 * 32)
+    fleets = [[np.concatenate([system, rng.randint(0, 1000, 16)]) for _ in range(n_req)],
+              [rng.randint(0, 1000, prompt_len) for _ in range(n_req)],
+              [np.concatenate([system, rng.randint(0, 1000, 16)]) for _ in range(n_req)]]
+    results = {}
+    for pin in ("kernel", "plain"):
+        if pin == "plain":
+            quant, dequant = _plain_k7(tq)
+            monkeypatch.setattr(tq, "_quant_kernel", quant)
+            monkeypatch.setattr(tq, "_dequant_kernel", dequant)
+        eng = InferenceEngineV2(cfg, ecfg, params=params, device=cuda)
+        calls = {"demote": 0, "restore": 0}
+        demote, restore = eng.kv_tier.demote, eng.kv_cache.restore
+
+        def counted_demote(victims):
+            calls["demote"] += bool(victims)
+            return demote(victims)
+
+        def counted_restore(handle):
+            calls["restore"] += bool(handle.get("quantized")) and handle["k"].shape[1] > 0
+            return restore(handle)
+        eng.kv_tier.demote, eng.kv_cache.restore = counted_demote, counted_restore
+        before = (tq.quantize_int8.launches, tq.dequantize_int8.launches)
+        streams, cached = [], []
+        for f, prompts in enumerate(fleets):
+            sched = DynamicSplitFuseScheduler(eng, token_budget=prompt_len + n_req, max_burst=8)
+            for i, p in enumerate(prompts):
+                sched.add_request(100 * f + i, p, max_new_tokens=new)
+            out = sched.run_to_completion()
+            streams += [out[100 * f + i] for i in range(n_req)]
+            cached += [sched.requests[100 * f + i].prefix_cached_tokens for i in range(n_req)]
+        probe = np.concatenate([system, np.arange(5, 21)])
+        got = eng.prefix_match(999, probe)
+        logits = eng.put([999], [probe[got:]])
+        torch.cuda.synchronize()
+        launched = (tq.quantize_int8.launches - before[0],
+                    tq.dequantize_int8.launches - before[1])
+        want = (0, 0) if pin == "plain" else (2 * calls["demote"],
+                                              2 * calls["demote"] + 2 * calls["restore"])
+        assert launched == want, (pin, launched, calls)
+        assert calls["demote"] > 0 and calls["restore"] > 0
+        results[pin] = (streams, cached, logits, eng.kv_tier.stats()["quant_error_max"])
+        eng.destroy()
+    k, p = results["kernel"], results["plain"]
+    assert k[0] == p[0] and k[1] == p[1] and k[3] == p[3]
+    assert np.array_equal(k[2], p[2])
+    assert sum(k[1][2 * n_req:]) > 0
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_tier_records_own_their_bytes_and_promote_from_host(cuda, quantize):
+    """A demotion stores each block's k and v in one pinned buffer of
+    exactly their size (a record locks its own bytes, which the store's
+    budget charges), and a promotion from those host records, prefetch off,
+    restores the blocks: bit for bit in bf16, within the measured error
+    plus bf16 rounding in int8."""
+    from deepspeed_tpu_torch.inference.v2.kv_tier import TierManager
+    from deepspeed_tpu_torch.inference.v2.kv_tier.quant import handle_nbytes
+    from deepspeed_tpu_torch.inference.v2.prefix_cache import PrefixCacheManager
+    from deepspeed_tpu_torch.inference.v2.ragged import BlockedKVCache, DSStateManager
+    bs = 32
+    cache = BlockedKVCache(2, 8, bs, 8, 128, dtype=torch.bfloat16, device=cuda)
+    g = torch.Generator(cuda).manual_seed(3)
+    for pool in (cache.k, cache.v):
+        pool.copy_(torch.randn(pool.shape, generator=g, device=cuda))
+    mgr = DSStateManager(cache, max_tracked_sequences=4)
+    pc = PrefixCacheManager(cache)
+    tier = TierManager(pc, 1 << 30, quantize=quantize, prefetch=False)
+    mgr.attach_prefix_cache(pc)
+    pc.attach_tier(tier)
+    tokens = list(range(3 * bs + 1))
+    d = mgr.get_or_create_sequence(1)
+    mgr.allocate_for(d, len(tokens))
+    d.advance(len(tokens))
+    d.tokens = tokens
+    want = cache.gather([int(b) for b in d.blocks[:3]])
+    mgr.flush_sequence(1)
+    pc.ensure_free(cache.free_blocks + 3)
+    records = list(tier.store._records.values())
+    assert len(records) == 3 and tier.stats()["demoted_blocks"] == 3
+    for rec in records:
+        k, v = rec["handle"]["k"], rec["handle"]["v"]
+        assert k.is_pinned() and k.untyped_storage().data_ptr() == v.untyped_storage().data_ptr()
+        assert k.untyped_storage().nbytes() == k.nbytes + v.nbytes
+        assert rec["nbytes"] == handle_nbytes(rec["handle"])
+    assert tier.store.stats()["bytes_resident"] == sum(r["nbytes"] for r in records)
+    blocks, cached = pc.acquire(2, tokens)
+    assert cached == 3 * bs and tier.stats()["stage_hits"] == 0
+    got = cache.gather(blocks)
+    for name in ("k", "v"):
+        if quantize:
+            err = tier.stats()["quant_error_max"] + float(want[name].abs().max()) * 2 ** -8
+            assert float((got[name].float() - want[name].float()).abs().max()) <= err
+        else:
+            assert torch.equal(got[name], want[name])

@@ -9,7 +9,9 @@
 - Each config switch of a feature the port does not serve or train yet
   raises ``NotImplementedError`` at engine (or model) construction, naming
   its ROADMAP item (MoE models serve, and train only once item 17 is
-  ported); so do the training engine's checkpoint methods."""
+  ported); so do the training engine's checkpoint methods. The prefix
+  cache and the KV spill tier are ported: their configs build an engine
+  that serves."""
 
 import ast
 import pathlib
@@ -82,6 +84,25 @@ def test_scans_cover_the_quantized_moe_slice():
         assert (build.CSRC / src).exists(), src
 
 
+SLICE5_MODULES = ("deepspeed_tpu_torch.ops.kernels.quantization",
+                  "deepspeed_tpu_torch.utils.sanitize",
+                  "deepspeed_tpu_torch.inference.v2.prefix_cache",
+                  "deepspeed_tpu_torch.inference.v2.prefix_cache.radix_index",
+                  "deepspeed_tpu_torch.inference.v2.prefix_cache.manager",
+                  "deepspeed_tpu_torch.inference.v2.kv_tier",
+                  "deepspeed_tpu_torch.inference.v2.kv_tier.quant",
+                  "deepspeed_tpu_torch.inference.v2.kv_tier.host_store",
+                  "deepspeed_tpu_torch.inference.v2.kv_tier.tier_manager")
+
+
+def test_scans_cover_the_kv_tier_slice():
+    """The AST scan and the jax-free import above reach the prefix cache,
+    the spill tier and kernel K7's wrapper and source."""
+    assert set(SLICE5_MODULES) <= set(_modules())
+    from deepspeed_tpu_torch.ops.kernels import build
+    assert "quantization.cu" in build.SOURCES
+
+
 def test_default_device_is_the_gpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None would rightly use it")
@@ -99,8 +120,6 @@ def test_default_device_is_the_gpu():
 
 
 OFF_SLICE = {
-    "prefix_cache": dict(prefix_cache={"enabled": True}),
-    "kv_tier": dict(kv_tier={"enabled": True}),
     "spec_decode": dict(spec_decode={"enabled": True}),
     "lora": dict(lora={"enabled": True, "publish_root": "adapters"}),  # the disk tier
     "structured": dict(structured={"enabled": True}),
@@ -115,6 +134,26 @@ def test_off_slice_feature_raises(flag):
     cfg = RaggedInferenceEngineConfig(**OFF_SLICE[flag])
     with pytest.raises(NotImplementedError, match=f"{flag}.*ROADMAP.md, port queue item"):
         InferenceEngineV2("debug", cfg, dtype=torch.float32, device="cpu")
+
+
+ON_SLICE = {
+    "prefix_cache": dict(prefix_cache={"enabled": True}),
+    "kv_tier": dict(prefix_cache={"enabled": True}, kv_tier={"enabled": True, "quantize": True}),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(ON_SLICE))
+def test_ported_feature_builds_and_serves(flag):
+    cfg = RaggedInferenceEngineConfig(kv_block_size=4, **ON_SLICE[flag])
+    eng = InferenceEngineV2("debug", cfg, dtype=torch.float32, device="cpu")
+    assert getattr(eng, flag) is not None
+    sched = DynamicSplitFuseScheduler(eng)
+    for uid in (1, 2):  # the second request finds the first one's prompt cached
+        sched.add_request(uid, list(range(3, 14)), max_new_tokens=3)
+        out = sched.run_to_completion()
+    assert out[1] == out[2] and len(out[1]) == 3
+    assert sched.requests[2].prefix_cached_tokens == 8
+    eng.destroy()
 
 
 def test_off_slice_model_and_sampling_raise():
