@@ -29,15 +29,33 @@ each of which fails the run if it fails:
    magnitude) of each other. Both attentions compute in fp32 and round
    only their output, so they differ by summation order, and the logits
    come out of a bf16 matmul;
+4b. batch invariance — (a) ``dense_matmul`` (K4's template over a bf16
+   weight, the serving path's dense projections, its K split chosen by
+   (N, K) alone) at Mistral-7B's projections, 16 and 512 rows: within
+   QUANT_TOL units of ``row_scaled_err`` of cuBLAS on the same inputs, a
+   zeroed column tile rejected, timed beside cuBLAS (the plain version and
+   the library call) and the bound, with each one's host µs to enqueue a
+   call; (b) a reading: the row counts (1 to
+   512) at which row 0 of cuBLAS's product (also with reduced-precision
+   reductions off), of ``dense_matmul`` and of the eager RMS norm moves;
+   (c) a 2-layer Mistral-7B-width engine: one request's decode token alone
+   (the 16-token bucket) and beside another prompt (the 512-token bucket),
+   each serving op's input and output recorded for its row. Gate: equal
+   logits bits and no op whose output moves on equal input; with the
+   projections pinned to cuBLAS (the path before the repair) the first op
+   that moves is printed;
 5. serving — the full 32-layer Mistral-7B-width engine (random weights
    from a seeded generator) under ``DynamicSplitFuseScheduler``: 16
    requests x 128-token random prompts x 64 new tokens, block 32, budget
    512, bursts of 16. Every request must get 64 in-vocab tokens, the
    kernel's launch count must grow by layers x forward steps, and the
-   pool must be empty again at the end. Prints tokens/s, steps, host
+   pool must be empty again at the end, and ``dense_matmul`` must launch
+   7 x layers + 1 per forward. Prints tokens/s, steps, host
    syncs per token and peak memory, then profiles one prefill step and
    one decode burst of the same traffic (device time by kernel, device
-   busy share);
+   busy share), then runs the traffic with the projections through
+   ``dense_matmul`` and pinned to cuBLAS in turn, three times each
+   (generated tokens/s and ms per forward of each: the repair's cost);
 6. train kernels — flash attention forward, dK/dV and dQ, and the RMS-norm
    forward at the training path's shapes (B=4, S=2048, H=16, Dh=128,
    causal; RMS on [8192, 2048]) and beside them S=1000 (not a tile
@@ -182,11 +200,9 @@ each of which fails the run if it fails:
    evicts the least recently used one, which comes back in another slot:
    its requests' streams in a re-run of the mixed trace unchanged); a
    staged promotion (a 10th adapter, rank 5, prefetched and then bound:
-   one ``stage_hit``, its slab rows bitwise the padded bf16 payload). The
-   solo runs of the lane's isolation check are printed as a reading, not
-   asserted: a request alone runs at smaller token buckets, where cuBLAS
-   may pick another algorithm for the base GEMMs, so its bits may move
-   for a reason that is not LoRA's. The engine is built with prefetch on
+   one ``stage_hit``, its slab rows bitwise the padded bf16 payload); and
+   requests 0-2 each run alone (at other token buckets) must reproduce
+   their mixed-trace streams bit for bit. The engine is built with prefetch on
    for that check; the scheduler never kicks a prefetch, so the runs are
    the lane's (prefetch off). Prints tokens/s of each run,
    ``multi_vs_single``, the LoRA overhead against base-only and against
@@ -227,8 +243,10 @@ each of which fails the run if it fails:
    budget 548, bursts of 16; host budget 4 GiB) on five engines: a control
    whose 256-block pool evicts nothing, the tier off, a bf16 tier, an int8
    tier, and a bf16 tier with its prefetch worker off. Gates: both bf16
-   tiers' streams equal the control's bit for bit (A' gets the same cached
-   tokens, hence the same shapes); every promoted block equals its demoted
+   tiers' streams equal the control's bit for bit, the tier-off engine's
+   (which prefills A' at other shapes) equal the control's in 12 of 12,
+   and the bf16 tier's equal the tier-off engine's in 12 of 12 (bench.py
+   asserts tier on = tier off); every promoted block equals its demoted
    bytes (a device copy at demotion); the tier saves at least twice the
    A'-phase prefill tokens of the tier-off run; the no-prefetch tier stages
    nothing; no block leaks. Readings: tokens/s per phase, demoted /
@@ -242,10 +260,54 @@ each of which fails the run if it fails:
    (its KV to host memory and back) must continue the uninterrupted stream
    bit for bit.
 
+19. K5 backward kernels — ``gmm_dw`` (dW of w1 [8, 4096, 14336] and w2
+   [8, 14336, 4096]), ``gmm``'s dx reading the stack as stored, and
+   ``gmm_quant_dx`` over int8, fp8 and fp6 carriers of each, at T·k =
+   8192 rows (B 2 x S 2048, top-2) routed with a skew that leaves expert 7
+   empty, 64-row tiles. Each within QUANT_TOL units of ``row_scaled_err``
+   of its plain version (fp32 sums in another order, one bf16 rounding),
+   the check rejecting one zeroed 64 x 64 tile (dW) or 64-row tile (dx);
+   the empty expert's dW all zeros; two dW runs equal bit for bit; rows
+   past the used tiles zero. Timed beside the plain version, the bound
+   (flops over 989 TFLOP/s or bytes over 3.35 TB/s) and the library call
+   (``torch._grouped_mm``: 2-D x 2-D with offsets on the contraction dim
+   for dW, the bf16 or dequantized stack for dx; else per-expert
+   ``torch.matmul`` times, and it says which);
+20. MoE training parity — a 2-layer Mixtral-8x7B-width model (3.17 B
+   params), dropless, remat ``"moe"``, one ``train_batch`` (B 1 x S 2048,
+   gas 2, bf16, Adam) through the kernels and from the same weights and
+   batch with attention, norms and every grouped GEMM pinned to their
+   plain versions (the plain run replays the kernel run's routing). The
+   loss within MOE_LOSS_TOL and the summed aux loss within MOE_AUX_TOL
+   relative, every parameter's accumulated gradient within GRAD_LEAF_TOL
+   in relative L2 norm; launches per layer and micro-batch: 3 ``gmm``
+   forward + 3 ``gmm`` dx, 3 ``gmm_dw``, flash forward twice (the
+   attention half is recomputed), no grouped GEMM re-run. Then the
+   frozen base: the dropless FFN over one Mixtral layer's int8 carriers
+   from ``init_quantized_params``, gradients in x only, through the
+   kernels (3 ``gmm_quant``, 3 ``gmm_quant_dx``) and the plain versions:
+   dx within GRAD_LEAF_TOL, no gradient for carriers or scales;
+21. MoE training — Mixtral-8x7B at its widths, 2 of 32 layers, through
+   ``initialize`` → ``train_batch`` (bench.py's ``_train_config``: bf16
+   with the fp32 master, Adam lr 1e-4, ZeRO-3), dropless, remat ``"moe"``,
+   B 2 x S 2048, gas 2, one seeded batch: 1 warm-up and 3 timed steps,
+   each kernel's launches as the path implies, losses and aux losses
+   finite, the aux loss > 0 and the loss lower after the 3 steps. Prints
+   ms per step, tokens/s, active MFU (bench.py's flops over the active
+   parameters: attention, norms, embedding, head, router, and k/E of the
+   experts), peak memory and a profiled step; then a step each (after a
+   warm-up) with remat ``"full"`` (3 more ``gmm`` launches per layer and
+   micro-batch) and with capacity routing (no grouped GEMM);
+22. ``bench_train_moe`` — that lane's shape (8 layers, hidden 768, I 2048,
+   12 heads, 8 experts, top-2, S 1024, B 4, gas 32, remat ``"moe"``),
+   dropless, then capacity-routed on a fresh model: tokens/s, active MFU
+   and the step time of each.
+
 The last lines are the card, one JSON object with every kernel's numbers
 and, last, ``{"ok": true, "device": {...}}``."""
 
 import contextlib
+import gc
 import json
 import math
 import sys
@@ -292,6 +354,15 @@ TIER_BUDGET = TIER_PROMPT + TIER_N_REQ
 TIER_KV_BLOCKS = TIER_N_REQ * -(-(TIER_PROMPT + TIER_NEW) // BS) + 1 + 4  # 81: B evicts A
 TIER_CONTROL_BLOCKS = 256     # nothing is evicted: A's and B's retired chains fit beside B
 TIER_HOST_BYTES = 4 << 30
+# phases 19-21: Mixtral-8x7B width, 2 of 32 layers; T·k = 8192 rows (B 2 x S 2048, top-2)
+MOE_TRAIN_SIZES = (2048, 1638, 1229, 1065, 819, 737, 656, 0)  # skewed, expert 7 empty
+MOE_TRAIN_LAYERS = 2
+MB, MS, MGAS = 2, 2048, 2     # phase 21: micro batch, sequence, gas (bf16, Adam, ZeRO-3)
+MOE_LOSS_TOL, MOE_AUX_TOL = 1e-4, 1e-4  # phase 20: relative, kernels vs plain
+# phase 22: bench.py's bench_train_moe: 8 layers, hidden 768, I 2048, 12 heads, 8 experts,
+# top-2, S 1024, B 4, gas 32
+BENCH_MOE_LAYERS, BENCH_MOE_HIDDEN, BENCH_MOE_INTER, BENCH_MOE_HEADS = 8, 768, 2048, 12
+BENCH_MOE_S, BENCH_MOE_B, BENCH_MOE_GAS = 1024, 4, 32
 
 
 def log(msg):
@@ -476,6 +547,219 @@ def parity_phase(device):
     return max(errs)
 
 
+# ---------------------------------------------------------------- phase 4b
+INV_SEQS, INV_TOKENS = 16, 512  # the serving engine's two token buckets (max_seqs, budget)
+INV_ROWS = (1, 7, 16, 64, 255, 512)  # row counts of the per-op reading
+INV_GEMMS = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 32000))
+INV_ROUNDS = 3  # the cost reading: each path in turn, three times
+# each serving op the layer step calls, in order (model_runner._layer_step), then the tail
+INV_OPS = ("input_norm", "q", "k", "v", "rope_q", "rope_k", "attention", "o", "post_norm",
+           "gate", "up", "down")
+
+
+def cublas_proj(x, w, b=None):
+    """The serving projection before the repair: ``x @ w`` through cuBLAS
+    for a bf16 weight (the fused kernel for carriers)."""
+    from deepspeed_tpu_torch.inference.quantization.quantization import matmul_any
+    y = matmul_any(x, w, dtype=x.dtype)
+    return y if b is None else y + b.to(x.dtype)
+
+
+@contextlib.contextmanager
+def serving_proj(proj):
+    """Pin the serving forward's projection to ``proj``."""
+    from deepspeed_tpu_torch.inference.v2 import model_runner as mr
+    saved, mr._proj = mr._proj, proj
+    try:
+        yield
+    finally:
+        mr._proj = saved
+
+
+def dense_matmul_cases(device, flush):
+    """``dense_matmul`` at Mistral-7B's projections, decode (16 rows) and
+    prefill (512 rows): within QUANT_TOL of its plain version (cuBLAS on
+    the same bf16 inputs; both sum fp32 products in other orders and round
+    once), the check rejecting one 64-column tile zeroed; timed beside the
+    plain version (which is also the library call) and the bound."""
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import row_scaled_err
+    from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import dense_matmul, dense_matmul_ref
+    rows = []
+    for i, (K, N) in enumerate(INV_GEMMS):
+        for M in (INV_SEQS, INV_TOKENS):
+            g = torch.Generator(device=device).manual_seed(300 + i)
+            x = torch.randn(M, K, generator=g, device=device).to(torch.bfloat16)
+            w = (torch.randn(K, N, generator=g, device=device) * 0.02).to(torch.bfloat16)
+            got, want = dense_matmul(x, w), dense_matmul_ref(x, w)
+            torch.cuda.synchronize()
+            err, zerr = row_scaled_err(got, want.float()), row_scaled_err(zero_col_tile(got),
+                                                                         want.float())
+            if err > QUANT_TOL or zerr <= QUANT_TOL:
+                raise AssertionError(f"dense_matmul M={M} [{K}, {N}]: row_scaled_err {err}, "
+                                     f"zeroed tile {zerr}")
+            b_ms, b_by = bound(2 * (M * K + K * N + M * N), 2 * M * K * N)
+            plain_ms = time_ms(lambda: dense_matmul_ref(x, w), flush)
+            host = {}
+            for name, fn in (("host_us_per_call", dense_matmul), ("plain_host_us_per_call",
+                                                                 dense_matmul_ref)):
+                torch.cuda.synchronize()  # host time to enqueue one call: the decode
+                t0 = time.perf_counter()  # forward is host-bound
+                for _ in range(200):
+                    fn(x, w)
+                host[name] = (time.perf_counter() - t0) / 200 * 1e6
+                torch.cuda.synchronize()
+            row = {"case": f"M{M}_{K}x{N}", "M": M, "K": K, "N": N, "max_abs_err": max_abs(got, want),
+                   "row_err": err, "zeroed_tile_row_err": zerr,
+                   "ms": time_ms(lambda: dense_matmul(x, w), flush), "plain_ms": plain_ms,
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": plain_ms,
+                   "library_call": "torch.matmul (the plain version)", **host}
+            log(f"[dense-matmul] {json.dumps(row)}")
+            rows.append(row)
+    return rows
+
+
+def invariance_ops_reading(device):
+    """Row 0 of each op at every row count of INV_ROWS against row 0
+    alone (M = 1), bitwise: the row counts at which its bits move."""
+    from deepspeed_tpu_torch.inference.v2.model_runner import _rms
+    from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import dense_matmul
+    g = torch.Generator(device=device).manual_seed(11)
+    M = max(INV_ROWS)
+    out = {}
+
+    def moved(f, x):
+        ref = f(x[:1].contiguous())
+        return [m for m in INV_ROWS if not torch.equal(f(x[:m].contiguous())[:1], ref)]
+
+    for K, N in INV_GEMMS:
+        x = torch.randn(M, K, generator=g, device=device).to(torch.bfloat16)
+        w = (torch.randn(K, N, generator=g, device=device) * 0.02).to(torch.bfloat16)
+        out[f"cublas_{K}x{N}"] = moved(lambda a: a @ w, x)
+        flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        try:
+            out[f"cublas_fp32_reduce_{K}x{N}"] = moved(lambda a: a @ w, x)
+        finally:
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+        out[f"dense_matmul_{K}x{N}"] = moved(lambda a: dense_matmul(a, w), x)
+    x = torch.randn(M, 4096, generator=g, device=device).to(torch.bfloat16) * 3
+    sc = (1 + 0.1 * torch.randn(4096, generator=g, device=device)).to(torch.bfloat16)
+    out["eager_rms_4096"] = moved(lambda a: _rms(a, sc, 1e-5), x)
+    log(f"[invariance] per op, the row counts of {list(INV_ROWS)} at which row 0 differs "
+        f"from row 0 alone: {json.dumps(out)}")
+    return out
+
+
+def invariance_trace(cfg, params, device, proj=None):
+    """One request's decode token at the decode bucket (alone) and at the
+    prefill bucket (beside another request's prompt), same weights and
+    prompt: → (equal logits, the ops that moved by themselves, every op's
+    first difference), recording each op's input and output for that
+    token's row (row 0: the request is the batch's first)."""
+    from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig, InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.inference.v2 import model_runner as mr
+    sm = DSStateManagerConfig(max_ragged_batch_size=INV_TOKENS,
+                              max_ragged_sequence_count=INV_SEQS, max_tracked_sequences=4,
+                              max_context=256)
+    rng = np.random.RandomState(5)
+    prompt = rng.randint(0, cfg.vocab_size, 100).astype(np.int32)
+    other = rng.randint(0, cfg.vocab_size, 60).astype(np.int32)
+    runs = {}
+    for kind in ("alone", "mixed"):
+        eng = InferenceEngineV2(cfg, RaggedInferenceEngineConfig(kv_block_size=BS,
+                                                                 state_manager=sm),
+                                params=params, device=device)
+        first = eng.put([0], [prompt])
+        tok = int(np.argmax(first[0]))
+        rec = []
+
+        def wrap(fn):
+            def call(x, *args, **kw):
+                y = fn(x, *args, **kw)
+                rec.append((x[:1].clone(), y[:1].clone()))
+                return y
+            return call
+
+        saved = mr._proj, mr._rms, mr._rope_flat, mr._paged_attend
+        mr._proj, mr._rms = wrap(proj or mr._proj), wrap(mr._rms)
+        mr._rope_flat, mr._paged_attend = wrap(mr._rope_flat), wrap(mr._paged_attend)
+        try:
+            logits = eng.put([0] if kind == "alone" else [0, 1], [[tok]] if kind == "alone"
+                             else [[tok], other])
+        finally:
+            mr._proj, mr._rms, mr._rope_flat, mr._paged_attend = saved
+        runs[kind] = (logits[0], rec)
+        eng.destroy()
+    names = [f"layer{i}.{op}" for i in range(cfg.num_hidden_layers) for op in INV_OPS] + \
+        ["final_norm", "head"]
+    (la, ra), (lb, rb) = runs["alone"], runs["mixed"]
+    if len(ra) != len(names) or len(rb) != len(names):
+        raise AssertionError(f"invariance: recorded {len(ra)}/{len(rb)} ops, want {len(names)}")
+    moved_alone, first_diff = [], None
+    for name, (xa, ya), (xb, yb) in zip(names, ra, rb):
+        same_in, same_out = torch.equal(xa, xb), torch.equal(ya, yb)
+        if same_in and not same_out:
+            moved_alone.append(name)
+        if first_diff is None and not same_out:
+            first_diff = name
+    return bool(np.array_equal(la, lb)), moved_alone, first_diff
+
+
+def batch_invariance_phase(device):
+    """Phase 4b: the per-op reading, then a 2-layer Mistral-7B-width
+    engine's decode token alone (bucket INV_SEQS) and beside a prompt
+    (bucket INV_TOKENS) through the port's serving path (gate: equal
+    logits and no op that moves), and with the projections pinned to
+    cuBLAS, the path before the repair (a reading: its first difference
+    names the op that moved)."""
+    from deepspeed_tpu_torch.models import init_params, llama_config
+    ops = invariance_ops_reading(device)
+    cfg = llama_config("mistral-7b", num_hidden_layers=2)
+    params = init_params(cfg, device, torch.bfloat16,
+                         torch.Generator(device=device).manual_seed(1))
+    out = {"ops": ops}
+    for name, proj in (("port", None), ("cublas_proj", cublas_proj)):
+        equal, moved, first = invariance_trace(cfg, params, device, proj)
+        out[name] = {"logits_equal": equal, "ops_that_moved": moved, "first_difference": first}
+        log(f"[invariance] {name}: decode token alone vs at the prefill bucket: logits equal "
+            f"{equal}; ops whose output moved on equal input {moved}; first difference "
+            f"{first}")
+    if not out["port"]["logits_equal"] or out["port"]["ops_that_moved"]:
+        raise AssertionError(f"invariance: the serving path moves with the token bucket: "
+                             f"{out['port']}")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def invariance_cost(engine):
+    """Phase 5's traffic on ``engine`` with the projections through
+    ``dense_matmul`` (the port) and pinned to cuBLAS (before the repair),
+    in turn INV_ROUNDS times each (cuBLAS, port, port, cuBLAS, ...): the
+    runs are host-bound and vary, so medians. → generated tokens/s and ms
+    per forward of each."""
+    order = (["cublas", "port", "port", "cublas"] * INV_ROUNDS)[:2 * INV_ROUNDS]
+    runs = {"cublas": [], "port": []}
+    for name in order:
+        f0 = engine.forward_steps
+        with serving_proj(cublas_proj) if name == "cublas" else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_requests(engine, N_REQ, PROMPT, NEW, seed=0)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        runs[name].append((N_REQ * NEW / dt, dt * 1e3 / (engine.forward_steps - f0)))
+    out = {name: {"gen_tokens_per_sec_median": float(np.median([r[0] for r in rows])),
+                  "gen_tokens_per_sec": [r[0] for r in rows],
+                  "ms_per_forward_median": float(np.median([r[1] for r in rows]))}
+           for name, rows in runs.items()}
+    out["port_over_cublas"] = (out["port"]["gen_tokens_per_sec_median"] /
+                               out["cublas"]["gen_tokens_per_sec_median"])
+    log(f"[invariance] cost on phase 5's traffic: {json.dumps(out)}")
+    return out
+
+
 # ---------------------------------------------------------------- phase 5
 def add_requests(engine, n, plen, ntok, seed, budget=BUDGET, burst=BURST, adapters=None):
     from deepspeed_tpu_torch.inference.v2 import DynamicSplitFuseScheduler
@@ -504,6 +788,7 @@ def serving_phase(device):
                                                   RaggedInferenceEngineConfig)
     from deepspeed_tpu_torch.models import llama_config
     from deepspeed_tpu_torch.models.llama import count_params
+    from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import dense_matmul
     from deepspeed_tpu_torch.ops.kernels.paged_attention import paged_decode_attention
     cfg = llama_config("mistral-7b")
     ecfg = RaggedInferenceEngineConfig(
@@ -527,18 +812,22 @@ def serving_phase(device):
     torch.cuda.reset_peak_memory_stats()
     syncs0, toks0, fwd0 = engine.host_syncs, engine.tokens_emitted, engine.forward_steps
 
-    paged_decode_attention.launches = 0
+    paged_decode_attention.launches = dense_matmul.launches = 0
     t0 = time.perf_counter()
     streams, steps = run_requests(engine, N_REQ, PROMPT, NEW, seed=0)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = paged_decode_attention.launches
+    dense_launches = dense_matmul.launches
 
     fwd = engine.forward_steps - fwd0
     syncs, toks = engine.host_syncs - syncs0, engine.tokens_emitted - toks0
     if launches == 0 or launches != cfg.num_hidden_layers * fwd:
         raise AssertionError(f"kernel launches {launches} != layers x forward steps "
                              f"{cfg.num_hidden_layers} x {fwd}")
+    if dense_launches != (7 * cfg.num_hidden_layers + 1) * fwd:  # q k v o gate up down, head
+        raise AssertionError(f"dense_matmul launches {dense_launches} != (7 x layers + 1) x "
+                             f"forward steps {fwd}")
     if sorted(streams) != list(range(N_REQ)):
         raise AssertionError(f"requests served: {sorted(streams)}")
     for uid, toks_u in streams.items():
@@ -552,11 +841,12 @@ def serving_phase(device):
               "gen_tokens_per_sec": N_REQ * NEW / dt,
               "total_tokens_per_sec": N_REQ * (PROMPT + NEW) / dt,
               "host_syncs": syncs, "syncs_per_token": syncs / max(toks, 1),
-              "kernel_launches": launches,
+              "kernel_launches": launches, "dense_matmul_launches": dense_launches,
               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     log(f"[serving] {json.dumps(result)}")
     log(f"[serving] request 0 first tokens: {streams[0][:8]}")
     result["profile"] = profile_steps(engine)
+    result["invariance_cost"] = invariance_cost(engine)
     engine.destroy()
     return result, launches
 
@@ -564,8 +854,11 @@ def serving_phase(device):
 _CATEGORIES = (  # (category, name patterns: a substring, or a tuple of substrings that must
     # all appear), first match wins; K4 and K5 are instances of one template ("qgemm")
     ("lora_delta (K6)", ("lora_kernel",)),
-    ("quant_matmul (K4)", (("qgemm_kernel", "false>"), "reduce_splits_kernel")),
+    ("dense_matmul (K4's bf16 instance)", (("qgemm_kernel<0,", "false>"),)),
+    ("quant_matmul (K4)", (("qgemm_kernel", "false>"),)),
+    ("split-K sums (K4, dense_matmul)", ("reduce_splits_kernel",)),
     ("grouped_matmul (K5)", (("qgemm_kernel", "true>"),)),
+    ("grouped_matmul backward (K5: dx, dW)", ("gmm_dx_kernel", "gmm_dw_kernel")),
     ("flash_attention (K1)", ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")),
     ("rms_norm (K2)", ("rms_fwd_kernel",)),
     ("paged_attention (K3)", ("paged_decode_kernel",)),
@@ -871,6 +1164,7 @@ def train_parity_phase(device):
                          [m.clone() for m in engine.master_params])
         engine.destroy()
         del model, engine
+        gc.collect()  # the wrapped step and the engine hold each other
         torch.cuda.empty_cache()
     (lk, nk, gk, mk), (lp, np_, gp, mp) = results["kernels"], results["plain"]
     leaf = {n: ((a - b).norm() / b.norm()).item() for n, a, b in zip(names, gk, gp)}
@@ -890,14 +1184,17 @@ def train_parity_phase(device):
     return res
 
 
-def capture_grads(engine):
+def capture_grads(engine, to_host=False):
     """→ a list that ``engine.step()`` fills with a copy of the accumulated
-    fp32 gradients, one per parameter, just before it applies them."""
+    fp32 gradients, one per parameter, just before it applies them; in
+    host memory with ``to_host`` (two 3.17 B-parameter runs' gradients do
+    not fit the card beside an engine)."""
     grads, step = [], engine.step
 
     def recording_step(*args, **kwargs):
         if engine.is_gradient_accumulation_boundary():
-            grads[:] = [g.float().clone() for g in engine._grads_acc]
+            grads[:] = [g.float().cpu() if to_host else g.float().clone()
+                        for g in engine._grads_acc]
         return step(*args, **kwargs)
 
     engine.step = recording_step
@@ -1212,13 +1509,16 @@ def plain_serving_kernels():
 
 
 @contextlib.contextmanager
-def routing(record, replay):
+def routing(record, replay, mr=None):
     """Record each MoE layer's top-k experts (``replay`` False), or make
     the router take the recorded ones, in call order, with its own gate
     values at those experts (``replay`` True). Yields a one-element list
     that counts the tokens whose own top-k set differed from the recorded
-    one: near-ties that the two runs' bf16 roundings break differently."""
-    from deepspeed_tpu_torch.inference.v2 import model_runner as mr
+    one: near-ties that the two runs' bf16 roundings break differently.
+    ``mr``: the module whose ``top_k`` the router calls (the serving
+    runner when None; ``moe.sharded_moe`` for training)."""
+    if mr is None:
+        from deepspeed_tpu_torch.inference.v2 import model_runner as mr
     orig, calls, flips = mr.top_k, iter(record), [0]
 
     def top_k(gates, k):
@@ -1721,7 +2021,10 @@ def lora_serving_phase(device):
     solo = [lora_run(engine, [prompts[i]], [mix[i]], uids)[0][0] == streams["mixed"][i]
             for i in range(3)]
     log(f"[lora-serving] isolation: 3 of 3 streams bit-identical at fixed shapes; solo runs "
-        f"(smaller buckets, a reading only) identical: {solo}")
+        f"(other token buckets) identical: {solo}")
+    if not all(solo):
+        raise AssertionError(f"lora isolation: a request alone differs from its mixed-trace "
+                             f"stream ({solo})")
 
     # slot moves: adapter 9 evicts the least recently used adapter X, then X
     # comes back and evicts the next one, so it lands in another slot
@@ -2351,6 +2654,12 @@ def tier_lane(cfg, device, params):
     def agree(a, b):
         return sum(x == y for p in a["streams"] for x, y in zip(a["streams"][p],
                                                                  b["streams"][p]))
+    # batch invariance: the tier-off engine prefills A' at other shapes than
+    # the control; the bf16 tier equals the tier off, as bench.py asserts
+    for a, b in (("off", "control"), ("bf16", "off")):
+        if agree(runs[a], runs[b]) != 3 * TIER_N_REQ:
+            raise AssertionError(f"tier lane: {a} agrees with {b} in "
+                                 f"{agree(runs[a], runs[b])} of {3 * TIER_N_REQ} streams")
     result = {"requests_per_phase": TIER_N_REQ, "system_prompt_len": TIER_SYS,
               "suffix_len": TIER_SFX, "new_tokens": TIER_NEW, "num_kv_blocks": TIER_KV_BLOCKS,
               "control_blocks": TIER_CONTROL_BLOCKS,
@@ -2390,6 +2699,473 @@ def kv_tier_phase(device):
     return {"prefix_lane": prefix, "tier_lane": tier}, launches
 
 
+# ---------------------------------------------------------------- phase 19
+def moe_train_layout(device):
+    """The phase's routing: MOE_TRAIN_SIZES rows per expert, tile-aligned
+    → (sizes, dst, tile_experts, used_tiles, Mp, tm)."""
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import row_tile
+    sizes = torch.tensor(MOE_TRAIN_SIZES, device=device)
+    n = int(sum(MOE_TRAIN_SIZES))
+    tm = row_tile(-(-n // len(MOE_TRAIN_SIZES)))
+    dst, te, Mp = gm.pad_groups_to_tiles(sizes, n, tm)
+    return sizes, dst.long(), te, gm.used_tiles(sizes, tm), Mp, tm
+
+
+def dw_library(xs, dys, sizes, flush):
+    """The yardstick for dW: ``torch._grouped_mm`` of xᵀ [K, n] and dy
+    [n, N] with offsets on the contraction dim where this torch takes the
+    case, else the sum of per-expert ``torch.matmul`` times. ``xs``/``dys``
+    are the tile layout's used rows and ``sizes`` the padded groups: its
+    kernel asserts on the device (and the context is lost) unless every
+    group's rows are a multiple of 16 bytes, and the zero pad rows add
+    nothing."""
+    offs = torch.cumsum(sizes, 0).to(torch.int32)
+    if hasattr(torch, "_grouped_mm"):
+        a, b = xs.t().contiguous(), dys.t().contiguous().t()
+        try:
+            torch._grouped_mm(a, b, offs=offs)
+            torch.cuda.synchronize()
+        except RuntimeError as exc:  # this torch refuses the case: the per-expert sum below
+            log(f"[grouped-bwd] torch._grouped_mm refused the dW case: {str(exc)[:120]}")
+        else:
+            return {"library_ms": time_ms(lambda: torch._grouped_mm(a, b, offs=offs), flush),
+                    "library_call": "torch._grouped_mm (2-D x 2-D, offsets on the "
+                                    "contraction dim)"}
+    bounds, total = [0] + offs.tolist(), 0.0
+    for e in range(sizes.shape[0]):
+        if bounds[e + 1] > bounds[e]:
+            xe, de = xs[bounds[e]:bounds[e + 1]].t(), dys[bounds[e]:bounds[e + 1]]
+            total += time_ms(lambda: xe @ de, flush)
+    return {"library_ms": total, "library_call": "sum of per-expert torch.matmul"}
+
+
+def gmm_bwd_cases(device, flush):
+    """Phase 19: K5's backward kernels at Mixtral's expert stacks over the
+    phase's skewed routing (8192 rows, expert 7 empty, 64-row tiles):
+    ``gmm_dw`` at w1 [8, 4096, 14336] and w2 [8, 14336, 4096], ``gmm``'s dx
+    on each stack as stored, and ``gmm_quant_dx`` over int8, fp8 and fp6
+    carriers of each. Each held against its plain version with
+    ``row_scaled_err`` (limit QUANT_TOL), the check rejecting the output
+    with one tile zeroed; dW of the empty expert all zeros and two dW runs
+    equal bit for bit; each timed beside its plain version, one library
+    call and the bound. → {"gmm_dw": rows, "gmm_dx": rows, "gmm_quant_dx": rows}."""
+    from deepspeed_tpu_torch.inference.quantization.quantization import _quantize_grouped
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import row_scaled_err
+    from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import dequantize_grouped
+    sizes, dst, te, used, Mp, tm = moe_train_layout(device)
+    n, E = int(sizes.sum()), sizes.shape[0]
+    busiest, empty = int(sizes.argmax()), [e for e in range(E) if not int(sizes[e])]
+    start = int(((sizes[:busiest] + tm - 1) // tm * tm).sum())
+    touched = [e for e in range(E) if int(sizes[e])]
+    g = torch.Generator(device=device).manual_seed(19)
+
+    def rows(cols, scale):
+        r = torch.zeros((Mp, cols), dtype=torch.bfloat16, device=device)
+        r[dst] = (torch.randn(n, cols, generator=g, device=device) * scale).to(torch.bfloat16)
+        return r
+
+    def check(name, got, want, zeroed):
+        torch.cuda.synchronize()
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError(f"{name}: non-finite kernel output")
+        err, zerr = row_scaled_err(got, want.float()), row_scaled_err(zeroed, want.float())
+        if err > QUANT_TOL or zerr <= QUANT_TOL:
+            raise AssertionError(f"{name}: row_scaled_err {err} (limit {QUANT_TOL}), zeroed "
+                                 f"tile {zerr} (must exceed it)")
+        return {"max_abs_err": max_abs(got, want), "row_err": err, "zeroed_tile_row_err": zerr}
+
+    out = {"gmm_dw": [], "gmm_dx": [], "gmm_quant_dx": []}
+    for si, (wname, (K, N)) in enumerate(zip(("w1", "w2"), MLP_SHAPES)):
+        x, dy = rows(K, 1.0), rows(N, 0.02)
+        # dW
+        got = gm.gmm_dw(x, dy, te, E, tm, used)
+        again = gm.gmm_dw(x, dy, te, E, tm, used)
+        want = gm.gmm_dw_ref(x, dy, te, E, tm, used, out_dtype=torch.float32)
+        zeroed = got.clone()
+        zeroed[busiest, :64, :64] = 0
+        row = check(f"gmm_dw {wname}", got, want, zeroed)
+        if not torch.equal(got, again):
+            raise AssertionError(f"gmm_dw {wname}: two runs differ")
+        if any(got[e].any() for e in empty):
+            raise AssertionError(f"gmm_dw {wname}: the empty expert's dW is not zero")
+        del again, want, zeroed
+        b_ms, b_by = bound(2 * n * (K + N) + E * K * N * 2, 2 * n * K * N)
+        row.update({"case": f"dw_{wname}", "rows": n, "tm": tm, "padded_rows": Mp, "K": K,
+                    "N": N, "experts": E, "empty_experts": empty, "deterministic": True,
+                    "ms": time_ms(lambda: gm.gmm_dw(x, dy, te, E, tm, used), flush),
+                    "plain_ms": time_ms(lambda: gm.gmm_dw_ref(x, dy, te, E, tm, used), flush,
+                                        iters=3),
+                    "bound_ms": b_ms, "bound_by": b_by, "flops": 2 * n * K * N})
+        padded = (sizes + tm - 1) // tm * tm
+        n_pad = int(padded.sum())
+        row.update(dw_library(x[:n_pad], dy[:n_pad], padded, flush))
+        log(f"[grouped-bwd] gmm_dw {json.dumps(row)}")
+        out["gmm_dw"].append(row)
+        del got
+        # dx: dy [Mp, N] against the stack [E, K, N] as stored
+        w = (torch.randn(E, K, N, generator=g, device=device) * 0.02).to(torch.bfloat16)
+        for scheme in ("bf16", "int8", "fp8", "fp6"):
+            quant = scheme != "bf16"
+            q = _quantize_grouped(w, scheme, 512) if quant else None
+            w_bf16 = dequantize_grouped(q.values, q.scales, scheme, torch.bfloat16) if quant \
+                else w
+
+            def run():
+                if quant:
+                    return gm.gmm_quant_dx(dy, q.values, q.scales, te, scheme, torch.bfloat16,
+                                           tm, used)
+                return gm.gmm_transposed(dy, w, te, tm, used)
+
+            def plain():
+                if quant:
+                    return gm.gmm_quant_dx_ref(dy, q.values, q.scales, te, scheme,
+                                               torch.bfloat16, tm, used)
+                return gm.gmm_transposed_ref(dy, w, te, tm, used)
+
+            got, want = run(), plain()
+            zeroed = got.clone()
+            zeroed[start:start + 64] = 0
+            name = f"{'gmm_quant_dx' if quant else 'gmm dx'} {scheme} {wname}"
+            row = check(name, got, want, zeroed)
+            if got[int(used) * tm:].any():
+                raise AssertionError(f"{name}: rows past the used tiles are not zero")
+            wbytes = (carrier_bytes(q, touched) if quant else w[0].nbytes * len(touched))
+            b_ms, b_by = bound(wbytes + 2 * n * (K + N), 2 * n * K * N)
+            row.update({"case": f"{scheme}_dx_{wname}", "scheme": scheme, "rows": n, "tm": tm,
+                        "K": K, "N": N, "ms": time_ms(run, flush),
+                        "plain_ms": time_ms(plain, flush, iters=3), "bound_ms": b_ms,
+                        "bound_by": b_by, "flops": 2 * n * K * N})
+            row.update(grouped_library(dy[dst], w_bf16.transpose(1, 2), sizes, flush))
+            log(f"[grouped-bwd] {name} {json.dumps(row)}")
+            out["gmm_quant_dx" if quant else "gmm_dx"].append(row)
+            del got, want, zeroed, q, w_bf16
+        del x, dy, w
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------- phase 20
+@contextlib.contextmanager
+def plain_moe_train_kernels():
+    """Pin the training model's attention, norms and grouped GEMMs
+    (forward, dx, dW, quantized forward and dx) to their plain versions."""
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    names = ("gmm", "gmm_transposed", "gmm_dw", "gmm_quant", "gmm_quant_dx")
+    saved = [getattr(gm, n) for n in names]
+    for n in names:
+        setattr(gm, n, getattr(gm, n + "_ref"))
+    try:
+        with plain_train_kernels():
+            yield
+    finally:
+        for n, f in zip(names, saved):
+            setattr(gm, n, f)
+
+
+def moe_train_counters():
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    from deepspeed_tpu_torch.ops.kernels.fused_norms import rms_norm_fwd
+    return {"gmm": gm.gmm, "gmm_dw": gm.gmm_dw, "gmm_quant": gm.gmm_quant,
+            "gmm_quant_dx": gm.gmm_quant_dx, "flash_fwd": fa.flash_fwd,
+            "flash_bwd_dkv": fa.flash_bwd_dkv, "flash_bwd_dq": fa.flash_bwd_dq,
+            "rms_norm_fwd": rms_norm_fwd}
+
+
+def moe_train_launches(L, gas, policy):
+    """What one dropless MoE training step launches: per layer and
+    micro-batch 3 grouped GEMMs forward, 3 dx and 3 dW, plus the forward
+    again under remat "full" (the whole block recomputed); flash forward
+    twice (the attention half is recomputed under either policy), dK/dV
+    and dQ once; RMS 4 per layer (both norms, recomputed) and the final
+    norm."""
+    return {"gmm": (9 if policy == "full" else 6) * L * gas, "gmm_dw": 3 * L * gas,
+            "gmm_quant": 0, "gmm_quant_dx": 0, "flash_fwd": 2 * L * gas,
+            "flash_bwd_dkv": L * gas, "flash_bwd_dq": L * gas, "rms_norm_fwd": (4 * L + 1) * gas}
+
+
+def moe_train_model(device, seed, **overrides):
+    from deepspeed_tpu_torch.models import build_llama
+    return build_llama("mixtral-8x7b", device=device, dtype=torch.bfloat16,
+                       num_hidden_layers=MOE_TRAIN_LAYERS, moe_drop_tokens=False,
+                       remat_policy="moe", generator=torch.Generator(device=device).manual_seed(seed),
+                       **overrides)
+
+
+def moe_batch(vocab, device, B, S, gas, seed=0):
+    """One seeded batch [gas, B, S] (``train_batch`` takes micro-batch g
+    as ``ids[g]``)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    ids = torch.randint(0, vocab, (gas, B, S), generator=g, device=device, dtype=torch.int32)
+    return ids, ids.clone()
+
+
+def aux_recorder(model):
+    """→ a list that collects each forward's summed aux loss (the model
+    trunk's second output)."""
+    auxes = []
+    model.model.register_forward_hook(lambda m, i, o: auxes.append(o[1].detach().float()))
+    return auxes
+
+
+def moe_train_parity_phase(device):
+    """Phase 20: a 2-layer Mixtral-width dropless model, remat "moe", one
+    engine step (B 1 x S 2048, gas 2) through the kernels and from the
+    same weights and batch through the plain versions (the plain run
+    replays the kernel run's routing), then the frozen-base FFN over int8
+    carriers."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.moe import sharded_moe
+    L, gas = MOE_TRAIN_LAYERS, 2
+    counters = moe_train_counters()
+    results, record = {}, []
+    for mode in ("kernels", "plain"):
+        model = moe_train_model(device, 20)
+        engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=train_config(1, gas),
+                                                    device=device)
+        names = [n for n, p in model.named_parameters() if p.requires_grad]
+        grads, auxes = capture_grads(engine, to_host=True), aux_recorder(model)
+        before = {k: f.launches for k, f in counters.items()}
+        with plain_moe_train_kernels() if mode == "plain" else contextlib.nullcontext(), \
+                routing(record, replay=mode == "plain", mr=sharded_moe) as flips:
+            loss = engine.train_batch(batch=moe_batch(model.config.vocab_size, device, 1, MS,
+                                                      gas))
+        torch.cuda.synchronize()
+        grew = {k: f.launches - before[k] for k, f in counters.items()}
+        want = moe_train_launches(L, gas, "moe") if mode == "kernels" else \
+            {k: 0 for k in counters}
+        if grew != want:
+            raise AssertionError(f"moe train parity {mode}: launches {grew}, want {want}")
+        results[mode] = (loss.item(), float(sum(a.item() for a in auxes)), grads, flips[0])
+        engine.destroy()
+        del model, engine, grads
+        gc.collect()  # the wrapped step and the engine hold each other
+        torch.cuda.empty_cache()
+    (lk, ak, gk, _), (lp, ap, gp, flips) = results["kernels"], results["plain"]
+    leaf = {n: ((a - b).norm() / b.norm()).item() for n, a, b in zip(names, gk, gp)}
+    res = {"loss_kernels": lk, "loss_plain": lp, "loss_rel_diff": abs(lk - lp) / abs(lp),
+           "aux_kernels": ak, "aux_plain": ap, "aux_rel_diff": abs(ak - ap) / abs(ap),
+           "routing_near_ties": flips, "leaf_grad_rel_diff_max": max(leaf.values()),
+           "leaf_grad_rel_diff_worst": max(leaf, key=leaf.get),
+           "launches_per_step": moe_train_launches(L, gas, "moe"), "leaf_grad_rel_diff": leaf}
+    log(f"[moe-train-parity] 2-layer mixtral-8x7b width, dropless, remat moe, B=1, S={MS}, "
+        f"gas {gas}: {json.dumps(res)}")
+    if not (math.isfinite(lk) and math.isfinite(lp) and math.isfinite(ak)) or ak <= 0 \
+            or res["loss_rel_diff"] > MOE_LOSS_TOL or res["aux_rel_diff"] > MOE_AUX_TOL \
+            or max(leaf.values()) > GRAD_LEAF_TOL:
+        raise AssertionError(f"moe train parity over its limits: {res}")
+    res["frozen_base"], launches = frozen_base_check(device)
+    return res, launches
+
+
+def frozen_base_check(device):
+    """The dropless FFN over one Mixtral layer's int8 expert carriers (from
+    ``init_quantized_params``), gradients in x only: through the kernels
+    (3 ``gmm_quant`` forward, 3 ``gmm_quant_dx``) and through the plain
+    versions. dx within GRAD_LEAF_TOL in relative L2 norm (and printed in
+    ``row_scaled_err`` units); carriers and scales get no gradient."""
+    from deepspeed_tpu_torch.models import llama_config
+    from deepspeed_tpu_torch.models.llama import init_quantized_params
+    from deepspeed_tpu_torch.ops.grouped_gemm import dropless_moe_ffn
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import row_scaled_err
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    cfg = llama_config("mixtral-8x7b", num_hidden_layers=1)
+    qp = init_quantized_params(cfg, "int8", device, torch.bfloat16,
+                               torch.Generator(device=device).manual_seed(21))
+    stacks = [qp["layers"][n][0] for n in ("experts_w1", "experts_w3", "experts_w2")]
+    del qp
+    torch.cuda.empty_cache()
+    T, E, k = MB * MS, cfg.moe_num_experts, cfg.moe_top_k
+    g = torch.Generator(device=device).manual_seed(22)
+    x = torch.randn(T, cfg.hidden_size, generator=g, device=device).to(torch.bfloat16)
+    gout = torch.randn(T, cfg.hidden_size, generator=g, device=device).to(torch.bfloat16)
+    gates = torch.softmax(torch.randn(T, E, generator=g, device=device) * 2, -1)
+    vals, idx = gates.topk(k, dim=-1)
+    vals = (vals / vals.sum(-1, keepdim=True)).to(torch.bfloat16)
+    dx = {}
+    for mode in ("kernels", "plain"):
+        if mode == "kernels":
+            gm.gmm_quant.launches = gm.gmm_quant_dx.launches = 0
+        before = [gm.gmm_quant.launches, gm.gmm_quant_dx.launches]
+        xt = x.clone().requires_grad_()
+        with plain_moe_train_kernels() if mode == "plain" else contextlib.nullcontext():
+            out = dropless_moe_ffn(xt, idx, vals, *stacks, num_experts=E)
+            (out.float() * gout.float()).sum().backward()
+        torch.cuda.synchronize()
+        if mode == "kernels":
+            launches = {"gmm_quant": gm.gmm_quant.launches,
+                        "gmm_quant_dx": gm.gmm_quant_dx.launches}
+            if launches != {"gmm_quant": 3, "gmm_quant_dx": 3}:
+                raise AssertionError(f"frozen base: launches {launches}, want 3 and 3")
+        elif [gm.gmm_quant.launches, gm.gmm_quant_dx.launches] != before:
+            raise AssertionError("frozen base: the plain run launched a kernel")
+        dx[mode] = xt.grad
+    if any(q.values.grad is not None or q.scales.grad is not None for q in stacks):
+        raise AssertionError("frozen base: a carrier or scale got a gradient")
+    rel = ((dx["kernels"].float() - dx["plain"].float()).norm() / dx["plain"].float().norm()).item()
+    res = {"tokens": T, "dx_rel_l2": rel, "dx_row_err": row_scaled_err(dx["kernels"],
+                                                                       dx["plain"].float()),
+           "launches": launches, "carriers_without_grad": True}
+    log(f"[moe-train-parity] frozen int8 base, one Mixtral layer's experts, {T} tokens: "
+        f"{json.dumps(res)}")
+    if not torch.isfinite(dx["kernels"].float()).all() or rel > GRAD_LEAF_TOL:
+        raise AssertionError(f"frozen base: dx differs from the plain run's: {res}")
+    del stacks, dx
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+# ---------------------------------------------------------------- phase 21
+def active_params(model):
+    """(total, active): active counts the attention, norms, embedding, head
+    and router whole and k/E of the expert stacks (``bench_train_moe``)."""
+    cfg = model.config
+    total = sum(p.numel() for p in model.parameters())
+    experts = sum(p.numel() for n, p in model.named_parameters() if "experts_w" in n)
+    return total, total - experts + experts * cfg.moe_top_k // cfg.moe_num_experts
+
+
+def set_moe_mode(model, remat_policy=None, drop_tokens=None):
+    """Switch the model's remat policy or MoE routing in place, weights
+    and optimizer state kept."""
+    import dataclasses
+    cfg = model.config
+    cfg = dataclasses.replace(cfg, remat_policy=remat_policy or cfg.remat_policy,
+                              moe_drop_tokens=cfg.moe_drop_tokens if drop_tokens is None
+                              else drop_tokens)
+    model.config = model.model.config = cfg
+    for block in model.model.layers:
+        layer = block.moe_mlp.deepspeed_moe
+        layer.drop_tokens = layer.gate.drop_tokens = cfg.moe_drop_tokens
+
+
+def timed_steps(engine, batch, n):
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        loss = engine.train_batch(batch=batch)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0, loss.item()))
+    return out
+
+
+def mixtral_training_phase(device):
+    """Phase 21: Mixtral-8x7B at its widths, 2 of 32 layers (3.17 B
+    params), through ``initialize`` → ``train_batch``: bf16 with the fp32
+    master, Adam, dropless, remat "moe", B 2 x S 2048, gas 2, one seeded
+    batch; 1 warm-up and 3 timed steps, a profiled step, then a step each
+    (after a warm-up) with remat "full" and with capacity routing."""
+    import deepspeed_tpu_torch
+    t0 = time.perf_counter()
+    model = moe_train_model(device, 0)
+    cfg, L = model.config, MOE_TRAIN_LAYERS
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=train_config(MB, MGAS),
+                                                device=device)
+    total, active = active_params(model)
+    torch.cuda.synchronize()
+    log(f"[moe-training] mixtral-8x7b width, {L} of 32 layers: {total / 1e9:.4f} B params "
+        f"({active / 1e9:.4f} B active), built in {time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB after initialize")
+    batch = moe_batch(cfg.vocab_size, device, MB, MS, MGAS)
+    auxes = aux_recorder(model)
+    counters = moe_train_counters()
+    for f in counters.values():
+        f.launches = 0
+    warm = timed_steps(engine, batch, 1)
+    torch.cuda.reset_peak_memory_stats()
+    steps = timed_steps(engine, batch, 3)
+    launches = {k: f.launches for k, f in counters.items()}
+    want = {k: 4 * v for k, v in moe_train_launches(L, MGAS, "moe").items()}
+    if launches != want:
+        raise AssertionError(f"moe training: launches {launches} over 4 steps, want {want}")
+    losses = [l for _, l in warm + steps]
+    aux = [a.item() for a in auxes]
+    if not all(math.isfinite(x) for x in losses + aux) or not losses[-1] < losses[0] \
+            or not min(aux) > 0:
+        raise AssertionError(f"moe training: losses {losses}, aux {aux}")
+    if any(torch.isnan(p).any().item() for p in model.parameters()):
+        raise AssertionError("moe training: NaN in a parameter")
+    tokens = MB * MGAS * MS
+    mean_s = float(np.mean([s for s, _ in steps]))
+    res = {"layers": L, "params": total, "active_params": active, "micro_batch": MB,
+           "gas": MGAS, "seq": MS, "tokens_per_step": tokens, "losses": losses,
+           "aux_losses": aux, "step_ms": [s * 1e3 for s, _ in steps], "ms_per_step": mean_s * 1e3,
+           "tokens_per_sec": tokens / mean_s,
+           "active_mfu": model_flops(active, tokens, L, MS, cfg.hidden_size) / mean_s
+           / BF16_FLOPS_PER_S,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches_per_step": moe_train_launches(L, MGAS, "moe"), "launches": launches,
+           "grad_norm": engine.global_grad_norm}
+    log(f"[moe-training] {json.dumps(res)}")
+    res["profile"] = profile_train_step(engine, batch)
+    for name, kw, policy in (("remat_full", dict(remat_policy="full"), "full"),
+                             ("capacity", dict(remat_policy="moe", drop_tokens=True), None)):
+        set_moe_mode(model, **kw)
+        for f in counters.values():
+            f.launches = 0
+        (s0, l0), (s1, l1) = timed_steps(engine, batch, 2)
+        got = {k: f.launches for k, f in counters.items()}
+        if policy is not None and got != {k: 2 * v for k, v in
+                                          moe_train_launches(L, MGAS, policy).items()}:
+            raise AssertionError(f"moe training {name}: launches {got}")
+        if policy is None and (got["gmm"] or got["gmm_dw"]):
+            raise AssertionError(f"moe training {name}: the capacity path launched {got}")
+        if not (math.isfinite(l0) and math.isfinite(l1)):
+            raise AssertionError(f"moe training {name}: losses {l0}, {l1}")
+        res[name] = {"ms_per_step": s1 * 1e3, "tokens_per_sec": tokens / s1,
+                     "active_mfu": model_flops(active, tokens, L, MS, cfg.hidden_size) / s1
+                     / BF16_FLOPS_PER_S, "losses": [l0, l1], "launches_per_step":
+                     {k: v // 2 for k, v in got.items()}}
+        log(f"[moe-training] {name}: {json.dumps(res[name])}")
+    engine.destroy()
+    del model, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+# ---------------------------------------------------------------- phase 22
+def bench_train_moe_phase(device):
+    """Phase 22: ``bench.py``'s ``bench_train_moe`` shape (8 layers, hidden
+    768, I 2048, 12 heads, 8 experts, top-2, S 1024, B 4, gas 32, bf16,
+    Adam, ZeRO-3, remat "moe"), dropless and then capacity-routed (a fresh
+    model, as the lane builds one): one warm-up and one timed step each;
+    tokens/s and active MFU as that lane reports them."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import build_llama
+    res = {}
+    for name, drop in (("dropless", False), ("capacity", True)):
+        model = build_llama("160m", device=device, hidden_size=BENCH_MOE_HIDDEN,
+                            intermediate_size=BENCH_MOE_INTER, num_hidden_layers=BENCH_MOE_LAYERS,
+                            num_attention_heads=BENCH_MOE_HEADS,
+                            num_key_value_heads=BENCH_MOE_HEADS,
+                            max_position_embeddings=BENCH_MOE_S, moe_num_experts=8, moe_top_k=2,
+                            moe_drop_tokens=drop, remat_policy="moe",
+                            generator=torch.Generator(device=device).manual_seed(0))
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=model, config=train_config(BENCH_MOE_B, BENCH_MOE_GAS), device=device)
+        rng = np.random.RandomState(0)
+        ids = torch.from_numpy(rng.randint(0, model.config.vocab_size, size=(
+            BENCH_MOE_GAS, BENCH_MOE_B, BENCH_MOE_S)).astype(np.int32)).to(device)
+        (_, l0), (dt, loss) = timed_steps(engine, (ids, ids), 2)
+        total, active = active_params(model)
+        tokens = BENCH_MOE_B * BENCH_MOE_GAS * BENCH_MOE_S
+        if not (math.isfinite(l0) and math.isfinite(loss)):
+            raise AssertionError(f"bench_train_moe {name}: losses {l0}, {loss}")
+        res[name] = {"params_total": total, "params_active": active, "step_ms": dt * 1e3,
+                     "tokens_per_sec": tokens / dt, "loss": loss,
+                     "active_mfu": model_flops(active, tokens, BENCH_MOE_LAYERS, BENCH_MOE_S,
+                                               BENCH_MOE_HIDDEN) / dt / BF16_FLOPS_PER_S}
+        log(f"[bench-train-moe] {name}: {json.dumps(res[name])}")
+        engine.destroy()
+        del model, engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU", file=sys.stderr)
@@ -2418,10 +3194,12 @@ def main():
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
     cases = kernel_phase(device, flush)
+    dense_cases = dense_matmul_cases(device, flush)
     train_cases = train_kernel_phase(device, flush)
     del flush
     torch.cuda.empty_cache()
     parity_phase(device)
+    batch_invariance_phase(device)
     serving, launches = serving_phase(device)
     train_parity_phase(device)
     training, train_launches = training_phase(device)
@@ -2455,6 +3233,16 @@ def main():
     torch.cuda.empty_cache()
     tier_parity_phase(device)
     _, k7_launches = kv_tier_phase(device)
+
+    # MoE training at Mixtral-8x7B width: K5's backward kernels
+    torch.cuda.empty_cache()
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    bwd = gmm_bwd_cases(device, flush)
+    del flush
+    torch.cuda.empty_cache()
+    _, frozen_launches = moe_train_parity_phase(device)
+    _, moe_train_launches_run = mixtral_training_phase(device)
+    bench_train_moe_phase(device)
 
     main_case = next(c for c in cases if c["case"] == "serving_decode")
     kernels = [{"name": "paged_decode_attention", "route": "cuda",
@@ -2499,6 +3287,7 @@ def main():
                       "int8_w1_decode", int8_launches["gmm_quant"],
                       "decode: 16 rows (8 tokens, top-2) over [8, 4096, 14336] int8 experts"),
     }
+    slice3["gmm"][2].extend(bwd["gmm_dx"])  # gmm's dx reads the stack as stored; counted as gmm
     for name, (src, replaces, rows, main_name, n, shape) in slice3.items():
         main_row = next(r for r in rows if r["case"] == main_name)
         kernels.append({"name": name, "route": "cuda",
@@ -2542,6 +3331,37 @@ def main():
                     "library_ms": None,
                     "shape": "KV tier promotion: 12 Mistral-7B blocks' int8 k [32, 12, 32, 8, "
                              "128] -> bf16, one scale a (layer, block) slab"})
+    slice6 = {  # name: (TPU kernel, cases, main case, launches on the main path, shape)
+        "gmm_dw": ("grouped_matmul.py:45", bwd["gmm_dw"], "dw_w1",
+                   moe_train_launches_run["gmm_dw"],
+                   "MoE training: dW of w1 [8, 4096, 14336] over 8192 rows (B 2 x S 2048, "
+                   "top-2), expert 7 empty, 64-row tiles, bf16"),
+        "gmm_quant_dx": ("grouped_matmul.py:265", bwd["gmm_quant_dx"], "int8_dx_w1",
+                         frozen_launches["gmm_quant_dx"],
+                         "frozen int8 base: dx through w1 [8, 4096, 14336] carriers over 8192 "
+                         "rows, bf16"),
+    }
+    for name, (replaces, rows, main_name, n, shape) in slice6.items():
+        main_row = next(r for r in rows if r["case"] == main_name)
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "deepspeed_tpu_torch/csrc/grouped_matmul.cu",
+                        "replaces": f"deepspeed_tpu/ops/pallas/{replaces}",
+                        "launches": n, "max_abs_err": max(r["max_abs_err"] for r in rows),
+                        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+                        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+                        "library_ms": main_row["library_ms"], "shape": shape, "cases": rows})
+    main_row = next(r for r in dense_cases if r["case"] == "M16_4096x14336")
+    kernels.append({"name": "dense_matmul", "route": "cuda",
+                    "source": "deepspeed_tpu_torch/csrc/fused_quant_matmul.cu",
+                    "replaces": "deepspeed_tpu/inference/v2/model_runner.py:62 (the dense "
+                                "projection, an XLA dot; K4's template, bf16 weight)",
+                    "launches": serving["dense_matmul_launches"],
+                    "max_abs_err": max(r["max_abs_err"] for r in dense_cases),
+                    "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+                    "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+                    "library_ms": main_row["library_ms"],
+                    "shape": "serving decode step: M=16 x [4096, 14336] bf16 (gate, up)",
+                    "cases": dense_cases})
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -25,6 +25,12 @@
 // that a second small kernel adds in a fixed order and rounds to bf16, so
 // all 132 SMs stream disjoint slices of the carriers. The carrier stream is
 // not yet pipelined against the decode and the MMAs.
+//
+// Scheme 0 is a bf16 weight [K, N] (dense_matmul, the serving path's dense
+// projections): the same tile GEMM with no decode. The wrapper takes its
+// K split from (N, K) alone, never from M, so every output row is summed in
+// one order whatever the batch's row count: a token's bits do not depend
+// on the token bucket it runs at.
 
 #include "quant_gemm.cuh"
 
@@ -33,7 +39,8 @@ using namespace qgemm;
 // Plain C entry for ctypes. Device pointers to contiguous tensors: x bf16
 // [M, K]; values int8 / float8_e4m3fn [K, N] or uint8 [K, 3N/4] (fp6);
 // scales fp32 [K, ng]; out bf16 [M, N]; partial fp32 [splits, M, N] when
-// splits > 1 (else null). scheme: 1 int8, 2 fp8, 3 fp6. bm: the row tile,
+// splits > 1 (else null). scheme: 0 bf16 (values a bf16 [K, N] weight,
+// scales null, ng 1), 1 int8, 2 fp8, 3 fp6. bm: the row tile,
 // 16 or 64; k_chunk: the K rows of one split, a multiple of 32. The
 // wrapper in ops/kernels/fused_quant_matmul.py checks shapes and types.
 // Returns cudaGetLastError() of the launches.
@@ -44,11 +51,12 @@ extern "C" int ds_quant_matmul(const void* x, const void* values, const void* sc
          static_cast<const float*>(scales), nullptr, nullptr, static_cast<uint16_t*>(out),
          splits > 1 ? static_cast<float*>(partial) : nullptr, M, K, N, ng,
          ng > 0 ? N / ng : 0, 1, k_chunk};
-  if (bad_args(a, scheme, bm) || scheme == kBF16 || splits < 1 ||
+  if (bad_args(a, scheme, bm) || splits < 1 ||
       (splits > 1 && partial == nullptr) || (long long)(splits - 1) * k_chunk >= K)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = scheme == kInt8 ? launch_bm<kInt8, false>(a, bm, splits, st)
+  cudaError_t err = scheme == kBF16 ? launch_bm<kBF16, false>(a, bm, splits, st)
+                    : scheme == kInt8 ? launch_bm<kInt8, false>(a, bm, splits, st)
                     : scheme == kFP8 ? launch_bm<kFP8, false>(a, bm, splits, st)
                                      : launch_bm<kFP6, false>(a, bm, splits, st);
   if (err != cudaSuccess || splits == 1) return (int)err;

@@ -11,9 +11,12 @@ knobs), with dense or weight-only quantized params:
   block table masked to ``pos``, which handles mixed prefill chunks and
   decodes in one step (Dynamic SplitFuse);
 - the layer stack is a Python loop over the stacked layer params;
+- dense projections go through ``dense_matmul``, a hand-written GEMM
+  whose per-row sums do not depend on the batch's row count, so greedy
+  streams are the same at every token bucket;
 - quantized carriers (``inference/quantization``) stay quantized: every
   projection runs through the fused dequant-matmul kernel
-  (``matmul_any``), the MoE expert stacks through the grouped kernels
+  (``QuantizedWeight.matmul``), the MoE expert stacks through the grouped kernels
   (``ops/grouped_gemm``), and only the router, one small [D, E] slice a
   layer, is dequantized; the embedding decodes just the gathered rows,
   and the head goes through the fused kernel too;
@@ -31,11 +34,12 @@ import torch
 import torch.nn.functional as F
 
 from deepspeed_tpu_torch.inference.quantization.quantization import (QuantizedWeight,
-                                                                     dequantize_grouped,
-                                                                     matmul_any)
+                                                                     dequantize_grouped)
 from deepspeed_tpu_torch.inference.v2.modules.heuristics import instantiate_attn
 from deepspeed_tpu_torch.models.llama import check_servable, rope_frequencies, rope_scaling_of
+from deepspeed_tpu_torch.moe.sharded_moe import top_k
 from deepspeed_tpu_torch.ops.grouped_gemm import dropless_moe_ffn
+from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import dense_matmul
 from deepspeed_tpu_torch.ops.kernels.lora_matmul import lora_delta, lora_layout
 
 
@@ -46,9 +50,12 @@ def _rms(x, scale, eps):
 
 
 def _proj(x, w, b=None):
-    """``x @ w (+ b)`` for a dense ``w`` or a carrier (the fused kernel),
-    in x's dtype."""
-    y = matmul_any(x, w, dtype=x.dtype)
+    """``x @ w (+ b)`` in x's dtype: a carrier through the fused kernel, a
+    dense ``w`` through :func:`dense_matmul`, whose row sums do not depend
+    on the batch's row count (cuBLAS's do: a token's bits would move with
+    the token bucket it runs at)."""
+    y = (w.matmul(x, dtype=x.dtype) if isinstance(w, QuantizedWeight)
+         else dense_matmul(x, w.to(x.dtype)))
     if b is not None:
         y = y + b.to(x.dtype)
     return y
@@ -117,14 +124,6 @@ def _layer_step(cfg, cos, sin, batch, attn_fn, h, lp, kc, vc, lora=None):
     else:
         inter = F.silu(gate) * up
     return h + _proj(inter, lp["w_down"])
-
-
-def top_k(gates, k):
-    """``jax.lax.top_k`` over the last dim: the k largest, ties to the
-    lowest index (a stable descending sort keeps that order, which
-    ``torch.topk`` does not promise)."""
-    vals, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
 
 
 def _moe_mlp(x, lp, k):

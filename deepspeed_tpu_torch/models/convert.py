@@ -19,6 +19,10 @@ leaf by leaf. ``tree`` is the JAX engine's param tree as nested numpy
     model.norm.scale                                        [D]
     lm_head.kernel                                          [D, V] (absent when tied)
 
+An MoE model's leaves map the same way onto the training module's
+``moe_mlp`` (``model.layers.3.moe_mlp.deepspeed_moe.experts_w1``), dropless
+or capacity-routed alike.
+
 Both packages keep projections [in, out]. The serving layout keeps the
 layers stacked on a leading L dim (renaming only); the training module
 owns one tensor per layer and leaf, named by the JAX path with the layer
@@ -115,8 +119,6 @@ def _train_state_from_jax(tree):
     out = {}
     for path, value in _flatten(tree):
         if path[:2] == _LAYERS:
-            if path[2] == "moe_mlp":
-                raise not_ported("MoE training", 17)
             rest = ".".join(path[2:])
             for i in range(value.shape[0]):
                 out[f"model.layers.{i}.{rest}"] = _t(value[i])

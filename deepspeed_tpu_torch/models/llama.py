@@ -33,11 +33,13 @@ Port of ``deepspeed_tpu/models/llama.py``:
   JAX tree's paths: ``model.layers.3.self_attn.q_proj.kernel``): indexing
   a stacked [L, ...] parameter would make autograd build a full [L, ...]
   zero gradient for every layer. ``models/convert.py`` unstacks the JAX
-  tree onto it and restacks it.
+  tree onto it and restacks it. An MoE model's blocks hold ``moe_mlp``
+  (``moe.layer.MoE``: dropless through the grouped-GEMM kernels, or
+  capacity-routed) in place of ``mlp``; the load-balancing loss is carried
+  through the layers and ``moe_aux_loss_coef * aux / num_hidden_layers``
+  is added to the loss.
 
-``models/convert.py`` maps a JAX tree onto either layout. Serving takes
-dense and MoE models; training takes dense models only (MoE training
-raises, ROADMAP.md port queue item 17).
+``models/convert.py`` maps a JAX tree onto either layout.
 """
 
 import dataclasses
@@ -308,14 +310,13 @@ def count_params(params) -> int:
 # ---------------------------------------------------------------- training
 def check_trainable(cfg: LlamaConfig):
     """Raise for the training options this port does not run yet."""
-    if cfg.moe_num_experts:
-        raise not_ported("MoE training (the grouped-GEMM backward kernels)", 17)
+    check_servable(cfg)
     if cfg.sp_impl != "ulysses":
         raise not_ported(f"sp_impl={cfg.sp_impl!r} (ring sequence parallelism)", 6)
     if cfg.offload_params:
         raise not_ported("offload_params (ZeRO-Infinity parameter streaming)", 12)
-    if cfg.remat and cfg.remat_policy != "full":
-        if cfg.remat_policy in ("dots", "moe"):
+    if cfg.remat and cfg.remat_policy not in ("full", "moe"):
+        if cfg.remat_policy == "dots":
             raise not_ported(f"remat_policy={cfg.remat_policy!r}", 10)
         raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}: expected 'full', 'dots' "
                          f"or 'moe'")
@@ -436,23 +437,56 @@ class LlamaMLP(nn.Module):
 
 
 class LlamaBlock(nn.Module):
+    """``forward(h, ...)`` → ``(h, aux_loss)``: attention, then the MLP or,
+    in an MoE model, ``moe_mlp`` (aux_loss 0 for a dense block)."""
 
     def __init__(self, cfg, device, dtype, generator):
         super().__init__()
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device, dtype)
         self.self_attn = LlamaAttention(cfg, device, dtype, generator)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device, dtype)
-        self.mlp = LlamaMLP(cfg, device, dtype, generator)
+        if cfg.moe_num_experts:
+            from deepspeed_tpu_torch.moe.layer import MoE
+            self.moe_mlp = MoE(cfg.hidden_size, num_experts=cfg.moe_num_experts,
+                               intermediate_size=cfg.intermediate_size, k=cfg.moe_top_k,
+                               capacity_factor=cfg.moe_capacity_factor,
+                               drop_tokens=cfg.moe_drop_tokens,
+                               noisy_gate_policy=cfg.moe_noisy_gate_policy, device=device,
+                               dtype=dtype, generator=generator)
+        else:
+            self.mlp = LlamaMLP(cfg, device, dtype, generator)
+
+    def attend(self, h, positions, cos, sin):
+        """The attention half → ``(h, mlp_in, routing)``: the residual
+        stream, the post-attention norm, and the MoE gate's output (None
+        for a dense block)."""
+        h = h + self.self_attn(self.input_layernorm(h), positions, cos, sin)
+        mlp_in = self.post_attention_layernorm(h)
+        return h, mlp_in, (self.moe_mlp.route(mlp_in) if hasattr(self, "moe_mlp") else None)
+
+    def ffn(self, h, mlp_in, routing):
+        if routing is None:
+            return h + self.mlp(mlp_in), torch.zeros((), dtype=torch.float32, device=h.device)
+        out, aux = self.moe_mlp(mlp_in, routing)
+        return h + out, aux
 
     def forward(self, h, positions, cos, sin):
-        h = h + self.self_attn(self.input_layernorm(h), positions, cos, sin)
-        return h + self.mlp(self.post_attention_layernorm(h))
+        return self.ffn(*self.attend(h, positions, cos, sin))
 
 
 class LlamaModel(nn.Module):
-    """Decoder trunk: embeddings, the blocks (each recomputed in the
-    backward when ``remat``: ``remat_policy="full"``, the JAX
-    ``nothing_saveable``), final norm."""
+    """Decoder trunk: embeddings, the blocks, final norm. With ``remat``
+    each block is recomputed in the backward: all of it under
+    ``remat_policy="full"`` (the JAX ``nothing_saveable``); under ``"moe"``
+    the attention half with the norms and the MoE router, while the
+    dropless FFN keeps its own residuals (the JAX policy saves the
+    grouped-GEMM tensors ``moe_xs``, ``moe_gate``, ``moe_up``,
+    ``moe_routing`` and ``moe_tiles``), so the backward never re-runs a
+    grouped GEMM. Splitting the block keeps that set explicit: PyTorch's
+    selective checkpointing picks ops by name, and the grouped GEMMs run
+    inside one autograd Function. A block without a dropless FFN is
+    recomputed whole under ``"moe"``, as nothing of it carries those
+    names. → ``(h, aux_loss summed over the layers)``."""
 
     def __init__(self, cfg, device, dtype, generator):
         super().__init__()
@@ -474,13 +508,19 @@ class LlamaModel(nn.Module):
             h = h * torch.tensor(cfg.embedding_multiplier, dtype=h.dtype)
         positions = torch.arange(input_ids.shape[1], device=h.device)[None, :]
         remat = cfg.remat and torch.is_grad_enabled()
+        split = remat and cfg.remat_policy == "moe" and cfg.moe_num_experts and \
+            not cfg.moe_drop_tokens
+        args = (positions, self.rope_cos, self.rope_sin)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for block in self.layers:
-            if remat:
-                h = checkpoint(block, h, positions, self.rope_cos, self.rope_sin,
-                               use_reentrant=False)
+            if split:
+                h, layer_aux = block.ffn(*checkpoint(block.attend, h, *args, use_reentrant=False))
+            elif remat:
+                h, layer_aux = checkpoint(block, h, *args, use_reentrant=False)
             else:
-                h = block(h, positions, self.rope_cos, self.rope_sin)
-        return self.norm(h)
+                h, layer_aux = block(h, *args)
+            aux = aux + layer_aux
+        return self.norm(h), aux
 
 
 def _ce_chunk_stats(logits, targets):
@@ -533,14 +573,18 @@ class LlamaForCausalLM(nn.Module):
 
     def forward(self, input_ids, labels=None):
         cfg = self.config
-        h = self.model(input_ids)
+        h, aux = self.model(input_ids)
         S = input_ids.shape[1]
         if labels is not None and cfg.loss_chunk > 0 and S > 2 * cfg.loss_chunk:
-            return self._chunked_causal_loss(h, labels), None
-        logits = self._unembed(h)
-        if labels is None:
-            return logits
-        return causal_lm_loss(logits, labels), logits
+            loss, logits = self._chunked_causal_loss(h, labels), None
+        else:
+            logits = self._unembed(h)
+            if labels is None:
+                return logits
+            loss = causal_lm_loss(logits, labels)
+        if cfg.moe_num_experts:
+            loss = loss + cfg.moe_aux_loss_coef * aux / cfg.num_hidden_layers
+        return loss, logits
 
     def _chunked_causal_loss(self, h, labels):
         C = self.config.loss_chunk

@@ -1,6 +1,7 @@
 """Dropless top-k MoE FFN over a flat token batch: the grouped GEMM path.
 
-Port of ``deepspeed_tpu/ops/grouped_gemm.py`` for serving on one device.
+Port of ``deepspeed_tpu/ops/grouped_gemm.py`` on one device, for serving
+and for training.
 Expert stacks are ``[E, D, I]`` / ``[E, D, I]`` / ``[E, I, D]`` tensors
 or grouped quantized carriers (:class:`QuantizedWeight`).
 
@@ -16,6 +17,19 @@ so the CPU runs the card's routing and layout code too. The TPU
 package's row-count floor for its Pallas path, its gathered decode branch
 and its ``lax.ragged_dot`` path are TPU measurements and are not carried
 over.
+
+The three GEMMs are one ``torch.autograd.Function``, differentiable in x
+and in dense stacks (``gmm``'s VJP): dx through ``gmm_transposed`` (the
+forward kernel's template reading the stack as stored), dW through
+``gmm_dw``; through carriers, x only (``gmm_quant``'s VJP, the frozen-base
+contract: carriers and scales get no gradient), dx through
+``gmm_quant_dx``. It saves exactly what the JAX ``remat_policy="moe"``
+keeps, the scattered rows and the gate and up activations (``moe_xs``,
+``moe_gate``, ``moe_up``; the routing, ``moe_routing`` and ``moe_tiles``,
+is the index tensors beside them), and rebuilds the SwiGLU product
+elementwise, so its backward re-runs no forward GEMM. The scatter into
+the layout and the gather back are indexing ops whose gradients PyTorch
+takes (rows land in distinct slots).
 
 Expert parallelism (a mesh) is not ported yet (ROADMAP.md, port queue
 item 5).
@@ -56,13 +70,63 @@ def _gmm_dispatch(xp, w, te, tm, used):
     return gm.gmm(xp, w, te, tm, used)
 
 
-def moe_grouped_mlp(x, expert_idx, w_gate, w_up, w_down, num_experts, activation=F.silu,
-                    tm=None):
-    """Dropless top-1 MoE FFN: x [T, D]; expert_idx [T]; stacks [E, D, F]
-    / [E, D, F] / [E, F, D] (dense or carriers) → [T, D] in x's dtype.
-    Rows are scattered into the tile-aligned layout by rank (no sort),
-    ride three grouped GEMMs and are gathered back; no step waits on the
-    host. ``tm`` is the row tile (:func:`row_tile` of the average rows per
+def _gmm_dx(dy, w, te, tm, used):
+    """The input gradient of :func:`_gmm_dispatch`: ``dy @ w[tile]ᵀ``."""
+    if _is_quantized(w):
+        return gm.gmm_quant_dx(dy, w.values, w.scales, te, w.scheme, dy.dtype, tm, used)
+    return gm.gmm_transposed(dy, w, te, tm, used)
+
+
+class _GroupedSwiGLU(torch.autograd.Function):
+    """``(silu(xp @ w_gate) * (xp @ w_up)) @ w_down`` over the tile layout
+    (each row tile through its expert's weights). Saves xp, gate and up;
+    the backward rebuilds the product, takes dW of each dense stack with
+    ``gmm_dw`` and dx with the transposed kernels: 3 forward launches,
+    then 3 dx and (dense) 3 dW launches, and no forward re-run."""
+
+    @staticmethod
+    def forward(ctx, xp, w_gate, w_up, w_down, te, tm, used):
+        gate = _gmm_dispatch(xp, w_gate, te, tm, used)
+        up = _gmm_dispatch(xp, w_up, te, tm, used)
+        inter = (F.silu(gate) * up).contiguous()
+        ctx.save_for_backward(xp, gate, up, te, used)
+        ctx.stacks, ctx.tm = (w_gate, w_up, w_down), tm
+        return _gmm_dispatch(inter, w_down, te, tm, used)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        xp, gate, up, te, used = ctx.saved_tensors
+        w_gate, w_up, w_down = ctx.stacks
+        tm = ctx.tm
+        need = ctx.needs_input_grad
+        d_out = d_out.to(xp.dtype).contiguous()
+        with torch.enable_grad():  # the elementwise product, as autograd takes it
+            g, u = gate.detach().requires_grad_(), up.detach().requires_grad_()
+            inter = F.silu(g) * u
+        d_w = [None, None, None]
+        if need[3] and not _is_quantized(w_down):
+            d_w[2] = gm.gmm_dw(inter.detach().contiguous(), d_out, te, w_down.shape[0], tm,
+                               used, w_down.dtype)
+        d_gate, d_up = torch.autograd.grad(inter, (g, u), _gmm_dx(d_out, w_down, te, tm, used))
+        del inter, g, u
+        d_gate, d_up = d_gate.contiguous(), d_up.contiguous()
+        for i, (w, dy) in enumerate(((w_gate, d_gate), (w_up, d_up))):
+            if need[1 + i] and not _is_quantized(w):
+                d_w[i] = gm.gmm_dw(xp, dy, te, w.shape[0], tm, used, w.dtype)
+        d_xp = None
+        if need[0]:
+            d_xp = _gmm_dx(d_gate, w_gate, te, tm, used)
+            d_xp += _gmm_dx(d_up, w_up, te, tm, used)
+        return (d_xp, *d_w, None, None, None)
+
+
+def moe_grouped_mlp(x, expert_idx, w_gate, w_up, w_down, num_experts, tm=None):
+    """Dropless top-1 MoE FFN with SwiGLU experts: x [T, D]; expert_idx
+    [T]; stacks [E, D, F] / [E, D, F] / [E, F, D] (dense or carriers) →
+    [T, D] in x's dtype, differentiable in x and the dense stacks. Rows
+    are scattered into the tile-aligned layout by rank (no sort), ride
+    three grouped GEMMs and are gathered back; no step waits on the host.
+    ``tm`` is the row tile (:func:`row_tile` of the average rows per
     expert when None)."""
     M, E = x.shape[0], num_experts
     if tm is None:
@@ -77,10 +141,7 @@ def moe_grouped_mlp(x, expert_idx, w_gate, w_up, w_down, num_experts, activation
     used = gm.used_tiles(sizes, tm)
     xp = torch.zeros((Mp, x.shape[1]), dtype=x.dtype, device=x.device)
     xp[pdst] = x
-    gate = _gmm_dispatch(xp, w_gate, te, tm, used)
-    up = _gmm_dispatch(xp, w_up, te, tm, used)
-    inter = (activation(gate) * up).contiguous()
-    return _gmm_dispatch(inter, w_down, te, tm, used)[pdst]
+    return _GroupedSwiGLU.apply(xp, w_gate, w_up, w_down, te, tm, used)[pdst]
 
 
 def dropless_moe_ffn(x, topk_idx, topk_vals, w1, w3, w2, num_experts, mesh=None):

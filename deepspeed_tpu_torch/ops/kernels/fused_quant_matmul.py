@@ -16,6 +16,11 @@ takes the plain version :func:`quant_matmul_ref`: dequantize with
 :func:`dequantize_grouped` (the one canonical decode), then matmul. The
 TPU kernel's VMEM budget and tile ladder do not carry over: the kernel
 takes any K, any N and any group width the layout allows.
+
+:func:`dense_matmul` is the same kernel over a bf16 weight: the serving
+path's dense projections. It splits the K loop by ``(N, K)`` alone, never
+by the row count, so a token's output bits do not depend on the batch it
+runs in (cuBLAS picks its algorithm, split-K among them, by M).
 """
 
 import ctypes
@@ -28,6 +33,7 @@ _SOURCE = "fused_quant_matmul.cu"
 SCHEMES = ("int8", "fp8", "fp6")
 # the kernels' scheme codes (csrc/quant_gemm.cuh); 0 is a bf16 weight
 SCHEME_CODE = {"int8": 1, "fp8": 2, "fp6": 3}
+BF16_CODE = 0
 CARRIER_DTYPE = {"int8": torch.int8, "fp8": torch.float8_e4m3fn, "fp6": torch.uint8}
 NUM_SMS = 132  # H100 SXM
 
@@ -161,3 +167,49 @@ def quant_matmul(x, values, scales, scheme, dequant_dtype=torch.bfloat16, out_dt
 
 
 quant_matmul.launches = 0
+
+
+def dense_matmul_ref(x, w):
+    """Plain version of :func:`dense_matmul`: ``x @ w``."""
+    return x @ w
+
+
+def dense_matmul(x, w):
+    """``x[..., K] @ w [K, N]`` for a bf16 weight, batch-invariant on the
+    card: the K loop splits by ``(N, K)`` alone (the tile count of a
+    decode-sized batch), and the splits are added in a fixed order, so
+    each output row is the same bits at every row count. CUDA tensors
+    (bf16 x and w, w contiguous) launch the kernel or raise; CPU tensors
+    take :func:`dense_matmul_ref`."""
+    if x.device.type == "cpu":
+        return dense_matmul_ref(x, w)
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise TypeError(f"the kernel takes bf16 x and w, got {x.dtype}, {w.dtype}")
+    if w.dim() != 2 or not w.is_contiguous() or w.device != x.device:
+        raise ValueError(f"w must be a contiguous [K, N] tensor on {x.device}, got "
+                         f"{tuple(w.shape)} on {w.device}")
+    K, N = w.shape
+    if x.shape[-1] != K:
+        raise ValueError(f"x [..., {x.shape[-1]}] does not contract with w [{K}, {N}]")
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, K).contiguous()
+    M = x2.shape[0]
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    if M == 0:
+        return out.reshape(lead + (N,))
+    splits, chunk = k_splits(cdiv(N, 64), K)  # from (N, K) only
+    partial = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+               if splits > 1 else None)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _fn("ds_quant_matmul", 5, 8)(
+            x2.data_ptr(), w.data_ptr(), None, out.data_ptr(),
+            None if partial is None else partial.data_ptr(), M, K, N, 1, BF16_CODE,
+            row_tile(M), splits, chunk, stream)
+    if rc != 0:
+        raise RuntimeError(f"dense_matmul kernel failed to launch: cudaError {rc}")
+    dense_matmul.launches += 1
+    return out.reshape(lead + (N,))
+
+
+dense_matmul.launches = 0

@@ -12,7 +12,18 @@ the same ``tm``), so every row tile belongs to one expert,
   fp32 accumulation (the TPU ``_gmm_kernel``);
 - :func:`gmm_quant`: the same over grouped quantized expert carriers,
   each tile dequantized on the way into the product exactly as
-  ``dequantize_grouped`` does (the TPU ``_gmm_quant_kernel``).
+  ``dequantize_grouped`` does (the TPU ``_gmm_quant_kernel``);
+
+and the backward kernels:
+
+- :func:`gmm_dw`: ``dW[e] = Σ x_tileᵀ dy_tile`` over expert e's row tiles,
+  fp32 sums rounded once to the weight's dtype (the TPU ``_gmm_dw_kernel``);
+- :func:`gmm_transposed`: ``dy @ w[tile_experts]ᵀ``, the input gradient of
+  :func:`gmm`, reading the stack as stored (the TPU package runs its
+  forward kernel on ``w.swapaxes(1, 2)``); its launches count as ``gmm``'s;
+- :func:`gmm_quant_dx`: ``dy @ dequant(carriers[tile_experts])ᵀ``, the input
+  gradient through a frozen quantized stack (the TPU
+  ``_gmm_quant_dx_kernel``).
 
 A CUDA tensor launches the CUDA C++ kernel ``csrc/grouped_matmul.cu``
 (its header says what bounds it and what the design does about that) or
@@ -23,9 +34,7 @@ is sized for the worst case (``Mp`` is static), the count comes from the
 routing on the device, and the kernel writes zeros to the tiles past it
 without reading any weight. The TPU kernels' scalar prefetch, tile
 ladder and VMEM budget do not carry over: a block reads its own tile's
-expert. The backward kernels (``_gmm_dw_kernel``,
-``_gmm_quant_dx_kernel``) are not ported yet (ROADMAP.md, port queue
-item 17).
+expert, and a dW block finds its expert's run of tiles on the device.
 """
 
 import ctypes
@@ -118,42 +127,54 @@ def gmm_quant_supported(values, scales, scheme):
     return True
 
 
-def _lib():
+def _lib_fn(name, argtypes):
+    """The library's entry ``name`` with its argument types (and the stream
+    last), building the library on first use."""
     from deepspeed_tpu_torch.ops.kernels.build import load
-    fn = load(_SOURCE).ds_grouped_matmul
+    fn = getattr(load(_SOURCE), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = list(argtypes) + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(x, w, scales, tile_experts, used_tiles, N, ng, E, scheme_code, tm):
-    """Check the layout operands, then launch → [Mp, N] bf16."""
+
+def _check_layout(x, tile_experts, used_tiles, tm, name="x"):
+    """Raise unless ``x`` is a contiguous bf16 [Mp, ·] tile layout the
+    kernels take → used_tiles (all tiles when None)."""
     if x.dtype != torch.bfloat16:
-        raise TypeError(f"x must be bf16 for the kernel, got {x.dtype}")
+        raise TypeError(f"{name} must be bf16 for the kernel, got {x.dtype}")
     if x.dim() != 2 or not x.is_contiguous():
-        raise ValueError(f"x must be a contiguous [Mp, K] tensor, got {tuple(x.shape)}")
+        raise ValueError(f"{name} must be a contiguous 2-D tensor, got {tuple(x.shape)}")
     if tm not in ROW_TILES:
         raise ValueError(f"row tile {tm}: the kernel is built for {ROW_TILES}")
-    Mp, K = x.shape
+    Mp = x.shape[0]
     if Mp % tm or tuple(tile_experts.shape) != (Mp // tm,):
-        raise ValueError(f"x rows {Mp} and tile_experts {tuple(tile_experts.shape)} are not a "
-                         f"layout of {tm}-row tiles")
+        raise ValueError(f"{name} rows {Mp} and tile_experts {tuple(tile_experts.shape)} are "
+                         f"not a layout of {tm}-row tiles")
     if used_tiles is None:
         used_tiles = torch.full((1,), Mp // tm, dtype=torch.int32, device=x.device)
-    for name, t in (("tile_experts", tile_experts), ("used_tiles", used_tiles)):
+    for n, t in (("tile_experts", tile_experts), ("used_tiles", used_tiles)):
         if t.dtype != torch.int32 or t.device != x.device or not t.is_contiguous():
-            raise TypeError(f"{name} must be a contiguous int32 tensor on {x.device}")
+            raise TypeError(f"{n} must be a contiguous int32 tensor on {x.device}")
     if used_tiles.numel() != 1:
         raise ValueError(f"used_tiles must hold one count, got {tuple(used_tiles.shape)}")
+    return used_tiles
+
+
+def _launch(x, w, scales, tile_experts, used_tiles, N, ng, E, scheme_code, tm):
+    """Check the layout operands, then launch → [Mp, N] bf16."""
+    used_tiles = _check_layout(x, tile_experts, used_tiles, tm)
+    Mp, K = x.shape
     out = torch.empty((Mp, N), dtype=torch.bfloat16, device=x.device)
     if Mp == 0 or N == 0:
         return out
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib()(x.data_ptr(), w.data_ptr(), None if scales is None else scales.data_ptr(),
-                    tile_experts.data_ptr(), used_tiles.data_ptr(), out.data_ptr(), Mp, K, N,
-                    ng, E, scheme_code, tm, stream)
+        fn = _lib_fn("ds_grouped_matmul", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7)
+        rc = fn(x.data_ptr(), w.data_ptr(), None if scales is None else scales.data_ptr(),
+                tile_experts.data_ptr(), used_tiles.data_ptr(), out.data_ptr(), Mp, K, N, ng, E,
+                scheme_code, tm, stream)
     if rc != 0:
         raise RuntimeError(f"grouped matmul kernel failed to launch: cudaError {rc}")
     return out
@@ -201,3 +222,128 @@ def gmm_quant(x, values, scales, tile_experts, scheme, dequant_dtype=torch.bfloa
 
 gmm.launches = 0
 gmm_quant.launches = 0
+
+
+def gmm_transposed_ref(dy, w, tile_experts, tm, used_tiles=None):
+    """Plain version of :func:`gmm_transposed`."""
+    return gmm_ref(dy, w.transpose(1, 2), tile_experts, tm, used_tiles)
+
+
+def gmm_quant_dx_ref(dy, values, scales, tile_experts, scheme, dequant_dtype=torch.bfloat16,
+                     tm=64, used_tiles=None):
+    """Plain version of :func:`gmm_quant_dx`: each used expert's carriers
+    dequantized with ``dequantize_grouped``, then ``dy_tile @ wᵀ``."""
+    return _grouped_ref(
+        dy, tile_experts, tm, used_tiles,
+        lambda e: dequantize_grouped(values[e], scales[e], scheme, dequant_dtype).t(),
+        values.shape[-2], torch.promote_types(dy.dtype, dequant_dtype))
+
+
+def gmm_dw_ref(x, dy, tile_experts, num_experts, tm, used_tiles=None, out_dtype=None):
+    """Plain version of :func:`gmm_dw`: per expert, the sum of ``x_tileᵀ @
+    dy_tile`` over its used row tiles in fp32 (or wider inputs' type), in
+    ``out_dtype`` (x's dtype when None); experts with no tile get zeros."""
+    Mp, K = x.shape
+    ct = torch.promote_types(torch.promote_types(x.dtype, dy.dtype), torch.float32)
+    te = tile_experts.long()
+    n_used = Mp // tm if used_tiles is None else int(used_tiles.reshape(-1)[0])
+    out = torch.zeros((num_experts, K, dy.shape[1]), dtype=ct, device=x.device)
+    for e in torch.unique(te[:n_used]).tolist():
+        tiles = (te[:n_used] == e).nonzero().reshape(-1)
+        rows = (tiles[:, None] * tm + torch.arange(tm, device=x.device)).reshape(-1)
+        out[e] = x[rows].to(ct).t() @ dy[rows].to(ct)
+    return out.to(out_dtype or x.dtype)
+
+
+def _launch_dx(dy, w, scales, tile_experts, used_tiles, K, ng, E, scheme_code, tm):
+    used_tiles = _check_layout(dy, tile_experts, used_tiles, tm, "dy")
+    Mp, N = dy.shape
+    out = torch.empty((Mp, K), dtype=torch.bfloat16, device=dy.device)
+    if Mp == 0 or K == 0:
+        return out
+    with torch.cuda.device(dy.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        fn = _lib_fn("ds_gmm_dx", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7)
+        rc = fn(dy.data_ptr(), w.data_ptr(), None if scales is None else scales.data_ptr(),
+                tile_experts.data_ptr(), used_tiles.data_ptr(), out.data_ptr(), Mp, K, N, ng,
+                E, scheme_code, tm, stream)
+    if rc != 0:
+        raise RuntimeError(f"grouped dx kernel failed to launch: cudaError {rc}")
+    return out
+
+
+def gmm_transposed(dy, w, tile_experts, tm, used_tiles=None):
+    """``dy [Mp, N] @ w[tile_experts]ᵀ`` for a stack ``w`` [E, K, N] →
+    [Mp, K] in dy's dtype: :func:`gmm`'s input gradient, reading ``w`` as
+    stored (no transposed copy). CUDA tensors (bf16, contiguous) launch
+    the kernel, counted in ``gmm.launches``, or raise; CPU tensors take
+    :func:`gmm_transposed_ref`."""
+    if dy.device.type == "cpu":
+        return gmm_transposed_ref(dy, w, tile_experts, tm, used_tiles)
+    if w.dtype != torch.bfloat16 or w.dim() != 3 or not w.is_contiguous() or \
+            w.device != dy.device:
+        raise ValueError(f"w must be a contiguous bf16 [E, K, N] stack on {dy.device}, got "
+                         f"{w.dtype} {tuple(w.shape)} on {w.device}")
+    if w.shape[2] != dy.shape[-1]:
+        raise ValueError(f"dy [Mp, {dy.shape[-1]}] does not contract with w {tuple(w.shape)}")
+    out = _launch_dx(dy, w, None, tile_experts, used_tiles, w.shape[1], 1, w.shape[0], 0, tm)
+    gmm.launches += 1
+    return out
+
+
+def gmm_quant_dx(dy, values, scales, tile_experts, scheme, dequant_dtype=torch.bfloat16,
+                 tm=64, used_tiles=None):
+    """``dy [Mp, N] @ dequant(values, scales)[tile_experts]ᵀ`` → [Mp, K] in
+    dy's dtype: the input gradient of :func:`gmm_quant` through frozen
+    carriers (int8 / fp8 [E, K, N]; packed fp6 [E, K, 3N/4]; fp32 scales
+    [E, K, ng]). CUDA tensors (bf16 dy and ``dequant_dtype``) launch the
+    kernel or raise; CPU tensors take :func:`gmm_quant_dx_ref`."""
+    if dy.device.type == "cpu":
+        return gmm_quant_dx_ref(dy, values, scales, tile_experts, scheme, dequant_dtype, tm,
+                                used_tiles)
+    if dequant_dtype != torch.bfloat16:
+        raise TypeError(f"the kernel dequantizes to bf16, got {dequant_dtype}")
+    K, N, ng = check_carriers(values, scales, scheme, dy.device, stacked=True)
+    if N != dy.shape[-1]:
+        raise ValueError(f"dy [Mp, {dy.shape[-1]}] does not contract with carriers "
+                         f"{tuple(values.shape)}")
+    out = _launch_dx(dy, values, scales, tile_experts, used_tiles, K, ng, values.shape[0],
+                     SCHEME_CODE[scheme], tm)
+    gmm_quant_dx.launches += 1
+    return out
+
+
+def gmm_dw(x, dy, tile_experts, num_experts, tm, used_tiles=None, out_dtype=None):
+    """Per-expert weight gradient on the tile layout: ``x`` [Mp, K], ``dy``
+    [Mp, N] (pad rows zero in both) → [E, K, N], each expert the fp32 sum
+    of ``x_tileᵀ @ dy_tile`` over its used row tiles rounded once to
+    ``out_dtype`` (x's dtype when None); experts with no tile get zeros.
+    Deterministic. CUDA tensors (bf16, contiguous, each expert's tiles
+    contiguous as :func:`tile_layout` makes them) launch the kernel or
+    raise; CPU tensors take :func:`gmm_dw_ref`."""
+    if x.device.type == "cpu":
+        return gmm_dw_ref(x, dy, tile_experts, num_experts, tm, used_tiles, out_dtype)
+    if (out_dtype or x.dtype) != torch.bfloat16:
+        raise TypeError(f"the kernel writes bf16, got {out_dtype}")
+    used_tiles = _check_layout(x, tile_experts, used_tiles, tm)
+    _check_layout(dy, tile_experts, used_tiles, tm, "dy")
+    if dy.device != x.device or dy.shape[0] != x.shape[0]:
+        raise ValueError(f"dy {tuple(dy.shape)} on {dy.device} is not x's rows")
+    Mp, K = x.shape
+    N = dy.shape[1]
+    out = torch.empty((num_experts, K, N), dtype=torch.bfloat16, device=x.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        fn = _lib_fn("ds_gmm_dw", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5)
+        rc = fn(x.data_ptr(), dy.data_ptr(), tile_experts.data_ptr(), used_tiles.data_ptr(),
+                out.data_ptr(), Mp, K, N, num_experts, tm, stream)
+    if rc != 0:
+        raise RuntimeError(f"grouped dW kernel failed to launch: cudaError {rc}")
+    gmm_dw.launches += 1
+    return out
+
+
+gmm_dw.launches = 0
+gmm_quant_dx.launches = 0

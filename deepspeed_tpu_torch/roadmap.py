@@ -8,10 +8,9 @@ PORT_QUEUE = {
     7: "ZeRO 1/2/3 across processes over NCCL",
     8: "checkpoint save/load",
     9: "fp16 dynamic loss scaling",
-    10: "remat policies 'dots' and 'moe'",
+    10: "remat policy 'dots'",
     11: "the other optimizers",
     12: "offload",
-    17: "MoE training",
     18: "the flat quantized layout and the FP_Quantize API",
 }
 

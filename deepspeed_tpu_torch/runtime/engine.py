@@ -235,7 +235,10 @@ class DeepSpeedEngine:
         if self._grads_acc is None:
             self._grads_acc = [g.to(self._grad_accum_dtype) for g in grads]
         else:
-            torch._foreach_add_(self._grads_acc, [g.to(self._grad_accum_dtype) for g in grads])
+            # leaf by leaf, in place: a list of widened copies would hold a
+            # second fp32 copy of every gradient (12.7 GB at 3.17 B params)
+            for acc, g in zip(self._grads_acc, grads):
+                acc.add_(g.to(acc.dtype))
         self.micro_steps += 1
         self.timers(BACKWARD_GLOBAL_TIMER).stop()
         return loss

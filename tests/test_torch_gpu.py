@@ -431,6 +431,107 @@ def test_grouped_kernel_matches_plain(cuda, scheme, sizes, K, N, tm):
     assert err <= QUANT_TOL, f"row_scaled_err {err}"
 
 
+# The backward kernels of K5 against their plain versions on the same bf16
+# inputs: dW sums fp32 products in another order and rounds once to bf16
+# (at most 1 unit of ``row_scaled_err`` against an fp32 reference), dx
+# likewise over the same bf16 weights; every check must reject the output
+# with one 64 x 64 tile zeroed.
+BWD_CASES = [
+    ((70, 0, 33, 1), 128, 200, 64),              # an empty expert; N past a tile edge
+    ((2, 0, 5, 1, 3, 0, 2, 3), 256, 512, 16),   # decode-sized groups, two experts empty
+    ((0, 0, 40, 0), 96, 136, 16),                # every row on one expert
+    ((300, 20, 0, 200), 512, 384, 64),           # several tiles an expert
+]
+
+
+def _zero_tile(t):
+    z = t.clone()
+    flat = z.reshape(-1, z.shape[-1])
+    r, c = (flat.shape[0] // 64 // 2) * 64, (flat.shape[1] // 64 // 2) * 64
+    flat[r:r + 64, c:c + 64] = 0
+    return z
+
+
+@pytest.mark.parametrize("sizes,K,N,tm", BWD_CASES)
+def test_gmm_dw_kernel_matches_plain(cuda, sizes, K, N, tm):
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import row_scaled_err
+    xp, te, used = _gmm_case(sizes, K, tm, cuda, 5)
+    dy, _, _ = _gmm_case(sizes, N, tm, cuda, 6)
+    E = len(sizes)
+    before = gm.gmm_dw.launches
+    got = gm.gmm_dw(xp, dy, te, E, tm, used)
+    again = gm.gmm_dw(xp, dy, te, E, tm, used)
+    want = gm.gmm_dw_ref(xp, dy, te, E, tm, used, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert gm.gmm_dw.launches == before + 2
+    assert got.dtype == torch.bfloat16 and got.shape == (E, K, N)
+    assert torch.equal(got, again)  # no atomics: the same bits every run
+    for e, n in enumerate(sizes):
+        if n == 0:
+            assert not got[e].any(), f"expert {e} has no rows"
+    err = row_scaled_err(got, want)
+    busy = int(np.argmax(sizes))
+    bad = got.clone()
+    bad[busy] = _zero_tile(got[busy])
+    assert err <= QUANT_TOL and row_scaled_err(bad, want) > 10 * QUANT_TOL, err
+
+
+@pytest.mark.parametrize("scheme", ("bf16",) + SCHEMES)
+@pytest.mark.parametrize("sizes,K,N,tm", BWD_CASES)
+def test_grouped_dx_kernels_match_plain(cuda, scheme, sizes, K, N, tm):
+    """``gmm_transposed`` (bf16, counted as ``gmm``) and ``gmm_quant_dx``
+    (carriers): zeros past the used tiles, within QUANT_TOL of the plain
+    version, and a zeroed tile rejected."""
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import row_scaled_err
+    dy, te, used = _gmm_case(sizes, N, tm, cuda, 7)
+    E = len(sizes)
+    if scheme == "bf16":
+        w = (torch.randn(E, K, N, generator=torch.Generator(cuda).manual_seed(2), device=cuda)
+             * 0.05).to(torch.bfloat16)
+        kernel = gm.gmm
+        before = kernel.launches
+        got = gm.gmm_transposed(dy, w, te, tm, used)
+        want = gm.gmm_transposed_ref(dy.float(), w.float(), te, tm, used)
+    else:
+        q = _carrier((E, K, N), scheme, 4 if N % 8 else 8, cuda, 3)
+        kernel = gm.gmm_quant_dx
+        before = kernel.launches
+        got = gm.gmm_quant_dx(dy, q.values, q.scales, te, scheme, torch.bfloat16, tm, used)
+        want = gm.gmm_quant_dx_ref(dy.float(), q.values, q.scales, te, scheme, torch.bfloat16,
+                                   tm, used)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (dy.shape[0], K)
+    n_used = int(used) * tm
+    assert not got[n_used:].any()
+    err = row_scaled_err(got[:n_used], want[:n_used])
+    bad_err = row_scaled_err(_zero_tile(got[:n_used]), want[:n_used])
+    assert err <= QUANT_TOL and bad_err > 10 * QUANT_TOL, (err, bad_err)
+
+
+def test_grouped_backward_kernels_refuse_what_they_cannot_take(cuda):
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    xp, te, used = _gmm_case((3, 5), 64, 16, cuda, 0)
+    w = torch.zeros(2, 32, 64, device=cuda, dtype=torch.bfloat16)
+    q = _carrier((2, 32, 64), "int8", 32, cuda, 1)
+    counts = [gm.gmm.launches, gm.gmm_dw.launches, gm.gmm_quant_dx.launches]
+    with pytest.raises(TypeError):
+        gm.gmm_dw(xp.float(), xp.float(), te, 2, 16, used)      # fp32: no fallback
+    with pytest.raises(ValueError):
+        gm.gmm_dw(xp, xp, te, 2, 32, used)                      # a tile it is not built for
+    with pytest.raises(ValueError):
+        gm.gmm_transposed(xp, w.float(), te, 16, used)
+    with pytest.raises(ValueError):
+        gm.gmm_transposed(xp[:, :32], w, te, 16, used)          # a strided dy
+    with pytest.raises(TypeError):
+        gm.gmm_quant_dx(xp, q.values, q.scales, te, "int8", torch.float32, 16, used)
+    with pytest.raises(ValueError):
+        gm.gmm_quant_dx(xp, q.values.cpu(), q.scales, te, "int8", torch.bfloat16, 16, used)
+    assert [gm.gmm.launches, gm.gmm_dw.launches, gm.gmm_quant_dx.launches] == counts
+
+
 def test_quant_kernels_refuse_what_they_cannot_take(cuda):
     from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
     from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import quant_matmul
@@ -911,3 +1012,136 @@ def test_tier_records_own_their_bytes_and_promote_from_host(cuda, quantize):
             assert float((got[name].float() - want[name].float()).abs().max()) <= err
         else:
             assert torch.equal(got[name], want[name])
+
+
+# ------------------------------------------------- batch-invariant serving
+@pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 1024), (14336, 4096), (100, 72)])
+def test_dense_matmul_matches_plain_and_rows_do_not_move(cuda, K, N):
+    """``dense_matmul`` within QUANT_TOL of the fp32 product of the same
+    bf16 inputs, and row 0 the same bits at every row count (cuBLAS's move
+    between 16 and 512 rows at Mistral-7B's shapes on an H100)."""
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import row_scaled_err
+    from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import dense_matmul
+    g = torch.Generator(cuda).manual_seed(K + N)
+    x = torch.randn(512, K, generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn(K, N, generator=g, device=cuda) * 0.02).to(torch.bfloat16)
+    before = dense_matmul.launches
+    rows = {M: dense_matmul(x[:M], w) for M in (1, 7, 16, 64, 255, 512)}
+    torch.cuda.synchronize()
+    assert dense_matmul.launches == before + 6
+    err = row_scaled_err(rows[512], x.float() @ w.float())
+    assert err <= QUANT_TOL, err
+    assert all(torch.equal(y[:1], rows[1]) for y in rows.values())
+    with pytest.raises(TypeError):
+        dense_matmul(x.float(), w.float())  # fp32 on the card: no fallback
+
+
+def test_greedy_stream_alone_equals_stream_in_a_mixed_batch(cuda):
+    """A 2-layer Mistral-7B-width bf16 engine: one request alone (its
+    decode steps at the max_seqs bucket) and the same request beside other
+    prompts (decode steps at the prefill bucket) give the same greedy
+    stream and the same logits bits."""
+    from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig, InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.models import init_params, llama_config
+    cfg = llama_config("mistral-7b", num_hidden_layers=2)
+    params = init_params(cfg, cuda, torch.bfloat16, torch.Generator(cuda).manual_seed(1))
+    sm = DSStateManagerConfig(max_ragged_batch_size=512, max_ragged_sequence_count=16,
+                              max_tracked_sequences=8, max_context=256)
+    rng = np.random.RandomState(3)
+    prompt = rng.randint(0, cfg.vocab_size, 100).astype(np.int32)
+    others = [rng.randint(0, cfg.vocab_size, n).astype(np.int32) for n in (60, 90, 33, 45)]
+    runs = {}
+    for kind in ("alone", "mixed"):
+        eng = InferenceEngineV2(cfg, RaggedInferenceEngineConfig(kv_block_size=32,
+                                                                 state_manager=sm),
+                                params=params, device=cuda)
+        logits = [eng.put([0], [prompt])[0]]
+        for i in range(4):
+            tok = [int(np.argmax(logits[-1]))]
+            out = (eng.put([0], [tok]) if kind == "alone"
+                   else eng.put([0, i + 1], [tok, others[i]]))  # a prompt beside: bucket 512
+            logits.append(out[0])
+        runs[kind] = np.stack(logits)
+        eng.destroy()
+    assert np.array_equal(runs["alone"], runs["mixed"])
+
+
+# ------------------------------------------------- MoE training (K5 backward)
+def test_two_layer_moe_training_step_kernels_vs_plain(cuda):
+    """One bf16 ``train_batch`` (gas 2) of a 2-layer dropless MoE model
+    (4 experts, top-2, S = 256: the flash path) with remat ``"moe"``
+    through the kernels, and from the same weights with the grouped
+    kernels, attention and norms pinned to their plain versions (the plain
+    run replays the kernel run's routing: a near-tie may fall either way
+    under the two runs' roundings). Each parameter's accumulated fp32
+    gradient within 2^-4 of the plain run's in relative L2 norm, the loss
+    within 1e-3 relative; per layer and micro-batch 3 ``gmm`` forward + 3
+    ``gmm`` dx launches and 3 ``gmm_dw``, and no forward re-run."""
+    import contextlib
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import build_llama, llama
+    from deepspeed_tpu_torch.moe import sharded_moe
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import fused_norms as fn
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    L, gas = 2, 2
+    cfg = {"train_batch_size": 2 * gas, "train_micro_batch_size_per_gpu": 2,
+           "gradient_accumulation_steps": gas, "bf16": {"enabled": True},
+           "optimizer": {"type": "Adam", "params": {"lr": 1e-4}}}
+    ids = torch.randint(0, 512, (2 * gas, 256), generator=torch.Generator(cuda).manual_seed(0),
+                        device=cuda)
+    routes, top_k = [], sharded_moe.top_k
+
+    def recording_top_k(gates, k):
+        vals, idx = top_k(gates, k)
+        routes.append(idx)
+        return vals, idx
+
+    def replaying_top_k(gates, k):
+        idx = routes.pop(0)
+        return gates.gather(-1, idx), idx
+
+    @contextlib.contextmanager
+    def pinned(mode):
+        saved = (llama.flash_attention, llama.fused_rms_norm, gm.gmm, gm.gmm_transposed,
+                 gm.gmm_dw, sharded_moe.top_k)
+        sharded_moe.top_k = recording_top_k if mode == "kernels" else replaying_top_k
+        if mode == "plain":
+            llama.flash_attention = lambda q, k, v, causal=True: fa.flash_attention_ref(
+                q, k, v, causal)
+            llama.fused_rms_norm = fn.rms_norm_ref
+            gm.gmm, gm.gmm_transposed, gm.gmm_dw = gm.gmm_ref, gm.gmm_transposed_ref, \
+                gm.gmm_dw_ref
+        try:
+            yield
+        finally:
+            (llama.flash_attention, llama.fused_rms_norm, gm.gmm, gm.gmm_transposed,
+             gm.gmm_dw, sharded_moe.top_k) = saved
+
+    out = {}
+    for mode in ("kernels", "plain"):
+        model = build_llama("mixtral-debug", device=cuda, hidden_size=256, intermediate_size=512,
+                            num_attention_heads=2, num_key_value_heads=2, vocab_size=512,
+                            max_position_embeddings=512, moe_drop_tokens=False,
+                            remat_policy="moe", generator=torch.Generator(cuda).manual_seed(1))
+        engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg, device=cuda)
+        grads, step = [], engine.step
+
+        def recording_step():
+            grads[:] = [g.float().clone() for g in engine._grads_acc]
+            step()
+
+        engine.step = recording_step
+        before = [gm.gmm.launches, gm.gmm_dw.launches]
+        with pinned(mode):
+            loss = engine.train_batch(batch=(ids, ids))
+        torch.cuda.synchronize()
+        grew = [gm.gmm.launches - before[0], gm.gmm_dw.launches - before[1]]
+        assert grew == ([6 * L * gas, 3 * L * gas] if mode == "kernels" else [0, 0]), grew
+        out[mode] = (loss.item(), grads)
+    assert not routes
+    (lk, gk), (lp, gp) = out["kernels"], out["plain"]
+    rel = max(((a - b).norm() / b.norm()).item() for a, b in zip(gk, gp))
+    assert np.isfinite(lk) and abs(lk - lp) <= 1e-3 * abs(lp), (lk, lp)
+    assert rel <= 2.0 ** -4, rel

@@ -8,10 +8,10 @@
   they raise instead of quietly running on the CPU.
 - Each config switch of a feature the port does not serve or train yet
   raises ``NotImplementedError`` at engine (or model) construction, naming
-  its ROADMAP item (MoE models serve, and train only once item 17 is
-  ported); so do the training engine's checkpoint methods. The prefix
-  cache and the KV spill tier are ported: their configs build an engine
-  that serves."""
+  its ROADMAP item; so do the training engine's checkpoint methods. The
+  prefix cache and the KV spill tier are ported: their configs build an
+  engine that serves. MoE models serve and train, dropless or
+  capacity-routed."""
 
 import ast
 import pathlib
@@ -101,6 +101,20 @@ def test_scans_cover_the_kv_tier_slice():
     assert set(SLICE5_MODULES) <= set(_modules())
     from deepspeed_tpu_torch.ops.kernels import build
     assert "quantization.cu" in build.SOURCES
+
+
+SLICE6_MODULES = ("deepspeed_tpu_torch.moe", "deepspeed_tpu_torch.moe.sharded_moe",
+                  "deepspeed_tpu_torch.moe.layer")
+
+
+def test_scans_cover_the_moe_training_slice():
+    """The AST scan and the jax-free import above reach the MoE package,
+    and kernel K5's source carries its backward entries."""
+    assert set(SLICE6_MODULES) <= set(_modules())
+    assert {PKG / "moe" / "sharded_moe.py", PKG / "moe" / "layer.py"} <= set(_port_files())
+    from deepspeed_tpu_torch.ops.kernels import build
+    src = (build.CSRC / "grouped_matmul.cu").read_text()
+    assert "ds_gmm_dw" in src and "ds_gmm_dx" in src
 
 
 def test_default_device_is_the_gpu():
@@ -204,8 +218,25 @@ def test_off_slice_training_config_raises(flag):
 def test_off_slice_training_model_raises(overrides, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, port queue item {item} "):
         build_llama("debug", device="cpu", **overrides)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, port queue item 17 "):
-        build_llama("mixtral-debug", device="cpu")
+
+
+@pytest.mark.parametrize("drop_tokens", [False, True], ids=["dropless", "capacity"])
+def test_moe_model_trains_one_step_through_initialize(drop_tokens):
+    """An MoE model builds and takes one ``train_batch`` on the CPU: a
+    finite loss, every parameter updated, the gate's router among them."""
+    model = build_llama("mixtral-debug", device="cpu", moe_drop_tokens=drop_tokens,
+                        remat_policy="moe")
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    cfg = {"train_batch_size": 4, "train_micro_batch_size_per_gpu": 2,
+           "gradient_accumulation_steps": 2, "optimizer": {"type": "Adam",
+                                                           "params": {"lr": 1e-3}}}
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg, device="cpu")
+    ids = torch.randint(0, 256, (4, 16), generator=torch.Generator().manual_seed(0))
+    loss = engine.train_batch(batch=(ids, ids))
+    assert torch.isfinite(loss) and engine.global_steps == 1
+    moved = [n for n, p in model.named_parameters() if not torch.equal(p, before[n])]
+    assert len(moved) == len(before), sorted(set(before) - set(moved))
+    assert any("deepspeed_moe.gate.wg.kernel" in n for n in moved)
 
 
 def test_checkpointing_raises():
