@@ -300,8 +300,50 @@ each of which fails the run if it fails:
    micro-batch) and with capacity routing (no grouped GEMM);
 22. ``bench_train_moe`` — that lane's shape (8 layers, hidden 768, I 2048,
    12 heads, 8 experts, top-2, S 1024, B 4, gas 32, remat ``"moe"``),
-   dropless, then capacity-routed on a fresh model: tokens/s, active MFU
-   and the step time of each.
+   dropless: tokens/s, active MFU and the step time (the capacity-routed
+   repeat, within 0.4% of it in ``PERF.md``, was cut to keep the run's
+   length);
+
+23. K8 and LayerNorm kernels — ``block_sparse_fwd``, ``block_sparse_dq`` and
+   ``block_sparse_dkv`` (``csrc/block_sparse_attention.cu``) at BERT-large's
+   training path (B 4, S 4096, H 16, Dh 64, bf16, BigBird block 64: 1
+   random, a window of 3 and 1 global block, 9.13% of the block pairs), and
+   beside it block 16, per-head layouts at block 32, Dh 128 at block 128,
+   and a hand-made layout with an empty row and a key block no row admits.
+   Each held against its plain version with ``row_scaled_err`` (ROW_TOL, as
+   K1), lse within LSE_TOL on the rows that admit something and exactly
+   ``NEG_INF`` on the empty row, zeros on the empty row (o, dq) and the
+   unreached key block (dk, dv), each check rejecting the output with its
+   first block of rows zeroed; the LayerNorm forward (``fused_norms.cu``) at
+   [16384, 1024] bf16 within LN_TOL units. Timed beside the plain version
+   (at the path's shape), the library call (SDPA with the layout expanded
+   to a boolean [H, S, S] mask, forward and backward; ``F.layer_norm``) and
+   the bound (bytes over 3.35 TB/s or the admitted pairs' flops over 989
+   TFLOP/s); and, as a reading, K1 non-causal at the same shape: the dense
+   work the layout skips;
+24. BERT parity — a 2-layer bert-large-width model at S 4096 with BigBird
+   block 64 takes one ``train_batch`` (B 2, gas 2, bf16, Adam) through the
+   kernels and again from the same weights with block-sparse attention and
+   LayerNorm pinned to their plain versions. The two differ by where bf16
+   rounds (the kernels round p and ds). Limits, a few times the readings
+   in ``PERF.md``: the loss within BERT_LOSS_TOL relative, each parameter's
+   accumulated gradient within GRAD_LEAF_TOL in relative L2 norm and
+   BERT_GRAD_ROW_TOL units of ``row_scaled_err`` (readings up to 65: one
+   element in a million off by a quarter of its row's scale), except the
+   key projection's bias: its exact gradient is zero (a softmax is blind
+   to q·b_k added to a whole row), so both runs hold rounding noise there,
+   and each is held under GRAD_LEAF_TOL of its layer's query-bias gradient
+   instead. The launches exact in the kernel run (K8's three L per
+   micro-batch each, LayerNorm 2 L + 2) and none in the plain run;
+25. BERT-large training — all 24 layers, the position table tiled from 512
+   to 4096 by ``replace_model_self_attention_with_sparse_self_attention``,
+   BigBird block 64, micro-batch 4, gas 2, S 4096, bf16 Adam, ZeRO-3, no
+   attention mask: 4 ``train_batch`` steps on a fixed batch, the loss
+   finite and falling, launches exact (K8's three 48 a step each, LayerNorm
+   100). Prints step ms, tokens/s, MFU (``bench.py``'s formula with its
+   dense attention term) beside the attention flops the layout admits,
+   peak memory and a profiled step; then the same model without a sparse
+   section (K1 non-causal) for its step time and peak.
 
 The last lines are the card, one JSON object with every kernel's numbers
 and, last, ``{"ok": true, "device": {...}}``."""
@@ -363,6 +405,19 @@ MOE_LOSS_TOL, MOE_AUX_TOL = 1e-4, 1e-4  # phase 20: relative, kernels vs plain
 # top-2, S 1024, B 4, gas 32
 BENCH_MOE_LAYERS, BENCH_MOE_HIDDEN, BENCH_MOE_INTER, BENCH_MOE_HEADS = 8, 768, 2048, 12
 BENCH_MOE_S, BENCH_MOE_B, BENCH_MOE_GAS = 1024, 4, 32
+# phases 23-25: BERT-large (24 x 1024, 16 heads, Dh 64) at S 4096, BigBird block 64
+BERT_B, BERT_S, BERT_GAS, BERT_PARITY_B = 4, 4096, 2, 2
+BIGBIRD = {"mode": "bigbird", "block": 64, "num_random_blocks": 1,
+           "num_sliding_window_blocks": 3, "num_global_blocks": 1}
+# phase 23: name → (B, S, H, Dh, block, layout: "bigbird", "bigbird_per_head" or "unreached")
+SPARSE_CASES = {"path": (BERT_B, BERT_S, 16, 64, 64, "bigbird"),
+                "block16": (2, 2048, 16, 64, 16, "bigbird"),
+                "per_head_block32": (2, 2048, 16, 64, 32, "bigbird_per_head"),
+                "dh128_block128": (2, 2048, 8, 128, 128, "bigbird"),
+                "empty_row_unreached": (2, 1024, 4, 64, 64, "unreached")}
+LN_TOL = 2.0                  # phase 23, units of row_scaled_err (bf16 output rounding: 1)
+BERT_LOSS_TOL = 1e-4          # phase 24, relative
+BERT_GRAD_ROW_TOL = 256.0     # phase 24, units of row_scaled_err per parameter gradient
 
 
 def log(msg):
@@ -861,6 +916,8 @@ _CATEGORIES = (  # (category, name patterns: a substring, or a tuple of substrin
     ("grouped_matmul backward (K5: dx, dW)", ("gmm_dx_kernel", "gmm_dw_kernel")),
     ("flash_attention (K1)", ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")),
     ("rms_norm (K2)", ("rms_fwd_kernel",)),
+    ("layer_norm (K2)", ("ln_fwd_kernel",)),
+    ("block_sparse_attention (K8)", ("bsa_fwd_kernel", "bsa_dq_kernel", "bsa_dkv_kernel")),
     ("paged_attention (K3)", ("paged_decode_kernel",)),
     ("gemm", ("nvjet", "gemm", "cutlass", "xmma", "cublas")),
     ("multi-tensor (Adam, grad accumulation)", ("multi_tensor_apply",)),
@@ -3130,40 +3187,420 @@ def mixtral_training_phase(device):
 def bench_train_moe_phase(device):
     """Phase 22: ``bench.py``'s ``bench_train_moe`` shape (8 layers, hidden
     768, I 2048, 12 heads, 8 experts, top-2, S 1024, B 4, gas 32, bf16,
-    Adam, ZeRO-3, remat "moe"), dropless and then capacity-routed (a fresh
-    model, as the lane builds one): one warm-up and one timed step each;
+    Adam, ZeRO-3, remat "moe"), dropless: one warm-up and one timed step;
     tokens/s and active MFU as that lane reports them."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models import build_llama
-    res = {}
-    for name, drop in (("dropless", False), ("capacity", True)):
-        model = build_llama("160m", device=device, hidden_size=BENCH_MOE_HIDDEN,
-                            intermediate_size=BENCH_MOE_INTER, num_hidden_layers=BENCH_MOE_LAYERS,
-                            num_attention_heads=BENCH_MOE_HEADS,
-                            num_key_value_heads=BENCH_MOE_HEADS,
-                            max_position_embeddings=BENCH_MOE_S, moe_num_experts=8, moe_top_k=2,
-                            moe_drop_tokens=drop, remat_policy="moe",
-                            generator=torch.Generator(device=device).manual_seed(0))
-        engine, *_ = deepspeed_tpu_torch.initialize(
-            model=model, config=train_config(BENCH_MOE_B, BENCH_MOE_GAS), device=device)
-        rng = np.random.RandomState(0)
-        ids = torch.from_numpy(rng.randint(0, model.config.vocab_size, size=(
-            BENCH_MOE_GAS, BENCH_MOE_B, BENCH_MOE_S)).astype(np.int32)).to(device)
-        (_, l0), (dt, loss) = timed_steps(engine, (ids, ids), 2)
-        total, active = active_params(model)
-        tokens = BENCH_MOE_B * BENCH_MOE_GAS * BENCH_MOE_S
-        if not (math.isfinite(l0) and math.isfinite(loss)):
-            raise AssertionError(f"bench_train_moe {name}: losses {l0}, {loss}")
-        res[name] = {"params_total": total, "params_active": active, "step_ms": dt * 1e3,
-                     "tokens_per_sec": tokens / dt, "loss": loss,
-                     "active_mfu": model_flops(active, tokens, BENCH_MOE_LAYERS, BENCH_MOE_S,
-                                               BENCH_MOE_HIDDEN) / dt / BF16_FLOPS_PER_S}
-        log(f"[bench-train-moe] {name}: {json.dumps(res[name])}")
+    model = build_llama("160m", device=device, hidden_size=BENCH_MOE_HIDDEN,
+                        intermediate_size=BENCH_MOE_INTER, num_hidden_layers=BENCH_MOE_LAYERS,
+                        num_attention_heads=BENCH_MOE_HEADS, num_key_value_heads=BENCH_MOE_HEADS,
+                        max_position_embeddings=BENCH_MOE_S, moe_num_experts=8, moe_top_k=2,
+                        moe_drop_tokens=False, remat_policy="moe",
+                        generator=torch.Generator(device=device).manual_seed(0))
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, config=train_config(BENCH_MOE_B, BENCH_MOE_GAS), device=device)
+    rng = np.random.RandomState(0)
+    ids = torch.from_numpy(rng.randint(0, model.config.vocab_size, size=(
+        BENCH_MOE_GAS, BENCH_MOE_B, BENCH_MOE_S)).astype(np.int32)).to(device)
+    (_, l0), (dt, loss) = timed_steps(engine, (ids, ids), 2)
+    total, active = active_params(model)
+    tokens = BENCH_MOE_B * BENCH_MOE_GAS * BENCH_MOE_S
+    if not (math.isfinite(l0) and math.isfinite(loss)):
+        raise AssertionError(f"bench_train_moe: losses {l0}, {loss}")
+    res = {"params_total": total, "params_active": active, "step_ms": dt * 1e3,
+           "tokens_per_sec": tokens / dt, "loss": loss,
+           "active_mfu": model_flops(active, tokens, BENCH_MOE_LAYERS, BENCH_MOE_S,
+                                     BENCH_MOE_HIDDEN) / dt / BF16_FLOPS_PER_S}
+    log(f"[bench-train-moe] dropless: {json.dumps(res)}")
+    engine.destroy()
+    del model, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+# ------------------------------------------------------------ phases 23-25
+def bigbird_layout(H, S, block=64, per_head=False):
+    from deepspeed_tpu_torch.ops.sparse_attention import BigBirdSparsityConfig
+    kw = {k: v for k, v in BIGBIRD.items() if k not in ("mode", "block")}
+    return BigBirdSparsityConfig(num_heads=H, block=block, different_layout_per_head=per_head,
+                                 **kw).make_layout(S)
+
+
+def unreached_layout(H, n):
+    """Per-head layouts over n blocks with an empty row (2) and a key block
+    no row admits (n - 2); every other row admits block 0 and itself, row 0
+    the first n - 2 blocks (``test_ragged_rows_and_empty_row`` at scale)."""
+    layout = np.zeros((H, n, n), bool)
+    for r in range(n):
+        if r != 2:
+            layout[:, r, [0, r if r != n - 2 else n - 1]] = True
+    layout[:, 0, :n - 2] = True
+    layout[1:, 1, 3] = True
+    return layout
+
+
+def sparse_case_rows(name, B, S, H, D, block, layout, device, flush, timed):
+    """K8's three kernels on one case against their plain versions → result
+    rows; ``timed`` adds the plain versions, SDPA over the expanded mask and
+    K1 non-causal at the same shape."""
+    from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    F = torch.nn.functional
+    c = flash_case(230 + len(name), B, S, H, D, False, 0, device)
+    q, k, v, do = c["q"], c["k"], c["v"], c["do"]
+    full = bsa.full_layout(layout, H, S, block)
+    o, lse = bsa.block_sparse_fwd(q, k, v, layout, block)
+    delta = fa.flash_delta(o, do)
+    dq = bsa.block_sparse_dq(q, k, v, do, lse, delta, layout, block)
+    dk, dv = bsa.block_sparse_dkv(q, k, v, do, lse, delta, layout, block)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = bsa.block_sparse_fwd_ref(q, k, v, layout, block)
+    dq_ref = bsa.block_sparse_dq_ref(q, k, v, do, lse, delta, layout, block)
+    dk_ref, dv_ref = bsa.block_sparse_dkv_ref(q, k, v, do, lse, delta, layout, block)
+    live = torch.from_numpy(full.any(-1)).to(q.device).repeat_interleave(block, 1)[None]
+    reached = torch.from_numpy(full.any(-2)).to(q.device).repeat_interleave(block, 1)[None]
+    live, reached = live.expand(B, -1, -1), reached.expand(B, -1, -1)   # [B, H, S]
+    lse_err = (lse - lse_ref)[live].abs().max().item()
+    zeros_ok = (torch.equal(lse == bsa.NEG_INF, ~live)
+                and bool((o.transpose(1, 2)[~live] == 0).all())
+                and bool((dq.transpose(1, 2)[~live] == 0).all())
+                and bool((dk.transpose(1, 2)[~reached] == 0).all())
+                and bool((dv.transpose(1, 2)[~reached] == 0).all()))
+    outs = {"o": (o, o_ref), "dq": (dq, dq_ref), "dk": (dk, dk_ref), "dv": (dv, dv_ref)}
+    errs = {t: fa.row_scaled_err(got, ref) for t, (got, ref) in outs.items()}
+    abs_errs = {t: max_abs(got, ref) for t, (got, ref) in outs.items()}
+    zeroed = {}
+    for t, (got, ref) in outs.items():
+        y = got.clone()
+        y[:, :block] = 0  # query row 0 and key block 0 are admitted in every case
+        zeroed[t] = fa.row_scaled_err(y, ref)
+    del outs, o_ref, dq_ref, dk_ref, dv_ref
+    if max(errs.values()) > ROW_TOL or lse_err > LSE_TOL or not zeros_ok:
+        raise AssertionError(f"block-sparse case {name}: errors {errs} (limit {ROW_TOL}), lse "
+                             f"{lse_err} (limit {LSE_TOL}), empty rows and unreached blocks "
+                             f"zero: {zeros_ok}")
+    if min(zeroed.values()) <= ROW_TOL:
+        raise AssertionError(f"block-sparse case {name}: the check passes a zeroed block: "
+                             f"{zeroed}")
+    admitted = int(full.sum())                 # admitted (head, row, key block) triples
+    pairs = B * admitted * block * block       # (query, key) pairs over the batch
+    act, stats = B * S * H * D * 2, B * H * S * 4
+    sched = bsa.schedule(full, q.device)
+    lists = sum(t.numel() * 4 for t in sched.k[:3])
+    qlists = sum(t.numel() * 4 for t in sched.q[:3])
+    shape = {"case": name, "B": B, "S": S, "H": H, "Dh": D, "block": block,
+             "density": float(full.mean()), "empty_rows": int((~full.any(-1)).sum()),
+             "unreached_key_blocks": int((~full.any(-2)).sum())}
+    cost = {"block_sparse_fwd": (4 * act + stats + lists, 4 * D * pairs),
+            "block_sparse_dq": (5 * act + 2 * stats + lists, 6 * D * pairs),
+            "block_sparse_dkv": (6 * act + 2 * stats + qlists, 8 * D * pairs)}
+    calls = {"block_sparse_fwd": (lambda: bsa.block_sparse_fwd(q, k, v, layout, block),
+                                  lambda: bsa.block_sparse_fwd_ref(q, k, v, layout, block)),
+             "block_sparse_dq": (lambda: bsa.block_sparse_dq(q, k, v, do, lse, delta, layout,
+                                                             block),
+                                 lambda: bsa.block_sparse_dq_ref(q, k, v, do, lse, delta,
+                                                                 layout, block)),
+             "block_sparse_dkv": (lambda: bsa.block_sparse_dkv(q, k, v, do, lse, delta, layout,
+                                                               block),
+                                  lambda: bsa.block_sparse_dkv_ref(q, k, v, do, lse, delta,
+                                                                   layout, block))}
+    err_of = {"block_sparse_fwd": ("o",), "block_sparse_dq": ("dq",),
+              "block_sparse_dkv": ("dk", "dv")}
+    lib = {}
+    if timed:
+        mask = bsa.block_mask(full, block, q.device)[None]           # [1, H, S, S] bool
+        sq, sk, sv = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+        sdo = do.transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask)
+
+        s_out = sdpa()
+        lib["bwd"] = time_ms(lambda: torch.autograd.grad(s_out, (sq, sk, sv), sdo,
+                                                         retain_graph=True), flush)
+        with torch.no_grad():
+            lib["fwd"] = time_ms(sdpa, flush)
+        del s_out, sq, sk, sv, mask
+        dense = {"flash_fwd_ms": time_ms(lambda: fa.flash_fwd(q, k, v, None, False), flush)}
+        fo, flse = fa.flash_fwd(q, k, v, None, False)
+        fdelta = fa.flash_delta(fo, do)
+        dense["flash_bwd_dq_ms"] = time_ms(
+            lambda: fa.flash_bwd_dq(q, k, v, do, flse, fdelta, None, False), flush)
+        dense["flash_bwd_dkv_ms"] = time_ms(
+            lambda: fa.flash_bwd_dkv(q, k, v, do, flse, fdelta, None, False), flush)
+        del fo, flse, fdelta
+        log(f"[sparse-kernels] K1 non-causal at the path's shape (the dense work): "
+            f"{json.dumps(dense)}")
+    rows = {}
+    for key, (nb, nf) in cost.items():
+        b_ms, b_by = bound(nb, nf)
+        fn, plain = calls[key]
+        row = dict(shape, max_abs_err=max(abs_errs[t] for t in err_of[key]),
+                   row_err=max(errs[t] for t in err_of[key]),
+                   zeroed_tile_row_err=min(zeroed[t] for t in err_of[key]),
+                   ms=time_ms(fn, flush), bound_ms=b_ms, bound_by=b_by, bytes=nb, flops=nf)
+        if key == "block_sparse_fwd":
+            row["lse_abs_err"] = lse_err
+        if timed:
+            row.update(plain_ms=time_ms(plain, flush),
+                       library_ms=lib["fwd" if key == "block_sparse_fwd" else "bwd"],
+                       library_call=("scaled_dot_product_attention forward, boolean [H, S, S] "
+                                     "layout mask" if key == "block_sparse_fwd" else
+                                     "scaled_dot_product_attention backward (dq, dk, dv), "
+                                     "boolean [H, S, S] layout mask"),
+                       library_fwd_plus_bwd_ms=lib["fwd"] + lib["bwd"])
+        rows[key] = row
+    return rows
+
+
+def sparse_kernel_phase(device, flush):
+    """Phase 23: K8's three kernels and the LayerNorm forward."""
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels.fused_norms import layer_norm_fwd, layer_norm_ref
+    F = torch.nn.functional
+    out = {"block_sparse_fwd": [], "block_sparse_dq": [], "block_sparse_dkv": [],
+           "layer_norm_fwd": []}
+    for name, (B, S, H, D, block, kind) in SPARSE_CASES.items():
+        layout = (unreached_layout(H, S // block) if kind == "unreached" else
+                  bigbird_layout(H, S, block, per_head=kind == "bigbird_per_head"))
+        for key, row in sparse_case_rows(name, B, S, H, D, block, layout, device, flush,
+                                         timed=name == "path").items():
+            log(f"[sparse-kernels] {key} {json.dumps(row)}")
+            out[key].append(row)
+        torch.cuda.empty_cache()
+
+    rows, D = BERT_B * BERT_S, 1024
+    g = torch.Generator(device=device).manual_seed(rows)
+    x = (torch.randn(rows, D, generator=g, device=device) * 3 + 1).to(torch.bfloat16)
+    scale = (1 + 0.1 * torch.randn(D, generator=g, device=device)).to(torch.bfloat16)
+    bias = (0.1 * torch.randn(D, generator=g, device=device)).to(torch.bfloat16)
+    got = layer_norm_fwd(x, scale, bias, 1e-12)
+    want = layer_norm_ref(x.float(), scale.float(), bias.float(), 1e-12)
+    torch.cuda.synchronize()
+    zeroed = got.clone()
+    zeroed[-64:] = 0
+    err, zerr = fa.row_scaled_err(got, want), fa.row_scaled_err(zeroed, want)
+    if err > LN_TOL or zerr <= LN_TOL:
+        raise AssertionError(f"layer norm: {err} units (limit {LN_TOL}); zeroed tile {zerr}")
+    nb = 2 * x.numel() * 2 + 2 * D * 2
+    b_ms, b_by = bound(nb, 8 * x.numel())
+    row = {"case": "path", "rows": rows, "D": D, "row_err": err, "zeroed_tile_row_err": zerr,
+           "max_abs_err": (got.float() - want).abs().max().item(),
+           "ms": time_ms(lambda: layer_norm_fwd(x, scale, bias, 1e-12), flush),
+           "plain_ms": time_ms(lambda: layer_norm_ref(x, scale, bias, 1e-12), flush),
+           "library_ms": time_ms(lambda: F.layer_norm(x, (D,), scale, bias, 1e-12), flush),
+           "library_call": "torch.nn.functional.layer_norm",
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nb, "flops": 8 * x.numel()}
+    log(f"[sparse-kernels] layer_norm_fwd {json.dumps(row)}")
+    out["layer_norm_fwd"].append(row)
+    return out
+
+
+def bert_counters():
+    from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops.kernels.fused_norms import layer_norm_fwd
+    return {"block_sparse_fwd": bsa.block_sparse_fwd, "block_sparse_dq": bsa.block_sparse_dq,
+            "block_sparse_dkv": bsa.block_sparse_dkv, "layer_norm_fwd": layer_norm_fwd}
+
+
+def bert_model(device, layers, seed, sparse=True):
+    """bert-large at ``layers`` of 24, random weights from ``seed``, on the
+    path: positions tiled from 512 to BERT_S and BigBird block 64 by
+    ``replace_model_self_attention_with_sparse_self_attention``; without
+    ``sparse`` the dense model with a BERT_S table."""
+    from deepspeed_tpu_torch.models import build_bert
+    from deepspeed_tpu_torch.ops.sparse_attention import SparseAttentionUtils
+    g = torch.Generator(device=device).manual_seed(seed)
+    if not sparse:
+        return build_bert("bert-large", device=device, generator=g, num_hidden_layers=layers,
+                          max_position_embeddings=BERT_S)
+    model = build_bert("bert-large", device=device, generator=g, num_hidden_layers=layers)
+    return SparseAttentionUtils.replace_model_self_attention_with_sparse_self_attention(
+        model, max_position=BERT_S, ds_config={"sparse_attention": BIGBIRD})
+
+
+def bert_batch(vocab, B, gas, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    ids = torch.randint(0, vocab, (B * gas, BERT_S), generator=g, device=device,
+                        dtype=torch.int32)
+    return ids, ids.clone()
+
+
+@contextlib.contextmanager
+def plain_bert_kernels():
+    """Pin BERT's block-sparse attention and LayerNorm to the plain versions
+    (autograd through ``block_sparse_attention_ref`` and ``layer_norm_ref``)."""
+    from deepspeed_tpu_torch.models import bert
+    from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops.kernels.fused_norms import layer_norm_ref
+    saved = bsa.block_sparse_attention, bert.fused_layer_norm
+    bsa.block_sparse_attention, bert.fused_layer_norm = bsa.block_sparse_attention_ref, \
+        layer_norm_ref
+    try:
+        yield
+    finally:
+        bsa.block_sparse_attention, bert.fused_layer_norm = saved
+
+
+def bert_parity_phase(device):
+    """Phase 24: a 2-layer bert-large-width step through the kernels and
+    pinned to the plain versions, from the same weights and batch."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import row_scaled_err
+    L, B, gas = 2, BERT_PARITY_B, BERT_GAS
+    results = {}
+    for mode in ("kernels", "plain"):
+        model = bert_model(device, L, seed=24)
+        engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=train_config(B, gas),
+                                                    device=device)
+        names = [n for n, p in model.named_parameters() if p.requires_grad]
+        grads = capture_grads(engine, to_host=True)
+        counters = bert_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        with plain_bert_kernels() if mode == "plain" else contextlib.nullcontext():
+            loss = engine.train_batch(batch=bert_batch(model.config.vocab_size, B, gas, device))
+        torch.cuda.synchronize()
+        launched = {k: fn.launches for k, fn in counters.items()}
+        want = ({"block_sparse_fwd": L * gas, "block_sparse_dq": L * gas,
+                 "block_sparse_dkv": L * gas, "layer_norm_fwd": (2 * L + 2) * gas}
+                if mode == "kernels" else dict.fromkeys(counters, 0))
+        if launched != want:
+            raise AssertionError(f"bert parity {mode}: launches {launched}, want {want}")
+        results[mode] = (loss.item(), engine.global_grad_norm, grads)
         engine.destroy()
         del model, engine
         gc.collect()
         torch.cuda.empty_cache()
+    (lk, nk, gk), (lp, np_, gp) = results["kernels"], results["plain"]
+    # The key projection's bias has no gradient in exact arithmetic (adding
+    # q·b_k to every score of a row leaves its softmax unchanged), so both
+    # runs give rounding noise there: each is held to be small against its
+    # layer's query-bias gradient instead.
+    gk, gp = dict(zip(names, gk)), dict(zip(names, gp))
+    kbias = [n for n in names if n.endswith("k_proj.bias")]
+    kbias_vs_q = {f"{n} {mode}": (g[n].norm() / g[n.replace("k_proj", "q_proj")].norm()).item()
+                  for n in kbias for mode, g in (("kernels", gk), ("plain", gp))}
+    held = [n for n in names if n not in kbias]
+    leaf = {n: ((gk[n] - gp[n]).norm() / gp[n].norm()).item() for n in held}
+    rows = {n: row_scaled_err(gk[n].reshape(-1, gk[n].shape[-1]), gp[n].reshape(-1, gp[n].shape[-1]))
+            for n in held}
+    res = {"layers": L, "micro_batch": B, "gas": gas, "seq": BERT_S,
+           "loss_kernels": lk, "loss_plain": lp, "loss_rel_diff": abs(lk - lp) / abs(lp),
+           "grad_norm_kernels": nk, "grad_norm_plain": np_,
+           "grad_norm_rel_diff": abs(nk - np_) / np_,
+           "leaf_grad_rel_diff_max": max(leaf.values()),
+           "leaf_grad_rel_diff_worst": max(leaf, key=leaf.get),
+           "leaf_grad_row_err_max": max(rows.values()),
+           "leaf_grad_row_err_worst": max(rows, key=rows.get),
+           "k_bias_grad_vs_q_bias_max": max(kbias_vs_q.values()),
+           "k_bias_grad_vs_q_bias": kbias_vs_q,
+           "leaf_grad_rel_diff": leaf, "leaf_grad_row_err": rows}
+    log(f"[bert-parity] 2-layer bert-large width, BigBird block 64, B {B}, gas {gas}, "
+        f"S {BERT_S}: {json.dumps(res)}")
+    if not (math.isfinite(lk) and math.isfinite(lp)) or res["loss_rel_diff"] > BERT_LOSS_TOL \
+            or max(leaf.values()) > GRAD_LEAF_TOL or max(rows.values()) > BERT_GRAD_ROW_TOL \
+            or max(kbias_vs_q.values()) > GRAD_LEAF_TOL:
+        raise AssertionError(f"bert parity over its limits: loss {res['loss_rel_diff']}, leaf "
+                             f"{res['leaf_grad_rel_diff_max']} ({res['leaf_grad_rel_diff_worst']})"
+                             f", rows {res['leaf_grad_row_err_max']} "
+                             f"({res['leaf_grad_row_err_worst']}), key bias "
+                             f"{res['k_bias_grad_vs_q_bias_max']}")
     return res
+
+
+def bert_training_phase(device):
+    """Phase 25: bert-large at S 4096 with BigBird block 64, 4 steps, then
+    the dense model (K1 non-causal) for its step time and peak."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    t0 = time.perf_counter()
+    model = bert_model(device, 24, seed=25)
+    cfg = model.config
+    L, B, gas, S = cfg.num_hidden_layers, BERT_B, BERT_GAS, BERT_S
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=train_config(B, gas),
+                                                device=device)
+    n_params = sum(p.numel() for p in model.parameters())
+    density = grid_fraction_of(cfg)
+    torch.cuda.synchronize()
+    log(f"[bert-training] bert-large: {n_params / 1e9:.4f} B params, {L} layers, positions "
+        f"{model.model.embed_positions.shape[0]}, BigBird density {density}, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    batch = bert_batch(cfg.vocab_size, B, gas, device)
+    counters = bert_counters()
+    per_step = {"block_sparse_fwd": L * gas, "block_sparse_dq": L * gas,
+                "block_sparse_dkv": L * gas, "layer_norm_fwd": (2 * L + 2) * gas}
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    steps = timed_steps(engine, batch, 4)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for k, n in launches.items():
+        if n != 4 * per_step[k]:
+            raise AssertionError(f"{k}: {n} launches over 4 steps, want 4 x {per_step[k]}")
+    losses = [loss for _, loss in steps]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"bert losses not finite and falling: {losses}")
+    if any(torch.isnan(p).any().item() for p in model.parameters()):
+        raise AssertionError("NaN in a parameter after training")
+    tokens = B * gas * S
+    mean_s = float(np.mean([dt for dt, _ in steps[1:]]))
+    attn_term = 12.0 * L * S * cfg.hidden_size * tokens
+    res = {"layers": L, "params": n_params, "micro_batch": B, "gas": gas, "seq": S,
+           "tokens_per_step": tokens, "losses": losses,
+           "step_ms": [dt * 1e3 for dt, _ in steps], "ms_per_step": mean_s * 1e3,
+           "tokens_per_sec": tokens / mean_s,
+           "mfu": model_flops(n_params, tokens, L, S, cfg.hidden_size) / mean_s
+           / BF16_FLOPS_PER_S,
+           "attention_flops_dense_term": attn_term, "layout_density": density,
+           "attention_flops_admitted": density * attn_term,
+           "mfu_with_admitted_attention": (6.0 * n_params * tokens + density * attn_term)
+           / mean_s / BF16_FLOPS_PER_S,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches_per_step": per_step, "launches": launches,
+           "grad_norm": engine.global_grad_norm}
+    log(f"[bert-training] sparse: {json.dumps(res)}")
+    res["profile"] = profile_train_step(engine, batch)
+    engine.destroy()
+    del model, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = bert_model(device, 24, seed=25, sparse=False)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=train_config(B, gas),
+                                                device=device)
+    torch.cuda.reset_peak_memory_stats()
+    f0 = fa.flash_fwd.launches
+    dense_steps = timed_steps(engine, batch, 2)
+    if fa.flash_fwd.launches - f0 != 2 * L * gas:
+        raise AssertionError(f"dense bert: {fa.flash_fwd.launches - f0} flash launches, want "
+                             f"{2 * L * gas}")
+    dense = {"step_ms": [dt * 1e3 for dt, _ in dense_steps],
+             "ms_per_step": dense_steps[-1][0] * 1e3,
+             "tokens_per_sec": tokens / dense_steps[-1][0],
+             "losses": [loss for _, loss in dense_steps],
+             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if not all(math.isfinite(x) for x in dense["losses"]):
+        raise AssertionError(f"dense bert losses not finite: {dense['losses']}")
+    dense["sparse_speedup"] = dense["ms_per_step"] / res["ms_per_step"]
+    log(f"[bert-training] dense (K1 non-causal): {json.dumps(dense)}")
+    res["dense"] = dense
+    engine.destroy()
+    del model, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+def grid_fraction_of(cfg):
+    """The layout density the model's sparse section gives at BERT_S."""
+    from deepspeed_tpu_torch.models.bert import _sparse_self_attention
+    from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import grid_fraction
+    ssa = _sparse_self_attention(cfg.sparse_attention, cfg.num_attention_heads,
+                                 cfg.max_position_embeddings, BERT_S)
+    return grid_fraction(ssa._layout(BERT_S))
 
 
 def main():
@@ -3243,6 +3680,15 @@ def main():
     _, frozen_launches = moe_train_parity_phase(device)
     _, moe_train_launches_run = mixtral_training_phase(device)
     bench_train_moe_phase(device)
+
+    # BERT-large training at S 4096 with BigBird block-sparse attention: K8, K2's LayerNorm
+    torch.cuda.empty_cache()
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    sparse_cases = sparse_kernel_phase(device, flush)
+    del flush
+    torch.cuda.empty_cache()
+    bert_parity_phase(device)
+    _, bert_launches = bert_training_phase(device)
 
     main_case = next(c for c in cases if c["case"] == "serving_decode")
     kernels = [{"name": "paged_decode_attention", "route": "cuda",
@@ -3362,6 +3808,28 @@ def main():
                     "library_ms": main_row["library_ms"],
                     "shape": "serving decode step: M=16 x [4096, 14336] bf16 (gate, up)",
                     "cases": dense_cases})
+    slice7 = {  # name: (source, TPU kernel, shape)
+        "block_sparse_fwd": ("block_sparse_attention.cu", "block_sparse_attention.py:71",
+                             "BERT-large path: B=4, S=4096, H=16, Dh=64, BigBird block 64, bf16"),
+        "block_sparse_dq": ("block_sparse_attention.cu", "block_sparse_attention.py:107",
+                            "BERT-large path: B=4, S=4096, H=16, Dh=64, BigBird block 64, bf16"),
+        "block_sparse_dkv": ("block_sparse_attention.cu", "block_sparse_attention.py:139",
+                             "BERT-large path: B=4, S=4096, H=16, Dh=64, BigBird block 64, "
+                             "bf16"),
+        "layer_norm_fwd": ("fused_norms.cu", "fused_norms.py:26",
+                           "BERT-large path: [16384, 1024] bf16, bf16 scale and bias"),
+    }
+    for name, (src, replaces, shape) in slice7.items():
+        rows = sparse_cases[name]
+        main_row = next(r for r in rows if r["case"] == "path")
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"deepspeed_tpu_torch/csrc/{src}",
+                        "replaces": f"deepspeed_tpu/ops/pallas/{replaces}",
+                        "launches": bert_launches[name],
+                        "max_abs_err": max(r["max_abs_err"] for r in rows),
+                        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+                        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+                        "library_ms": main_row["library_ms"], "shape": shape, "cases": rows})
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

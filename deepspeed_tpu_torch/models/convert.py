@@ -129,9 +129,9 @@ def _train_state_from_jax(tree):
 
 @torch.no_grad()
 def load_jax_params(module, tree):
-    """Copy a JAX ``LlamaForCausalLM`` param tree into the training
-    ``module`` in place (each tensor keeps the module's device and dtype).
-    Every parameter must be matched by exactly one leaf."""
+    """Copy a JAX ``LlamaForCausalLM`` (or BERT-family) param tree into the
+    training ``module`` in place (each tensor keeps the module's device and
+    dtype). Every parameter must be matched by exactly one leaf."""
     state = _train_state_from_jax(tree)
     params = dict(module.named_parameters())
     if set(state) != set(params):
@@ -144,6 +144,15 @@ def load_jax_params(module, tree):
                              f"{tuple(p.shape)}")
         p.copy_(state[name])
     return module
+
+
+def bert_params_from_jax(tree):
+    """A JAX BERT-family param tree (nested numpy: ``model.embed_*``,
+    ``model.layers.{q,k,v,o}_proj``, ``fc_in``, ``fc_out``, the
+    ``*_layernorm`` scale/bias pairs stacked [L, ...], and the heads'
+    ``mlm_*`` or ``pooler``/``classifier`` leaves) → ``{training-module
+    name: CPU tensor}``, the stacked leaves split per layer."""
+    return _train_state_from_jax(tree)
 
 
 def params_to_jax(named):
@@ -205,3 +214,7 @@ def kv_handle_to_jax(obj):
     """Inverse of :func:`kv_handle_from_jax`: the port's handle or record
     → numpy arrays as the JAX package holds them."""
     return _convert_kv(obj, _np_from_tensor)
+
+
+load_bert_params = load_jax_params   # BERT's tree maps onto its module as Llama's does
+bert_params_to_jax = params_to_jax   # and back, for grads

@@ -370,13 +370,18 @@ def apply_rope(x, cos, sin, positions):
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
-def einsum_attention(q, k, v, causal=True):
+def einsum_attention(q, k, v, causal=True, mask=None):
     """The JAX package's ``einsum_attention`` (its training branch):
     [B, S, H, D] → [B, S, H, D]; scores from a matmul in the input dtype,
-    softmax in fp32, probabilities cast back before the product with v."""
+    softmax in fp32, probabilities cast back before the product with v.
+    ``mask``: optional bool broadcastable to [B, H, Sq, Sk] (True = attend);
+    it overrides ``causal``, and what it drops is filled with the fp32 min
+    (a row it drops whole gets a uniform softmax, as in JAX)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
-    if causal:
+    if mask is not None:
+        scores = scores.masked_fill(~mask, torch.finfo(torch.float32).min)
+    elif causal:
         sq, sk = scores.shape[-2:]
         mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril(diagonal=sk - sq)
         scores = scores.masked_fill(~mask, torch.finfo(torch.float32).min)

@@ -4,7 +4,9 @@ Port of ``deepspeed_tpu/runtime/config.py`` for the single-device training
 slice: the same JSON schema and the same table-driven parsing of the
 scalars, mixed precision (bf16), optimizer and scheduler specs,
 ``gradient_clipping``, ``steps_per_print``, ``wall_clock_breakdown``,
-``zero_optimization`` and ``data_types.grad_accum_dtype``, and the same
+``zero_optimization``, ``data_types.grad_accum_dtype`` and the raw
+``sparse_attention`` section (``sparse_attention``, None when absent; the
+model reads it through ``SparseAttentionUtils``), and the same
 batch triple solve ``train_batch = micro_batch × grad_acc × dp_world``
 with its consistency check. ``world_size`` is 1: the port trains on one
 device (the JAX config reads it from a mesh, an mpu or ``WORLD_SIZE``).
@@ -39,7 +41,7 @@ from deepspeed_tpu_torch.runtime.constants import (
     GRADIENT_PREDIVIDE_FACTOR, GRADIENT_PREDIVIDE_FACTOR_DEFAULT, MAX_GRAD_NORM,
     MEMORY_BREAKDOWN, MEMORY_BREAKDOWN_DEFAULT, MESH, OPTIMIZER, OPTIMIZER_PARAMS,
     OPTIMIZER_TYPE_DEFAULT, PRESCALE_GRADIENTS, PRESCALE_GRADIENTS_DEFAULT, SCHEDULER,
-    SCHEDULER_PARAMS, SCHEDULER_TYPE_DEFAULT, STEPS_PER_PRINT, STEPS_PER_PRINT_DEFAULT,
+    SCHEDULER_PARAMS, SCHEDULER_TYPE_DEFAULT, SPARSE_ATTENTION, STEPS_PER_PRINT, STEPS_PER_PRINT_DEFAULT,
     TRAIN_BATCH_SIZE, TRAIN_BATCH_SIZE_DEFAULT, TRAIN_MICRO_BATCH_SIZE_PER_GPU,
     TRAIN_MICRO_BATCH_SIZE_PER_GPU_DEFAULT, TYPE, WALL_CLOCK_BREAKDOWN,
     WALL_CLOCK_BREAKDOWN_DEFAULT)
@@ -178,6 +180,7 @@ class DeepSpeedConfig:
             param_dict, SCHEDULER, SCHEDULER_TYPE_DEFAULT, SCHEDULER_PARAMS)
         self.wall_clock_breakdown = get_scalar_param(param_dict, WALL_CLOCK_BREAKDOWN,
                                                      WALL_CLOCK_BREAKDOWN_DEFAULT)
+        self.sparse_attention = param_dict.get(SPARSE_ATTENTION, None)
         self.mesh_shape = param_dict.get(MESH, {})
         self.grad_accum_dtype = param_dict.get(DATA_TYPES, {}).get(GRAD_ACCUM_DTYPE,
                                                                    GRAD_ACCUM_DTYPE_DEFAULT)

@@ -23,7 +23,14 @@ versions. The int8 group quantize/dequantize kernels (K7) must equal their
 plain versions bit for bit, stochastic rounding included, a quantized
 restore must write the same pool bytes as on the CPU, and an engine with
 an int8 KV tier must serve bit for bit as one pinned to the plain
-versions, with the launches its demotions and promotions imply."""
+versions, with the launches its demotions and promotions imply. The
+block-sparse attention kernels (K8: forward, dQ, dK/dV) and the LayerNorm
+forward are held against their plain versions with ``row_scaled_err``,
+at every block size and head dim, per-head layouts and a layout with an
+empty row and a key block no row admits (zeros there, lse ``NEG_INF``),
+each check rejecting a zeroed tile, and a 2-layer BERT ``train_batch``
+through the kernels must match the same step pinned to the plain
+versions."""
 
 import numpy as np
 import pytest
@@ -1145,3 +1152,260 @@ def test_two_layer_moe_training_step_kernels_vs_plain(cuda):
     rel = max(((a - b).norm() / b.norm()).item() for a, b in zip(gk, gp))
     assert np.isfinite(lk) and abs(lk - lp) <= 1e-3 * abs(lp), (lk, lp)
     assert rel <= 2.0 ** -4, rel
+
+
+# ------------------------------------------- block-sparse attention (K8), LN
+def _unreached_layout(H, n):
+    """Per-head layouts over n blocks with an empty row (2) and a key block
+    no row admits (n - 2); block 0 is admitted by every other row."""
+    layout = np.zeros((H, n, n), bool)
+    for r in range(n):
+        if r != 2:
+            layout[:, r, [0, r if r != n - 2 else n - 1]] = True
+    layout[:, 0, :n - 2] = True
+    layout[1:, 1, 3] = True  # the heads differ
+    return layout
+
+
+def _bigbird(H, S, block, per_head=False):
+    from deepspeed_tpu_torch.ops.sparse_attention import BigBirdSparsityConfig
+    return BigBirdSparsityConfig(num_heads=H, block=block, different_layout_per_head=per_head,
+                                 num_random_blocks=1, num_sliding_window_blocks=3,
+                                 num_global_blocks=1).make_layout(S)
+
+
+def _fixed(H, S, block):
+    from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
+    return FixedSparsityConfig(num_heads=H, block=block, num_local_blocks=4,
+                               num_global_blocks=1).make_layout(S)
+
+
+K8_CASES = {  # name: (B, S, H, D, block, layout maker)
+    "bigbird_b64_d64": (2, 1024, 2, 64, 64, lambda: _bigbird(1, 1024, 64)),
+    "bigbird_b16_d128": (1, 512, 2, 128, 16, lambda: _bigbird(1, 512, 16)),
+    "fixed_b32_d64": (2, 512, 2, 64, 32, lambda: _fixed(1, 512, 32)),
+    "per_head_b128_d128": (1, 1024, 3, 128, 128, lambda: _bigbird(3, 1024, 128, True)),
+    "per_head_b16_d64": (2, 256, 3, 64, 16, lambda: _bigbird(3, 256, 16, True)),
+    "unreached_b64_d64": (1, 512, 2, 64, 64, lambda: _unreached_layout(2, 8)),
+    "unreached_b16_d128": (2, 160, 2, 128, 16, lambda: _unreached_layout(2, 10)),
+    "unreached_b32_d128": (1, 256, 2, 128, 32, lambda: _unreached_layout(2, 8)),
+}
+
+
+def _zero_first_block(x, block):
+    y = x.clone()
+    y[:, :block] = 0
+    return y
+
+
+@pytest.mark.parametrize("case", sorted(K8_CASES))
+def test_block_sparse_kernels_match_plain(cuda, case):
+    """Forward, dQ and dK/dV against their plain versions on the same bf16
+    inputs: o, dq, dk, dv within ROW_TOL units of ``row_scaled_err`` (as
+    K1: the output's bf16 rounding, and p and ds rounded to bf16 on both
+    sides from scores summed in another order), lse within 1e-3 absolute;
+    an empty row gives o = 0, dq = 0 and lse = NEG_INF, and a key block no
+    row admits dk = dv = 0, all exactly. Each check rejects the output with
+    its first block of rows zeroed (row and key block 0 are admitted)."""
+    from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import flash_delta, row_scaled_err
+    B, S, H, D, block, make = K8_CASES[case]
+    layout = make()
+    q, k, v, do, _ = _flash_inputs(cuda, B, S, H, D, 0, seed=len(case))
+    counters = (bsa.block_sparse_fwd, bsa.block_sparse_dq, bsa.block_sparse_dkv)
+    before = [f.launches for f in counters]
+    o, lse = bsa.block_sparse_fwd(q, k, v, layout, block)
+    delta = flash_delta(o, do)
+    dq = bsa.block_sparse_dq(q, k, v, do, lse, delta, layout, block)
+    dk, dv = bsa.block_sparse_dkv(q, k, v, do, lse, delta, layout, block)
+    o_ref, lse_ref = bsa.block_sparse_fwd_ref(q.float(), k.float(), v.float(), layout, block)
+    dq_ref = bsa.block_sparse_dq_ref(q, k, v, do, lse, delta, layout, block)
+    dk_ref, dv_ref = bsa.block_sparse_dkv_ref(q, k, v, do, lse, delta, layout, block)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1]
+    full = bsa.full_layout(layout, H, S, block)
+    live = torch.from_numpy(full.any(-1)).to(cuda).repeat_interleave(block, 1)  # [H, S]
+    reached = torch.from_numpy(full.any(-2)).to(cuda).repeat_interleave(block, 1)
+    assert torch.equal(lse == bsa.NEG_INF, ~live[None].expand_as(lse))
+    assert (lse - lse_ref)[live[None].expand_as(lse)].abs().max().item() <= 1e-3
+    assert torch.all(o.transpose(1, 2)[~live[None].expand(B, -1, -1)] == 0)
+    assert torch.all(dq.transpose(1, 2)[~live[None].expand(B, -1, -1)] == 0)
+    for t in (dk, dv):
+        assert torch.all(t.transpose(1, 2)[~reached[None].expand(B, -1, -1)] == 0)
+    errs = {n: row_scaled_err(got, ref) for n, got, ref in (
+        ("o", o, o_ref), ("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref))}
+    zeroed = {n: row_scaled_err(_zero_first_block(got, block), ref) for n, got, ref in (
+        ("o", o, o_ref), ("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref))}
+    assert max(errs.values()) <= ROW_TOL, errs
+    assert min(zeroed.values()) > ROW_TOL, zeroed
+
+
+def test_block_sparse_autograd_runs_the_kernels(cuda):
+    """``block_sparse_attention``'s backward on CUDA tensors launches dQ and
+    dK/dV once each and gives the launchers' results bit for bit."""
+    from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import flash_delta
+    B, S, H, D, block = 2, 512, 2, 64, 64
+    layout = _bigbird(1, S, block)
+    q, k, v, do, _ = _flash_inputs(cuda, B, S, H, D, 0, seed=5)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = [f.launches for f in (bsa.block_sparse_fwd, bsa.block_sparse_dq,
+                                   bsa.block_sparse_dkv)]
+    out = bsa.block_sparse_attention(*leaves, layout, block)
+    out.backward(do)
+    assert [f.launches - b for f, b in zip(
+        (bsa.block_sparse_fwd, bsa.block_sparse_dq, bsa.block_sparse_dkv), before)] == [1, 1, 1]
+    o, lse = bsa.block_sparse_fwd(q, k, v, layout, block)
+    delta = flash_delta(o, do)
+    assert torch.equal(out, o)
+    assert torch.equal(leaves[0].grad, bsa.block_sparse_dq(q, k, v, do, lse, delta, layout, block))
+    dk, dv = bsa.block_sparse_dkv(q, k, v, do, lse, delta, layout, block)
+    assert torch.equal(leaves[1].grad, dk) and torch.equal(leaves[2].grad, dv)
+
+
+def test_block_sparse_rejects_what_it_cannot_take(cuda):
+    from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import block_sparse_attention
+    q, k, v, _, _ = _flash_inputs(cuda, 1, 256, 2, 64, 0)
+    layout = np.ones((1, 4, 4), bool)
+    with pytest.raises(TypeError):
+        block_sparse_attention(q.float(), k.float(), v.float(), layout, 64)
+    with pytest.raises(ValueError):  # head dim 32
+        block_sparse_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                               v[..., :32].contiguous(), layout, 64)
+    with pytest.raises(ValueError):  # block 8
+        block_sparse_attention(q, k, v, np.ones((1, 32, 32), bool), 8)
+    with pytest.raises(ValueError):  # layout for another length
+        block_sparse_attention(q, k, v, np.ones((1, 8, 8), bool), 64)
+    with pytest.raises(ValueError):
+        block_sparse_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, layout, 64)
+    with pytest.raises(ValueError):
+        block_sparse_attention(q, k.cpu(), v, layout, 64)
+
+
+@pytest.mark.parametrize("rows,D,dtype", [(16384, 1024, torch.bfloat16), (37, 64, torch.bfloat16),
+                                          (5, 4104, torch.bfloat16), (33, 1024, torch.float32)])
+def test_layer_norm_kernel_matches_plain(cuda, rows, D, dtype):
+    """Against the plain version in fp32, with ``row_scaled_err``: within 2
+    units in bf16 (the output's rounding is at most 1), within 0.01 units
+    (4e-5 of the row's scale) in fp32; the check rejects a zeroed last
+    tile of 64 rows (or of all rows, when fewer)."""
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import row_scaled_err
+    from deepspeed_tpu_torch.ops.kernels.fused_norms import layer_norm_fwd, layer_norm_ref
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    x = (torch.randn(rows, D, generator=g, device=cuda) * 3 + 1).to(dtype)
+    scale = (1 + 0.1 * torch.randn(D, generator=g, device=cuda)).to(dtype)
+    bias = (0.1 * torch.randn(D, generator=g, device=cuda)).to(dtype)
+    before = layer_norm_fwd.launches
+    got = layer_norm_fwd(x, scale, bias, 1e-12)
+    want = layer_norm_ref(x.float(), scale.float(), bias.float(), 1e-12)
+    torch.cuda.synchronize()
+    assert layer_norm_fwd.launches == before + 1
+    zeroed = got.clone()
+    zeroed[-64:] = 0
+    limit = 2.0 if dtype == torch.bfloat16 else 0.01
+    assert row_scaled_err(got, want) <= limit
+    assert row_scaled_err(zeroed, want) > limit
+
+
+def test_fused_layer_norm_grads_match_plain_autograd(cuda):
+    """Kernel forward + closed-form backward vs autograd through the plain
+    version, in fp32 (relative to each tensor's max-abs, 1e-5)."""
+    from deepspeed_tpu_torch.ops.kernels.fused_norms import fused_layer_norm, layer_norm_ref
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(4, 33, 256, generator=g, device=cuda) + 0.5
+    scale = 1 + 0.1 * torch.randn(256, generator=g, device=cuda)
+    bias = 0.1 * torch.randn(256, generator=g, device=cuda)
+    gy = torch.randn(4, 33, 256, generator=g, device=cuda)
+    a = [t.clone().requires_grad_(True) for t in (x, scale, bias)]
+    fused_layer_norm(*a).backward(gy)
+    b = [t.clone().requires_grad_(True) for t in (x, scale, bias)]
+    layer_norm_ref(*b).backward(gy)
+    for p, r in zip(a, b):
+        assert (p.grad - r.grad).abs().max() <= 1e-5 * r.grad.abs().max()
+
+
+def test_layer_norm_rejects_what_it_cannot_take(cuda):
+    from deepspeed_tpu_torch.ops.kernels.fused_norms import fused_layer_norm
+    x = torch.randn(4, 64, device=cuda, dtype=torch.bfloat16)
+    s = torch.ones(64, device=cuda, dtype=torch.bfloat16)
+    b = torch.zeros(64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        fused_layer_norm(x.half(), s.half(), b.half())
+    with pytest.raises(TypeError):
+        fused_layer_norm(x, s, b.float())
+    with pytest.raises(ValueError):
+        fused_layer_norm(x[:, :60].contiguous(), s[:60].contiguous(), b[:60].contiguous())
+    with pytest.raises(ValueError):
+        fused_layer_norm(x, s, b[:32])
+    with pytest.raises(ValueError):
+        fused_layer_norm(x, s, b.cpu())
+
+
+def test_two_layer_bert_training_step_kernels_vs_plain(cuda):
+    """One bf16 ``train_batch`` (gas 2, B 2, S 512) of a 2-layer BERT at
+    head_dim 64 with BigBird block 64 through the kernels, and again from
+    the same weights with block-sparse attention and LayerNorm pinned to
+    their plain versions: the loss within 1e-4 relative, each parameter's
+    accumulated fp32 gradient within 2^-4 of the plain run's in relative L2
+    norm (as the Llama step above); K8's three kernels launched L per
+    micro-batch each and LayerNorm 2 L + 2, none in the plain run. The key
+    projection's bias has no gradient in exact arithmetic (a softmax is
+    blind to q·b_k added to a whole row), so both runs hold rounding noise
+    there: each is held under 2^-4 of its layer's query-bias gradient."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import bert, build_bert
+    from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops.kernels import fused_norms as fn
+    from deepspeed_tpu_torch.ops.sparse_attention import SparseAttentionUtils, sparse_self_attention
+    L, gas, S = 2, 2, 512
+    cfg = {"train_batch_size": 2 * gas, "train_micro_batch_size_per_gpu": 2,
+           "gradient_accumulation_steps": gas, "bf16": {"enabled": True},
+           "optimizer": {"type": "Adam", "params": {"lr": 1e-4}}, "zero_optimization": {"stage": 3}}
+    ds = {"sparse_attention": {"mode": "bigbird", "block": 64, "num_random_blocks": 1,
+                               "num_sliding_window_blocks": 3, "num_global_blocks": 1}}
+    ids = torch.randint(0, 512, (2 * gas, S), generator=torch.Generator(cuda).manual_seed(0),
+                        device=cuda)
+    counters = (bsa.block_sparse_fwd, bsa.block_sparse_dq, bsa.block_sparse_dkv,
+                fn.layer_norm_fwd)
+    out = {}
+    for mode in ("kernels", "plain"):
+        model = build_bert("bert-debug", device=cuda, hidden_size=256, intermediate_size=512,
+                           num_attention_heads=4, vocab_size=512, num_hidden_layers=L,
+                           generator=torch.Generator(cuda).manual_seed(1))
+        model = SparseAttentionUtils.replace_model_self_attention_with_sparse_self_attention(
+            model, max_position=S, ds_config=ds)
+        engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg, device=cuda)
+        grads, step = [], engine.step
+
+        def recording_step():  # the accumulated fp32 gradients, before the update
+            grads[:] = [g.float().clone() for g in engine._grads_acc]
+            step()
+
+        engine.step = recording_step
+        before = [f.launches for f in counters]
+        saved = sparse_self_attention.bsa.block_sparse_attention, bert.fused_layer_norm
+        if mode == "plain":
+            sparse_self_attention.bsa.block_sparse_attention = bsa.block_sparse_attention_ref
+            bert.fused_layer_norm = fn.layer_norm_ref
+        try:
+            loss = engine.train_batch(batch=(ids, ids))
+        finally:
+            sparse_self_attention.bsa.block_sparse_attention, bert.fused_layer_norm = saved
+        torch.cuda.synchronize()
+        grew = [f.launches - b for f, b in zip(counters, before)]
+        want = [L * gas, L * gas, L * gas, (2 * L + 2) * gas] if mode == "kernels" \
+            else [0, 0, 0, 0]
+        assert grew == want
+        names = [n for n, p in model.named_parameters() if p.requires_grad]
+        out[mode] = (loss.item(), dict(zip(names, grads)))
+    (lk, gk), (lp, gp) = out["kernels"], out["plain"]
+    kbias = [n for n in names if n.endswith("k_proj.bias")]
+    readings = {"loss_rel": abs(lk - lp) / abs(lp),
+                "leaf_grad_rel_max": max(((gk[n] - gp[n]).norm() / gp[n].norm()).item()
+                                         for n in names if n not in kbias),
+                "k_bias_vs_q_bias_max": max(
+                    (g[n].norm() / g[n.replace("k_proj", "q_proj")].norm()).item()
+                    for n in kbias for g in (gk, gp))}
+    assert np.isfinite(lk) and readings["loss_rel"] <= 1e-4, readings
+    assert readings["leaf_grad_rel_max"] <= 2.0 ** -4, readings
+    assert readings["k_bias_vs_q_bias_max"] <= 2.0 ** -4, readings

@@ -24,7 +24,7 @@ import torch
 from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2, DynamicSplitFuseScheduler,
                                               RaggedInferenceEngineConfig)
 import deepspeed_tpu_torch
-from deepspeed_tpu_torch.models import build_llama, init_params, llama_config
+from deepspeed_tpu_torch.models import build_bert, build_llama, init_params, llama_config
 from deepspeed_tpu_torch.models.llama import init_quantized_params
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -117,6 +117,26 @@ def test_scans_cover_the_moe_training_slice():
     assert "ds_gmm_dw" in src and "ds_gmm_dx" in src
 
 
+SLICE7_MODULES = ("deepspeed_tpu_torch.models.bert",
+                  "deepspeed_tpu_torch.ops.kernels.block_sparse_attention",
+                  "deepspeed_tpu_torch.ops.sparse_attention",
+                  "deepspeed_tpu_torch.ops.sparse_attention.sparsity_config",
+                  "deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention",
+                  "deepspeed_tpu_torch.ops.sparse_attention.sparse_attention_utils")
+
+
+def test_scans_cover_the_bert_sparse_slice():
+    """The AST scan and the jax-free import above reach BERT, the sparse
+    attention package and kernel K8's wrapper; K8's source is built, and
+    K2's source carries the LayerNorm entry."""
+    assert set(SLICE7_MODULES) <= set(_modules())
+    from deepspeed_tpu_torch.ops.kernels import build
+    assert "block_sparse_attention.cu" in build.SOURCES
+    src = (build.CSRC / "block_sparse_attention.cu").read_text()
+    assert all(f"ds_bsa_{k}_bf16" in src for k in ("fwd", "dq", "dkv"))
+    assert "ds_layer_norm_fwd" in (build.CSRC / "fused_norms.cu").read_text()
+
+
 def test_default_device_is_the_gpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None would rightly use it")
@@ -128,6 +148,8 @@ def test_default_device_is_the_gpu():
         init_quantized_params(llama_config("mixtral-debug"), "int8")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_llama("debug")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_bert("bert-debug")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         deepspeed_tpu_torch.initialize(model=build_llama("debug", device="cpu"),
                                        config=TRAIN_CONFIG)
