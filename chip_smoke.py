@@ -913,7 +913,8 @@ _CATEGORIES = (  # (category, name patterns: a substring, or a tuple of substrin
     ("quant_matmul (K4)", (("qgemm_kernel", "false>"),)),
     ("split-K sums (K4, dense_matmul)", ("reduce_splits_kernel",)),
     ("grouped_matmul (K5)", (("qgemm_kernel", "true>"),)),
-    ("grouped_matmul backward (K5: dx, dW)", ("gmm_dx_kernel", "gmm_dw_kernel")),
+    ("grouped_matmul dx (K5 backward)", ("gmm_dx_kernel", "gmm_dx_wgmma_kernel")),
+    ("grouped_matmul dW (K5 backward)", ("gmm_dw_kernel",)),
     ("flash_attention (K1)", ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")),
     ("rms_norm (K2)", ("rms_fwd_kernel",)),
     ("layer_norm (K2)", ("ln_fwd_kernel",)),
@@ -2797,16 +2798,67 @@ def dw_library(xs, dys, sizes, flush):
     return {"library_ms": total, "library_call": "sum of per-expert torch.matmul"}
 
 
+def dequant_library(xs, q, scheme, sizes, flush):
+    """The same-function yardstick of ``gmm_quant_dx``: dequantize the
+    whole carrier stack with ``dequantize_grouped``, then one
+    ``torch._grouped_mm`` of the sorted rows against it transposed (else
+    the per-expert ``torch.matmul`` sum), timed as one call sequence."""
+    from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import dequantize_grouped
+    offs = torch.cumsum(sizes, 0).to(torch.int32)
+    bounds = [0] + offs.tolist()
+
+    def per_expert():
+        w = dequantize_grouped(q.values, q.scales, scheme, torch.bfloat16)
+        return [xs[bounds[e]:bounds[e + 1]] @ w[e].t() for e in range(w.shape[0])
+                if bounds[e + 1] > bounds[e]]
+
+    def grouped():
+        w = dequantize_grouped(q.values, q.scales, scheme, torch.bfloat16)
+        return torch._grouped_mm(xs, w.transpose(1, 2), offs=offs)
+
+    if hasattr(torch, "_grouped_mm"):
+        try:
+            grouped()
+            torch.cuda.synchronize()
+        except RuntimeError as exc:
+            log(f"[grouped-bwd] torch._grouped_mm refused the dequantized case: {str(exc)[:120]}")
+        else:
+            return {"library_ms": time_ms(grouped, flush),
+                    "library_call": "dequantize_grouped + torch._grouped_mm"}
+    return {"library_ms": time_ms(per_expert, flush),
+            "library_call": "dequantize_grouped + per-expert torch.matmul"}
+
+
+def dx_designs():
+    """The dx launches so far by design (the wgmma design, the general one)."""
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    return dict(gm.gmm_dx_design_launches)
+
+
+def check_dx_designs(before, want, name):
+    """Raise unless exactly ``want`` dx launches since ``before``, all on
+    the wgmma design."""
+    grew = {k: v - before[k] for k, v in dx_designs().items()}
+    if grew != {"wgmma": want, "general": 0}:
+        raise AssertionError(f"{name}: dx launches by design {grew}, want {want}, all wgmma")
+    return grew
+
+
 def gmm_bwd_cases(device, flush):
     """Phase 19: K5's backward kernels at Mixtral's expert stacks over the
     phase's skewed routing (8192 rows, expert 7 empty, 64-row tiles):
     ``gmm_dw`` at w1 [8, 4096, 14336] and w2 [8, 14336, 4096], ``gmm``'s dx
     on each stack as stored, and ``gmm_quant_dx`` over int8, fp8 and fp6
-    carriers of each. Each held against its plain version with
-    ``row_scaled_err`` (limit QUANT_TOL), the check rejecting the output
-    with one tile zeroed; dW of the empty expert all zeros and two dW runs
-    equal bit for bit; each timed beside its plain version, one library
-    call and the bound. → {"gmm_dw": rows, "gmm_dx": rows, "gmm_quant_dx": rows}."""
+    carriers of each; and the forward ``gmm`` at the same shapes. Each held
+    against its plain version with ``row_scaled_err`` (limit QUANT_TOL),
+    the check rejecting the output with one tile zeroed; dW of the empty
+    expert all zeros; two dW runs and two dx runs equal bit for bit, every
+    dx launch on the wgmma design and zeros past the used tiles; each timed
+    beside its plain version, one library call (for carriers,
+    ``dequantize_grouped`` + ``torch._grouped_mm``, the same function, with
+    ``torch._grouped_mm`` on the dequantized stack beside it) and the
+    bound. → {"gmm_dw": rows, "gmm_dx": rows, "gmm_quant_dx": rows,
+    "gmm_fwd": rows}."""
     from deepspeed_tpu_torch.inference.quantization.quantization import _quantize_grouped
     from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
     from deepspeed_tpu_torch.ops.kernels.flash_attention import row_scaled_err
@@ -2833,9 +2885,26 @@ def gmm_bwd_cases(device, flush):
                                  f"tile {zerr} (must exceed it)")
         return {"max_abs_err": max_abs(got, want), "row_err": err, "zeroed_tile_row_err": zerr}
 
-    out = {"gmm_dw": [], "gmm_dx": [], "gmm_quant_dx": []}
+    out = {"gmm_dw": [], "gmm_dx": [], "gmm_quant_dx": [], "gmm_fwd": []}
     for si, (wname, (K, N)) in enumerate(zip(("w1", "w2"), MLP_SHAPES)):
         x, dy = rows(K, 1.0), rows(N, 0.02)
+        w = (torch.randn(E, K, N, generator=g, device=device) * 0.02).to(torch.bfloat16)
+        # the forward gmm at the training shape: x [Mp, K] @ w[tile] [K, N]
+        got, want = gm.gmm(x, w, te, tm, used), gm.gmm_ref(x, w, te, tm, used)
+        zeroed = got.clone()
+        zeroed[start:start + 64] = 0
+        row = check(f"gmm fwd {wname}", got, want, zeroed)
+        if got[int(used) * tm:].any():
+            raise AssertionError(f"gmm fwd {wname}: rows past the used tiles are not zero")
+        b_ms, b_by = bound(w[0].nbytes * len(touched) + 2 * n * (K + N), 2 * n * K * N)
+        row.update({"case": f"bf16_fwd_{wname}", "scheme": "bf16", "rows": n, "tm": tm, "K": K,
+                    "N": N, "ms": time_ms(lambda: gm.gmm(x, w, te, tm, used), flush),
+                    "plain_ms": time_ms(lambda: gm.gmm_ref(x, w, te, tm, used), flush, iters=3),
+                    "bound_ms": b_ms, "bound_by": b_by, "flops": 2 * n * K * N})
+        row.update(grouped_library(x[dst], w, sizes, flush))
+        log(f"[grouped-bwd] gmm fwd {wname} {json.dumps(row)}")
+        out["gmm_fwd"].append(row)
+        del got, want, zeroed
         # dW
         got = gm.gmm_dw(x, dy, te, E, tm, used)
         again = gm.gmm_dw(x, dy, te, E, tm, used)
@@ -2862,7 +2931,6 @@ def gmm_bwd_cases(device, flush):
         out["gmm_dw"].append(row)
         del got
         # dx: dy [Mp, N] against the stack [E, K, N] as stored
-        w = (torch.randn(E, K, N, generator=g, device=device) * 0.02).to(torch.bfloat16)
         for scheme in ("bf16", "int8", "fp8", "fp6"):
             quant = scheme != "bf16"
             q = _quantize_grouped(w, scheme, 512) if quant else None
@@ -2881,20 +2949,32 @@ def gmm_bwd_cases(device, flush):
                                                torch.bfloat16, tm, used)
                 return gm.gmm_transposed_ref(dy, w, te, tm, used)
 
-            got, want = run(), plain()
+            name = f"{'gmm_quant_dx' if quant else 'gmm dx'} {scheme} {wname}"
+            designs = dx_designs()
+            got, again, want = run(), run(), plain()
+            check_dx_designs(designs, 2, name)
             zeroed = got.clone()
             zeroed[start:start + 64] = 0
-            name = f"{'gmm_quant_dx' if quant else 'gmm dx'} {scheme} {wname}"
             row = check(name, got, want, zeroed)
             if got[int(used) * tm:].any():
                 raise AssertionError(f"{name}: rows past the used tiles are not zero")
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name}: two runs differ")
+            del again
             wbytes = (carrier_bytes(q, touched) if quant else w[0].nbytes * len(touched))
             b_ms, b_by = bound(wbytes + 2 * n * (K + N), 2 * n * K * N)
             row.update({"case": f"{scheme}_dx_{wname}", "scheme": scheme, "rows": n, "tm": tm,
-                        "K": K, "N": N, "ms": time_ms(run, flush),
+                        "K": K, "N": N, "design": "wgmma", "deterministic": True,
+                        "ms": time_ms(run, flush),
                         "plain_ms": time_ms(plain, flush, iters=3), "bound_ms": b_ms,
                         "bound_by": b_by, "flops": 2 * n * K * N})
-            row.update(grouped_library(dy[dst], w_bf16.transpose(1, 2), sizes, flush))
+            stack = grouped_library(dy[dst], w_bf16.transpose(1, 2), sizes, flush)
+            if quant:  # the same function: the stack's decode is part of it
+                row.update(dequant_library(dy[dst], q, scheme, sizes, flush))
+                row.update({"bf16_stack_library_ms": stack["library_ms"],
+                            "bf16_stack_library_call": stack["library_call"]})
+            else:
+                row.update(stack)
             log(f"[grouped-bwd] {name} {json.dumps(row)}")
             out["gmm_quant_dx" if quant else "gmm_dx"].append(row)
             del got, want, zeroed, q, w_bf16
@@ -2984,7 +3064,7 @@ def moe_train_parity_phase(device):
                                                     device=device)
         names = [n for n, p in model.named_parameters() if p.requires_grad]
         grads, auxes = capture_grads(engine, to_host=True), aux_recorder(model)
-        before = {k: f.launches for k, f in counters.items()}
+        before, designs = {k: f.launches for k, f in counters.items()}, dx_designs()
         with plain_moe_train_kernels() if mode == "plain" else contextlib.nullcontext(), \
                 routing(record, replay=mode == "plain", mr=sharded_moe) as flips:
             loss = engine.train_batch(batch=moe_batch(model.config.vocab_size, device, 1, MS,
@@ -2995,6 +3075,8 @@ def moe_train_parity_phase(device):
             {k: 0 for k in counters}
         if grew != want:
             raise AssertionError(f"moe train parity {mode}: launches {grew}, want {want}")
+        check_dx_designs(designs, 3 * L * gas if mode == "kernels" else 0,
+                         f"moe train parity {mode}")
         results[mode] = (loss.item(), float(sum(a.item() for a in auxes)), grads, flips[0])
         engine.destroy()
         del model, engine, grads
@@ -3045,7 +3127,7 @@ def frozen_base_check(device):
     for mode in ("kernels", "plain"):
         if mode == "kernels":
             gm.gmm_quant.launches = gm.gmm_quant_dx.launches = 0
-        before = [gm.gmm_quant.launches, gm.gmm_quant_dx.launches]
+        before, designs = [gm.gmm_quant.launches, gm.gmm_quant_dx.launches], dx_designs()
         xt = x.clone().requires_grad_()
         with plain_moe_train_kernels() if mode == "plain" else contextlib.nullcontext():
             out = dropless_moe_ffn(xt, idx, vals, *stacks, num_experts=E)
@@ -3058,6 +3140,7 @@ def frozen_base_check(device):
                 raise AssertionError(f"frozen base: launches {launches}, want 3 and 3")
         elif [gm.gmm_quant.launches, gm.gmm_quant_dx.launches] != before:
             raise AssertionError("frozen base: the plain run launched a kernel")
+        check_dx_designs(designs, 3 if mode == "kernels" else 0, f"frozen base {mode}")
         dx[mode] = xt.grad
     if any(q.values.grad is not None or q.scales.grad is not None for q in stacks):
         raise AssertionError("frozen base: a carrier or scale got a gradient")
@@ -3130,6 +3213,7 @@ def mixtral_training_phase(device):
     counters = moe_train_counters()
     for f in counters.values():
         f.launches = 0
+    designs = dx_designs()
     warm = timed_steps(engine, batch, 1)
     torch.cuda.reset_peak_memory_stats()
     steps = timed_steps(engine, batch, 3)
@@ -3137,6 +3221,7 @@ def mixtral_training_phase(device):
     want = {k: 4 * v for k, v in moe_train_launches(L, MGAS, "moe").items()}
     if launches != want:
         raise AssertionError(f"moe training: launches {launches} over 4 steps, want {want}")
+    check_dx_designs(designs, 4 * 3 * L * MGAS, "moe training")
     losses = [l for _, l in warm + steps]
     aux = [a.item() for a in auxes]
     if not all(math.isfinite(x) for x in losses + aux) or not losses[-1] < losses[0] \
@@ -3162,7 +3247,10 @@ def mixtral_training_phase(device):
         set_moe_mode(model, **kw)
         for f in counters.values():
             f.launches = 0
+        designs = dx_designs()
         (s0, l0), (s1, l1) = timed_steps(engine, batch, 2)
+        check_dx_designs(designs, 2 * 3 * L * MGAS if policy is not None else 0,
+                         f"moe training {name}")
         got = {k: f.launches for k, f in counters.items()}
         if policy is not None and got != {k: 2 * v for k, v in
                                           moe_train_launches(L, MGAS, policy).items()}:
@@ -3734,6 +3822,7 @@ def main():
                       "decode: 16 rows (8 tokens, top-2) over [8, 4096, 14336] int8 experts"),
     }
     slice3["gmm"][2].extend(bwd["gmm_dx"])  # gmm's dx reads the stack as stored; counted as gmm
+    slice3["gmm"][2].extend(bwd["gmm_fwd"])  # and the forward at the training shape
     for name, (src, replaces, rows, main_name, n, shape) in slice3.items():
         main_row = next(r for r in rows if r["case"] == main_name)
         kernels.append({"name": name, "route": "cuda",

@@ -29,7 +29,9 @@
 // pipelined against the decode and the MMAs.
 
 #include <climits>
+#include <type_traits>
 
+#include "hopper.cuh"
 #include "quant_gemm.cuh"
 
 using namespace qgemm;
@@ -64,18 +66,54 @@ extern "C" int ds_grouped_matmul(const void* x, const void* w, const void* scale
 // ---------------------------------------------------------------------------
 // The backward kernels of K5.
 //
-// gmm_dx_kernel replaces _gmm_quant_dx_kernel (the `pl.pallas_call` in
-// _gmm_quant_dx_raw) for carriers (schemes 1-3) and computes the input
-// gradient of gmm (scheme 0), which the TPU package runs as _gmm_kernel on
-// w.swapaxes(1, 2): dx[Mp, K] = dy[Mp, N] @ W[tile_expert]^T, W [E, K, N]
-// read as it is stored (no transposed copy of the stack). A block owns a
-// BM x 64 tile of dx (one row tile, 64 of the K outputs) and walks N in
-// steps of 32: the dy tile as the A operand (ldmatrix), the W tile [64 k
-// rows][32 n] decoded and scaled into bf16 in shared memory exactly as
-// dequantize_grouped does (the forward's decode, quant_gemm.cuh) and fed as
-// the B operand through ldmatrix without .trans, since [k][n] is the
-// column-major [n][k] that mma.sync's B wants. Tiles at or past *used_tiles
-// write zeros and read no weight.
+// dx[Mp, K] = dy[Mp, N] @ W[tile_expert]^T, W [E, K, N] read as it is
+// stored (no transposed copy of the stack). It replaces _gmm_quant_dx_kernel
+// (the `pl.pallas_call` in _gmm_quant_dx_raw) for carriers (schemes 1-3)
+// and computes the input gradient of gmm (scheme 0), which the TPU package
+// runs as _gmm_kernel on w.swapaxes(1, 2). Each weight is decoded and
+// scaled as dequantize_grouped does and rounded to bf16 once; the products
+// sum in fp32, rounded to bf16 once; rows at or past *used_tiles are zero;
+// each output is written once (no atomics, no split of N), so the same
+// inputs give the same bits; the host never learns the routing.
+//
+// What bounds dx on an H100: operations. At Mixtral's w1 [8, 4096, 14336]
+// and 8192 rows (T*k) it is 2 * 8192 * 4096 * 14336 = 9.6e11 flops, 0.97 ms
+// at 989 TFLOP/s, against 1.24 GB of dy, the touched W and dx (0.37 ms at
+// 3.35 TB/s); w2 is the same count. The first design (gmm_dx_kernel below:
+// a 64 x 64 tile of dx on mma.sync, a 32-wide step between two barriers,
+// the next step's loads one step deep in registers) moved ~31 GB from L2 at
+// 32 flops a byte and set its own pace, 7.2-7.5 ms bf16 and 16-18 ms
+// through carriers.
+//
+// What the wgmma design (gmm_dx_wgmma_kernel) does about that:
+//  - a block owns 128 dx rows x 256 dx columns: two consumer warpgroups of
+//    64 rows, each issuing wgmma m64n256k16 with its 128 fp32 accumulators
+//    a thread in registers (setmaxnreg hands them the producer's), 85
+//    flops a loaded byte. dy [rows][N] and W [K rows][N] both run along
+//    the contraction, wgmma's native K-major layout, so W needs no
+//    transpose;
+//  - one producer thread keeps a ring of 4 stages, 64 of N deep (128 bytes
+//    of bf16: TMA's 128-byte swizzle, which the wgmma descriptors read),
+//    fed with TMA tile loads under full/empty mbarriers; a consumer waits
+//    on full, issues its wgmma, and releases a stage once the next step's
+//    wgmma is in flight;
+//  - carriers arrive raw (int8/fp8 [256][64] bytes, fp6 [256][48]); the 256
+//    consumer threads decode a step (the values of quant_gemm.cuh's
+//    decoders, on the integer and FMA pipes) into one of three swizzled
+//    bf16 tiles while the previous step's wgmma runs, and a named barrier
+//    between the two consumers publishes the tile; scales are read two
+//    steps ahead and only when a row's group changes (one a row and step
+//    when the group width is a multiple of 16, else one an element);
+//  - a work list the wrapper builds on the device (gmm_dx_plan) puts up to
+//    128 / tm consecutive tiles of one expert in an item, so no block mixes
+//    experts; the blocks of one expert's run take its column blocks in
+//    turn, its items fastest, so its dy rows and each W column block stay
+//    in the 50 MB L2 while they are read, and the list's spare slots write
+//    the zeros of the rows past *used_tiles.
+// TMA wants 16-byte aligned bases and rows of dy and W a multiple of 16
+// bytes (N % 8 for bf16, N % 16 for int8 and fp8, N % 64 for fp6); the
+// wrapper gives other shapes to the first design, chosen by shape before
+// the launch and counted by design.
 //
 // gmm_dw_kernel replaces _gmm_dw_kernel (the `pl.pallas_call` in
 // _gmm_dw_raw): dW[e] = sum over expert e's row tiles of x_tile^T dy_tile,
@@ -88,15 +126,14 @@ extern "C" int ds_grouped_matmul(const void* x, const void* w, const void* scale
 // so the same inputs give the same bits, and an expert with no rows gets
 // zeros. Pad rows are zero in x and dy and add nothing.
 //
-// What bounds them on an H100: operations. dW of one Mixtral stack at
-// T*k = 8192 rows is 2 * 8192 * 4096 * 14336 = 9.6e11 flops (0.97 ms at
-// 989 TFLOP/s) against 0.32 GB of x, dy and dW (0.10 ms at 3.35 TB/s); dx
-// is the same count. What the design does about that: tensor cores
-// (mma.sync m16n8k16, fp32 accumulators), large output tiles so that each
-// loaded byte feeds many MMAs, the next step's global reads held in
-// registers while this step's MMAs run, and for dW a grid with the expert
-// slowest so that one expert's rows stay in the 50 MB L2 while its tiles
-// run. Not done yet: wgmma, TMA, a multi-stage pipeline.
+// What bounds dW on an H100: operations, the same 9.6e11 flops at w1
+// against 1.24 GB of x (67 MB), dy (235 MB) and dW (940 MB), 0.37 ms at
+// 3.35 TB/s. What its design does about that: tensor cores (mma.sync
+// m16n8k16, fp32 accumulators), a large output tile so that each loaded
+// byte feeds many MMAs, the next step's global reads held in registers
+// while this step's MMAs run, and a grid with the expert slowest so that
+// one expert's rows stay in the 50 MB L2 while its tiles run. Not done yet
+// for dW: wgmma and a TMA pipeline.
 
 namespace {
 
@@ -411,6 +448,324 @@ __global__ void __launch_bounds__(DW_THREADS) gmm_dw_kernel(const DwArgs a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// gmm_dx_wgmma_kernel: the wgmma design of dx (the note above says why).
+
+constexpr int DXW_ROWS = 128;     // dx rows a block: two consumer warpgroups of 64
+constexpr int DXW_COLS = 256;     // dx columns (K outputs) a block: wgmma's n
+constexpr int DXW_STEP = 64;      // contraction (N) a stage: 128 bytes of bf16, the swizzle span
+constexpr int DXW_STAGES = 4;
+constexpr int DXW_THREADS = 384;  // a producer warpgroup and two consumer warpgroups
+constexpr int DXW_PLAN = 5;       // int32 fields of a work item
+
+template <int S>
+struct DxwSmem {
+  static constexpr int kA = DXW_ROWS * DXW_STEP * 2;  // one stage of dy: 16 KB
+  static constexpr int kB = DXW_COLS * DXW_STEP * 2;  // one stage of bf16 W: 32 KB
+  static constexpr int kRaw =                         // one stage of W as stored
+      S == kBF16 ? kB : S == kFP6 ? DXW_COLS * DXW_STEP * 3 / 4 : DXW_COLS * DXW_STEP;
+  static constexpr int kDec = S == kBF16 ? 0 : 3;     // decoded bf16 W tiles (carriers)
+  static constexpr int kBar = DXW_STAGES * (kA + kRaw) + kDec * kB;  // where the barriers start
+  static constexpr int kBytes = kBar + 2 * DXW_STAGES * 8 + 1024;    // + 1024-byte alignment slack
+};
+
+struct DxwArgs {
+  const int32_t* plan;  // [items, DXW_PLAN]: first row, rows, expert (-1: zero fill), the
+                        // item's group: its first item and its item count
+  const float* scales;  // [E, K, ng] fp32, null for bf16
+  uint16_t* dx;         // [Mp, K] bf16
+  int Mp, K, N, ng, g, E, cols;
+};
+
+// the raw carrier bytes of columns 16 c .. 16 c + 15 of one W row's step:
+// 16 int8/fp8 codes, or 16 fp6 codes in 12 bytes (w[3] unused)
+struct Chunk {
+  uint32_t w[4];
+};
+
+template <int S>
+__device__ __forceinline__ Chunk load_chunk(const uint8_t* raw_row, int c) {
+  Chunk ch;
+  if constexpr (S == kFP6) {
+    const uint32_t* p = reinterpret_cast<const uint32_t*>(raw_row + 12 * c);
+    ch.w[0] = p[0], ch.w[1] = p[1], ch.w[2] = p[2], ch.w[3] = 0u;
+  } else {
+    const uint4 u = *reinterpret_cast<const uint4*>(raw_row + 16 * c);
+    ch.w[0] = u.x, ch.w[1] = u.y, ch.w[2] = u.z, ch.w[3] = u.w;
+  }
+  return ch;
+}
+
+// a chunk's 16 codes → their fp32 values
+template <int S>
+__device__ __forceinline__ void decode16(const Chunk& ch, float* v) {
+  if constexpr (S == kFP6) {
+    const uint32_t u0 = ch.w[0], u1 = ch.w[1], u2 = ch.w[2];
+    const uint32_t w[4] = {u0 & 0xFFFFFFu, (u0 >> 24) | ((u1 & 0xFFFFu) << 8),
+                           (u1 >> 16) | ((u2 & 0xFFu) << 16), u2 >> 8};
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) v[4 * q + t] = e3m2_code(w[q] >> (6 * t));
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        v[4 * q + t] =
+            S == kInt8 ? int8_code(ch.w[q] ^ 0x80808080u, t) : fp8_code(ch.w[q] >> (8 * t));
+  }
+}
+
+__device__ void dxw_zero(const DxwArgs& a, int r_begin, int r_end, int k0) {
+  const int cols = min(DXW_COLS, a.K - k0);
+  for (int i = threadIdx.x; i < (r_end - r_begin) * cols; i += DXW_THREADS)
+    a.dx[(size_t)(r_begin + i / cols) * a.K + k0 + i % cols] = 0;
+}
+
+template <int S>
+__global__ void __launch_bounds__(DXW_THREADS, 1)
+    gmm_dx_wgmma_kernel(const __grid_constant__ CUtensorMap map_dy,
+                        const __grid_constant__ CUtensorMap map_w, const DxwArgs a) {
+  using L = DxwSmem<S>;
+  extern __shared__ __align__(1024) uint8_t smem[];
+  const int tid = threadIdx.x;
+
+  // The block's item and column block: the blocks of a group (the items of
+  // one run of an expert's tiles, or the zero fill) take its column blocks
+  // in turn, its items fastest.
+  // (Values every thread of a warp holds are broadcast from lane 0, so that
+  // ptxas sees the branches they take as warp-uniform: wgmma in a path it
+  // must treat as divergent is serialized.)
+  const int32_t* grp = a.plan + (size_t)(blockIdx.x / a.cols) * DXW_PLAN;
+  const int first = __shfl_sync(~0u, grp[3], 0), count = __shfl_sync(~0u, grp[4], 0);
+  const int local = (int)blockIdx.x - first * a.cols;
+  const int item = first + local % count, k0 = local / count * DXW_COLS;
+  const int32_t* work = a.plan + (size_t)item * DXW_PLAN;
+  const int row0 = __shfl_sync(~0u, work[0], 0), rows = __shfl_sync(~0u, work[1], 0);
+  const int e = __shfl_sync(~0u, work[2], 0);
+  if (e < 0 || e >= a.E) {  // rows with no expert, or the rows past the used tiles: zeros
+    if (rows > 0) {
+      dxw_zero(a, row0, row0 + rows, k0);
+    } else {
+      for (int r = row0 + DXW_ROWS * (item - first); r < a.Mp; r += DXW_ROWS * count)
+        dxw_zero(a, r, min(r + DXW_ROWS, a.Mp), k0);
+    }
+    return;
+  }
+
+  uint8_t* base = smem + ((1024u - (hopper::smem_addr(smem) & 1023u)) & 1023u);
+  uint8_t* sA = base;                          // dy tiles [128 rows][64], 128-byte swizzle
+  uint8_t* sW = sA + DXW_STAGES * L::kA;       // W tiles [256 rows][64] as stored
+  uint8_t* sDec = sW + DXW_STAGES * L::kRaw;   // carriers decoded: bf16, 128-byte swizzle
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBar);
+  uint64_t* empty = full + DXW_STAGES;
+  const int steps = (a.N + DXW_STEP - 1) / DXW_STEP;
+  if (tid == 0) {
+    for (int s = 0; s < DXW_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(~0u, tid / 128, 0);
+  if (wg == 0) {  // the producer warpgroup: one thread keeps the ring fed
+    hopper::setmaxnreg_dec<40>();
+    if (tid == 0) {
+      for (int i = 0; i < steps; ++i) {
+        const int s = i % DXW_STAGES;
+        hopper::mbar_wait(&empty[s], ((i / DXW_STAGES) & 1) ^ 1);
+        hopper::mbar_expect_tx(&full[s], L::kA + L::kRaw);
+        hopper::tma_load_2d(sA + s * L::kA, &map_dy, &full[s], i * DXW_STEP, row0);
+        hopper::tma_load_3d(sW + s * L::kRaw, &map_w, &full[s],
+                            S == kFP6 ? i * DXW_STEP * 3 / 4 : i * DXW_STEP, k0, e);
+      }
+    }
+    return;
+  }
+
+  hopper::setmaxnreg_inc<232>();
+  const int cw = wg - 1;               // this consumer computes the item's rows 64 cw .. 64 cw + 63
+  const int ct = tid - 128;            // 0 .. 255 among the consumers
+  const bool active = 64 * cw < rows;  // a one-tile item leaves the second consumer idle
+  float acc[128];  // the first step's first wgmma overwrites them
+
+  // carriers: this thread decodes columns 16 c .. 16 c + 15 of each step in
+  // W rows (ct >> 2) + 64 j, j < 4; with a group width of a multiple of 16
+  // those columns share one scale a row
+  const int c = ct & 3;
+  const bool one_scale = a.g % 16 == 0;
+  const float* srow[4];  // the scales of this thread's W rows, null past K
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int k = k0 + (ct >> 2) + 64 * j;
+    srow[j] = S != kBF16 && k < a.K ? a.scales + ((size_t)e * a.K + k) * a.ng : nullptr;
+  }
+  auto scale = [&](int j, int n) {
+    return srow[j] != nullptr && n < a.N ? __ldg(srow[j] + n / a.g) : 0.f;
+  };
+  // With one scale a row and step: the scales of even and of odd steps,
+  // each set read two steps ahead and again only when the step's group
+  // changes (scattered reads from L2 cost more than the decode).
+  float sc_even[4] = {0.f, 0.f, 0.f, 0.f}, sc_odd[4] = {0.f, 0.f, 0.f, 0.f};
+  int grp_even = -1, grp_odd = -1;  // the group each set holds
+  auto row_scales = [&](int n, float(&sc)[4], int& held) {
+    const int grp = n / a.g;
+    if (grp != held) {
+      held = grp;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[j] = scale(j, n);
+    }
+  };
+  if constexpr (S != kBF16) {
+    if (one_scale) {
+      row_scales(16 * c, sc_even, grp_even);
+      row_scales(DXW_STEP + 16 * c, sc_odd, grp_odd);
+    }
+  }
+
+  // The step loop, with or without the wgmma (an idle consumer still
+  // decodes its half of each carrier tile and releases each stage), and
+  // with one scale a row and step or one an element: separate copies, so
+  // that no branch around the wgmma inside the loop makes ptxas wait on
+  // the accumulators it defines, and the decode has no branch at all.
+  auto consume = [&](auto mma, auto row_scale) {
+    auto step = [&](int i, float(&sc)[4], int& held) {
+      const int s = i % DXW_STAGES;
+      hopper::mbar_wait(&full[s], (i / DXW_STAGES) & 1);
+      uint32_t b_addr = hopper::smem_addr(sW + s * L::kRaw);
+      if constexpr (S != kBF16) {
+        // decode into one of three bf16 tiles: the step before may still be
+        // in the other consumer's wgmma, the one before that is done (its
+        // wait came before the last barrier)
+        uint8_t* dec = sDec + (i % 3) * L::kB;
+        const uint8_t* raw = sW + s * L::kRaw;
+        const int n0 = i * DXW_STEP;
+        Chunk ch[4];  // every chunk read before the first store to the decoded tile
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          ch[j] = load_chunk<S>(raw + ((ct >> 2) + 64 * j) * (L::kRaw / DXW_COLS), c);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = (ct >> 2) + 64 * j;
+          float v[16];
+          decode16<S>(ch[j], v);
+          if constexpr (decltype(row_scale)::value) {
+#pragma unroll
+            for (int t = 0; t < 16; ++t) v[t] *= sc[j];
+          } else {
+#pragma unroll
+            for (int t = 0; t < 16; ++t) v[t] *= scale(j, n0 + 16 * c + t);
+          }
+          uint32_t pk[8];
+#pragma unroll
+          for (int q = 0; q < 8; ++q) pk[q] = pack_bf16(v[2 * q], v[2 * q + 1]);
+          uint8_t* drow = dec + r * 128;
+          *reinterpret_cast<uint4*>(drow + (((2 * c) ^ (r & 7)) << 4)) =
+              make_uint4(pk[0], pk[1], pk[2], pk[3]);
+          *reinterpret_cast<uint4*>(drow + (((2 * c + 1) ^ (r & 7)) << 4)) =
+              make_uint4(pk[4], pk[5], pk[6], pk[7]);
+        }
+        hopper::fence_proxy_async();
+        hopper::named_sync(1, 256);
+        b_addr = hopper::smem_addr(dec);
+      }
+      if constexpr (decltype(mma)::value) {
+        const uint64_t da =
+            hopper::sw128_desc(hopper::smem_addr(sA + s * L::kA) + cw * (L::kA / 2));
+        const uint64_t db = hopper::sw128_desc(b_addr);
+        hopper::fence_regs(acc);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DXW_STEP / 16; ++kk)
+          hopper::wgmma_m64n256k16(acc, da + 2 * kk, db + 2 * kk, i > 0 || kk > 0);
+        hopper::wgmma_commit();
+      }
+      if constexpr (S != kBF16 && decltype(row_scale)::value) {
+        // this set's next scales, two steps on, read while the wgmma runs
+        if (i + 2 < steps) row_scales((i + 2) * DXW_STEP + 16 * c, sc, held);
+      }
+      if constexpr (decltype(mma)::value) {
+        hopper::wgmma_wait<1>();  // the step before is done: release its stage
+        hopper::fence_regs(acc);
+      }
+      if (i > 0 && (tid & 31) == 0) hopper::mbar_arrive(&empty[(i - 1) % DXW_STAGES]);
+    };
+    for (int i = 0; i < steps; i += 2) {
+      step(i, sc_even, grp_even);
+      if (i + 1 < steps) step(i + 1, sc_odd, grp_odd);
+    }
+  };
+  auto run = [&](auto mma) {
+    if (S == kBF16 || one_scale) consume(mma, std::true_type{});
+    else consume(mma, std::false_type{});
+  };
+  if (!active) {
+    run(std::false_type{});
+    return;
+  }
+  run(std::true_type{});
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+
+  const int lane = tid & 31;
+  const int rl = 64 * cw + 16 * ((tid & 127) >> 5) + (lane >> 2);  // item row of acc[4j]
+  const bool pairs = (a.K & 1) == 0;
+#pragma unroll
+  for (int jn = 0; jn < 32; ++jn) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = rl + 8 * h, col = k0 + 8 * jn + 2 * (lane & 3);
+      if (r >= rows || col >= a.K) continue;
+      uint16_t* dst = a.dx + (size_t)(row0 + r) * a.K + col;
+      const float lo = acc[4 * jn + 2 * h], hi = acc[4 * jn + 2 * h + 1];
+      if (pairs) {
+        *reinterpret_cast<uint32_t*>(dst) = pack_bf16(lo, hi);
+      } else {
+        dst[0] = __bfloat16_as_ushort(__float2bfloat16_rn(lo));
+        if (col + 1 < a.K) dst[1] = __bfloat16_as_ushort(__float2bfloat16_rn(hi));
+      }
+    }
+  }
+}
+
+// what TMA needs: 16-byte aligned bases and row pitches of dy and W
+inline bool dx_wgmma_ok(const Args& a, int scheme) {
+  return (reinterpret_cast<uintptr_t>(a.x) & 15) == 0 &&
+         (reinterpret_cast<uintptr_t>(a.w) & 15) == 0 && ((size_t)a.N * 2) % 16 == 0 &&
+         row_bytes(scheme, a.N) % 16 == 0;
+}
+
+template <int S>
+cudaError_t launch_dx_wgmma(const Args& a, const int32_t* plan, int items, cudaStream_t st) {
+  using L = DxwSmem<S>;
+  const uint64_t rb = row_bytes(S, a.N);
+  const uint64_t dy_dims[2] = {(uint64_t)a.N, (uint64_t)a.rows}, dy_pitch[1] = {(uint64_t)a.N * 2};
+  const uint32_t dy_box[2] = {DXW_STEP, DXW_ROWS};
+  const uint64_t w_dims[3] = {S == kBF16 ? (uint64_t)a.N : rb, (uint64_t)a.K, (uint64_t)a.E};
+  const uint64_t w_pitch[2] = {rb, rb * (uint64_t)a.K};
+  const uint32_t w_box[3] = {S == kFP6 ? DXW_STEP * 3 / 4 : DXW_STEP, DXW_COLS, 1};
+  CUtensorMap map_dy, map_w;
+  if (!hopper::encode_map(&map_dy, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.x, dy_dims, dy_pitch,
+                          dy_box, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !hopper::encode_map(&map_w,
+                          S == kBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                          3, a.w, w_dims, w_pitch, w_box,
+                          S == kBF16 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+  const DxwArgs w{plan, a.scales, a.out, a.rows, a.K, a.N, a.ng, a.g, a.E,
+                  (a.K + DXW_COLS - 1) / DXW_COLS};
+  if ((long long)w.cols * items > INT_MAX) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      gmm_dx_wgmma_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (err != cudaSuccess) return err;
+  gmm_dx_wgmma_kernel<S><<<w.cols * items, DXW_THREADS, L::kBytes, st>>>(map_dy, map_w, w);
+  return cudaGetLastError();
+}
+
 template <int S>
 cudaError_t launch_dx(const Args& a, int tm, cudaStream_t st) {
   const dim3 grid((a.K + DX_BK - 1) / DX_BK, a.rows / tm);
@@ -424,11 +779,15 @@ cudaError_t launch_dx(const Args& a, int tm, cudaStream_t st) {
 // Plain C entry for ctypes: dx [Mp, K] bf16 = dy [Mp, N] bf16 @ W[tile]^T,
 // W bf16 [E, K, N] (scheme 0, scales null) or carriers as in
 // ds_grouped_matmul (schemes 1-3, scales fp32 [E, K, ng]); tile_expert
-// int32 [Mp / tm]; used_tiles int32 [1]; tm 16 or 64. Returns
+// int32 [Mp / tm]; used_tiles int32 [1]; tm 16 or 64. With a work plan
+// (int32 [plan_items, 5], built by the wrapper from tile_expert and
+// used_tiles) the wgmma design runs, and the call is refused unless TMA can
+// read dy and W; without one, the general design. Returns
 // cudaGetLastError() of the launch.
 extern "C" int ds_gmm_dx(const void* dy, const void* w, const void* scales,
                          const void* tile_expert, const void* used_tiles, void* dx, int Mp,
-                         int K, int N, int ng, int E, int scheme, int tm, void* stream) {
+                         int K, int N, int ng, int E, int scheme, int tm, const void* plan,
+                         int plan_items, void* stream) {
   Args a{static_cast<const uint16_t*>(dy), static_cast<const uint8_t*>(w),
          static_cast<const float*>(scales), static_cast<const int32_t*>(tile_expert),
          static_cast<const int32_t*>(used_tiles), static_cast<uint16_t*>(dx), nullptr,
@@ -437,6 +796,16 @@ extern "C" int ds_gmm_dx(const void* dy, const void* w, const void* scales,
       used_tiles == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (plan != nullptr) {
+    if (plan_items <= 0 || !dx_wgmma_ok(a, scheme)) return (int)cudaErrorInvalidValue;
+    const int32_t* p = static_cast<const int32_t*>(plan);
+    switch (scheme) {
+      case kBF16: return (int)launch_dx_wgmma<kBF16>(a, p, plan_items, st);
+      case kInt8: return (int)launch_dx_wgmma<kInt8>(a, p, plan_items, st);
+      case kFP8: return (int)launch_dx_wgmma<kFP8>(a, p, plan_items, st);
+      default: return (int)launch_dx_wgmma<kFP6>(a, p, plan_items, st);
+    }
+  }
   switch (scheme) {
     case kBF16: return (int)launch_dx<kBF16>(a, tm, st);
     case kInt8: return (int)launch_dx<kInt8>(a, tm, st);

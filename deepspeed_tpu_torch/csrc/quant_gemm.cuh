@@ -28,8 +28,12 @@
 //   3. bf16 mma.sync.m16n8k16 tiles with fp32 accumulators, fed by
 //      ldmatrix (the weight tile [k][n] through ldmatrix.trans).
 // A bf16 weight (gmm) skips step 2: its bytes land in the weight tile
-// directly. Not done yet (work for a later change): cp.async or TMA
-// pipelining of the carrier stream, wgmma, and a persistent schedule.
+// directly. This template carries K4 and K5's forward. K5's input gradient
+// has its own Hopper design in grouped_matmul.cu (wgmma on 128 x 256 tiles
+// fed by a TMA ring, the carriers decoded by the functions below into
+// swizzled bf16 tiles while the previous step's wgmma runs); the forward
+// has none of that yet: cp.async or TMA pipelining of the carrier stream,
+// wgmma and a persistent schedule are work for a later change.
 
 #pragma once
 
@@ -125,6 +129,25 @@ __device__ __forceinline__ float e3m2_to_float(uint32_t c) {
   if (mag < 8u) return ((c & 0x20u) ? -0.0625f : 0.0625f) * (float)mag;
   return __uint_as_float(((c & 0x20u) << 26) | (((mag >> 2) + 124u) << 23) |
                          ((mag & 3u) << 21));
+}
+
+// The same fp32 values as (float)(int8_t)b, fp8_to_float and e3m2_to_float,
+// bit for bit (checked over every code), computed on the integer and FMA
+// pipes: no int-to-float conversion (a quarter-rate instruction on Hopper)
+// and no branch. int8: byte t of w ^ 0x80808080 is x + 128, placed under
+// the fp32 exponent of 2^23 and 2^23 + 128 taken off. fp8 and e3m2: the
+// code's exponent and mantissa bits placed in fp32's (a zero exponent
+// lands on an fp32 subnormal), then scaled by 2^(127 - bias).
+__device__ __forceinline__ float int8_code(uint32_t w_x80, int t) {
+  return __uint_as_float(__byte_perm(w_x80, 0x4B000000u, 0x7440u | (uint32_t)t)) - 8388736.f;
+}
+
+__device__ __forceinline__ float fp8_code(uint32_t b) {  // the code in bits 0-7
+  return __uint_as_float(((b & 0x80u) << 24) | ((b & 0x7Fu) << 20)) * 0x1p120f;
+}
+
+__device__ __forceinline__ float e3m2_code(uint32_t c) {  // the code in bits 0-5
+  return __uint_as_float(((c & 0x20u) << 26) | ((c & 0x1Fu) << 21)) * 0x1p124f;
 }
 
 // G: grouped (K5, one expert per row tile) or one weight (K4); the two are

@@ -35,6 +35,12 @@ routing on the device, and the kernel writes zeros to the tiles past it
 without reading any weight. The TPU kernels' scalar prefetch, tile
 ladder and VMEM budget do not carry over: a block reads its own tile's
 expert, and a dW block finds its expert's run of tiles on the device.
+
+The input gradients have two designs, chosen by shape before the launch
+(:func:`dx_design`) and counted in ``gmm_dx_design_launches``: where TMA
+can read dy and the stack, wgmma on 128 x 256 tiles of dx fed by a TMA
+ring, over a work list built on the device (:func:`gmm_dx_plan`); else the
+first, general design.
 """
 
 import ctypes
@@ -255,20 +261,91 @@ def gmm_dw_ref(x, dy, tile_experts, num_experts, tm, used_tiles=None, out_dtype=
     return out.to(out_dtype or x.dtype)
 
 
-def _launch_dx(dy, w, scales, tile_experts, used_tiles, K, ng, E, scheme_code, tm):
+DX_ROWS = 128  # dx rows a block of the wgmma dx design (csrc DXW_ROWS)
+gmm_dx_design_launches = {"wgmma": 0, "general": 0}
+
+
+def dx_design(scheme, N, *ptrs):
+    """The dx design the kernel takes for a contraction of ``N`` over a
+    ``scheme`` stack ("bf16", "int8", "fp8", "fp6"), dy and the stack at
+    device addresses ``ptrs``: "wgmma" where TMA can read both (16-byte
+    aligned bases, and rows of dy and W a multiple of 16 bytes: N % 8 for
+    bf16, N % 16 for int8 and fp8, N % 64 for fp6's 3N/4-byte rows), else
+    "general", the first design, which takes every shape."""
+    row = {"bf16": 2 * N, "int8": N, "fp8": N, "fp6": 3 * N // 4}[scheme]  # W's row bytes
+    ok = (2 * N) % 16 == 0 and row % 16 == 0 and all(p % 16 == 0 for p in ptrs)
+    return "wgmma" if ok else "general"
+
+
+def gmm_dx_plan(tile_experts, used_tiles, tm, num_experts):
+    """The wgmma dx design's work list, built on ``tile_experts``'s device
+    with no host sync → int32 [bound, 5], ``bound = min(T, ceil(T / P) +
+    num_experts)`` for T = Mp / tm tiles and P = 128 / tm tiles an item.
+
+    An item is up to P consecutive used tiles of one run of equal
+    ``tile_experts``: (first row, rows, expert, the run's first item, the
+    run's item count). The kernel gives a block one item and one 256-wide
+    column block of dx, and the blocks of a run take its column blocks in
+    turn, so the run's dy rows and each W column block stay in L2 while
+    they are read. The slots past the last item form one more group, with
+    expert -1 and first row ``used_tiles * tm``: their blocks write the
+    zeros of the rows past the used tiles. The bound holds when each
+    expert's used tiles are one run, as :func:`tile_layout` makes them."""
+    T = tile_experts.shape[0]
+    P = DX_ROWS // tm
+    bound = min(T, -(-T // P) + num_experts)
+    dev = tile_experts.device
+    t = torch.arange(T, device=dev)
+    te = tile_experts.long()
+    used = used_tiles.reshape(()).long()
+    valid = t < used
+    new_run = valid.clone()
+    new_run[1:] &= te[1:] != te[:-1]
+    run_start = torch.cummax(torch.where(new_run, t, 0), 0).values
+    starts = valid & ((t - run_start) % P == 0)  # tiles that begin an item
+    item = torch.cumsum(starts, 0) - 1           # each used tile's item
+    n_items = starts.sum()
+    one = torch.ones_like(t)
+
+    def per_item(index, src, op):  # slot `bound` takes what belongs to no item
+        buf = torch.zeros(bound + 1, dtype=torch.long, device=dev)
+        return getattr(buf, op)(0, index, src)[:bound]
+
+    first_tile = per_item(torch.where(starts, item, bound), t, "scatter_")
+    tiles = per_item(torch.where(valid, item, bound), one, "scatter_add_")
+    run_first = item[run_start]                  # each used tile's run's first item
+    group_first = run_first[first_tile]
+    group_count = per_item(torch.where(starts, run_first, bound), one, "scatter_add_")[
+        group_first.clamp(0, bound - 1)]
+    live = t[:bound] < n_items
+    plan = torch.stack([torch.where(live, first_tile * tm, used * tm),
+                        torch.where(live, tiles * tm, 0),
+                        torch.where(live, te[first_tile], -1),
+                        torch.where(live, group_first, n_items),
+                        torch.where(live, group_count, bound - n_items)], 1)
+    return plan.to(torch.int32)
+
+
+def _launch_dx(dy, w, scales, tile_experts, used_tiles, K, ng, E, scheme, tm):
+    """Check the layout, choose the design by shape, launch → [Mp, K] bf16."""
     used_tiles = _check_layout(dy, tile_experts, used_tiles, tm, "dy")
     Mp, N = dy.shape
     out = torch.empty((Mp, K), dtype=torch.bfloat16, device=dy.device)
     if Mp == 0 or K == 0:
         return out
+    design = dx_design(scheme, N, dy.data_ptr(), w.data_ptr())
+    plan = gmm_dx_plan(tile_experts, used_tiles, tm, E) if design == "wgmma" else None
     with torch.cuda.device(dy.device):
         stream = torch.cuda.current_stream().cuda_stream
-        fn = _lib_fn("ds_gmm_dx", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7)
+        fn = _lib_fn("ds_gmm_dx", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 +
+                     [ctypes.c_void_p, ctypes.c_int])
         rc = fn(dy.data_ptr(), w.data_ptr(), None if scales is None else scales.data_ptr(),
                 tile_experts.data_ptr(), used_tiles.data_ptr(), out.data_ptr(), Mp, K, N, ng,
-                E, scheme_code, tm, stream)
+                E, SCHEME_CODE.get(scheme, 0), tm, None if plan is None else plan.data_ptr(),
+                0 if plan is None else plan.shape[0], stream)
     if rc != 0:
-        raise RuntimeError(f"grouped dx kernel failed to launch: cudaError {rc}")
+        raise RuntimeError(f"grouped dx kernel ({design} design) failed to launch: cudaError {rc}")
+    gmm_dx_design_launches[design] += 1
     return out
 
 
@@ -286,7 +363,8 @@ def gmm_transposed(dy, w, tile_experts, tm, used_tiles=None):
                          f"{w.dtype} {tuple(w.shape)} on {w.device}")
     if w.shape[2] != dy.shape[-1]:
         raise ValueError(f"dy [Mp, {dy.shape[-1]}] does not contract with w {tuple(w.shape)}")
-    out = _launch_dx(dy, w, None, tile_experts, used_tiles, w.shape[1], 1, w.shape[0], 0, tm)
+    out = _launch_dx(dy, w, None, tile_experts, used_tiles, w.shape[1], 1, w.shape[0], "bf16",
+                     tm)
     gmm.launches += 1
     return out
 
@@ -308,7 +386,7 @@ def gmm_quant_dx(dy, values, scales, tile_experts, scheme, dequant_dtype=torch.b
         raise ValueError(f"dy [Mp, {dy.shape[-1]}] does not contract with carriers "
                          f"{tuple(values.shape)}")
     out = _launch_dx(dy, values, scales, tile_experts, used_tiles, K, ng, values.shape[0],
-                     SCHEME_CODE[scheme], tm)
+                     scheme, tm)
     gmm_quant_dx.launches += 1
     return out
 

@@ -30,7 +30,10 @@ at every block size and head dim, per-head layouts and a layout with an
 empty row and a key block no row admits (zeros there, lse ``NEG_INF``),
 each check rejecting a zeroed tile, and a 2-layer BERT ``train_batch``
 through the kernels must match the same step pinned to the plain
-versions."""
+versions. K5's input gradient must take the design its shape predicate
+names (the wgmma design wherever TMA can read dy and the stack), give the
+same bits on a second run, and, through carriers, reproduce the
+dequantized weights bit for bit on one-hot rows."""
 
 import numpy as np
 import pytest
@@ -484,38 +487,102 @@ def test_gmm_dw_kernel_matches_plain(cuda, sizes, K, N, tm):
     assert err <= QUANT_TOL and row_scaled_err(bad, want) > 10 * QUANT_TOL, err
 
 
-@pytest.mark.parametrize("scheme", ("bf16",) + SCHEMES)
-@pytest.mark.parametrize("sizes,K,N,tm", BWD_CASES)
-def test_grouped_dx_kernels_match_plain(cuda, scheme, sizes, K, N, tm):
-    """``gmm_transposed`` (bf16, counted as ``gmm``) and ``gmm_quant_dx``
-    (carriers): zeros past the used tiles, within QUANT_TOL of the plain
-    version, and a zeroed tile rejected."""
+def _dx_run(dy, te, used, tm, scheme, K, N, E, group, device):
+    """gmm's dx (bf16) or ``gmm_quant_dx`` (carriers) over a seeded stack,
+    twice → (kernel, run 1, run 2, plain version in fp32, design the
+    wrapper's predicate names)."""
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    if scheme == "bf16":
+        w = (torch.randn(E, K, N, generator=torch.Generator(device).manual_seed(2),
+                         device=device) * 0.05).to(torch.bfloat16)
+        runs = [gm.gmm_transposed(dy, w, te, tm, used) for _ in range(2)]
+        want = gm.gmm_transposed_ref(dy.float(), w.float(), te, tm, used)
+        return gm.gmm, runs, want, gm.dx_design(scheme, N, dy.data_ptr(), w.data_ptr())
+    q = _carrier((E, K, N), scheme, group, device, 3)
+    runs = [gm.gmm_quant_dx(dy, q.values, q.scales, te, scheme, torch.bfloat16, tm, used)
+            for _ in range(2)]
+    want = gm.gmm_quant_dx_ref(dy.float(), q.values, q.scales, te, scheme, torch.bfloat16, tm,
+                               used)
+    return gm.gmm_quant_dx, runs, want, gm.dx_design(scheme, N, dy.data_ptr(),
+                                                      q.values.data_ptr())
+
+
+def _check_dx(dy, te, used, tm, scheme, K, N, E, group, device, design=None):
+    """Both runs equal bit for bit, zeros past the used tiles, within
+    QUANT_TOL of the plain version, a zeroed tile rejected, and two
+    launches counted, on the design the predicate names (``design`` when
+    given)."""
     from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
     from deepspeed_tpu_torch.ops.kernels.flash_attention import row_scaled_err
-    dy, te, used = _gmm_case(sizes, N, tm, cuda, 7)
-    E = len(sizes)
-    if scheme == "bf16":
-        w = (torch.randn(E, K, N, generator=torch.Generator(cuda).manual_seed(2), device=cuda)
-             * 0.05).to(torch.bfloat16)
-        kernel = gm.gmm
-        before = kernel.launches
-        got = gm.gmm_transposed(dy, w, te, tm, used)
-        want = gm.gmm_transposed_ref(dy.float(), w.float(), te, tm, used)
-    else:
-        q = _carrier((E, K, N), scheme, 4 if N % 8 else 8, cuda, 3)
-        kernel = gm.gmm_quant_dx
-        before = kernel.launches
-        got = gm.gmm_quant_dx(dy, q.values, q.scales, te, scheme, torch.bfloat16, tm, used)
-        want = gm.gmm_quant_dx_ref(dy.float(), q.values, q.scales, te, scheme, torch.bfloat16,
-                                   tm, used)
+    kernel = gm.gmm if scheme == "bf16" else gm.gmm_quant_dx
+    before = kernel.launches, dict(gm.gmm_dx_design_launches)
+    kernel, (got, again), want, predicted = _dx_run(dy, te, used, tm, scheme, K, N, E, group,
+                                                    device)
     torch.cuda.synchronize()
-    assert kernel.launches == before + 1
+    assert design is None or predicted == design
+    assert kernel.launches == before[0] + 2
+    grew = {k: v - before[1][k] for k, v in gm.gmm_dx_design_launches.items()}
+    assert grew == {d: 2 * (d == predicted) for d in grew}, grew
     assert got.dtype == torch.bfloat16 and got.shape == (dy.shape[0], K)
+    assert torch.equal(got, again)  # each output written once: the same bits every run
     n_used = int(used) * tm
     assert not got[n_used:].any()
     err = row_scaled_err(got[:n_used], want[:n_used])
     bad_err = row_scaled_err(_zero_tile(got[:n_used]), want[:n_used])
     assert err <= QUANT_TOL and bad_err > 10 * QUANT_TOL, (err, bad_err)
+
+
+@pytest.mark.parametrize("scheme", ("bf16",) + SCHEMES)
+@pytest.mark.parametrize("sizes,K,N,tm", BWD_CASES)
+def test_grouped_dx_kernels_match_plain(cuda, scheme, sizes, K, N, tm):
+    """``gmm_transposed`` (bf16, counted as ``gmm``) and ``gmm_quant_dx``
+    (carriers): zeros past the used tiles, within QUANT_TOL of the plain
+    version, a zeroed tile rejected, two runs equal, on the design the
+    shape predicate names (TMA-aligned rows take the wgmma design)."""
+    dy, te, used = _gmm_case(sizes, N, tm, cuda, 7)
+    _check_dx(dy, te, used, tm, scheme, K, N, len(sizes), 4 if N % 8 else 8, cuda)
+
+
+# Shapes that take the wgmma design at every scheme (rows a multiple of 64
+# columns): odd tile counts an expert (one-tile items), an empty expert,
+# used tiles below the layout's, K not a multiple of the 256-column block,
+# group widths that are and are not a multiple of 16 (one scale per row
+# and step, or one per element), and 16-row tiles taken 8 to an item.
+WGMMA_DX_CASES = [
+    ((200, 0, 130, 70, 65), 640, 320, 64, 64),
+    ((200, 0, 130, 70, 65), 640, 320, 64, 40),
+    ((37, 0, 90, 5, 0, 16), 384, 256, 16, 32),
+    ((0, 300, 0, 0), 256, 1024, 64, 512),
+]
+
+
+@pytest.mark.parametrize("scheme", ("bf16",) + SCHEMES)
+@pytest.mark.parametrize("sizes,K,N,tm,group", WGMMA_DX_CASES)
+def test_grouped_dx_wgmma_design_matches_plain(cuda, scheme, sizes, K, N, tm, group):
+    dy, te, used = _gmm_case(sizes, N, tm, cuda, 11)
+    assert int(used) < dy.shape[0] // tm
+    _check_dx(dy, te, used, tm, scheme, K, N, len(sizes), group, cuda, design="wgmma")
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+@pytest.mark.parametrize("group", (64, 40))
+def test_grouped_dx_wgmma_decodes_exactly(cuda, scheme, group):
+    """One-hot dy rows each read one weight: dx over expert 1's rows must be
+    its carriers as ``dequantize_grouped`` decodes them to bf16, transposed,
+    bit for bit (a group of 64: one scale a row and step; of 40: one an
+    element)."""
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import dequantize_grouped
+    K, N = 320, 320
+    dy, te, used = _gmm_case((64, N), N, 64, cuda, 0)
+    dy[64:64 + N] = torch.eye(N, device=cuda, dtype=torch.bfloat16)
+    q = _carrier((2, K, N), scheme, group, cuda, 4)
+    before = gm.gmm_dx_design_launches["wgmma"]
+    got = gm.gmm_quant_dx(dy, q.values, q.scales, te, scheme, torch.bfloat16, 64, used)
+    torch.cuda.synchronize()
+    assert gm.gmm_dx_design_launches["wgmma"] == before + 1
+    want = dequantize_grouped(q.values[1], q.scales[1], scheme, torch.bfloat16).t()
+    assert torch.equal(got[64:64 + N], want)
 
 
 def test_grouped_backward_kernels_refuse_what_they_cannot_take(cuda):
