@@ -151,7 +151,9 @@ each of which fails the run if it fails:
    and one decode burst;
 12. bf16 MoE serving — the same preset and traffic in bf16 at 8 of 32
    layers (the bf16 model does not fit one card at full depth); ``gmm``
-   must launch 3 per layer per forward. Same prints.
+   must launch 3 per layer per forward. Same prints, and how many ``gmm``
+   launches took each design (prefill's 64-row tiles the wgmma design,
+   decode's 16-row tiles the first).
 13. LoRA kernel — ``lora_delta`` (K6) at the Mistral-7B LoRA sites, q_proj
    (and o_proj) [4096 -> 4096] and k_proj (and v_proj) [4096 -> 1024],
    rank buckets 8 and 16, 9 slots (8 adapters and the base), bf16: the
@@ -260,15 +262,21 @@ each of which fails the run if it fails:
    (its KV to host memory and back) must continue the uninterrupted stream
    bit for bit.
 
-19. K5 backward kernels — ``gmm_dw`` (dW of w1 [8, 4096, 14336] and w2
-   [8, 14336, 4096]), ``gmm``'s dx reading the stack as stored, and
-   ``gmm_quant_dx`` over int8, fp8 and fp6 carriers of each, at T·k =
-   8192 rows (B 2 x S 2048, top-2) routed with a skew that leaves expert 7
-   empty, 64-row tiles. Each within QUANT_TOL units of ``row_scaled_err``
-   of its plain version (fp32 sums in another order, one bf16 rounding),
-   the check rejecting one zeroed 64 x 64 tile (dW) or 64-row tile (dx);
-   the empty expert's dW all zeros; two dW runs equal bit for bit; rows
-   past the used tiles zero. Timed beside the plain version, the bound
+19. K5 training kernels — the forward ``gmm``, ``gmm_dw`` (dW of w1 [8,
+   4096, 14336] and w2 [8, 14336, 4096]), ``gmm``'s dx reading the stack
+   as stored, and ``gmm_quant_dx`` over int8, fp8 and fp6 carriers of
+   each, at T·k = 8192 rows (B 2 x S 2048, top-2) routed with a skew that
+   leaves expert 7 empty, 64-row tiles; every launch on the wgmma design.
+   Then each first design at one case its predicate gives it: the forward
+   with x at an unaligned base (a view one element in), and dW over a
+   128-row routing with 16-row tiles (expert 1 empty).
+   Each within QUANT_TOL units of ``row_scaled_err`` of its plain version
+   (fp32 sums in another order, one bf16 rounding), the check rejecting
+   one zeroed 64 x 64 tile (dW) or 64-row tile (forward, dx); the empty
+   expert's dW all zeros; two runs of each equal bit for bit; rows past
+   the used tiles zero; the wgmma designs' work list, built by a
+   one-thread kernel, equal to its plain version at this routing and
+   phase 9's, at 16- and 64-row tiles. Timed beside the plain version, the bound
    (flops over 989 TFLOP/s or bytes over 3.35 TB/s) and the library call
    (``torch._grouped_mm``: 2-D x 2-D with offsets on the contraction dim
    for dW, the bf16 or dequantized stack for dx; else per-expert
@@ -282,7 +290,8 @@ each of which fails the run if it fails:
    relative, every parameter's accumulated gradient within GRAD_LEAF_TOL
    in relative L2 norm; launches per layer and micro-batch: 3 ``gmm``
    forward + 3 ``gmm`` dx, 3 ``gmm_dw``, flash forward twice (the
-   attention half is recomputed), no grouped GEMM re-run. Then the
+   attention half is recomputed), no grouped GEMM re-run; every forward,
+   dx and dW launch on the wgmma design. Then the
    frozen base: the dropless FFN over one Mixtral layer's int8 carriers
    from ``init_quantized_params``, gradients in x only, through the
    kernels (3 ``gmm_quant``, 3 ``gmm_quant_dx``) and the plain versions:
@@ -291,7 +300,8 @@ each of which fails the run if it fails:
    ``initialize`` → ``train_batch`` (bench.py's ``_train_config``: bf16
    with the fp32 master, Adam lr 1e-4, ZeRO-3), dropless, remat ``"moe"``,
    B 2 x S 2048, gas 2, one seeded batch: 1 warm-up and 3 timed steps,
-   each kernel's launches as the path implies, losses and aux losses
+   each kernel's launches as the path implies (every forward, dx and dW
+   on the wgmma design, also under remat ``"full"``), losses and aux losses
    finite, the aux loss > 0 and the loss lower after the 3 steps. Prints
    ms per step, tokens/s, active MFU (bench.py's flops over the active
    parameters: attention, norms, embedding, head, router, and k/E of the
@@ -398,6 +408,7 @@ TIER_CONTROL_BLOCKS = 256     # nothing is evicted: A's and B's retired chains f
 TIER_HOST_BYTES = 4 << 30
 # phases 19-21: Mixtral-8x7B width, 2 of 32 layers; T·k = 8192 rows (B 2 x S 2048, top-2)
 MOE_TRAIN_SIZES = (2048, 1638, 1229, 1065, 819, 737, 656, 0)  # skewed, expert 7 empty
+DW_SMALL_SIZES = (40, 0, 16, 9, 30, 3, 20, 10)  # 128 rows, 16 an expert: 16-row tiles
 MOE_TRAIN_LAYERS = 2
 MB, MS, MGAS = 2, 2048, 2     # phase 21: micro batch, sequence, gas (bf16, Adam, ZeRO-3)
 MOE_LOSS_TOL, MOE_AUX_TOL = 1e-4, 1e-4  # phase 20: relative, kernels vs plain
@@ -912,9 +923,9 @@ _CATEGORIES = (  # (category, name patterns: a substring, or a tuple of substrin
     ("dense_matmul (K4's bf16 instance)", (("qgemm_kernel<0,", "false>"),)),
     ("quant_matmul (K4)", (("qgemm_kernel", "false>"),)),
     ("split-K sums (K4, dense_matmul)", ("reduce_splits_kernel",)),
-    ("grouped_matmul (K5)", (("qgemm_kernel", "true>"),)),
-    ("grouped_matmul dx (K5 backward)", ("gmm_dx_kernel", "gmm_dx_wgmma_kernel")),
-    ("grouped_matmul dW (K5 backward)", ("gmm_dw_kernel",)),
+    ("grouped_matmul (K5)", (("qgemm_kernel", "true>"), ("gmm_wgmma_kernel", "true>"))),
+    ("grouped_matmul dx (K5 backward)", ("gmm_dx_kernel", ("gmm_wgmma_kernel", "false>"))),
+    ("grouped_matmul dW (K5 backward)", ("gmm_dw_kernel", "gmm_dw_wgmma_kernel")),
     ("flash_attention (K1)", ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")),
     ("rms_norm (K2)", ("rms_fwd_kernel",)),
     ("layer_norm (K2)", ("ln_fwd_kernel",)),
@@ -1701,12 +1712,15 @@ def moe_serving_phase(device, mode, layers):
     counters = moe_counters()
     for f in counters.values():
         f.launches = 0
+    designs = gemm_designs()
     t0 = time.perf_counter()
     streams, steps = run_requests(engine, MOE_N_REQ, MOE_PROMPT, MOE_NEW, 0, MOE_BUDGET,
                                   MOE_BURST)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {k: f.launches for k, f in counters.items()}
+    # bf16 experts: prefill's 64-row tiles take the wgmma forward, decode's 16 the first design
+    fwd_designs = {k: v - designs["fwd"][k] for k, v in gemm_designs()["fwd"].items()}
     fwd = engine.forward_steps - fwd0
     per = moe_launches_per_forward(L, mode)
     if launches != {k: per[k] * fwd for k in per} or fwd == 0:
@@ -1731,7 +1745,7 @@ def moe_serving_phase(device, mode, layers):
                   gen_tokens_per_sec=MOE_N_REQ * MOE_NEW / dt,
                   total_tokens_per_sec=MOE_N_REQ * (MOE_PROMPT + MOE_NEW) / dt,
                   host_syncs=syncs, syncs_per_token=syncs / max(toks, 1),
-                  launches=launches, launches_per_forward=per,
+                  launches=launches, launches_per_forward=per, gmm_fwd_designs=fwd_designs,
                   peak_memory_gb=peak / 1e9, card_memory_gb=card / 1e9)
     log(f"[{tag}] {json.dumps(result)}")
     log(f"[{tag}] request 0 first tokens: {streams[0][:8]}")
@@ -2829,19 +2843,104 @@ def dequant_library(xs, q, scheme, sizes, flush):
             "library_call": "dequantize_grouped + per-expert torch.matmul"}
 
 
-def dx_designs():
-    """The dx launches so far by design (the wgmma design, the general one)."""
+def gemm_designs():
+    """K5's bf16 GEMM launches so far, by GEMM ("fwd": ``gmm`` over a bf16
+    stack, "dx", "dw") and design (the wgmma design, the general one), and
+    the launches of the work list's kernel (``gmm_plan``: the forward's
+    and dx's wgmma designs build one a launch)."""
     from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
-    return dict(gm.gmm_dx_design_launches)
+    return {"fwd": dict(gm.gmm_fwd_design_launches), "dx": dict(gm.gmm_dx_design_launches),
+            "dw": dict(gm.gmm_dw_design_launches), "plan": gm.gmm_plan.launches}
 
 
-def check_dx_designs(before, want, name):
-    """Raise unless exactly ``want`` dx launches since ``before``, all on
-    the wgmma design."""
-    grew = {k: v - before[k] for k, v in dx_designs().items()}
-    if grew != {"wgmma": want, "general": 0}:
-        raise AssertionError(f"{name}: dx launches by design {grew}, want {want}, all wgmma")
+def check_designs(before, want, name, design="wgmma"):
+    """Raise unless, since ``before``, each GEMM of ``want`` ({"fwd": n,
+    "dx": n, "dw": n}) launched exactly its count, all on ``design``, each
+    forward and dx on the wgmma design with one launch of the work list's
+    kernel."""
+    now = gemm_designs()
+    grew = {g: {k: v - before[g][k] for k, v in now[g].items()} for g in want}
+    plans = now["plan"] - before["plan"]
+    want_plans = want.get("fwd", 0) + want.get("dx", 0) if design == "wgmma" else 0
+    other = "general" if design == "wgmma" else "wgmma"
+    if grew != {g: {design: n, other: 0} for g, n in want.items()} or plans != want_plans:
+        raise AssertionError(f"{name}: launches by design {grew}, want {want}, all {design}; "
+                             f"work lists {plans}, want {want_plans}")
     return grew
+
+
+def table_cases(device, flush):
+    """The wgmma designs' work list built by its one-thread kernel
+    (``gmm_plan``) against its plain version (torch ops on the card), bit
+    for bit: at phase 19's routing and phase 9's serving routings, at 16-
+    and 64-row tiles, with every tile used and with the used tiles cut to
+    half, and with no rows at all; timed at phase 19's layout beside its
+    plain version. → rows."""
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    layouts = [("train", torch.tensor(MOE_TRAIN_SIZES, device=device))]
+    layouts += [(c, routing_sizes(c, device)) for c in ("decode", "prefill", "one_expert")]
+    layouts += [("no_rows", torch.zeros(8, dtype=torch.int64, device=device))]
+    checked, out = 0, []
+    for name, sizes in layouts:
+        for tm in (16, 64):
+            _, te, _ = gm.tile_layout(sizes, int(sizes.sum()), tm)
+            for used in (gm.used_tiles(sizes, tm), gm.used_tiles(sizes, tm) // 2):
+                E = sizes.shape[0]
+                if not torch.equal(gm.gmm_plan(te, used, tm, E), gm.gmm_plan_ref(te, used, tm, E)):
+                    raise AssertionError(f"work list {name} tm {tm} used {int(used)}: the "
+                                         f"kernel's differs from its plain version")
+                checked += 1
+            if name == "train" and tm == 64:
+                used = gm.used_tiles(sizes, tm)
+                out.append({"case": "gmm_plan_train", "tm": tm, "tiles": te.shape[0],
+                            "max_abs_err": 0.0, "equal_to_plain": True,
+                            "ms": time_ms(lambda: gm.gmm_plan(te, used, tm, E), flush),
+                            "plain_ms": time_ms(lambda: gm.gmm_plan_ref(te, used, tm, E),
+                                                flush)})
+    log(f"[grouped-bwd] work lists: {checked} layouts equal to the plain version; "
+        f"{json.dumps(out)}")
+    return out
+
+
+def dw_first_design_case(wname, K, N, device, g, check, flush):
+    """dW on its first design at Mixtral width: a small training routing
+    (DW_SMALL_SIZES, 128 rows, expert 1 empty) whose row tile is 16, so
+    the predicate keeps the first design. Held against the plain version
+    (the zeroed-tile check), the empty expert's dW zero, two runs equal
+    bit for bit, timed beside its bound. → row."""
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import row_tile
+    sizes = torch.tensor(DW_SMALL_SIZES, device=device)
+    n, E = int(sizes.sum()), sizes.shape[0]
+    tm = row_tile(-(-n // E))
+    dst, te, Mp = gm.pad_groups_to_tiles(sizes, n, tm)
+    used = gm.used_tiles(sizes, tm)
+    x, dy = (torch.zeros((Mp, c), dtype=torch.bfloat16, device=device) for c in (K, N))
+    x[dst.long()] = torch.randn(n, K, generator=g, device=device).to(torch.bfloat16)
+    dy[dst.long()] = (torch.randn(n, N, generator=g, device=device) * 0.02).to(torch.bfloat16)
+    name = f"gmm_dw {wname} tm {tm}"
+    designs = gemm_designs()
+    got, again = gm.gmm_dw(x, dy, te, E, tm, used), gm.gmm_dw(x, dy, te, E, tm, used)
+    check_designs(designs, {"dw": 2}, name, design="general")
+    want = gm.gmm_dw_ref(x, dy, te, E, tm, used, out_dtype=torch.float32)
+    busiest = int(sizes.argmax())
+    zeroed = got.clone()
+    zeroed[busiest, :64, :64] = 0
+    row = check(name, got, want, zeroed)
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: two runs differ")
+    empty = [e for e in range(E) if not int(sizes[e])]
+    if any(got[e].any() for e in empty):
+        raise AssertionError(f"{name}: the empty expert's dW is not zero")
+    b_ms, b_by = bound(2 * n * (K + N) + E * K * N * 2, 2 * n * K * N)
+    row.update({"case": f"dw_{wname}_tm{tm}", "rows": n, "tm": tm, "padded_rows": Mp, "K": K,
+                "N": N, "experts": E, "empty_experts": empty, "design": "general",
+                "deterministic": True,
+                "ms": time_ms(lambda: gm.gmm_dw(x, dy, te, E, tm, used), flush),
+                "bound_ms": b_ms, "bound_by": b_by, "flops": 2 * n * K * N})
+    log(f"[grouped-bwd] {name} {json.dumps(row)}")
+    del x, dy, got, again, want, zeroed
+    return row
 
 
 def gmm_bwd_cases(device, flush):
@@ -2852,13 +2951,16 @@ def gmm_bwd_cases(device, flush):
     carriers of each; and the forward ``gmm`` at the same shapes. Each held
     against its plain version with ``row_scaled_err`` (limit QUANT_TOL),
     the check rejecting the output with one tile zeroed; dW of the empty
-    expert all zeros; two dW runs and two dx runs equal bit for bit, every
-    dx launch on the wgmma design and zeros past the used tiles; each timed
-    beside its plain version, one library call (for carriers,
-    ``dequantize_grouped`` + ``torch._grouped_mm``, the same function, with
-    ``torch._grouped_mm`` on the dequantized stack beside it) and the
-    bound. → {"gmm_dw": rows, "gmm_dx": rows, "gmm_quant_dx": rows,
-    "gmm_fwd": rows}."""
+    expert all zeros; two runs of each equal bit for bit, every launch on
+    the wgmma design and zeros past the used tiles; each timed beside its
+    plain version, one library call (for carriers, ``dequantize_grouped``
+    + ``torch._grouped_mm``, the same function, with ``torch._grouped_mm``
+    on the dequantized stack beside it) and the bound. Then the first
+    designs of the forward (x at an unaligned base) and of dW (16-row
+    tiles, :func:`dw_first_design_case`), held the same way; and the
+    wgmma designs' work-list kernel (:func:`table_cases`). →
+    {"gmm_dw": rows, "gmm_dx": rows, "gmm_quant_dx": rows, "gmm_fwd": rows,
+    "tables": rows}."""
     from deepspeed_tpu_torch.inference.quantization.quantization import _quantize_grouped
     from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
     from deepspeed_tpu_torch.ops.kernels.flash_attention import row_scaled_err
@@ -2885,29 +2987,61 @@ def gmm_bwd_cases(device, flush):
                                  f"tile {zerr} (must exceed it)")
         return {"max_abs_err": max_abs(got, want), "row_err": err, "zeroed_tile_row_err": zerr}
 
-    out = {"gmm_dw": [], "gmm_dx": [], "gmm_quant_dx": [], "gmm_fwd": []}
+    out = {"gmm_dw": [], "gmm_dx": [], "gmm_quant_dx": [], "gmm_fwd": [],
+           "tables": table_cases(device, flush)}
     for si, (wname, (K, N)) in enumerate(zip(("w1", "w2"), MLP_SHAPES)):
         x, dy = rows(K, 1.0), rows(N, 0.02)
         w = (torch.randn(E, K, N, generator=g, device=device) * 0.02).to(torch.bfloat16)
         # the forward gmm at the training shape: x [Mp, K] @ w[tile] [K, N]
-        got, want = gm.gmm(x, w, te, tm, used), gm.gmm_ref(x, w, te, tm, used)
+        designs = gemm_designs()
+        got, again = gm.gmm(x, w, te, tm, used), gm.gmm(x, w, te, tm, used)
+        check_designs(designs, {"fwd": 2}, f"gmm fwd {wname}")
+        want = gm.gmm_ref(x, w, te, tm, used)
         zeroed = got.clone()
         zeroed[start:start + 64] = 0
         row = check(f"gmm fwd {wname}", got, want, zeroed)
         if got[int(used) * tm:].any():
             raise AssertionError(f"gmm fwd {wname}: rows past the used tiles are not zero")
+        if not torch.equal(got, again):
+            raise AssertionError(f"gmm fwd {wname}: two runs differ")
+        del again
         b_ms, b_by = bound(w[0].nbytes * len(touched) + 2 * n * (K + N), 2 * n * K * N)
         row.update({"case": f"bf16_fwd_{wname}", "scheme": "bf16", "rows": n, "tm": tm, "K": K,
-                    "N": N, "ms": time_ms(lambda: gm.gmm(x, w, te, tm, used), flush),
+                    "N": N, "design": "wgmma", "deterministic": True,
+                    "ms": time_ms(lambda: gm.gmm(x, w, te, tm, used), flush),
                     "plain_ms": time_ms(lambda: gm.gmm_ref(x, w, te, tm, used), flush, iters=3),
                     "bound_ms": b_ms, "bound_by": b_by, "flops": 2 * n * K * N})
         row.update(grouped_library(x[dst], w, sizes, flush))
         log(f"[grouped-bwd] gmm fwd {wname} {json.dumps(row)}")
         out["gmm_fwd"].append(row)
-        del got, want, zeroed
+        # the first forward design, at a base the predicate refuses TMA: x
+        # one element into its buffer (a view), the same values
+        xm = torch.empty(Mp * K + 8, dtype=torch.bfloat16, device=device)[1:1 + Mp * K]
+        xm = xm.view(Mp, K)
+        xm.copy_(x)
+        name = f"gmm fwd {wname} unaligned"
+        designs = gemm_designs()
+        got, again = gm.gmm(xm, w, te, tm, used), gm.gmm(xm, w, te, tm, used)
+        check_designs(designs, {"fwd": 2}, name, design="general")
+        zeroed = got.clone()
+        zeroed[start:start + 64] = 0
+        row = check(name, got, want, zeroed)
+        if got[int(used) * tm:].any():
+            raise AssertionError(f"{name}: rows past the used tiles are not zero")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name}: two runs differ")
+        row.update({"case": f"bf16_fwd_{wname}_unaligned", "scheme": "bf16", "rows": n, "tm": tm,
+                    "K": K, "N": N, "design": "general", "deterministic": True,
+                    "ms": time_ms(lambda: gm.gmm(xm, w, te, tm, used), flush),
+                    "bound_ms": b_ms, "bound_by": b_by, "flops": 2 * n * K * N})
+        log(f"[grouped-bwd] {name} {json.dumps(row)}")
+        out["gmm_fwd"].append(row)
+        del got, again, want, zeroed, xm
         # dW
+        designs = gemm_designs()
         got = gm.gmm_dw(x, dy, te, E, tm, used)
         again = gm.gmm_dw(x, dy, te, E, tm, used)
+        check_designs(designs, {"dw": 2}, f"gmm_dw {wname}")
         want = gm.gmm_dw_ref(x, dy, te, E, tm, used, out_dtype=torch.float32)
         zeroed = got.clone()
         zeroed[busiest, :64, :64] = 0
@@ -2919,7 +3053,8 @@ def gmm_bwd_cases(device, flush):
         del again, want, zeroed
         b_ms, b_by = bound(2 * n * (K + N) + E * K * N * 2, 2 * n * K * N)
         row.update({"case": f"dw_{wname}", "rows": n, "tm": tm, "padded_rows": Mp, "K": K,
-                    "N": N, "experts": E, "empty_experts": empty, "deterministic": True,
+                    "N": N, "experts": E, "empty_experts": empty, "design": "wgmma",
+                    "deterministic": True,
                     "ms": time_ms(lambda: gm.gmm_dw(x, dy, te, E, tm, used), flush),
                     "plain_ms": time_ms(lambda: gm.gmm_dw_ref(x, dy, te, E, tm, used), flush,
                                         iters=3),
@@ -2930,6 +3065,7 @@ def gmm_bwd_cases(device, flush):
         log(f"[grouped-bwd] gmm_dw {json.dumps(row)}")
         out["gmm_dw"].append(row)
         del got
+        out["gmm_dw"].append(dw_first_design_case(wname, K, N, device, g, check, flush))
         # dx: dy [Mp, N] against the stack [E, K, N] as stored
         for scheme in ("bf16", "int8", "fp8", "fp6"):
             quant = scheme != "bf16"
@@ -2950,9 +3086,9 @@ def gmm_bwd_cases(device, flush):
                 return gm.gmm_transposed_ref(dy, w, te, tm, used)
 
             name = f"{'gmm_quant_dx' if quant else 'gmm dx'} {scheme} {wname}"
-            designs = dx_designs()
+            designs = gemm_designs()
             got, again, want = run(), run(), plain()
-            check_dx_designs(designs, 2, name)
+            check_designs(designs, {"dx": 2}, name)
             zeroed = got.clone()
             zeroed[start:start + 64] = 0
             row = check(name, got, want, zeroed)
@@ -3064,7 +3200,7 @@ def moe_train_parity_phase(device):
                                                     device=device)
         names = [n for n, p in model.named_parameters() if p.requires_grad]
         grads, auxes = capture_grads(engine, to_host=True), aux_recorder(model)
-        before, designs = {k: f.launches for k, f in counters.items()}, dx_designs()
+        before, designs = {k: f.launches for k, f in counters.items()}, gemm_designs()
         with plain_moe_train_kernels() if mode == "plain" else contextlib.nullcontext(), \
                 routing(record, replay=mode == "plain", mr=sharded_moe) as flips:
             loss = engine.train_batch(batch=moe_batch(model.config.vocab_size, device, 1, MS,
@@ -3075,8 +3211,8 @@ def moe_train_parity_phase(device):
             {k: 0 for k in counters}
         if grew != want:
             raise AssertionError(f"moe train parity {mode}: launches {grew}, want {want}")
-        check_dx_designs(designs, 3 * L * gas if mode == "kernels" else 0,
-                         f"moe train parity {mode}")
+        n = 3 * L * gas if mode == "kernels" else 0  # every tm 64 GEMM on the wgmma design
+        check_designs(designs, {"fwd": n, "dx": n, "dw": n}, f"moe train parity {mode}")
         results[mode] = (loss.item(), float(sum(a.item() for a in auxes)), grads, flips[0])
         engine.destroy()
         del model, engine, grads
@@ -3127,7 +3263,7 @@ def frozen_base_check(device):
     for mode in ("kernels", "plain"):
         if mode == "kernels":
             gm.gmm_quant.launches = gm.gmm_quant_dx.launches = 0
-        before, designs = [gm.gmm_quant.launches, gm.gmm_quant_dx.launches], dx_designs()
+        before, designs = [gm.gmm_quant.launches, gm.gmm_quant_dx.launches], gemm_designs()
         xt = x.clone().requires_grad_()
         with plain_moe_train_kernels() if mode == "plain" else contextlib.nullcontext():
             out = dropless_moe_ffn(xt, idx, vals, *stacks, num_experts=E)
@@ -3140,7 +3276,8 @@ def frozen_base_check(device):
                 raise AssertionError(f"frozen base: launches {launches}, want 3 and 3")
         elif [gm.gmm_quant.launches, gm.gmm_quant_dx.launches] != before:
             raise AssertionError("frozen base: the plain run launched a kernel")
-        check_dx_designs(designs, 3 if mode == "kernels" else 0, f"frozen base {mode}")
+        check_designs(designs, {"fwd": 0, "dx": 3 if mode == "kernels" else 0, "dw": 0},
+                      f"frozen base {mode}")
         dx[mode] = xt.grad
     if any(q.values.grad is not None or q.scales.grad is not None for q in stacks):
         raise AssertionError("frozen base: a carrier or scale got a gradient")
@@ -3213,7 +3350,7 @@ def mixtral_training_phase(device):
     counters = moe_train_counters()
     for f in counters.values():
         f.launches = 0
-    designs = dx_designs()
+    designs = gemm_designs()
     warm = timed_steps(engine, batch, 1)
     torch.cuda.reset_peak_memory_stats()
     steps = timed_steps(engine, batch, 3)
@@ -3221,7 +3358,8 @@ def mixtral_training_phase(device):
     want = {k: 4 * v for k, v in moe_train_launches(L, MGAS, "moe").items()}
     if launches != want:
         raise AssertionError(f"moe training: launches {launches} over 4 steps, want {want}")
-    check_dx_designs(designs, 4 * 3 * L * MGAS, "moe training")
+    n = 4 * 3 * L * MGAS  # every tm 64 GEMM on the wgmma design
+    check_designs(designs, {"fwd": n, "dx": n, "dw": n}, "moe training")
     losses = [l for _, l in warm + steps]
     aux = [a.item() for a in auxes]
     if not all(math.isfinite(x) for x in losses + aux) or not losses[-1] < losses[0] \
@@ -3247,10 +3385,11 @@ def mixtral_training_phase(device):
         set_moe_mode(model, **kw)
         for f in counters.values():
             f.launches = 0
-        designs = dx_designs()
+        designs = gemm_designs()
         (s0, l0), (s1, l1) = timed_steps(engine, batch, 2)
-        check_dx_designs(designs, 2 * 3 * L * MGAS if policy is not None else 0,
-                         f"moe training {name}")
+        n = 2 * 3 * L * MGAS if policy is not None else 0
+        check_designs(designs, {"fwd": 2 * n if policy == "full" else n, "dx": n, "dw": n},
+                      f"moe training {name}")
         got = {k: f.launches for k, f in counters.items()}
         if policy is not None and got != {k: 2 * v for k, v in
                                           moe_train_launches(L, MGAS, policy).items()}:
@@ -3823,6 +3962,7 @@ def main():
     }
     slice3["gmm"][2].extend(bwd["gmm_dx"])  # gmm's dx reads the stack as stored; counted as gmm
     slice3["gmm"][2].extend(bwd["gmm_fwd"])  # and the forward at the training shape
+    slice3["gmm"][2].extend(bwd["tables"])  # and the wgmma designs' work-list kernel
     for name, (src, replaces, rows, main_name, n, shape) in slice3.items():
         main_row = next(r for r in rows if r["case"] == main_name)
         kernels.append({"name": name, "route": "cuda",

@@ -8,25 +8,38 @@
 //   _gmm_quant_kernel (the `pl.pallas_call` in _gmm_quant_raw) -> schemes 1-3
 // Rows are sorted by expert and each expert's group is zero-padded to the
 // row tile (16 or 64), so every row tile belongs to one expert,
-// tile_expert[tile]; the block reads its own tile's expert (the TPU's
-// scalar prefetch). Tiles at or past *used_tiles, which the routing writes
-// on the device, hold no rows: their blocks write zeros and read no weight,
-// so an expert with no rows costs nothing and the host never learns the
-// count. Quantized carriers are decoded and scaled into bf16 in shared
-// memory exactly as dequantize_grouped does (quant_gemm.cuh).
+// tile_expert[tile]. Tiles at or past *used_tiles, which the routing writes
+// on the device, hold no rows: they are written as zeros and no weight is
+// read for them, so an expert with no rows costs nothing and the host never
+// learns the count. Quantized carriers are decoded and scaled into bf16 in
+// shared memory exactly as dequantize_grouped does (quant_gemm.cuh).
 //
-// What bounds it on an H100: the weight bytes of the experts the batch
-// touches. Decoding 8 tokens (16 rows, top-2) through one Mixtral layer's
-// [8, 4096, 14336] int8 stack reads 469.8 MB of carriers and 3.7 MB of
-// scales when every expert is hit, ~141 us at 3.35 TB/s; a 528-row prefill
-// chunk does 33x the flops on the same bytes and is still bytes-bound.
+// Two designs, chosen by the wrapper from (tm, K, N, alignment) before the
+// launch, never from the routing:
 //
-// What the design does about that: each (row tile, 64 columns) block
-// streams its expert's column slice once; decode takes 16-row tiles, so a
-// decode batch reads each touched expert's slab about once (twice where an
-// expert holds more than 16 rows); the grid is the static worst case of the
-// layout, and unused tiles exit at once. The carrier stream is not yet
-// pipelined against the decode and the MMAs.
+// - Decode layouts (16-row tiles), carriers at any tile, and shapes TMA
+//   cannot read take quant_gemm.cuh's qgemm_kernel. What bounds them: the
+//   weight bytes of the experts the batch touches. Decoding 8 tokens (16
+//   rows, top-2) through one Mixtral layer's [8, 4096, 14336] int8 stack
+//   reads 469.8 MB of carriers and 3.7 MB of scales when every expert is
+//   hit, ~141 us at 3.35 TB/s; a 528-row prefill chunk does 33x the flops
+//   on the same bytes and is still bytes-bound. Each (row tile, 64 columns)
+//   block streams its expert's column slice once, and a block of a tile
+//   past *used_tiles exits at once. The carrier stream is not pipelined
+//   against the decode and the MMAs (gmm_quant at 64-row tiles is the next
+//   candidate for the ring below).
+// - A bf16 stack at 64-row tiles (training, serving prefill) whose x and W
+//   TMA can read (16-byte aligned bases, K % 8 and N % 8) takes
+//   gmm_wgmma_kernel<kBF16, true>, dx's design below with W read across
+//   its rows. What bounds it: operations; at Mixtral's w1 and 8192 rows,
+//   9.6e11 flops, 0.97 ms at 989 TFLOP/s, against 1.12 GB of x, the
+//   touched W and the output (0.33 ms at 3.35 TB/s). The first design's
+//   64 x 64 mma.sync blocks moved ~30 GB from L2 at 32 flops a byte, and
+//   its column-fastest grid swept each expert's 117 MB of W past the 50 MB
+//   L2 (6.2 ms at w1 on an H100 at 700 W). What this one does: 128 x 256 output tiles on
+//   wgmma, 85 flops a loaded byte, fed by the TMA ring, over the work list
+//   whose blocks take one expert's items fastest, so its x rows and one W
+//   column block stay in L2 while they are read.
 
 #include <climits>
 #include <type_traits>
@@ -35,33 +48,6 @@
 #include "quant_gemm.cuh"
 
 using namespace qgemm;
-
-// Plain C entry for ctypes. Device pointers to contiguous tensors: x bf16
-// [Mp, K]; w bf16 [E, K, N] (scheme 0) or carriers int8 / float8_e4m3fn
-// [E, K, N] or uint8 [E, K, 3N/4] (fp6); scales fp32 [E, K, ng] (null for
-// scheme 0); tile_expert int32 [Mp / tm]; used_tiles int32 [1]; out bf16
-// [Mp, N]. scheme: 0 bf16, 1 int8, 2 fp8, 3 fp6; tm: 16 or 64. The wrapper
-// in ops/kernels/grouped_matmul.py checks shapes and types. Returns
-// cudaGetLastError() of the launch.
-extern "C" int ds_grouped_matmul(const void* x, const void* w, const void* scales,
-                                 const void* tile_expert, const void* used_tiles, void* out,
-                                 int Mp, int K, int N, int ng, int E, int scheme, int tm,
-                                 void* stream) {
-  Args a{static_cast<const uint16_t*>(x), static_cast<const uint8_t*>(w),
-         static_cast<const float*>(scales), static_cast<const int32_t*>(tile_expert),
-         static_cast<const int32_t*>(used_tiles), static_cast<uint16_t*>(out), nullptr,
-         Mp, K, N, ng, ng > 0 ? N / ng : 0, E, (K + BK - 1) / BK * BK};
-  if (bad_args(a, scheme, tm) || E <= 0 || Mp % tm != 0 || tile_expert == nullptr ||
-      used_tiles == nullptr)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (scheme) {
-    case kBF16: return (int)launch_bm<kBF16, true>(a, tm, 1, st);
-    case kInt8: return (int)launch_bm<kInt8, true>(a, tm, 1, st);
-    case kFP8: return (int)launch_bm<kFP8, true>(a, tm, 1, st);
-    default: return (int)launch_bm<kFP6, true>(a, tm, 1, st);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // The backward kernels of K5.
@@ -85,7 +71,7 @@ extern "C" int ds_grouped_matmul(const void* x, const void* w, const void* scale
 // 32 flops a byte and set its own pace, 7.2-7.5 ms bf16 and 16-18 ms
 // through carriers.
 //
-// What the wgmma design (gmm_dx_wgmma_kernel) does about that:
+// What the wgmma design (gmm_wgmma_kernel<S, false>) does about that:
 //  - a block owns 128 dx rows x 256 dx columns: two consumer warpgroups of
 //    64 rows, each issuing wgmma m64n256k16 with its 128 fp32 accumulators
 //    a thread in registers (setmaxnreg hands them the producer's), 85
@@ -104,8 +90,9 @@ extern "C" int ds_grouped_matmul(const void* x, const void* w, const void* scale
 //    between the two consumers publishes the tile; scales are read two
 //    steps ahead and only when a row's group changes (one a row and step
 //    when the group width is a multiple of 16, else one an element);
-//  - a work list the wrapper builds on the device (gmm_dx_plan) puts up to
-//    128 / tm consecutive tiles of one expert in an item, so no block mixes
+//  - a work list built on the device (gmm_plan_kernel, one thread, one
+//    launch) puts up to 128 / tm consecutive tiles of one expert in an
+//    item, so no block mixes
 //    experts; the blocks of one expert's run take its column blocks in
 //    turn, its items fastest, so its dy rows and each W column block stay
 //    in the 50 MB L2 while they are read, and the list's spare slots write
@@ -113,27 +100,41 @@ extern "C" int ds_grouped_matmul(const void* x, const void* w, const void* scale
 // TMA wants 16-byte aligned bases and rows of dy and W a multiple of 16
 // bytes (N % 8 for bf16, N % 16 for int8 and fp8, N % 64 for fp6); the
 // wrapper gives other shapes to the first design, chosen by shape before
-// the launch and counted by design.
+// the launch and counted by design. The forward is the same kernel with
+// FWD set: x [rows][K] is A (K-major, as dy is), and W [K][N] is B read
+// across its rows, MN-major (N contiguous): each stage is four [64 K][64
+// N] TMA boxes, read by wgmma with its B transposed.
 //
-// gmm_dw_kernel replaces _gmm_dw_kernel (the `pl.pallas_call` in
-// _gmm_dw_raw): dW[e] = sum over expert e's row tiles of x_tile^T dy_tile,
-// x [Mp, K] and dy [Mp, N] bf16, fp32 sums rounded once to bf16 [E, K, N]
-// (the TPU package sums in fp32 and casts to the weight's dtype: the same
-// bits at half the bytes). One block per (expert, 128 K, 128 N) output tile
-// finds its expert's contiguous run of row tiles on the device, walks it 16
-// rows at a time (x^T through ldmatrix.trans as the A operand, dy through
-// ldmatrix.trans as the B operand) and writes its tile once: no atomics,
-// so the same inputs give the same bits, and an expert with no rows gets
-// zeros. Pad rows are zero in x and dy and add nothing.
+// dW[e] = sum over expert e's row tiles of x_tile^T dy_tile replaces
+// _gmm_dw_kernel (the `pl.pallas_call` in _gmm_dw_raw): x [Mp, K] and dy
+// [Mp, N] bf16, fp32 sums rounded once to bf16 [E, K, N] (the TPU package
+// sums in fp32 and casts to the weight's dtype: the same bits at half the
+// bytes). Each output tile is written once by one block (no atomics, no
+// split of the rows), so the same inputs give the same bits; an expert
+// with no rows gets zeros; pad rows are zero in x and dy and add nothing.
 //
 // What bounds dW on an H100: operations, the same 9.6e11 flops at w1
 // against 1.24 GB of x (67 MB), dy (235 MB) and dW (940 MB), 0.37 ms at
-// 3.35 TB/s. What its design does about that: tensor cores (mma.sync
-// m16n8k16, fp32 accumulators), a large output tile so that each loaded
-// byte feeds many MMAs, the next step's global reads held in registers
-// while this step's MMAs run, and a grid with the expert slowest so that
-// one expert's rows stay in the 50 MB L2 while its tiles run. Not done yet
-// for dW: wgmma and a TMA pipeline.
+// 3.35 TB/s. The first design (gmm_dw_kernel below: a 128 x 128 tile on
+// mma.sync, 16 rows a step between two barriers, 8 MMAs a warp a step, one
+// step of register prefetch, each block scanning tile_expert with shared
+// atomics for its expert's run) was paced by its barriers and load
+// latency: 6.0 ms at w1 on an H100 at 700 W. It remains for 16-row tiles,
+// whose runs need not be whole 64-row stages, and for rows TMA cannot read.
+//
+// What the wgmma design (gmm_dw_wgmma_kernel) does about that: a block
+// owns 128 K x 256 N of dW[e], two consumer warpgroups of 64 K rows on
+// wgmma m64n256k16, both operands MN-major (x_tile^T: K contiguous; dy:
+// N contiguous), the contraction 64 of the expert's rows a stage on the
+// same 4-stage TMA ring (48 KB a stage); the block's first warp finds its
+// expert's run (first tile, tiles) among the used tiles with two warp
+// reductions before the ring starts, which replaces the shared-atomic scan
+// (136 tiles at 8192 rows: five loads a lane); within an expert the output
+// dimension whose operand is the smaller slab runs fastest (K blocks at
+// w1, where x[e] is at most 16 MB and dy[e] 59 MB; N blocks at w2), so
+// that slab stays in L2 while the other operand's slice is held. Each
+// block takes one tile: a persistent grid, its blocks looping over tiles
+// with the ring running on across them, measured no faster on an H100.
 
 namespace {
 
@@ -449,32 +450,39 @@ __global__ void __launch_bounds__(DW_THREADS) gmm_dw_kernel(const DwArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// gmm_dx_wgmma_kernel: the wgmma design of dx (the note above says why).
+// gmm_wgmma_kernel: the Hopper design of the forward (FWD: out = x @ W[e],
+// a bf16 stack) and of dx (out = dy @ W[e]^T, a bf16 stack or carriers);
+// the notes above say why. One template, so that the two share the
+// producer, the ring, the work list and the zero fill: only the B operand
+// differs. dx reads W [K rows][N] along its contraction N (K-major, one
+// [256][64] box a stage); the forward reads W [K][N] across it (MN-major:
+// four [64 K][64 N] boxes a stage, wgmma's B transposed).
 
-constexpr int DXW_ROWS = 128;     // dx rows a block: two consumer warpgroups of 64
-constexpr int DXW_COLS = 256;     // dx columns (K outputs) a block: wgmma's n
-constexpr int DXW_STEP = 64;      // contraction (N) a stage: 128 bytes of bf16, the swizzle span
-constexpr int DXW_STAGES = 4;
-constexpr int DXW_THREADS = 384;  // a producer warpgroup and two consumer warpgroups
-constexpr int DXW_PLAN = 5;       // int32 fields of a work item
+constexpr int RING_ROWS = 128;     // output rows a block: two consumer warpgroups of 64
+constexpr int RING_COLS = 256;     // output columns a block: wgmma's n
+constexpr int RING_STEP = 64;      // contraction a stage: 128 bytes of bf16, the swizzle span
+constexpr int RING_STAGES = 4;
+constexpr int RING_THREADS = 384;  // a producer warpgroup and two consumer warpgroups
+constexpr int RING_BOX = 64 * 64 * 2;  // one [64][64] bf16 TMA box: 8 KB
+constexpr int PLAN_FIELDS = 5;     // int32 fields of a work item
 
 template <int S>
-struct DxwSmem {
-  static constexpr int kA = DXW_ROWS * DXW_STEP * 2;  // one stage of dy: 16 KB
-  static constexpr int kB = DXW_COLS * DXW_STEP * 2;  // one stage of bf16 W: 32 KB
-  static constexpr int kRaw =                         // one stage of W as stored
-      S == kBF16 ? kB : S == kFP6 ? DXW_COLS * DXW_STEP * 3 / 4 : DXW_COLS * DXW_STEP;
-  static constexpr int kDec = S == kBF16 ? 0 : 3;     // decoded bf16 W tiles (carriers)
-  static constexpr int kBar = DXW_STAGES * (kA + kRaw) + kDec * kB;  // where the barriers start
-  static constexpr int kBytes = kBar + 2 * DXW_STAGES * 8 + 1024;    // + 1024-byte alignment slack
+struct RingSmem {
+  static constexpr int kA = RING_ROWS * RING_STEP * 2;  // one stage of x or dy: 16 KB
+  static constexpr int kB = RING_COLS * RING_STEP * 2;  // one stage of bf16 W: 32 KB
+  static constexpr int kRaw =                           // one stage of W as stored
+      S == kBF16 ? kB : S == kFP6 ? RING_COLS * RING_STEP * 3 / 4 : RING_COLS * RING_STEP;
+  static constexpr int kDec = S == kBF16 ? 0 : 3;       // decoded bf16 W tiles (carriers)
+  static constexpr int kBar = RING_STAGES * (kA + kRaw) + kDec * kB;  // where the barriers start
+  static constexpr int kBytes = kBar + 2 * RING_STAGES * 8 + 1024;    // + 1024-byte alignment slack
 };
 
-struct DxwArgs {
-  const int32_t* plan;  // [items, DXW_PLAN]: first row, rows, expert (-1: zero fill), the
+struct RingArgs {
+  const int32_t* plan;  // [items, PLAN_FIELDS]: first row, rows, expert (-1: zero fill), the
                         // item's group: its first item and its item count
-  const float* scales;  // [E, K, ng] fp32, null for bf16
-  uint16_t* dx;         // [Mp, K] bf16
-  int Mp, K, N, ng, g, E, cols;
+  const float* scales;  // [E, K, ng] fp32 (dx through carriers), else null
+  uint16_t* out;        // [Mp, N] (forward) or [Mp, K] (dx) bf16
+  int Mp, K, N, ng, g, E, cols;  // K, N: the stack's [E, K, N]; cols: column blocks of out
 };
 
 // the raw carrier bytes of columns 16 c .. 16 c + 15 of one W row's step:
@@ -517,19 +525,48 @@ __device__ __forceinline__ void decode16(const Chunk& ch, float* v) {
   }
 }
 
-__device__ void dxw_zero(const DxwArgs& a, int r_begin, int r_end, int k0) {
-  const int cols = min(DXW_COLS, a.K - k0);
-  for (int i = threadIdx.x; i < (r_end - r_begin) * cols; i += DXW_THREADS)
-    a.dx[(size_t)(r_begin + i / cols) * a.K + k0 + i % cols] = 0;
+// zeros into rows [r_begin, r_end) and columns c0 .. c0 + 255 of a [rows][width] output
+__device__ void zero_rows(uint16_t* out, int width, int r_begin, int r_end, int c0) {
+  const int cols = min(RING_COLS, width - c0);
+  for (int i = threadIdx.x; i < (r_end - r_begin) * cols; i += RING_THREADS)
+    out[(size_t)(r_begin + i / cols) * width + c0 + i % cols] = 0;
 }
 
-template <int S>
-__global__ void __launch_bounds__(DXW_THREADS, 1)
-    gmm_dx_wgmma_kernel(const __grid_constant__ CUtensorMap map_dy,
-                        const __grid_constant__ CUtensorMap map_w, const DxwArgs a) {
-  using L = DxwSmem<S>;
+// the 128 accumulators of a consumer warpgroup, rounded once to bf16, into
+// rows r0 + (its rows) and columns c0 + (its columns) of a [.][width] output,
+// rows at or past r_end and columns at or past width not written
+__device__ __forceinline__ void store_acc(const float (&acc)[128], uint16_t* out, int width,
+                                          int r0, int r_end, int c0) {
+  const int lane = threadIdx.x & 31;
+  const int rl = r0 + 16 * ((threadIdx.x & 127) >> 5) + (lane >> 2);  // row of acc[4j]
+  const bool pairs = (width & 1) == 0;
+#pragma unroll
+  for (int jn = 0; jn < 32; ++jn) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = rl + 8 * h, col = c0 + 8 * jn + 2 * (lane & 3);
+      if (r >= r_end || col >= width) continue;
+      uint16_t* dst = out + (size_t)r * width + col;
+      const float lo = acc[4 * jn + 2 * h], hi = acc[4 * jn + 2 * h + 1];
+      if (pairs) {
+        *reinterpret_cast<uint32_t*>(dst) = pack_bf16(lo, hi);
+      } else {
+        dst[0] = __bfloat16_as_ushort(__float2bfloat16_rn(lo));
+        if (col + 1 < width) dst[1] = __bfloat16_as_ushort(__float2bfloat16_rn(hi));
+      }
+    }
+  }
+}
+
+template <int S, bool FWD>
+__global__ void __launch_bounds__(RING_THREADS, 1)
+    gmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                     const __grid_constant__ CUtensorMap map_w, const RingArgs a) {
+  static_assert(!FWD || S == kBF16, "the forward design reads a bf16 stack");
+  using L = RingSmem<S>;
   extern __shared__ __align__(1024) uint8_t smem[];
   const int tid = threadIdx.x;
+  const int width = FWD ? a.N : a.K, depth = FWD ? a.K : a.N;  // out columns, contraction
 
   // The block's item and column block: the blocks of a group (the items of
   // one run of an expert's tiles, or the zero fill) take its column blocks
@@ -537,32 +574,32 @@ __global__ void __launch_bounds__(DXW_THREADS, 1)
   // (Values every thread of a warp holds are broadcast from lane 0, so that
   // ptxas sees the branches they take as warp-uniform: wgmma in a path it
   // must treat as divergent is serialized.)
-  const int32_t* grp = a.plan + (size_t)(blockIdx.x / a.cols) * DXW_PLAN;
+  const int32_t* grp = a.plan + (size_t)(blockIdx.x / a.cols) * PLAN_FIELDS;
   const int first = __shfl_sync(~0u, grp[3], 0), count = __shfl_sync(~0u, grp[4], 0);
   const int local = (int)blockIdx.x - first * a.cols;
-  const int item = first + local % count, k0 = local / count * DXW_COLS;
-  const int32_t* work = a.plan + (size_t)item * DXW_PLAN;
+  const int item = first + local % count, c0 = local / count * RING_COLS;
+  const int32_t* work = a.plan + (size_t)item * PLAN_FIELDS;
   const int row0 = __shfl_sync(~0u, work[0], 0), rows = __shfl_sync(~0u, work[1], 0);
   const int e = __shfl_sync(~0u, work[2], 0);
   if (e < 0 || e >= a.E) {  // rows with no expert, or the rows past the used tiles: zeros
     if (rows > 0) {
-      dxw_zero(a, row0, row0 + rows, k0);
+      zero_rows(a.out, width, row0, row0 + rows, c0);
     } else {
-      for (int r = row0 + DXW_ROWS * (item - first); r < a.Mp; r += DXW_ROWS * count)
-        dxw_zero(a, r, min(r + DXW_ROWS, a.Mp), k0);
+      for (int r = row0 + RING_ROWS * (item - first); r < a.Mp; r += RING_ROWS * count)
+        zero_rows(a.out, width, r, min(r + RING_ROWS, a.Mp), c0);
     }
     return;
   }
 
   uint8_t* base = smem + ((1024u - (hopper::smem_addr(smem) & 1023u)) & 1023u);
-  uint8_t* sA = base;                          // dy tiles [128 rows][64], 128-byte swizzle
-  uint8_t* sW = sA + DXW_STAGES * L::kA;       // W tiles [256 rows][64] as stored
-  uint8_t* sDec = sW + DXW_STAGES * L::kRaw;   // carriers decoded: bf16, 128-byte swizzle
+  uint8_t* sA = base;                          // x / dy tiles [128 rows][64], 128-byte swizzle
+  uint8_t* sW = sA + RING_STAGES * L::kA;      // W tiles as stored
+  uint8_t* sDec = sW + RING_STAGES * L::kRaw;  // carriers decoded: bf16, 128-byte swizzle
   uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBar);
-  uint64_t* empty = full + DXW_STAGES;
-  const int steps = (a.N + DXW_STEP - 1) / DXW_STEP;
+  uint64_t* empty = full + RING_STAGES;
+  const int steps = (depth + RING_STEP - 1) / RING_STEP;
   if (tid == 0) {
-    for (int s = 0; s < DXW_STAGES; ++s) {
+    for (int s = 0; s < RING_STAGES; ++s) {
       hopper::mbar_init(&full[s], 1);
       hopper::mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
@@ -574,13 +611,22 @@ __global__ void __launch_bounds__(DXW_THREADS, 1)
   if (wg == 0) {  // the producer warpgroup: one thread keeps the ring fed
     hopper::setmaxnreg_dec<40>();
     if (tid == 0) {
+      // the forward's W stage: [64 K][256 N] as four [64][64] boxes; a box
+      // wholly past N is not read (its columns are not stored)
+      const int boxes = FWD ? min(4, (a.N - c0 + 63) / 64) : 1;
       for (int i = 0; i < steps; ++i) {
-        const int s = i % DXW_STAGES;
-        hopper::mbar_wait(&empty[s], ((i / DXW_STAGES) & 1) ^ 1);
-        hopper::mbar_expect_tx(&full[s], L::kA + L::kRaw);
-        hopper::tma_load_2d(sA + s * L::kA, &map_dy, &full[s], i * DXW_STEP, row0);
-        hopper::tma_load_3d(sW + s * L::kRaw, &map_w, &full[s],
-                            S == kFP6 ? i * DXW_STEP * 3 / 4 : i * DXW_STEP, k0, e);
+        const int s = i % RING_STAGES;
+        hopper::mbar_wait(&empty[s], ((i / RING_STAGES) & 1) ^ 1);
+        hopper::mbar_expect_tx(&full[s], L::kA + (FWD ? boxes * RING_BOX : L::kRaw));
+        hopper::tma_load_2d(sA + s * L::kA, &map_a, &full[s], i * RING_STEP, row0);
+        if constexpr (FWD) {
+          for (int j = 0; j < boxes; ++j)
+            hopper::tma_load_3d(sW + s * L::kRaw + j * RING_BOX, &map_w, &full[s], c0 + 64 * j,
+                                i * RING_STEP, e);
+        } else {
+          hopper::tma_load_3d(sW + s * L::kRaw, &map_w, &full[s],
+                              S == kFP6 ? i * RING_STEP * 3 / 4 : i * RING_STEP, c0, e);
+        }
       }
     }
     return;
@@ -600,7 +646,7 @@ __global__ void __launch_bounds__(DXW_THREADS, 1)
   const float* srow[4];  // the scales of this thread's W rows, null past K
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    const int k = k0 + (ct >> 2) + 64 * j;
+    const int k = c0 + (ct >> 2) + 64 * j;
     srow[j] = S != kBF16 && k < a.K ? a.scales + ((size_t)e * a.K + k) * a.ng : nullptr;
   }
   auto scale = [&](int j, int n) {
@@ -622,7 +668,7 @@ __global__ void __launch_bounds__(DXW_THREADS, 1)
   if constexpr (S != kBF16) {
     if (one_scale) {
       row_scales(16 * c, sc_even, grp_even);
-      row_scales(DXW_STEP + 16 * c, sc_odd, grp_odd);
+      row_scales(RING_STEP + 16 * c, sc_odd, grp_odd);
     }
   }
 
@@ -633,8 +679,8 @@ __global__ void __launch_bounds__(DXW_THREADS, 1)
   // the accumulators it defines, and the decode has no branch at all.
   auto consume = [&](auto mma, auto row_scale) {
     auto step = [&](int i, float(&sc)[4], int& held) {
-      const int s = i % DXW_STAGES;
-      hopper::mbar_wait(&full[s], (i / DXW_STAGES) & 1);
+      const int s = i % RING_STAGES;
+      hopper::mbar_wait(&full[s], (i / RING_STAGES) & 1);
       uint32_t b_addr = hopper::smem_addr(sW + s * L::kRaw);
       if constexpr (S != kBF16) {
         // decode into one of three bf16 tiles: the step before may still be
@@ -642,11 +688,11 @@ __global__ void __launch_bounds__(DXW_THREADS, 1)
         // wait came before the last barrier)
         uint8_t* dec = sDec + (i % 3) * L::kB;
         const uint8_t* raw = sW + s * L::kRaw;
-        const int n0 = i * DXW_STEP;
+        const int n0 = i * RING_STEP;
         Chunk ch[4];  // every chunk read before the first store to the decoded tile
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          ch[j] = load_chunk<S>(raw + ((ct >> 2) + 64 * j) * (L::kRaw / DXW_COLS), c);
+          ch[j] = load_chunk<S>(raw + ((ct >> 2) + 64 * j) * (L::kRaw / RING_COLS), c);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int r = (ct >> 2) + 64 * j;
@@ -675,23 +721,28 @@ __global__ void __launch_bounds__(DXW_THREADS, 1)
       if constexpr (decltype(mma)::value) {
         const uint64_t da =
             hopper::sw128_desc(hopper::smem_addr(sA + s * L::kA) + cw * (L::kA / 2));
-        const uint64_t db = hopper::sw128_desc(b_addr);
+        // a 16-deep slice: 32 bytes on along a K-major row, 16 rows (2048
+        // bytes) down an MN-major box
+        const uint64_t db =
+            FWD ? hopper::sw128_mn_desc(b_addr, RING_BOX) : hopper::sw128_desc(b_addr);
+        constexpr int kStepB = FWD ? 2048 / 16 : 2;
         hopper::fence_regs(acc);
         hopper::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < DXW_STEP / 16; ++kk)
-          hopper::wgmma_m64n256k16(acc, da + 2 * kk, db + 2 * kk, i > 0 || kk > 0);
+        for (int kk = 0; kk < RING_STEP / 16; ++kk)
+          hopper::wgmma_m64n256k16<0, FWD ? 1 : 0>(acc, da + 2 * kk, db + kStepB * kk,
+                                                   i > 0 || kk > 0);
         hopper::wgmma_commit();
       }
       if constexpr (S != kBF16 && decltype(row_scale)::value) {
         // this set's next scales, two steps on, read while the wgmma runs
-        if (i + 2 < steps) row_scales((i + 2) * DXW_STEP + 16 * c, sc, held);
+        if (i + 2 < steps) row_scales((i + 2) * RING_STEP + 16 * c, sc, held);
       }
       if constexpr (decltype(mma)::value) {
         hopper::wgmma_wait<1>();  // the step before is done: release its stage
         hopper::fence_regs(acc);
       }
-      if (i > 0 && (tid & 31) == 0) hopper::mbar_arrive(&empty[(i - 1) % DXW_STAGES]);
+      if (i > 0 && (tid & 31) == 0) hopper::mbar_arrive(&empty[(i - 1) % RING_STAGES]);
     };
     for (int i = 0; i < steps; i += 2) {
       step(i, sc_even, grp_even);
@@ -709,60 +760,51 @@ __global__ void __launch_bounds__(DXW_THREADS, 1)
   run(std::true_type{});
   hopper::wgmma_wait<0>();
   hopper::fence_regs(acc);
-
-  const int lane = tid & 31;
-  const int rl = 64 * cw + 16 * ((tid & 127) >> 5) + (lane >> 2);  // item row of acc[4j]
-  const bool pairs = (a.K & 1) == 0;
-#pragma unroll
-  for (int jn = 0; jn < 32; ++jn) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = rl + 8 * h, col = k0 + 8 * jn + 2 * (lane & 3);
-      if (r >= rows || col >= a.K) continue;
-      uint16_t* dst = a.dx + (size_t)(row0 + r) * a.K + col;
-      const float lo = acc[4 * jn + 2 * h], hi = acc[4 * jn + 2 * h + 1];
-      if (pairs) {
-        *reinterpret_cast<uint32_t*>(dst) = pack_bf16(lo, hi);
-      } else {
-        dst[0] = __bfloat16_as_ushort(__float2bfloat16_rn(lo));
-        if (col + 1 < a.K) dst[1] = __bfloat16_as_ushort(__float2bfloat16_rn(hi));
-      }
-    }
-  }
+  store_acc(acc, a.out + (size_t)row0 * width, width, 64 * cw, rows, c0);
 }
 
-// what TMA needs: 16-byte aligned bases and row pitches of dy and W
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// what TMA needs for dx: 16-byte aligned bases and row pitches of dy and W
 inline bool dx_wgmma_ok(const Args& a, int scheme) {
-  return (reinterpret_cast<uintptr_t>(a.x) & 15) == 0 &&
-         (reinterpret_cast<uintptr_t>(a.w) & 15) == 0 && ((size_t)a.N * 2) % 16 == 0 &&
+  return aligned16(a.x) && aligned16(a.w) && ((size_t)a.N * 2) % 16 == 0 &&
          row_bytes(scheme, a.N) % 16 == 0;
 }
 
-template <int S>
-cudaError_t launch_dx_wgmma(const Args& a, const int32_t* plan, int items, cudaStream_t st) {
-  using L = DxwSmem<S>;
+// what the forward and dW designs need: 64-row tiles (dW's stages are whole
+// tiles) and 16-byte aligned bases and rows of both bf16 operands
+inline bool ring_ok(const void* p, const void* q, int K, int N, int tm) {
+  return tm == 64 && aligned16(p) && aligned16(q) && K % 8 == 0 && N % 8 == 0;
+}
+
+template <int S, bool FWD>
+cudaError_t launch_wgmma(const Args& a, const int32_t* plan, int items, cudaStream_t st) {
+  using L = RingSmem<S>;
+  const int width = FWD ? a.N : a.K, depth = FWD ? a.K : a.N;
   const uint64_t rb = row_bytes(S, a.N);
-  const uint64_t dy_dims[2] = {(uint64_t)a.N, (uint64_t)a.rows}, dy_pitch[1] = {(uint64_t)a.N * 2};
-  const uint32_t dy_box[2] = {DXW_STEP, DXW_ROWS};
+  const uint64_t a_dims[2] = {(uint64_t)depth, (uint64_t)a.rows};
+  const uint64_t a_pitch[1] = {(uint64_t)depth * 2};
+  const uint32_t a_box[2] = {RING_STEP, RING_ROWS};
   const uint64_t w_dims[3] = {S == kBF16 ? (uint64_t)a.N : rb, (uint64_t)a.K, (uint64_t)a.E};
   const uint64_t w_pitch[2] = {rb, rb * (uint64_t)a.K};
-  const uint32_t w_box[3] = {S == kFP6 ? DXW_STEP * 3 / 4 : DXW_STEP, DXW_COLS, 1};
-  CUtensorMap map_dy, map_w;
-  if (!hopper::encode_map(&map_dy, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.x, dy_dims, dy_pitch,
-                          dy_box, CU_TENSOR_MAP_SWIZZLE_128B) ||
+  const uint32_t w_box[3] = {FWD ? 64u : S == kFP6 ? RING_STEP * 3 / 4 : RING_STEP,
+                             FWD ? (uint32_t)RING_STEP : RING_COLS, 1};
+  CUtensorMap map_a, map_w;
+  if (!hopper::encode_map(&map_a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.x, a_dims, a_pitch,
+                          a_box, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !hopper::encode_map(&map_w,
                           S == kBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                      : CU_TENSOR_MAP_DATA_TYPE_UINT8,
                           3, a.w, w_dims, w_pitch, w_box,
                           S == kBF16 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE))
     return cudaErrorInvalidValue;
-  const DxwArgs w{plan, a.scales, a.out, a.rows, a.K, a.N, a.ng, a.g, a.E,
-                  (a.K + DXW_COLS - 1) / DXW_COLS};
+  const RingArgs w{plan, a.scales, a.out, a.rows, a.K, a.N, a.ng, a.g, a.E,
+                   (width + RING_COLS - 1) / RING_COLS};
   if ((long long)w.cols * items > INT_MAX) return cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
-      gmm_dx_wgmma_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+      gmm_wgmma_kernel<S, FWD>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (err != cudaSuccess) return err;
-  gmm_dx_wgmma_kernel<S><<<w.cols * items, DXW_THREADS, L::kBytes, st>>>(map_dy, map_w, w);
+  gmm_wgmma_kernel<S, FWD><<<w.cols * items, RING_THREADS, L::kBytes, st>>>(map_a, map_w, w);
   return cudaGetLastError();
 }
 
@@ -774,7 +816,248 @@ cudaError_t launch_dx(const Args& a, int tm, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// gmm_dw_wgmma_kernel: the Hopper design of dW (the note above says why).
+// A block owns 128 K x 256 N of dW[e]: consumer warpgroup cw the K rows
+// 64 cw .. 64 cw + 63. A stage is 64 of the expert's rows: x [64 rows][128
+// K] as two [64 rows][64 K] boxes (A = x^T, MN-major: M = K is contiguous)
+// and dy [64 rows][256 N] as four [64 rows][64 N] boxes (B, MN-major).
+
+constexpr int DWW_K = 128;  // dW rows (K) a block: two consumer warpgroups of 64
+
+struct DwwSmem {
+  static constexpr int kA = 2 * RING_BOX;  // a stage of x: 16 KB
+  static constexpr int kB = 4 * RING_BOX;  // a stage of dy: 32 KB
+  static constexpr int kBar = RING_STAGES * (kA + kB);
+  static constexpr int kBytes = kBar + 2 * RING_STAGES * 8 + 1024;
+};
+
+struct DwwArgs {
+  const int32_t* tile_expert;  // [tiles]: each 64-row tile's expert
+  const int32_t* used_tiles;   // [1]
+  uint16_t* dw;                // [E, K, N] bf16
+  int tiles, K, N, E, kblocks, nblocks;
+  int k_fast;                  // 1: within an expert, K blocks run fastest
+};
+
+__global__ void __launch_bounds__(RING_THREADS, 1)
+    gmm_dw_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                        const __grid_constant__ CUtensorMap map_dy, const DwwArgs a) {
+  using L = DwwSmem;
+  extern __shared__ __align__(1024) uint8_t smem[];
+  const int tid = threadIdx.x;
+  // the expert slowest; within it the output dimension whose operand is the
+  // smaller slab fastest, so that slab stays in L2 while the other's slice is held
+  const int per_e = a.kblocks * a.nblocks;
+  const int e = (int)blockIdx.x / per_e, local = (int)blockIdx.x % per_e;
+  const int k0 = (a.k_fast ? local % a.kblocks : local / a.nblocks) * DWW_K;
+  const int n0 = (a.k_fast ? local / a.kblocks : local % a.nblocks) * RING_COLS;
+  // the expert's run among the used tiles, found by the first warp: its first
+  // tile and its tile count (each expert's used tiles are one run, as
+  // tile_layout makes them; gmm_dw_runs_ref is the plain version)
+  __shared__ int s_run[2];
+  if (tid < 32) {
+    const int used = min(max(*a.used_tiles, 0), a.tiles);
+    int first = INT_MAX, count = 0;
+    for (int t = tid; t < used; t += 32) {
+      if (a.tile_expert[t] == e) first = min(first, t), ++count;
+    }
+    first = __reduce_min_sync(~0u, first);
+    count = __reduce_add_sync(~0u, count);
+    if (tid == 0) s_run[0] = first, s_run[1] = count;
+  }
+  __syncthreads();
+  const int tiles = __shfl_sync(~0u, s_run[1], 0);  // broadcast: warp-uniform to ptxas
+  const int row0 = tiles > 0 ? __shfl_sync(~0u, s_run[0], 0) * 64 : 0, rows = tiles * 64;
+  uint16_t* out = a.dw + (size_t)e * a.K * a.N;
+  if (rows <= 0) {  // an expert with no rows: zeros, and nothing is read
+    const int kc = min(DWW_K, a.K - k0), nc = min(RING_COLS, a.N - n0);
+    for (int i = tid; i < kc * nc; i += RING_THREADS)
+      out[(size_t)(k0 + i / nc) * a.N + n0 + i % nc] = 0;
+    return;
+  }
+
+  uint8_t* base = smem + ((1024u - (hopper::smem_addr(smem) & 1023u)) & 1023u);
+  uint8_t* sA = base;                      // x boxes [64 rows][64 K], 128-byte swizzle
+  uint8_t* sB = sA + RING_STAGES * L::kA;  // dy boxes [64 rows][64 N], 128-byte swizzle
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBar);
+  uint64_t* empty = full + RING_STAGES;
+  const int steps = rows / 64;
+  if (tid == 0) {
+    for (int s = 0; s < RING_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(~0u, tid / 128, 0);
+  if (wg == 0) {  // the producer warpgroup: one thread keeps the ring fed
+    hopper::setmaxnreg_dec<40>();
+    if (tid == 0) {
+      // boxes wholly past K or N are not read (their rows and columns are not stored)
+      const int xb = min(2, (a.K - k0 + 63) / 64), db = min(4, (a.N - n0 + 63) / 64);
+      for (int i = 0; i < steps; ++i) {
+        const int s = i % RING_STAGES;
+        hopper::mbar_wait(&empty[s], ((i / RING_STAGES) & 1) ^ 1);
+        hopper::mbar_expect_tx(&full[s], (xb + db) * RING_BOX);
+        for (int j = 0; j < xb; ++j)
+          hopper::tma_load_2d(sA + s * L::kA + j * RING_BOX, &map_x, &full[s], k0 + 64 * j,
+                              row0 + 64 * i);
+        for (int j = 0; j < db; ++j)
+          hopper::tma_load_2d(sB + s * L::kB + j * RING_BOX, &map_dy, &full[s], n0 + 64 * j,
+                              row0 + 64 * i);
+      }
+    }
+    return;
+  }
+
+  hopper::setmaxnreg_inc<232>();
+  const int cw = wg - 1;                  // this consumer computes dW rows k0 + 64 cw + (0..63)
+  const bool active = k0 + 64 * cw < a.K;  // past K the second consumer only releases stages
+  float acc[128];  // the first step's first wgmma overwrites them
+
+  // the step loop with or without the wgmma: separate copies, as in gmm_wgmma_kernel
+  auto consume = [&](auto mma) {
+    for (int i = 0; i < steps; ++i) {
+      const int s = i % RING_STAGES;
+      hopper::mbar_wait(&full[s], (i / RING_STAGES) & 1);
+      if constexpr (decltype(mma)::value) {
+        const uint64_t da =
+            hopper::sw128_mn_desc(hopper::smem_addr(sA + s * L::kA + cw * RING_BOX), RING_BOX);
+        const uint64_t db = hopper::sw128_mn_desc(hopper::smem_addr(sB + s * L::kB), RING_BOX);
+        hopper::fence_regs(acc);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)  // 16 rows a slice: 2048 bytes down each box
+          hopper::wgmma_m64n256k16<1, 1>(acc, da + 128 * kk, db + 128 * kk, i > 0 || kk > 0);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();  // the step before is done: release its stage
+        hopper::fence_regs(acc);
+      }
+      if (i > 0 && (tid & 31) == 0) hopper::mbar_arrive(&empty[(i - 1) % RING_STAGES]);
+    }
+  };
+  if (!active) {
+    consume(std::false_type{});
+    return;
+  }
+  consume(std::true_type{});
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+  store_acc(acc, out + (size_t)k0 * a.N, a.N, 64 * cw, a.K - k0, n0);
+}
+
+cudaError_t launch_dw_wgmma(const DwArgs& a, cudaStream_t st) {
+  const uint64_t x_dims[2] = {(uint64_t)a.K, (uint64_t)a.rows}, x_pitch[1] = {(uint64_t)a.K * 2};
+  const uint64_t dy_dims[2] = {(uint64_t)a.N, (uint64_t)a.rows};
+  const uint64_t dy_pitch[1] = {(uint64_t)a.N * 2};
+  const uint32_t box[2] = {64, 64};
+  CUtensorMap map_x, map_dy;
+  if (!hopper::encode_map(&map_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.x, x_dims, x_pitch, box,
+                          CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !hopper::encode_map(&map_dy, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.dy, dy_dims, dy_pitch,
+                          box, CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  // x[e] is [rows][K], dy[e] [rows][N]: K blocks fastest when x's slab is the smaller
+  const DwwArgs w{a.tile_expert, a.used_tiles, a.dw, a.rows / 64, a.K, a.N, a.E,
+                  (a.K + DWW_K - 1) / DWW_K, (a.N + RING_COLS - 1) / RING_COLS, a.K <= a.N};
+  const long long blocks = (long long)a.E * w.kblocks * w.nblocks;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      gmm_dw_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DwwSmem::kBytes);
+  if (err != cudaSuccess) return err;
+  gmm_dw_wgmma_kernel<<<(int)blocks, RING_THREADS, DwwSmem::kBytes, st>>>(map_x, map_dy, w);
+  return cudaGetLastError();
+}
+
+// The work list of gmm_wgmma_kernel, built on the device in one launch
+// (gmm_plan_ref in ops/kernels/grouped_matmul.py is its plain version: the
+// same integers). One thread walks the used tiles once: an item starts at
+// a run's first tile and every P tiles after it; the items tile the used
+// tiles in order, so an item's rows end where the next item's begin.
+__global__ void gmm_plan_kernel(const int32_t* __restrict__ te, const int32_t* __restrict__ used_p,
+                                int T, int tm, int P, int bound, int32_t* __restrict__ plan) {
+  const int used = min(max(*used_p, 0), T);
+  int n = 0, run_start = 0, run_first = 0, prev = 0;
+  for (int t = 0; t < used; ++t) {
+    const int e = te[t];
+    if (t == 0 || e != prev) run_start = t, run_first = n;
+    if ((t - run_start) % P == 0) {
+      if (n < bound) {
+        int32_t* p = plan + (size_t)n * PLAN_FIELDS;
+        p[0] = t * tm, p[2] = e, p[3] = run_first;
+      }
+      ++n;
+    }
+    prev = e;
+  }
+  n = min(n, bound);
+  for (int i = n - 1, next_row = used * tm, end = n; i >= 0; --i) {
+    int32_t* p = plan + (size_t)i * PLAN_FIELDS;
+    if (i + 1 < n && p[3] != p[PLAN_FIELDS + 3]) end = i + 1;  // item i ends its run
+    p[1] = next_row - p[0], p[4] = end - p[3];
+    next_row = p[0];
+  }
+  for (int i = n; i < bound; ++i) {  // the zero fill: the rows past the used tiles
+    int32_t* p = plan + (size_t)i * PLAN_FIELDS;
+    p[0] = used * tm, p[1] = 0, p[2] = -1, p[3] = n, p[4] = bound - n;
+  }
+}
+
 }  // namespace
+
+// Plain C entry for ctypes: the work list of the wgmma forward and dx
+// designs, plan int32 [bound, 5], from tile_expert int32 [T] and used_tiles
+// int32 [1] (T = Mp / tm; P = 128 / tm tiles an item). Returns
+// cudaGetLastError() of the launch.
+extern "C" int ds_gmm_plan(const void* tile_expert, const void* used_tiles, int T, int tm,
+                           int bound, void* plan, void* stream) {
+  if (T <= 0 || (tm != 16 && tm != 64) || bound <= 0 || tile_expert == nullptr ||
+      used_tiles == nullptr || plan == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  gmm_plan_kernel<<<1, 1, 0, st>>>(
+      static_cast<const int32_t*>(tile_expert), static_cast<const int32_t*>(used_tiles), T, tm,
+      RING_ROWS / tm, bound, static_cast<int32_t*>(plan));
+  return (int)cudaGetLastError();
+}
+
+// Plain C entry for ctypes. Device pointers to contiguous tensors: x bf16
+// [Mp, K]; w bf16 [E, K, N] (scheme 0) or carriers int8 / float8_e4m3fn
+// [E, K, N] or uint8 [E, K, 3N/4] (fp6); scales fp32 [E, K, ng] (null for
+// scheme 0); tile_expert int32 [Mp / tm]; used_tiles int32 [1]; out bf16
+// [Mp, N]. scheme: 0 bf16, 1 int8, 2 fp8, 3 fp6; tm: 16 or 64. With a work
+// plan (int32 [plan_items, 5], built by the wrapper from tile_expert and
+// used_tiles, as for ds_gmm_dx) the wgmma design runs, and the call is
+// refused unless it takes the case (scheme 0, tm 64, TMA-readable x and W);
+// without one, qgemm_kernel. The wrapper in ops/kernels/grouped_matmul.py
+// checks shapes and types. Returns cudaGetLastError() of the launch.
+extern "C" int ds_grouped_matmul(const void* x, const void* w, const void* scales,
+                                 const void* tile_expert, const void* used_tiles, void* out,
+                                 int Mp, int K, int N, int ng, int E, int scheme, int tm,
+                                 const void* plan, int plan_items, void* stream) {
+  Args a{static_cast<const uint16_t*>(x), static_cast<const uint8_t*>(w),
+         static_cast<const float*>(scales), static_cast<const int32_t*>(tile_expert),
+         static_cast<const int32_t*>(used_tiles), static_cast<uint16_t*>(out), nullptr,
+         Mp, K, N, ng, ng > 0 ? N / ng : 0, E, (K + BK - 1) / BK * BK};
+  if (bad_args(a, scheme, tm) || E <= 0 || Mp % tm != 0 || tile_expert == nullptr ||
+      used_tiles == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (plan != nullptr) {
+    if (plan_items <= 0 || scheme != kBF16 || !ring_ok(x, w, K, N, tm))
+      return (int)cudaErrorInvalidValue;
+    return (int)launch_wgmma<kBF16, true>(a, static_cast<const int32_t*>(plan), plan_items, st);
+  }
+  switch (scheme) {
+    case kBF16: return (int)launch_bm<kBF16, true>(a, tm, 1, st);
+    case kInt8: return (int)launch_bm<kInt8, true>(a, tm, 1, st);
+    case kFP8: return (int)launch_bm<kFP8, true>(a, tm, 1, st);
+    default: return (int)launch_bm<kFP6, true>(a, tm, 1, st);
+  }
+}
 
 // Plain C entry for ctypes: dx [Mp, K] bf16 = dy [Mp, N] bf16 @ W[tile]^T,
 // W bf16 [E, K, N] (scheme 0, scales null) or carriers as in
@@ -800,10 +1083,10 @@ extern "C" int ds_gmm_dx(const void* dy, const void* w, const void* scales,
     if (plan_items <= 0 || !dx_wgmma_ok(a, scheme)) return (int)cudaErrorInvalidValue;
     const int32_t* p = static_cast<const int32_t*>(plan);
     switch (scheme) {
-      case kBF16: return (int)launch_dx_wgmma<kBF16>(a, p, plan_items, st);
-      case kInt8: return (int)launch_dx_wgmma<kInt8>(a, p, plan_items, st);
-      case kFP8: return (int)launch_dx_wgmma<kFP8>(a, p, plan_items, st);
-      default: return (int)launch_dx_wgmma<kFP6>(a, p, plan_items, st);
+      case kBF16: return (int)launch_wgmma<kBF16, false>(a, p, plan_items, st);
+      case kInt8: return (int)launch_wgmma<kInt8, false>(a, p, plan_items, st);
+      case kFP8: return (int)launch_wgmma<kFP8, false>(a, p, plan_items, st);
+      default: return (int)launch_wgmma<kFP6, false>(a, p, plan_items, st);
     }
   }
   switch (scheme) {
@@ -817,10 +1100,12 @@ extern "C" int ds_gmm_dx(const void* dy, const void* w, const void* scales,
 // Plain C entry for ctypes: dw [E, K, N] bf16 = per expert, the sum over its
 // row tiles of x_tile^T @ dy_tile; x [Mp, K], dy [Mp, N] bf16; tile_expert
 // int32 [Mp / tm], each expert's used tiles contiguous (tile_layout);
-// used_tiles int32 [1]. Returns cudaGetLastError() of the launch.
+// used_tiles int32 [1]. With wgmma set the wgmma design runs, and the call
+// is refused unless it takes the case (tm 64, TMA-readable x and dy); else
+// gmm_dw_kernel. Returns cudaGetLastError() of the launch.
 extern "C" int ds_gmm_dw(const void* x, const void* dy, const void* tile_expert,
                          const void* used_tiles, void* dw, int Mp, int K, int N, int E, int tm,
-                         void* stream) {
+                         int wgmma, void* stream) {
   if (Mp <= 0 || K <= 0 || N <= 0 || E <= 0 || E > 65535 || (tm != 16 && tm != 64) ||
       Mp % tm != 0 || x == nullptr || dy == nullptr || tile_expert == nullptr ||
       used_tiles == nullptr || dw == nullptr || (K + DW_B - 1) / DW_B > 65535)
@@ -828,7 +1113,12 @@ extern "C" int ds_gmm_dw(const void* x, const void* dy, const void* tile_expert,
   DwArgs a{static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(dy),
            static_cast<const int32_t*>(tile_expert), static_cast<const int32_t*>(used_tiles),
            static_cast<uint16_t*>(dw), Mp, K, N, E, tm};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (wgmma) {
+    if (!ring_ok(x, dy, K, N, tm)) return (int)cudaErrorInvalidValue;
+    return (int)launch_dw_wgmma(a, st);
+  }
   const dim3 grid((N + DW_B - 1) / DW_B, (K + DW_B - 1) / DW_B, E);
-  gmm_dw_kernel<<<grid, DW_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  gmm_dw_kernel<<<grid, DW_THREADS, 0, st>>>(a);
   return (int)cudaGetLastError();
 }

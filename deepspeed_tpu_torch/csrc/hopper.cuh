@@ -113,6 +113,20 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
          | ((uint64_t)1 << 62);              // 128-byte swizzle
 }
 
+// Descriptor of an MN-major bf16 tile (M or N contiguous) in the same
+// 128-byte swizzle: TMA boxes of 64 M/N values (128 bytes) by K rows, K
+// row r of a box at byte 128 r, 8-row groups 1024 bytes apart (the stride
+// byte offset), and the next 64 M/N values `mn_bytes` further on (the
+// leading byte offset: the next box); the tile starts on a 1024-byte
+// boundary. The k-th 16-deep slice is the same descriptor plus 128 k
+// (2048 bytes, in 16-byte units).
+__device__ __forceinline__ uint64_t sw128_mn_desc(uint32_t saddr, uint32_t mn_bytes) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4)          // start address
+         | ((uint64_t)((mn_bytes >> 4) & 0x3FFF) << 16)  // leading byte offset: the next 64 M/N
+         | ((uint64_t)(1024 >> 4) << 32)             // stride byte offset: one 8-row K group
+         | ((uint64_t)1 << 62);                      // 128-byte swizzle
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -133,11 +147,13 @@ __device__ __forceinline__ void fence_regs(float (&d)[128]) {
 }
 
 // d[64 x 256] = A[64 x 16] * B[16 x 256] (+ d when `accumulate`), bf16
-// inputs from shared memory (both K-major), fp32 accumulators: the first
-// product of a sum overwrites d, so no other instruction defines the
-// accumulators while wgmma owns them. Thread t of the warpgroup holds, for
-// each 8-column block j, d[4j], d[4j+1] at row 16 (t / 32) + (t % 32) / 4,
+// inputs from shared memory, fp32 accumulators: the first product of a sum
+// overwrites d, so no other instruction defines the accumulators while
+// wgmma owns them. TA / TB: 0 when A / B is K-major (sw128_desc), 1 when
+// MN-major (sw128_mn_desc). Thread t of the warpgroup holds, for each
+// 8-column block j, d[4j], d[4j+1] at row 16 (t / 32) + (t % 32) / 4,
 // columns 8j + 2 (t % 4) + {0, 1}, and d[4j+2], d[4j+3] eight rows below.
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_a,
                                                  uint64_t desc_b, bool accumulate) {
   asm volatile(
@@ -159,7 +175,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
       "%104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
         "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
@@ -182,7 +198,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
         "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),
         "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]),
         "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"((int)accumulate));
+      : "l"(desc_a), "l"(desc_b), "r"((int)accumulate), "n"(TA), "n"(TB));
 }
 
 // ---------------------------------------------------------------- host

@@ -27,13 +27,18 @@
 //      indices are computed once, before the loop;
 //   3. bf16 mma.sync.m16n8k16 tiles with fp32 accumulators, fed by
 //      ldmatrix (the weight tile [k][n] through ldmatrix.trans).
-// A bf16 weight (gmm) skips step 2: its bytes land in the weight tile
-// directly. This template carries K4 and K5's forward. K5's input gradient
-// has its own Hopper design in grouped_matmul.cu (wgmma on 128 x 256 tiles
-// fed by a TMA ring, the carriers decoded by the functions below into
-// swizzled bf16 tiles while the previous step's wgmma runs); the forward
-// has none of that yet: cp.async or TMA pipelining of the carrier stream,
-// wgmma and a persistent schedule are work for a later change.
+// A bf16 weight skips step 2: its bytes land in the weight tile directly.
+// This template carries K4 (quant_matmul, dense_matmul), K5's forward
+// through carriers (gmm_quant), and K5's forward over a bf16 stack at
+// decode's 16-row tiles or where TMA cannot read x and W. What bounds it
+// there is the weight bytes (on an H100 at 700 W, a decode call over
+// Mixtral's bf16 w1 runs at ~82% of its byte bound). K5's forward over a
+// bf16 stack at 64-row tiles, its input gradient and its weight gradient
+// run the Hopper designs in grouped_matmul.cu instead (wgmma on 128 x 256 tiles fed by a TMA ring;
+// through carriers, the decoders below fill swizzled bf16 tiles while the
+// previous step's wgmma runs). Prefill-sized calls of this template are
+// operations-bound and are not pipelined: no cp.async or TMA ring, no
+// wgmma, no persistent schedule.
 
 #pragma once
 

@@ -19,11 +19,16 @@ and its ``lax.ragged_dot`` path are TPU measurements and are not carried
 over.
 
 The three GEMMs are one ``torch.autograd.Function``, differentiable in x
-and in dense stacks (``gmm``'s VJP): dx through ``gmm_transposed`` (the
-forward kernel's template reading the stack as stored), dW through
-``gmm_dw``; through carriers, x only (``gmm_quant``'s VJP, the frozen-base
-contract: carriers and scales get no gradient), dx through
-``gmm_quant_dx``. It saves exactly what the JAX ``remat_policy="moe"``
+and in dense stacks (``gmm``'s VJP): dx through ``gmm_transposed``
+(reading the stack as stored), dW through ``gmm_dw``; through carriers,
+x only (``gmm_quant``'s VJP, the frozen-base contract: carriers and
+scales get no gradient), dx through ``gmm_quant_dx``. On the card each
+GEMM takes one of two designs, chosen by shape before the launch and
+counted by design (``gmm_{fwd,dx,dw}_design_launches``): the Hopper
+designs (wgmma fed by a TMA ring; the forward and dW at 64-row tiles,
+dx at either tile, wherever TMA can read the operands) or the first,
+general ones (``qgemm_kernel`` for the forward: decode's 16-row tiles
+and every ``gmm_quant``; ``gmm_dx_kernel``, ``gmm_dw_kernel``). It saves exactly what the JAX ``remat_policy="moe"``
 keeps, the scattered rows and the gate and up activations (``moe_xs``,
 ``moe_gate``, ``moe_up``; the routing, ``moe_routing`` and ``moe_tiles``,
 is the index tensors beside them), and rebuilds the SwiGLU product

@@ -34,13 +34,23 @@ is sized for the worst case (``Mp`` is static), the count comes from the
 routing on the device, and the kernel writes zeros to the tiles past it
 without reading any weight. The TPU kernels' scalar prefetch, tile
 ladder and VMEM budget do not carry over: a block reads its own tile's
-expert, and a dW block finds its expert's run of tiles on the device.
+expert or its work item, built on the device.
 
-The input gradients have two designs, chosen by shape before the launch
-(:func:`dx_design`) and counted in ``gmm_dx_design_launches``: where TMA
-can read dy and the stack, wgmma on 128 x 256 tiles of dx fed by a TMA
-ring, over a work list built on the device (:func:`gmm_dx_plan`); else the
-first, general design.
+The bf16 GEMMs have two designs each, chosen by shape before the launch
+and never by the routing, and counted by design:
+
+- the input gradients (:func:`dx_design`, ``gmm_dx_design_launches``):
+  where TMA can read dy and the stack, wgmma on 128 x 256 tiles of dx fed
+  by a TMA ring, over a work list built on the device (:func:`gmm_plan`);
+- the forward over a bf16 stack (``gmm_fwd_design_launches``) and the
+  weight gradient (``gmm_dw_design_launches``), both by
+  :func:`wgmma_design`: at 64-row tiles where TMA can read both operands,
+  the same ring with the stack's rows read across (the forward, over the
+  same work list) or 128 x 256 tiles of dW over each expert's run of rows,
+  which each block finds among the used tiles (:func:`gmm_dw_runs_ref`);
+
+else the first, general design (decode's 16-row tiles keep it: it runs
+near its byte bound there). ``gmm_quant`` keeps the first design.
 """
 
 import ctypes
@@ -175,22 +185,31 @@ def _launch(x, w, scales, tile_experts, used_tiles, N, ng, E, scheme_code, tm):
     out = torch.empty((Mp, N), dtype=torch.bfloat16, device=x.device)
     if Mp == 0 or N == 0:
         return out
+    design = wgmma_design(tm, K, N, x.data_ptr(), w.data_ptr()) if scheme_code == 0 else None
+    plan = gmm_plan(tile_experts, used_tiles, tm, E) if design == "wgmma" else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        fn = _lib_fn("ds_grouped_matmul", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7)
+        fn = _lib_fn("ds_grouped_matmul", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 +
+                     [ctypes.c_void_p, ctypes.c_int])
         rc = fn(x.data_ptr(), w.data_ptr(), None if scales is None else scales.data_ptr(),
                 tile_experts.data_ptr(), used_tiles.data_ptr(), out.data_ptr(), Mp, K, N, ng, E,
-                scheme_code, tm, stream)
+                scheme_code, tm, None if plan is None else plan.data_ptr(),
+                0 if plan is None else plan.shape[0], stream)
     if rc != 0:
-        raise RuntimeError(f"grouped matmul kernel failed to launch: cudaError {rc}")
+        raise RuntimeError(f"grouped matmul kernel ({design or 'general'} design) failed to "
+                           f"launch: cudaError {rc}")
+    if design is not None:
+        gmm_fwd_design_launches[design] += 1
     return out
 
 
 def gmm(x, w, tile_experts, tm, used_tiles=None):
     """Grouped matmul: ``x`` [Mp, K] with rows tile-aligned by expert,
     ``w`` [E, K, N], ``tile_experts`` [Mp/tm] int32 → [Mp, N] in x's
-    dtype. CUDA tensors (bf16, contiguous, tm 16 or 64) launch the kernel
-    or raise; CPU tensors take :func:`gmm_ref`."""
+    dtype. CUDA tensors (bf16, contiguous, tm 16 or 64) launch the kernel,
+    on the design :func:`wgmma_design` names (counted in
+    ``gmm_fwd_design_launches``), or raise; CPU tensors take
+    :func:`gmm_ref`."""
     if x.device.type == "cpu":
         return gmm_ref(x, w, tile_experts, tm, used_tiles)
     if w.dtype != torch.bfloat16 or w.dim() != 3 or not w.is_contiguous() or \
@@ -261,8 +280,10 @@ def gmm_dw_ref(x, dy, tile_experts, num_experts, tm, used_tiles=None, out_dtype=
     return out.to(out_dtype or x.dtype)
 
 
-DX_ROWS = 128  # dx rows a block of the wgmma dx design (csrc DXW_ROWS)
+PLAN_ROWS = 128  # output rows a block of the wgmma forward and dx designs (csrc RING_ROWS)
 gmm_dx_design_launches = {"wgmma": 0, "general": 0}
+gmm_fwd_design_launches = {"wgmma": 0, "general": 0}  # gmm over a bf16 stack
+gmm_dw_design_launches = {"wgmma": 0, "general": 0}
 
 
 def dx_design(scheme, N, *ptrs):
@@ -277,23 +298,41 @@ def dx_design(scheme, N, *ptrs):
     return "wgmma" if ok else "general"
 
 
-def gmm_dx_plan(tile_experts, used_tiles, tm, num_experts):
-    """The wgmma dx design's work list, built on ``tile_experts``'s device
-    with no host sync → int32 [bound, 5], ``bound = min(T, ceil(T / P) +
-    num_experts)`` for T = Mp / tm tiles and P = 128 / tm tiles an item.
+def wgmma_design(tm, K, N, *ptrs):
+    """The design the forward over a bf16 stack (x [Mp, K] @ w [E, K, N])
+    and the weight gradient (x [Mp, K], dy [Mp, N]) take, their two
+    operands at device addresses ``ptrs``: "wgmma" at 64-row tiles where
+    TMA can read both (16-byte aligned bases, K % 8 and N % 8: rows a
+    multiple of 16 bytes), else "general", the first design, which takes
+    every shape. It depends on the tile, the shape and the alignment,
+    never on the row count or the routing."""
+    ok = tm == 64 and K % 8 == 0 and N % 8 == 0 and all(p % 16 == 0 for p in ptrs)
+    return "wgmma" if ok else "general"
+
+
+def _plan_bound(T, tm, num_experts):
+    return min(T, -(-T // (PLAN_ROWS // tm)) + num_experts)
+
+
+def gmm_plan_ref(tile_experts, used_tiles, tm, num_experts):
+    """Plain version of :func:`gmm_plan`, in torch ops on ``tile_experts``'s
+    device with no host sync → int32 [bound, 5], ``bound = min(T,
+    ceil(T / P) + num_experts)`` for T = Mp / tm tiles and P = 128 / tm
+    tiles an item.
 
     An item is up to P consecutive used tiles of one run of equal
     ``tile_experts``: (first row, rows, expert, the run's first item, the
     run's item count). The kernel gives a block one item and one 256-wide
-    column block of dx, and the blocks of a run take its column blocks in
-    turn, so the run's dy rows and each W column block stay in L2 while
-    they are read. The slots past the last item form one more group, with
-    expert -1 and first row ``used_tiles * tm``: their blocks write the
-    zeros of the rows past the used tiles. The bound holds when each
-    expert's used tiles are one run, as :func:`tile_layout` makes them."""
+    column block of the output, and the blocks of a run take its column
+    blocks in turn, so the run's rows and each W column block stay in L2
+    while they are read. The slots past the last item form one more
+    group, with expert -1 and first row ``used_tiles * tm``: their blocks
+    write the zeros of the rows past the used tiles. The bound holds when
+    each expert's used tiles are one run, as :func:`tile_layout` makes
+    them."""
     T = tile_experts.shape[0]
-    P = DX_ROWS // tm
-    bound = min(T, -(-T // P) + num_experts)
+    P = PLAN_ROWS // tm
+    bound = _plan_bound(T, tm, num_experts)
     dev = tile_experts.device
     t = torch.arange(T, device=dev)
     te = tile_experts.long()
@@ -326,6 +365,51 @@ def gmm_dx_plan(tile_experts, used_tiles, tm, num_experts):
     return plan.to(torch.int32)
 
 
+def gmm_dw_runs_ref(tile_experts, used_tiles, tm, num_experts):
+    """Plain version of the run each block of the wgmma dW design finds
+    for its expert before its ring starts, in torch ops on
+    ``tile_experts``'s device with no host sync → int32 [num_experts, 2]:
+    each expert's first row and rows among the used tiles (0, 0 for an
+    expert with none; tiles whose expert is out of range count for none).
+    Each expert's used tiles must be one run, as :func:`tile_layout`
+    makes them."""
+    T = tile_experts.shape[0]
+    dev = tile_experts.device
+    t = torch.arange(T, device=dev)
+    te = tile_experts.long()
+    valid = (t < used_tiles.reshape(()).long()) & (te >= 0) & (te < num_experts)
+    slot = torch.where(valid, te, num_experts)  # slot num_experts takes the rest
+    tiles = torch.zeros(num_experts + 1, dtype=torch.long, device=dev).scatter_add_(
+        0, slot, torch.ones_like(t))[:num_experts]
+    first = torch.full((num_experts + 1,), T, dtype=torch.long, device=dev).scatter_reduce_(
+        0, slot, t, "amin")[:num_experts]
+    return torch.stack([torch.where(tiles > 0, first * tm, 0), tiles * tm], 1).to(torch.int32)
+
+
+def gmm_plan(tile_experts, used_tiles, tm, num_experts):
+    """The work list of the wgmma forward and dx designs (the items and
+    groups :func:`gmm_plan_ref` describes, the same integers). On CUDA
+    tensors (contiguous int32) one launch of a one-thread kernel builds it
+    (counted in ``gmm_plan.launches``; the plain version is ~45 small ops,
+    which set the pace at serving sizes); CPU tensors take
+    :func:`gmm_plan_ref`."""
+    if tile_experts.device.type == "cpu":
+        return gmm_plan_ref(tile_experts, used_tiles, tm, num_experts)
+    bound = _plan_bound(tile_experts.shape[0], tm, num_experts)
+    out = torch.empty((bound, 5), dtype=torch.int32, device=tile_experts.device)
+    with torch.cuda.device(tile_experts.device):
+        fn = _lib_fn("ds_gmm_plan", [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        rc = fn(tile_experts.data_ptr(), used_tiles.data_ptr(), tile_experts.shape[0], tm, bound,
+                out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ds_gmm_plan failed to launch: cudaError {rc}")
+    gmm_plan.launches += 1
+    return out
+
+
+gmm_plan.launches = 0
+
+
 def _launch_dx(dy, w, scales, tile_experts, used_tiles, K, ng, E, scheme, tm):
     """Check the layout, choose the design by shape, launch → [Mp, K] bf16."""
     used_tiles = _check_layout(dy, tile_experts, used_tiles, tm, "dy")
@@ -334,7 +418,7 @@ def _launch_dx(dy, w, scales, tile_experts, used_tiles, K, ng, E, scheme, tm):
     if Mp == 0 or K == 0:
         return out
     design = dx_design(scheme, N, dy.data_ptr(), w.data_ptr())
-    plan = gmm_dx_plan(tile_experts, used_tiles, tm, E) if design == "wgmma" else None
+    plan = gmm_plan(tile_experts, used_tiles, tm, E) if design == "wgmma" else None
     with torch.cuda.device(dy.device):
         stream = torch.cuda.current_stream().cuda_stream
         fn = _lib_fn("ds_gmm_dx", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 +
@@ -397,8 +481,10 @@ def gmm_dw(x, dy, tile_experts, num_experts, tm, used_tiles=None, out_dtype=None
     of ``x_tileᵀ @ dy_tile`` over its used row tiles rounded once to
     ``out_dtype`` (x's dtype when None); experts with no tile get zeros.
     Deterministic. CUDA tensors (bf16, contiguous, each expert's tiles
-    contiguous as :func:`tile_layout` makes them) launch the kernel or
-    raise; CPU tensors take :func:`gmm_dw_ref`."""
+    contiguous as :func:`tile_layout` makes them) launch the kernel, on
+    the design :func:`wgmma_design` names (counted in
+    ``gmm_dw_design_launches``), or raise; CPU tensors take
+    :func:`gmm_dw_ref`."""
     if x.device.type == "cpu":
         return gmm_dw_ref(x, dy, tile_experts, num_experts, tm, used_tiles, out_dtype)
     if (out_dtype or x.dtype) != torch.bfloat16:
@@ -412,13 +498,15 @@ def gmm_dw(x, dy, tile_experts, num_experts, tm, used_tiles=None, out_dtype=None
     out = torch.empty((num_experts, K, N), dtype=torch.bfloat16, device=x.device)
     if out.numel() == 0:
         return out
+    design = wgmma_design(tm, K, N, x.data_ptr(), dy.data_ptr())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        fn = _lib_fn("ds_gmm_dw", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5)
+        fn = _lib_fn("ds_gmm_dw", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6)
         rc = fn(x.data_ptr(), dy.data_ptr(), tile_experts.data_ptr(), used_tiles.data_ptr(),
-                out.data_ptr(), Mp, K, N, num_experts, tm, stream)
+                out.data_ptr(), Mp, K, N, num_experts, tm, int(design == "wgmma"), stream)
     if rc != 0:
-        raise RuntimeError(f"grouped dW kernel failed to launch: cudaError {rc}")
+        raise RuntimeError(f"grouped dW kernel ({design} design) failed to launch: cudaError {rc}")
+    gmm_dw_design_launches[design] += 1
     gmm_dw.launches += 1
     return out
 

@@ -30,10 +30,12 @@ at every block size and head dim, per-head layouts and a layout with an
 empty row and a key block no row admits (zeros there, lse ``NEG_INF``),
 each check rejecting a zeroed tile, and a 2-layer BERT ``train_batch``
 through the kernels must match the same step pinned to the plain
-versions. K5's input gradient must take the design its shape predicate
-names (the wgmma design wherever TMA can read dy and the stack), give the
-same bits on a second run, and, through carriers, reproduce the
-dequantized weights bit for bit on one-hot rows."""
+versions. K5's input gradient, its forward over a bf16 stack and its
+weight gradient must take the design their shape predicates name (the
+wgmma designs wherever TMA can read the operands, at 64-row tiles for the
+forward and dW), give the same bits on a second run, and reproduce their
+operands bit for bit on one-hot rows (dx: the dequantized carriers; the
+forward: the stack; dW: dy)."""
 
 import numpy as np
 import pytest
@@ -426,15 +428,19 @@ def test_grouped_kernel_matches_plain(cuda, scheme, sizes, K, N, tm):
              * 0.05).to(torch.bfloat16)
         kernel, fn = gm.gmm, (lambda x: gm.gmm(x, w, te, tm, used))
         want = gm.gmm_ref(xp, w, te, tm, used)
+        design = gm.wgmma_design(tm, K, N, xp.data_ptr(), w.data_ptr())
     else:
         q = _carrier((E, K, N), scheme, 4 if N % 8 else 8, cuda, 3)
         kernel = gm.gmm_quant
         fn = (lambda x: gm.gmm_quant(x, q.values, q.scales, te, scheme, torch.bfloat16, tm, used))
         want = gm.gmm_quant_ref(xp, q.values, q.scales, te, scheme, torch.bfloat16, tm, used)
-    before = kernel.launches
+        design = None  # carriers keep the first design, uncounted
+    before = kernel.launches, dict(gm.gmm_fwd_design_launches)
     got = fn(xp)
     torch.cuda.synchronize()
-    assert kernel.launches == before + 1
+    assert kernel.launches == before[0] + 1
+    grew = {k: v - before[1][k] for k, v in gm.gmm_fwd_design_launches.items()}
+    assert grew == {d: int(d == design) for d in grew}, grew
     n_used = int(used) * tm
     assert not got[n_used:].any()  # tiles without rows are written as zeros
     err = row_scaled_err(got[:n_used], want[:n_used].float())
@@ -469,12 +475,15 @@ def test_gmm_dw_kernel_matches_plain(cuda, sizes, K, N, tm):
     xp, te, used = _gmm_case(sizes, K, tm, cuda, 5)
     dy, _, _ = _gmm_case(sizes, N, tm, cuda, 6)
     E = len(sizes)
-    before = gm.gmm_dw.launches
+    before = gm.gmm_dw.launches, dict(gm.gmm_dw_design_launches)
     got = gm.gmm_dw(xp, dy, te, E, tm, used)
     again = gm.gmm_dw(xp, dy, te, E, tm, used)
     want = gm.gmm_dw_ref(xp, dy, te, E, tm, used, out_dtype=torch.float32)
     torch.cuda.synchronize()
-    assert gm.gmm_dw.launches == before + 2
+    assert gm.gmm_dw.launches == before[0] + 2
+    design = gm.wgmma_design(tm, K, N, xp.data_ptr(), dy.data_ptr())
+    grew = {k: v - before[1][k] for k, v in gm.gmm_dw_design_launches.items()}
+    assert grew == {d: 2 * (d == design) for d in grew}, grew
     assert got.dtype == torch.bfloat16 and got.shape == (E, K, N)
     assert torch.equal(got, again)  # no atomics: the same bits every run
     for e, n in enumerate(sizes):
@@ -485,6 +494,134 @@ def test_gmm_dw_kernel_matches_plain(cuda, sizes, K, N, tm):
     bad = got.clone()
     bad[busy] = _zero_tile(got[busy])
     assert err <= QUANT_TOL and row_scaled_err(bad, want) > 10 * QUANT_TOL, err
+
+
+# Shapes that take the wgmma forward and dW designs (64-row tiles, K % 8
+# and N % 8): odd tile counts an expert, empty experts, used tiles below
+# the layout's, K not a multiple of 128 (a second consumer idle past K in
+# dW, a ragged contraction in the forward) and N not a multiple of 256
+# (boxes partly and wholly past N).
+WGMMA_CASES = [
+    ((200, 0, 130, 70, 65), 640, 320),
+    ((0, 300, 0, 0), 256, 1024),
+    ((37, 0, 90, 5, 0, 16), 384, 264),
+    ((129, 64, 1), 72, 136),
+]
+
+
+@pytest.mark.parametrize("tm", (16, 64))
+@pytest.mark.parametrize("seed", range(4))
+def test_table_kernels_match_plain(cuda, seed, tm):
+    """The wgmma designs' work list, built by a one-thread kernel, equals
+    its plain version (torch ops on the card) bit for bit: skewed routings
+    with empty experts, every tile used and the used tiles cut short, and
+    no rows at all; one launch each."""
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    rng = np.random.RandomState(seed)
+    p = rng.dirichlet(np.full(8, 0.7))
+    p[rng.rand(8) < 0.25] = 0.0
+    p = p / p.sum() if p.any() else np.full(8, 1 / 8)
+    sizes = torch.from_numpy(np.bincount(rng.choice(8, 2000, p=p), minlength=8)).to(cuda)
+    for s in (sizes, torch.zeros_like(sizes)):
+        _, te, _ = gm.tile_layout(s, int(s.sum()), tm)
+        full = gm.used_tiles(s, tm)
+        for used in (full, full // 3, full * 0):
+            before = gm.gmm_plan.launches
+            plan = gm.gmm_plan(te, used, tm, 8)
+            assert gm.gmm_plan.launches == before + 1
+            assert torch.equal(plan, gm.gmm_plan_ref(te, used, tm, 8))
+
+
+@pytest.mark.parametrize("sizes,K,N", WGMMA_CASES)
+def test_gmm_wgmma_forward_matches_plain(cuda, sizes, K, N):
+    """The forward over a bf16 stack at 64-row tiles on the wgmma design:
+    two runs equal bit for bit, zeros past the used tiles, within
+    QUANT_TOL of the plain version, a zeroed tile rejected."""
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import row_scaled_err
+    xp, te, used = _gmm_case(sizes, K, 64, cuda, 13)
+    assert int(used) < xp.shape[0] // 64
+    E = len(sizes)
+    w = (torch.randn(E, K, N, generator=torch.Generator(cuda).manual_seed(4), device=cuda)
+         * 0.05).to(torch.bfloat16)
+    assert gm.wgmma_design(64, K, N, xp.data_ptr(), w.data_ptr()) == "wgmma"
+    before = gm.gmm.launches, dict(gm.gmm_fwd_design_launches)
+    got, again = gm.gmm(xp, w, te, 64, used), gm.gmm(xp, w, te, 64, used)
+    want = gm.gmm_ref(xp.float(), w.float(), te, 64, used)
+    torch.cuda.synchronize()
+    assert gm.gmm.launches == before[0] + 2
+    grew = {k: v - before[1][k] for k, v in gm.gmm_fwd_design_launches.items()}
+    assert grew == {"wgmma": 2, "general": 0}, grew
+    assert got.dtype == torch.bfloat16 and got.shape == (xp.shape[0], N)
+    assert torch.equal(got, again)
+    n_used = int(used) * 64
+    assert not got[n_used:].any()
+    err = row_scaled_err(got[:n_used], want[:n_used])
+    bad_err = row_scaled_err(_zero_tile(got[:n_used]), want[:n_used])
+    assert err <= QUANT_TOL and bad_err > 10 * QUANT_TOL, (err, bad_err)
+
+
+@pytest.mark.parametrize("K,N", [(320, 264), (72, 136)])
+def test_gmm_wgmma_forward_one_hot_rows_reproduce_the_stack(cuda, K, N):
+    """One-hot x rows each read one row of W: the forward over expert 1's
+    rows must be W[1] bit for bit (W read across its rows, MN-major)."""
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    xp, te, used = _gmm_case((64, K), K, 64, cuda, 0)
+    xp[64:64 + K] = torch.eye(K, device=cuda, dtype=torch.bfloat16)
+    w = torch.randn(2, K, N, generator=torch.Generator(cuda).manual_seed(9),
+                    device=cuda).to(torch.bfloat16)
+    before = gm.gmm_fwd_design_launches["wgmma"]
+    got = gm.gmm(xp, w, te, 64, used)
+    torch.cuda.synchronize()
+    assert gm.gmm_fwd_design_launches["wgmma"] == before + 1
+    assert torch.equal(got[64:64 + K], w[1])
+
+
+@pytest.mark.parametrize("sizes,K,N", WGMMA_CASES)
+def test_gmm_dw_wgmma_design_matches_plain(cuda, sizes, K, N):
+    """dW at 64-row tiles on the wgmma design: two runs equal bit for bit,
+    the empty experts' dW zero, within QUANT_TOL of the plain version, a
+    zeroed tile rejected."""
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import row_scaled_err
+    xp, te, used = _gmm_case(sizes, K, 64, cuda, 15)
+    dy, _, _ = _gmm_case(sizes, N, 64, cuda, 16)
+    E = len(sizes)
+    assert gm.wgmma_design(64, K, N, xp.data_ptr(), dy.data_ptr()) == "wgmma"
+    before = dict(gm.gmm_dw_design_launches)
+    got, again = gm.gmm_dw(xp, dy, te, E, 64, used), gm.gmm_dw(xp, dy, te, E, 64, used)
+    want = gm.gmm_dw_ref(xp, dy, te, E, 64, used, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    grew = {k: v - before[k] for k, v in gm.gmm_dw_design_launches.items()}
+    assert grew == {"wgmma": 2, "general": 0}, grew
+    assert got.dtype == torch.bfloat16 and got.shape == (E, K, N)
+    assert torch.equal(got, again)
+    for e, n in enumerate(sizes):
+        if n == 0:
+            assert not got[e].any(), f"expert {e} has no rows"
+    err = row_scaled_err(got, want)
+    busy = int(np.argmax(sizes))
+    bad = got.clone()
+    bad[busy] = _zero_tile(got[busy])
+    assert err <= QUANT_TOL and row_scaled_err(bad, want) > 10 * QUANT_TOL, err
+
+
+@pytest.mark.parametrize("K,N", [(320, 264), (72, 136)])
+def test_gmm_dw_wgmma_one_hot_rows_reproduce_dy(cuda, K, N):
+    """One-hot x rows each place one dy row: with expert 1's x rows the
+    identity, its dW must be its dy rows bit for bit (x read transposed,
+    MN-major), and zero past them."""
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    rows = min(K, 128)
+    xp, te, used = _gmm_case((64, rows), K, 64, cuda, 0)
+    dy, _, _ = _gmm_case((64, rows), N, 64, cuda, 1)
+    xp[64:64 + rows] = torch.eye(rows, K, device=cuda, dtype=torch.bfloat16)
+    before = gm.gmm_dw_design_launches["wgmma"]
+    got = gm.gmm_dw(xp, dy, te, 2, 64, used)
+    torch.cuda.synchronize()
+    assert gm.gmm_dw_design_launches["wgmma"] == before + 1
+    assert torch.equal(got[1, :rows], dy[64:64 + rows])
+    assert not got[1, rows:].any()
 
 
 def _dx_run(dy, te, used, tm, scheme, K, N, E, group, device):
