@@ -10,7 +10,9 @@ each of which fails the run if it fails:
 1. device  — prints the card (``nvidia-smi`` name and power limit), torch
    and CUDA versions;
 2. build   — builds every CUDA kernel of the port from ``csrc/`` (one
-   ``nvcc`` per source) and prints what ptxas reports;
+   ``nvcc`` per source) and prints what ptxas reports, then reads K1's
+   designs from the library's SASS (``cuobjdump``): the forward and dK/dV
+   kernels must issue wgmma (HGMMA), dQ is mma.sync;
 3. kernels — calls each kernel's wrapper at Mistral-7B attention shapes
    (H=32, Hkv=8, Dh=128, block 32, bf16): the serving run's decode and
    prefill steps, a decode batch over contexts 1..4096, a 512-token
@@ -58,8 +60,10 @@ each of which fails the run if it fails:
    (generated tokens/s and ms per forward of each: the repair's cost);
 6. train kernels — flash attention forward, dK/dV and dQ, and the RMS-norm
    forward at the training path's shapes (B=4, S=2048, H=16, Dh=128,
-   causal; RMS on [8192, 2048]) and beside them S=1000 (not a tile
-   multiple), 4 packed segments, non-causal, H=32 and Dh=64, all bf16.
+   causal; RMS on [8192, 2048]) and beside them S=1000 and S=2049 (not
+   multiples of the 128-row tiles), 4 packed segments, non-causal, H=32,
+   Dh=64, and the dense BERT comparison's shape (B=4, S=4096, H=16, Dh=64,
+   non-causal), all bf16; it prints the launches by design.
    Each is held against its plain version on the same inputs, element by
    element at the scale each element lives at (``row_scaled_err``: |got -
    ref| in units of 2^-8 of |ref| + the rms of its row + the tensor's
@@ -74,10 +78,12 @@ each of which fails the run if it fails:
    wrong or missing query or key tile cannot pass. lse within 1e-3
    absolute (fp32, exp2 vs exp and summation order), RMS within one bf16
    ulp at each element's magnitude. Timed as in phase 3 beside the plain
-   version, one library call (SDPA forward, SDPA's backward through
-   autograd, ``F.rms_norm``) and the bound (max of flops over 989 TFLOP/s
-   and bytes over 3.35 TB/s, flops counted over the valid (q, k) pairs of
-   the case);
+   version, one library call (SDPA forward and SDPA's backward through
+   autograd, each under every backend the installed PyTorch offers:
+   flash, cuDNN, memory-efficient; the fastest is ``library_ms``, named
+   in ``library_call``; ``F.rms_norm``) and the bound (max of flops over
+   989 TFLOP/s and bytes over 3.35 TB/s, flops counted over the valid
+   (q, k) pairs of the case);
 7. train parity — a 2-layer ``"1b"``-width model takes one ``train_batch``
    (gas 2, B=4, S=2048, bf16, Adam) twice from the same bf16 weights and
    batch: once through the kernels, once with the model's attention and
@@ -100,7 +106,8 @@ each of which fails the run if it fails:
    ``train_batch`` steps. Every loss must be finite and the loss must fall
    from the first step to the last; each kernel's launch count must grow
    by exactly what the path implies per step (flash forward 2·L·gas with
-   the remat recompute, dK/dV and dQ L·gas each, RMS (4·L + 1)·gas); no
+   the remat recompute, dK/dV and dQ L·gas each, RMS (4·L + 1)·gas), and
+   every forward and dK/dV launch must take the wgmma design; no
    parameter may be NaN. Prints ms per step, tokens/s, MFU (``bench.py``'s
    6N + 12·L·S·H flops per token against 989 TFLOP/s), peak memory and a
    profile of one step (device time by kernel, device busy share).
@@ -359,6 +366,7 @@ The last lines are the card, one JSON object with every kernel's numbers
 and, last, ``{"ok": true, "device": {...}}``."""
 
 import contextlib
+import functools
 import gc
 import json
 import math
@@ -1055,7 +1063,6 @@ def flash_kernel_cases(c, name, flush):
     each timed beside its plain version, the library call and its bound →
     three result rows."""
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
-    F = torch.nn.functional
     q, k, v, do, seg, causal = c["q"], c["k"], c["v"], c["do"], c["seg"], c["causal"]
     B, S, H, D = q.shape
     o, lse = fa.flash_fwd(q, k, v, seg, causal)
@@ -1103,18 +1110,11 @@ def flash_kernel_cases(c, name, flush):
         same = seg[:, None, :, None] == seg[:, None, None, :]
         causal_mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
         mask = same & causal_mask if causal else same
-    sq, sk, sv = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
-    sdo = do.transpose(1, 2)
-
-    def sdpa():
-        return F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask,
-                                              is_causal=causal and mask is None)
-
-    s_out = sdpa()
-    lib_bwd = time_ms(lambda: torch.autograd.grad(s_out, (sq, sk, sv), sdo,
-                                                  retain_graph=True), flush)
-    with torch.no_grad():
-        lib_fwd = time_ms(sdpa, flush)
+    sdpa_ms = sdpa_library(q, k, v, do, mask, causal, flush)
+    if not sdpa_ms:
+        raise AssertionError(f"flash case {name}: no SDPA backend takes it")
+    fwd_by, bwd_by = (min(sdpa_ms, key=lambda b: sdpa_ms[b][i]) for i in (0, 1))
+    lib_fwd, lib_bwd = sdpa_ms[fwd_by][0], sdpa_ms[bwd_by][1]
     for key, fn, plain, nb, nf, lib in (
             ("flash_fwd", lambda: fa.flash_fwd(q, k, v, seg, causal),
              lambda: fa.flash_fwd_ref(q, k, v, seg, causal), fwd_b, fwd_f, lib_fwd),
@@ -1127,11 +1127,83 @@ def flash_kernel_cases(c, name, flush):
         b_ms, b_by = bound(nb, nf)
         rows[key].update(ms=time_ms(fn, flush), plain_ms=time_ms(plain, flush),
                          library_ms=lib, bound_ms=b_ms, bound_by=b_by, bytes=nb, flops=nf)
-    rows["flash_fwd"]["library_call"] = "scaled_dot_product_attention forward"
+    rows["flash_fwd"]["library_call"] = f"scaled_dot_product_attention forward ({fwd_by})"
+    rows["flash_fwd"]["library_ms_by_backend"] = {b: t[0] for b, t in sdpa_ms.items()}
     for key in ("flash_bwd_dkv", "flash_bwd_dq"):
-        rows[key]["library_call"] = "scaled_dot_product_attention backward (dq, dk, dv)"
-    del s_out, sq, sk, sv
+        rows[key]["library_call"] = (f"scaled_dot_product_attention backward (dq, dk, dv; "
+                                     f"{bwd_by})")
+        rows[key]["library_ms_by_backend"] = {b: t[1] for b, t in sdpa_ms.items()}
     return rows
+
+
+SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION")
+
+
+def sdpa_library(q, k, v, do, mask, causal, flush):
+    """SDPA's forward, and its backward (dq, dk, dv through autograd), on a
+    case's inputs under each of SDPA_BACKENDS that the installed PyTorch
+    has → {backend: (forward ms, backward ms)}. A backend that refuses
+    the case (a mask it does not take) is left out, and said so."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    F = torch.nn.functional
+    sq, sk, sv = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    sdo = do.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask,
+                                              is_causal=causal and mask is None)
+
+    out = {}
+    for name in SDPA_BACKENDS:
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+        try:
+            with sdpa_kernel(backend):
+                s_out = sdpa()
+        except RuntimeError as e:
+            log(f"[train-kernels] SDPA {name} refuses B={q.shape[0]} S={q.shape[1]} "
+                f"H={q.shape[2]} Dh={q.shape[3]} causal={causal} mask={mask is not None}: "
+                f"{str(e).splitlines()[0][:120]}")
+            continue
+        bwd = time_ms(lambda: torch.autograd.grad(s_out, (sq, sk, sv), sdo,
+                                                  retain_graph=True), flush)
+        with sdpa_kernel(backend), torch.no_grad():
+            fwd = time_ms(sdpa, flush)
+        out[name] = (fwd, bwd)
+        del s_out
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def flash_designs():
+    """The design of each K1 kernel in the built library, read from its SASS
+    (``build.sass_counts``): "wgmma" where it issues HGMMA, "mma.sync"
+    where it issues HMMA only; both head dims' instances must agree. The
+    library holds one forward, one dK/dV and one dQ kernel template, so
+    every counted launch of a wrapper takes its kernel's design. Fails
+    unless the forward and dK/dV are the wgmma designs."""
+    from deepspeed_tpu_torch.ops.kernels import build
+    counts = build.sass_counts("flash_attention.cu", ("HGMMA", "HMMA"))
+    out = {}
+    for key in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        kinds = {"wgmma" if c["HGMMA"] else "mma.sync" if c["HMMA"] else "none"
+                 for n, c in counts.items() if f"{key}_kernel" in n}
+        if len(kinds) != 1:
+            raise AssertionError(f"{key}: kernels of designs {kinds} in the library: {counts}")
+        out[key] = kinds.pop()
+    if out["flash_fwd"] != "wgmma" or out["flash_bwd_dkv"] != "wgmma":
+        raise AssertionError(f"flash designs {out}: the forward and dK/dV must be wgmma")
+    return out
+
+
+def flash_design_launches(launches, where):
+    """Counted K1 launches by design (``flash_designs``), logged under
+    ``where`` → {kernel: {design: launches}}."""
+    designs = flash_designs()
+    out = {k: {designs[k]: launches[k]} for k in designs if k in launches}
+    log(f"[{where}] flash launches by design: {json.dumps(out)}")
+    return out
 
 
 def train_kernel_phase(device, flush):
@@ -1144,8 +1216,14 @@ def train_kernel_phase(device, flush):
         "noncausal": (2, TS, 16, 128, False, 0),
         "h32": (2, TS, 32, 128, True, 0),
         "dh64": (TB, TS, 32, 64, True, 0),
+        "s2049": (2, TS + 1, 16, 128, True, 0),
+        "bert_dense": (BERT_B, BERT_S, 16, 64, False, 0),  # phase 25's dense comparison
     }
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
     out = {"flash_fwd": [], "flash_bwd_dkv": [], "flash_bwd_dq": [], "rms_norm_fwd": []}
+    counters = {"flash_fwd": fa.flash_fwd, "flash_bwd_dkv": fa.flash_bwd_dkv,
+                "flash_bwd_dq": fa.flash_bwd_dq}
+    before = {k: f.launches for k, f in counters.items()}
     for i, (name, (B, S, H, D, causal, n_seg)) in enumerate(cases.items()):
         c = flash_case(10 + i, B, S, H, D, causal, n_seg, device)
         for key, row in flash_kernel_cases(c, name, flush).items():
@@ -1153,6 +1231,8 @@ def train_kernel_phase(device, flush):
             out[key].append(row)
         del c
         torch.cuda.empty_cache()
+    flash_design_launches({k: f.launches - before[k] for k, f in counters.items()},
+                          "train-kernels")
 
     for name, rows, D in (("path", TB * TS, 2048), ("odd_rows", 37, 4104)):
         g = torch.Generator(device=device).manual_seed(rows)
@@ -1313,6 +1393,11 @@ def training_phase(device):
     for k, n in launches.items():
         if n != 4 * per_step[k]:
             raise AssertionError(f"{k}: {n} launches over 4 steps, want 4 x {per_step[k]}")
+    by_design = flash_design_launches(launches, "training")
+    for k in ("flash_fwd", "flash_bwd_dkv"):  # every launch a step on the wgmma design
+        if by_design[k].get("wgmma") != 4 * per_step[k]:
+            raise AssertionError(f"{k}: launches by design {by_design[k]}, want "
+                                 f"4 x {per_step[k]} on wgmma")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"losses not finite and falling: {losses}")
     if any(torch.isnan(p).any().item() for p in model.parameters()):
@@ -1326,7 +1411,7 @@ def training_phase(device):
            / BF16_FLOPS_PER_S,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
            "launches_per_step": per_step, "launches": launches,
-           "grad_norm": engine.global_grad_norm}
+           "flash_launches_by_design": by_design, "grad_norm": engine.global_grad_norm}
     log(f"[training] {json.dumps(res)}")
     res["profile"] = profile_train_step(engine, batch)
     engine.destroy()
@@ -3360,6 +3445,7 @@ def mixtral_training_phase(device):
         raise AssertionError(f"moe training: launches {launches} over 4 steps, want {want}")
     n = 4 * 3 * L * MGAS  # every tm 64 GEMM on the wgmma design
     check_designs(designs, {"fwd": n, "dx": n, "dw": n}, "moe training")
+    flash_design_launches(launches, "moe-training")
     losses = [l for _, l in warm + steps]
     aux = [a.item() for a in auxes]
     if not all(math.isfinite(x) for x in losses + aux) or not losses[-1] < losses[0] \
@@ -3799,11 +3885,16 @@ def bert_training_phase(device):
     engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=train_config(B, gas),
                                                 device=device)
     torch.cuda.reset_peak_memory_stats()
-    f0 = fa.flash_fwd.launches
+    flash = {"flash_fwd": fa.flash_fwd, "flash_bwd_dkv": fa.flash_bwd_dkv,
+             "flash_bwd_dq": fa.flash_bwd_dq}
+    f0 = {k: f.launches for k, f in flash.items()}
     dense_steps = timed_steps(engine, batch, 2)
-    if fa.flash_fwd.launches - f0 != 2 * L * gas:
-        raise AssertionError(f"dense bert: {fa.flash_fwd.launches - f0} flash launches, want "
-                             f"{2 * L * gas}")
+    dense_launches = {k: f.launches - f0[k] for k, f in flash.items()}
+    if dense_launches != {"flash_fwd": 2 * L * gas, "flash_bwd_dkv": 2 * L * gas,
+                          "flash_bwd_dq": 2 * L * gas}:
+        raise AssertionError(f"dense bert: flash launches {dense_launches} over 2 steps, want "
+                             f"{2 * L * gas} each")
+    flash_design_launches(dense_launches, "bert-training")
     dense = {"step_ms": [dt * 1e3 for dt, _ in dense_steps],
              "ms_per_step": dense_steps[-1][0] * 1e3,
              "tokens_per_sec": tokens / dense_steps[-1][0],
@@ -3846,6 +3937,10 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
+
+    def lap(what):  # where the run's wall time goes, for its limit
+        log(f"[time] {what} done {time.perf_counter() - t0:.1f} s into the run")
+
     with ThreadPoolExecutor(len(build.SOURCES)) as pool:  # one nvcc per source, together
         built = list(pool.map(build.build, build.SOURCES))
     log(f"[build] all sources in {time.perf_counter() - t0:.2f} s")
@@ -3855,11 +3950,15 @@ def main():
         for line in (report or "").splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"[build] {src}: {line.strip()[:160]}")
+    designs = flash_designs()
+    log(f"[build] flash_attention.cu designs (SASS): {json.dumps(designs)}")
+    lap("phase 2 (build)")
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
     cases = kernel_phase(device, flush)
     dense_cases = dense_matmul_cases(device, flush)
     train_cases = train_kernel_phase(device, flush)
+    lap("phases 3, 4b (a), 6 (kernels)")
     del flush
     torch.cuda.empty_cache()
     parity_phase(device)
@@ -3867,6 +3966,7 @@ def main():
     serving, launches = serving_phase(device)
     train_parity_phase(device)
     training, train_launches = training_phase(device)
+    lap("phases 4, 4b, 5, 7, 8 (serving, training)")
 
     # quantized and MoE serving; every earlier engine and training state is gone
     torch.cuda.empty_cache()
@@ -3878,6 +3978,7 @@ def main():
     moe_parity_phase(device)
     _, int8_launches = moe_serving_phase(device, "int8", 32)
     _, bf16_launches = moe_serving_phase(device, "none", MOE_BF16_LAYERS)
+    lap("phases 9-12 (quantized and MoE serving)")
 
     # multi-tenant LoRA serving of Mistral-7B
     torch.cuda.empty_cache()
@@ -3887,6 +3988,7 @@ def main():
     torch.cuda.empty_cache()
     lora_parity_phase(device)
     _, lora_launches = lora_serving_phase(device)
+    lap("phases 13-15 (LoRA)")
 
     # the radix prefix cache, the host KV spill tier (bf16, int8) and suspend/resume
     torch.cuda.empty_cache()
@@ -3897,6 +3999,7 @@ def main():
     torch.cuda.empty_cache()
     tier_parity_phase(device)
     _, k7_launches = kv_tier_phase(device)
+    lap("phases 16-18 (prefix cache, KV tier)")
 
     # MoE training at Mixtral-8x7B width: K5's backward kernels
     torch.cuda.empty_cache()
@@ -3907,6 +4010,7 @@ def main():
     _, frozen_launches = moe_train_parity_phase(device)
     _, moe_train_launches_run = mixtral_training_phase(device)
     bench_train_moe_phase(device)
+    lap("phases 19-22 (MoE training)")
 
     # BERT-large training at S 4096 with BigBird block-sparse attention: K8, K2's LayerNorm
     torch.cuda.empty_cache()
@@ -3916,6 +4020,7 @@ def main():
     torch.cuda.empty_cache()
     bert_parity_phase(device)
     _, bert_launches = bert_training_phase(device)
+    lap("phases 23-25 (BERT)")
 
     main_case = next(c for c in cases if c["case"] == "serving_decode")
     kernels = [{"name": "paged_decode_attention", "route": "cuda",
@@ -3949,6 +4054,9 @@ def main():
                         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
                         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
                         "library_ms": main_row["library_ms"], "shape": shape, "cases": rows})
+        if name in designs:
+            kernels[-1]["design"] = designs[name]
+            kernels[-1]["library_call"] = main_row["library_call"]
     slice3 = {  # name: (source, TPU kernel, cases, main case, launches, shape)
         "quant_matmul": ("fused_quant_matmul.cu", "fused_quant_matmul.py:90", qmm_cases,
                          "int8_M8_{}x{}".format(*ATTN_SHAPES[0]), int8_launches["quant_matmul"],

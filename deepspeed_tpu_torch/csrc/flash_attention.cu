@@ -28,33 +28,64 @@
 // byte, far above the H100's ~295 flops/byte balance point), so the tensor
 // cores are the limit; the backward's five products likewise.
 //
-// What the design does about that:
-//   - bf16 mma.sync.m16n8k16 tensor-core tiles with fp32 accumulators, fed
-//     from shared memory by ldmatrix (ldmatrix.trans for the operands that
-//     are used transposed), rows padded by 8 bf16 so the eight 16-byte row
-//     reads of each ldmatrix phase fall on distinct banks;
-//   - the S x S scores and probabilities never leave registers: the score
-//     accumulator fragment is re-packed in place as the A operand of the
-//     next product (the FlashAttention-2 register layout);
-//   - causal tiles wholly above the diagonal are skipped, and the forward
-//     and dQ grids run the longest query tiles first;
-//   - strided [B, S, H, D] reads and writes replace the TPU's [BH, S, D]
-//     transposes; rows past S are zero-filled in shared memory and never
-//     written, so no padded copies are made.
-// Not done yet (work for a later change): wgmma and TMA (the route to the
-// card's full tensor-core rate), double-buffered cp.async K/V loads, and
-// warp specialisation. Head dims 64 and 128 are instantiated.
+// The forward and dK/dV kernels are warp-specialised wgmma designs fed by
+// TMA (csrc/hopper.cuh's building blocks), for head dims 64 and 128:
+//   - a block has 384 threads: a producer warpgroup (setmaxnreg 40; one
+//     warp works) and two consumer warpgroups (setmaxnreg 232) of 64 rows
+//     each. The forward's block owns 128 query rows: Q is loaded once, and
+//     128-key tiles of K and V stream through two 3-stage rings of
+//     full/empty mbarriers, K one tile ahead of V (a K stage is freed once
+//     its scores are taken, a V stage once its P V is done). The dK/dV
+//     block owns 128 keys: K and V are loaded once, and 64-row query tiles
+//     of Q and dO, with their lse, delta and segment ids (plain loads by
+//     the producer warp into the stage), stream through a 3-stage ring;
+//   - tiles come in through 3-D tensor maps (H*D, S, B), boxes of 64 values
+//     by the tile's rows, 128-byte swizzle: rows at or past S read as
+//     zeros within each batch row, so no padded copies are made, and
+//     strided [B, S, H, D] tensors are read as they lie;
+//   - forward: S = Q K^T is wgmma m64n128k16 with both operands K-major in
+//     shared memory; O += P V is m64n{D}k16 with P from registers (the
+//     score accumulator re-packed in place as bf16, the FlashAttention-3
+//     hand-over) and V the MN-major B operand. Tile i's Q K^T is issued
+//     with tile i - 1's P V, so tile i's softmax runs while P V finishes;
+//   - dK/dV: S^T = K Q^T and dP^T = V dO^T are m64n64k16 in one group,
+//     then dV += bf16(P^T) dO and dK += bf16(dS^T) Q are m64n{D}k16 with
+//     A from registers and dO, Q read MN-major from the same swizzled stage
+//     that fed the first two products. No atomics: dQ is its own kernel;
+//   - the two consumers take turns issuing their products (ping-pong on
+//     two named barriers), so one's softmax (or p and ds) runs under the
+//     other's products;
+//   - causal tiles wholly above the diagonal are skipped (the forward's
+//     key loop ends at the block's last row, dK/dV's query loop starts at
+//     its first key), the elementwise mask runs only on tiles that cross
+//     the diagonal or S, or on every tile with segment ids; the 1-D grid
+//     (block_tile) takes the heads in groups of 16 and, within a group,
+//     the longest tiles first, which shortens the causal tail while a
+//     group's heads share their tiles in L2.
+// The dQ kernel is the first design: bf16 mma.sync.m16n8k16 tiles fed from
+// shared memory by ldmatrix (attention_tiles.cuh), 64 x 64 tiles loaded
+// synchronously, the score fragment re-packed in place as the A operand of
+// dS K.
+// Not done yet (work for a later change): dK/dV's p and ds wait for their
+// tile's products (only the other consumer's products overlap them);
+// outputs are stored from registers, not through TMA; the forward's
+// block reads each K/V tile for 128 query rows only (no cluster
+// multicast). dQ keeps mma.sync.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <climits>
+#include <type_traits>
+
 #include "attention_tiles.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
+constexpr int kThreads = kWarps * 32;  // the dQ kernel's block
 
 // rows [row0, row0 + ROWS) of a [S, D] slice with row stride `rs` elements
 // into a shared tile; rows at or past S are zero-filled
@@ -76,117 +107,346 @@ __device__ __forceinline__ void load_seg(int* sm, const int32_t* seg, int row0, 
     sm[i] = (seg != nullptr && row0 + i < S) ? seg[row0 + i] : 0;
 }
 
-// ---------------------------------------------------------------- forward
-// grid (ceil(S / 64), B * H); 4 warps, each owning 16 query rows.
+// ------------------------------------------------------ the wgmma designs
+constexpr int WG_THREADS = 384;   // a producer warpgroup and two consumer warpgroups
+constexpr int WG_ROWS = 128;      // query rows (forward) or keys (dK/dV) a block
+constexpr int FWD_KEYS = 128;     // keys a forward stage
+constexpr int DKV_QROWS = 64;     // query rows a dK/dV stage
+constexpr int STAGES = 3;
+constexpr int BOX_ROW = 128;      // bytes of one swizzled box row: 64 bf16
+
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                 const uint16_t* __restrict__ v, const int32_t* __restrict__ seg,
-                 uint16_t* __restrict__ o, float* __restrict__ lse, int H, int S,
-                 float scale_log2, int causal) {
-  constexpr int BR = 64, BC = 64, LD = D + kPad;
-  extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* sQ = smem;
-  uint16_t* sK = sQ + BR * LD;
-  uint16_t* sV = sK + BC * LD;
-  __shared__ int sSegQ[BR];
-  __shared__ int sSegK[BC];
+struct FwdSmem {
+  static constexpr int kBox = WG_ROWS * BOX_ROW;      // one [128 rows][64] box: 16 KB
+  static constexpr int kTile = D / 64 * kBox;          // a [128 rows][D] tile
+  static constexpr int kQ = 0;
+  static constexpr int kK = kTile;                     // the K ring: STAGES tiles
+  static constexpr int kV = kK + STAGES * kTile;       // the V ring
+  static constexpr int kSeg = kV + STAGES * kTile;     // [STAGES][128] key segment ids (K's)
+  static constexpr int kBar = kSeg + STAGES * FWD_KEYS * 4;
+  static constexpr int kBytes = kBar + (1 + 4 * STAGES) * 8 + 1024;  // + alignment slack
+};
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BR;  // longest causal rows first
-  const int bh = blockIdx.y, b = bh / H, h = bh - (bh / H) * H;
-  const size_t rs = (size_t)H * D;
-  const size_t base = (size_t)b * S * rs + (size_t)h * D;
+static_assert(FwdSmem<128>::kBytes <= 232448, "the forward's rings exceed a block's shared memory");
+
+template <int D>
+struct DkvSmem {
+  static constexpr int kKBox = WG_ROWS * BOX_ROW;      // one [128 keys][64] box: 16 KB
+  static constexpr int kKTile = D / 64 * kKBox;
+  static constexpr int kQBox = DKV_QROWS * BOX_ROW;    // one [64 queries][64] box: 8 KB
+  static constexpr int kQTile = D / 64 * kQBox;
+  static constexpr int kK = 0, kV = kKTile;
+  static constexpr int kStage = 2 * kKTile;            // stage s: Q, then dO
+  static constexpr int kStats = kStage + STAGES * 2 * kQTile;  // stage s: lse, delta, seg [64]
+  static constexpr int kStatsBytes = 3 * DKV_QROWS * 4;
+  static constexpr int kBar = kStats + STAGES * kStatsBytes;
+  static constexpr int kBytes = kBar + (1 + 2 * STAGES) * 8 + 1024;
+};
+
+// The block order of the wgmma designs' 1-D grids: (B * H) heads in
+// groups of HEAD_GROUP, a group's blocks one after another; within a group
+// the tile ranks in turn, each over the group's heads. Rank 0 is the
+// longest tile (the forward's last query tile, dK/dV's first key tile),
+// so the card starts the longest causal blocks first and a group's heads
+// share their K and V (or Q and dO) in L2.
+constexpr int HEAD_GROUP = 16;
+
+__device__ __forceinline__ void block_tile(int tiles, int heads, int& rank, int& bh) {
+  const int L = blockIdx.x, group = L / (tiles * HEAD_GROUP);
+  const int size = min(HEAD_GROUP, heads - group * HEAD_GROUP);  // the last group may be short
+  const int r = L - group * tiles * HEAD_GROUP;
+  rank = r / size;
+  bh = group * HEAD_GROUP + r - rank * size;
+}
+
+// d[64 x D] (+)= A[64 x 16] B[16 x D], A from registers
+template <int D, int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4],
+                                         uint64_t desc_b, bool accumulate) {
+  if constexpr (D == 128) hopper::wgmma_m64n128k16_rs<TB>(d, a, desc_b, accumulate);
+  else hopper::wgmma_m64n64k16_rs<TB>(d, a, desc_b, accumulate);
+}
+
+// 2^x on the special-function unit, a result below 2^-126 flushed to zero
+// (exp2f adds a range check and two multiplies to keep such results): a p
+// that small weighs nothing beside its row's largest, which is 1
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the A fragments of an m64 x (16 K) accumulator's 16-deep slices, bf16:
+// slice k is its 8-column blocks 2k and 2k + 1
+template <int K>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[K][4], const float (&d)[K * 8]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    a[k][0] = pack_bf16(d[8 * k], d[8 * k + 1]);
+    a[k][1] = pack_bf16(d[8 * k + 2], d[8 * k + 3]);
+    a[k][2] = pack_bf16(d[8 * k + 4], d[8 * k + 5]);
+    a[k][3] = pack_bf16(d[8 * k + 6], d[8 * k + 7]);
+  }
+}
+
+// rows r0 and r0 + 8 (this thread's) of a consumer's [64, D] accumulator,
+// scaled by f0 / f1, into bf16 rows of stride rs; rows at or past S not written
+template <int D>
+__device__ __forceinline__ void store_wg_rows(uint16_t* g, const float (&acc)[D / 2], int r0,
+                                              int S, size_t rs, int t, float f0, float f1) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + 8 * half;
+    if (row >= S) continue;
+    const float f = half ? f1 : f0;
+    uint16_t* dst = g + (size_t)row * rs + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+          pack_bf16(acc[4 * j + 2 * half] * f, acc[4 * j + 2 * half + 1] * f);
+  }
+}
+
+// ---------------------------------------------------------------- forward
+// grid (ceil(S / 128), B * H): a block owns query rows q0 .. q0 + 127,
+// consumer warpgroup cw the rows 64 cw .. 64 cw + 63 of them.
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v, const int32_t* __restrict__ seg,
+                     uint16_t* __restrict__ o, float* __restrict__ lse, int H, int S,
+                     float scale_log2, int causal) {
+  using L = FwdSmem<D>;
+  extern __shared__ __align__(1024) uint8_t wg_smem[];
+  uint8_t* base = wg_smem + ((1024u - (hopper::smem_addr(wg_smem) & 1023u)) & 1023u);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(base + L::kBar);
+  uint64_t* full_k = qbar + 1;  // K and V run in rings of their own: a K stage is
+  uint64_t* empty_k = full_k + STAGES;  // free once its scores are taken, a V
+  uint64_t* full_v = empty_k + STAGES;  // stage once its P V is done
+  uint64_t* empty_v = full_v + STAGES;
+  int* sSeg = reinterpret_cast<int*>(base + L::kSeg);
+  const int tid = threadIdx.x;
+  const int tiles = (S + WG_ROWS - 1) / WG_ROWS;
+  int rank, bh;
+  block_tile(tiles, (int)(gridDim.x / tiles), rank, bh);
+  const int q0 = (tiles - 1 - rank) * WG_ROWS;  // longest causal rows first
+  const int b = bh / H, h = bh - (bh / H) * H;
+  const int kv_end = causal ? min(S, q0 + WG_ROWS) : S;
+  const int steps = (kv_end + FWD_KEYS - 1) / FWD_KEYS;
   const int32_t* segb = seg != nullptr ? seg + (size_t)b * S : nullptr;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wr = warp * 16;                 // the warp's first row in the tile
+  if (tid == 0) {
+    hopper::mbar_init(qbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full_k[s], 32);  // the producer warp's lanes (they write segment ids)
+      hopper::mbar_init(&empty_k[s], 8);  // one arrival per consumer warp
+      hopper::mbar_init(&full_v[s], 1);
+      hopper::mbar_init(&empty_v[s], 8);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
 
-  load_tile<BR, D>(sQ, q + base, q0, S, rs);
-  load_seg<BR>(sSegQ, segb, q0, S);
+  // (block values are broadcast from lane 0, so that ptxas sees the
+  // branches they take as warp-uniform: wgmma on a path it must treat as
+  // divergent is serialized)
+  const int wg = __shfl_sync(~0u, tid / 128, 0);
+  if (wg == 0) {  // the producer: warp 0 keeps the rings fed, K one tile ahead of V
+    hopper::setmaxnreg_dec<40>();
+    if (tid < 32) {
+      const int c0 = h * D;
+      if (tid == 0) {
+        hopper::mbar_expect_tx(qbar, L::kTile);
+        for (int j = 0; j < D / 64; ++j)
+          hopper::tma_load_3d(base + L::kQ + j * L::kBox, &map_q, qbar, c0 + 64 * j, q0, b);
+      }
+      auto load_k = [&](int i) {
+        const int s = i % STAGES, k0 = i * FWD_KEYS;
+        hopper::mbar_wait(&empty_k[s], ((i / STAGES) & 1) ^ 1);
+        if (segb != nullptr) {
+          for (int r = tid; r < FWD_KEYS; r += 32)
+            sSeg[s * FWD_KEYS + r] = k0 + r < S ? segb[k0 + r] : 0;
+        }
+        if (tid == 0) {
+          hopper::mbar_expect_tx(&full_k[s], L::kTile);
+          for (int j = 0; j < D / 64; ++j)
+            hopper::tma_load_3d(base + L::kK + s * L::kTile + j * L::kBox, &map_k, &full_k[s],
+                                c0 + 64 * j, k0, b);
+        } else {
+          hopper::mbar_arrive(&full_k[s]);
+        }
+      };
+      auto load_v = [&](int i) {
+        const int s = i % STAGES;
+        if (tid == 0) {
+          hopper::mbar_wait(&empty_v[s], ((i / STAGES) & 1) ^ 1);
+          hopper::mbar_expect_tx(&full_v[s], L::kTile);
+          for (int j = 0; j < D / 64; ++j)
+            hopper::tma_load_3d(base + L::kV + s * L::kTile + j * L::kBox, &map_v, &full_v[s],
+                                c0 + 64 * j, i * FWD_KEYS, b);
+        }
+      };
+      load_k(0);
+      for (int i = 0; i < steps; ++i) {
+        if (i + 1 < steps) load_k(i + 1);
+        load_v(i);
+      }
+    }
+    return;
+  }
 
+  hopper::setmaxnreg_inc<232>();
+  const int cw = wg - 1;
+  const int lane = tid & 31, warp = (tid & 127) >> 5, g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + 64 * cw + 16 * warp + g;  // this thread's rows: row0, row0 + 8
+  int seg_q[2] = {0, 0};
+  if (segb != nullptr) {
+    seg_q[0] = row0 < S ? segb[row0] : 0;
+    seg_q[1] = row0 + 8 < S ? segb[row0 + 8] : 0;
+  }
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
+  float acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float sc[FWD_KEYS / 2];
+  uint32_t p[FWD_KEYS / 16][4];
+  const uint32_t q_addr = hopper::smem_addr(base + L::kQ) + cw * 64 * BOX_ROW;
+  hopper::mbar_wait(qbar, 0);
 
-  const int kv_end = causal ? min(S, q0 + BR) : S;
-  for (int k0 = 0; k0 < kv_end; k0 += BC) {
-    __syncthreads();                        // the previous tile's readers are done
-    load_tile<BC, D>(sK, k + base, k0, S, rs);
-    load_tile<BC, D>(sV, v + base, k0, S, rs);
-    load_seg<BC>(sSegK, segb, k0, S);
-    __syncthreads();
-
-    float s[BC / 8][4];
+  // the online softmax of tile i's scores, in the exp2 domain: p (fp32)
+  // replaces them in sc, l and m move on, alpha rescales O; the mask only
+  // where the tile crosses the diagonal or S, or with segment ids
+  float alpha[2];
+  auto softmax = [&](int i) {
+    const int s = i % STAGES, k0 = i * FWD_KEYS;
+    const bool masked = __shfl_sync(
+        ~0u, (int)(segb != nullptr || k0 + FWD_KEYS > S || (causal && k0 + FWD_KEYS > q0)), 0);
+    // unmasked, the row max is taken over the raw scores (the scale is
+    // positive) and p = 2^(s scale - m) is one FFMA and one MUFU; masked,
+    // the scores are scaled first and set to NEG_INF where not valid
+    auto run = [&](auto mask) {
+      constexpr bool kMask = decltype(mask)::value;
+      float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int i = 0; i < BC / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+      for (int j = 0; j < FWD_KEYS / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * j + e];
+          if constexpr (kMask) {
+            const int row = row0 + 8 * (e >> 1), cl = 8 * j + 2 * t + (e & 1), col = k0 + cl;
+            bool valid = col < S;
+            if (causal) valid = valid && row >= col;
+            if (segb != nullptr) valid = valid && seg_q[e >> 1] == sSeg[s * FWD_KEYS + cl];
+            x = valid ? x * scale_log2 : kNegInf;
+            sc[4 * j + e] = x;
+          }
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_tile = quad_max(mx[r]);
+        const float m_new = fmaxf(m[r], kMask ? m_tile : m_tile * scale_log2);
+        alpha[r] = fast_exp2(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int i2 = 0; i2 < FWD_KEYS / 2; ++i2) {
+        const int r = (i2 >> 1) & 1;
+        const float pv = kMask ? fast_exp2(sc[i2] - m[r])
+                               : fast_exp2(fmaf(sc[i2], scale_log2, -m[r]));
+        sc[i2] = pv;
+        l[r] += pv;
+      }
+    };
+    if (masked) run(std::true_type{});
+    else run(std::false_type{});
+  };
+  // O *= alpha, and P (bf16) into the A fragments of the next P V
+  auto rescale_pack = [&]() {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[4 * j] *= alpha[0];
+      acc[4 * j + 1] *= alpha[0];
+      acc[4 * j + 2] *= alpha[1];
+      acc[4 * j + 3] *= alpha[1];
+    }
+    pack_a(p, sc);
+  };
+  // S = Q K^T: a 16-deep slice is 32 bytes on along the rows of one box
+  auto qk = [&](int i) {
+    hopper::mbar_wait(&full_k[i % STAGES], (i / STAGES) & 1);
+    const uint32_t k_addr = hopper::smem_addr(base + L::kK + i % STAGES * L::kTile);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      ldsm_x4(a, a_order<LD>(sQ, wr, kk * 16, lane));
-#pragma unroll
-      for (int nn = 0; nn < BC / 16; ++nn) {
-        uint32_t bb[4];
-        ldsm_x4(bb, b_order<LD>(sK, nn * 16, kk * 16, lane));
-        mma16816(s[2 * nn], a, bb[0], bb[1]);
-        mma16816(s[2 * nn + 1], a, bb[2], bb[3]);
-      }
+      const uint32_t off = kk / 4 * L::kBox + kk % 4 * 32;
+      hopper::wgmma_m64n128k16<0, 0>(sc, hopper::sw128_desc(q_addr + off),
+                                     hopper::sw128_desc(k_addr + off), kk > 0);
     }
+    hopper::wgmma_commit();
+  };
+  // O += P V: V is the MN-major B operand, [128 keys][64] boxes (the next
+  // 64 columns one box on), a 16-deep slice 16 rows (2048 bytes) down
+  auto pv = [&](int i) {
+    hopper::mbar_wait(&full_v[i % STAGES], (i / STAGES) & 1);
+    const uint32_t v_addr = hopper::smem_addr(base + L::kV + i % STAGES * L::kTile);
+#pragma unroll
+    for (int kk = 0; kk < FWD_KEYS / 16; ++kk)
+      wgmma_rs<D, 1>(acc, p[kk], hopper::sw128_mn_desc(v_addr + kk * 16 * BOX_ROW, L::kBox),
+                     true);
+    hopper::wgmma_commit();
+  };
+  auto release = [&](uint64_t* empty, int i) {
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[i % STAGES]);
+  };
+  // ping-pong: a consumer issues its products only after the other has
+  // issued its own (named barrier 1 + cw is consumer cw's turn), so one's
+  // softmax runs under the other's products; consumer 0 goes first
+  auto my_turn = [&]() { hopper::named_sync(1 + cw, 256); };
+  auto their_turn = [&]() { hopper::named_arrive(2 - cw, 256); };
+  if (cw == 1) hopper::named_arrive(1, 256);
 
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int nt = 0; nt < BC / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int rl = wr + g + (e >> 1) * 8;           // row within the tile
-        const int cl = nt * 8 + t * 2 + (e & 1);        // key within the tile
-        bool valid = k0 + cl < S;
-        if (causal) valid = valid && (q0 + rl >= k0 + cl);
-        if (segb != nullptr) valid = valid && (sSegQ[rl] == sSegK[cl]);
-        const float x = valid ? s[nt][e] * scale_log2 : kNegInf;
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = quad_max(mx[r]);
-      alpha[r] = exp2f(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int nt = 0; nt < BC / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[nt][e] - m[e >> 1]);
-        s[nt][e] = p;
-        l[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      acc[dt][0] *= alpha[0];
-      acc[dt][1] *= alpha[0];
-      acc[dt][2] *= alpha[1];
-      acc[dt][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int kk = 0; kk < BC / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dn = 0; dn < D / 16; ++dn) {
-        uint32_t bb[4];
-        ldsm_x4_t(bb, a_order<LD>(sV, kk * 16, dn * 16, lane));
-        mma16816(acc[2 * dn], a, bb[0], bb[1]);
-        mma16816(acc[2 * dn + 1], a, bb[2], bb[3]);
-      }
-    }
+  // Tile i's S = Q K^T and tile i - 1's O += P V are issued together, so
+  // that tile i's softmax runs while the tensor cores finish P V; O is
+  // rescaled and P repacked only once that P V is retired.
+  hopper::fence_regs(sc);
+  hopper::wgmma_fence();
+  my_turn();
+  qk(0);
+  their_turn();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(sc);
+  softmax(0);
+  release(empty_k, 0);
+  rescale_pack();
+  for (int i = 1; i < steps; ++i) {
+    hopper::fence_regs(sc);
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+    my_turn();
+    qk(i);
+    pv(i - 1);
+    their_turn();
+    hopper::wgmma_wait<1>();  // S of tile i is in; P V of tile i - 1 may still run
+    hopper::fence_regs(sc);
+    softmax(i);
+    release(empty_k, i);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    hopper::fence_regs(p);
+    release(empty_v, i - 1);
+    rescale_pack();
   }
+  hopper::fence_regs(acc);
+  hopper::wgmma_fence();
+  my_turn();
+  pv(steps - 1);
+  their_turn();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+  hopper::fence_regs(p);
 
   float inv[2];
 #pragma unroll
@@ -194,132 +454,206 @@ flash_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     const float lt = quad_sum(l[r]);
     const float l_safe = lt == 0.f ? 1.f : lt;
     inv[r] = 1.f / l_safe;
-    const int row = q0 + wr + g + r * 8;
+    const int row = row0 + 8 * r;
     if (t == 0 && row < S) lse[(size_t)bh * S + row] = m[r] * kLn2 + logf(l_safe);
   }
-  store_rows<D>(o + base, acc, q0 + wr + g, S, rs, t, inv[0], inv[1]);
+  const size_t rs = (size_t)H * D;
+  store_wg_rows<D>(o + (size_t)b * S * rs + (size_t)h * D, acc, row0, S, rs, t, inv[0], inv[1]);
 }
 
 // ---------------------------------------------------------- backward dK/dV
-// grid (ceil(S / 64), B * H); 4 warps, each owning 16 keys; the block walks
-// the query tiles 32 rows at a time.
+// grid (ceil(S / 128), B * H): a block owns keys k0 .. k0 + 127, consumer
+// warpgroup cw the keys 64 cw .. 64 cw + 63 of them, and walks the query
+// tiles 64 rows at a time (causal: from k0 on).
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                     const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     const int32_t* __restrict__ seg, uint16_t* __restrict__ dk,
-                     uint16_t* __restrict__ dv, int H, int S, float scale_log2, float sm_scale,
-                     int causal) {
-  constexpr int BC = 64, BQ = 32, LD = D + kPad;
-  extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* sK = smem;
-  uint16_t* sV = sK + BC * LD;
-  uint16_t* sQ = sV + BC * LD;
-  uint16_t* sdO = sQ + BQ * LD;
-  __shared__ float sLse[BQ];
-  __shared__ float sDelta[BQ];
-  __shared__ int sSegQ[BQ];
-  __shared__ int sSegK[BC];
-
-  const int k0 = blockIdx.x * BC;
-  const int bh = blockIdx.y, b = bh / H, h = bh - (bh / H) * H;
-  const size_t rs = (size_t)H * D;
-  const size_t base = (size_t)b * S * rs + (size_t)h * D;
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v,
+                         const __grid_constant__ CUtensorMap map_do,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         const int32_t* __restrict__ seg, uint16_t* __restrict__ dk,
+                         uint16_t* __restrict__ dv, int H, int S, float scale_log2,
+                         float sm_scale, int causal) {
+  using L = DkvSmem<D>;
+  extern __shared__ __align__(1024) uint8_t wg_smem[];
+  uint8_t* base = wg_smem + ((1024u - (hopper::smem_addr(wg_smem) & 1023u)) & 1023u);
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(base + L::kBar);
+  uint64_t* full = kvbar + 1;
+  uint64_t* empty = full + STAGES;
+  const int tid = threadIdx.x;
+  const int tiles = (S + WG_ROWS - 1) / WG_ROWS;
+  int rank, bh;
+  block_tile(tiles, (int)(gridDim.x / tiles), rank, bh);
+  const int k0 = rank * WG_ROWS;  // causal: the first key tiles see the most queries
+  const int b = bh / H, h = bh - (bh / H) * H;
+  const int qs = causal ? k0 : 0;       // causal: query rows before k0 see none of these keys
+  const int steps = (S - qs + DKV_QROWS - 1) / DKV_QROWS;
   const int32_t* segb = seg != nullptr ? seg + (size_t)b * S : nullptr;
-  const float* lseb = lse + (size_t)bh * S;
-  const float* deltab = delta + (size_t)bh * S;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wr = warp * 16;
+  if (tid == 0) {
+    hopper::mbar_init(kvbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 32);  // the producer warp's lanes
+      hopper::mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
 
-  load_tile<BC, D>(sK, k + base, k0, S, rs);
-  load_tile<BC, D>(sV, v + base, k0, S, rs);
-  load_seg<BC>(sSegK, segb, k0, S);
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    dk_acc[i][0] = dk_acc[i][1] = dk_acc[i][2] = dk_acc[i][3] = 0.f;
-    dv_acc[i][0] = dv_acc[i][1] = dv_acc[i][2] = dv_acc[i][3] = 0.f;
+  const int wg = __shfl_sync(~0u, tid / 128, 0);
+  if (wg == 0) {  // the producer: warp 0 keeps the ring fed
+    hopper::setmaxnreg_dec<40>();
+    if (tid < 32) {
+      const int c0 = h * D;
+      const float* lseb = lse + (size_t)bh * S;
+      const float* deltab = delta + (size_t)bh * S;
+      if (tid == 0) {
+        hopper::mbar_expect_tx(kvbar, 2 * L::kKTile);
+        for (int j = 0; j < D / 64; ++j) {
+          hopper::tma_load_3d(base + L::kK + j * L::kKBox, &map_k, kvbar, c0 + 64 * j, k0, b);
+          hopper::tma_load_3d(base + L::kV + j * L::kKBox, &map_v, kvbar, c0 + 64 * j, k0, b);
+        }
+      }
+      for (int i = 0; i < steps; ++i) {
+        const int s = i % STAGES, q0 = qs + i * DKV_QROWS;
+        hopper::mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+        float* st_lse = reinterpret_cast<float*>(base + L::kStats + s * L::kStatsBytes);
+        float* st_delta = st_lse + DKV_QROWS;
+        int* st_seg = reinterpret_cast<int*>(st_delta + DKV_QROWS);
+        for (int r = tid; r < DKV_QROWS; r += 32) {
+          const int q = q0 + r;
+          const bool in = q < S;
+          st_lse[r] = in ? lseb[q] * kLog2e : 0.f;
+          st_delta[r] = in ? deltab[q] : 0.f;
+          st_seg[r] = in && segb != nullptr ? segb[q] : 0;
+        }
+        if (tid == 0) {
+          uint8_t* st = base + L::kStage + s * 2 * L::kQTile;
+          hopper::mbar_expect_tx(&full[s], 2 * L::kQTile);
+          for (int j = 0; j < D / 64; ++j) {
+            hopper::tma_load_3d(st + j * L::kQBox, &map_q, &full[s], c0 + 64 * j, q0, b);
+            hopper::tma_load_3d(st + L::kQTile + j * L::kQBox, &map_do, &full[s], c0 + 64 * j,
+                                q0, b);
+          }
+        } else {
+          hopper::mbar_arrive(&full[s]);
+        }
+      }
+    }
+    return;
   }
 
-  // causal: query rows before k0 see none of this block's keys
-  for (int q0 = causal ? k0 : 0; q0 < S; q0 += BQ) {
-    __syncthreads();
-    load_tile<BQ, D>(sQ, q + base, q0, S, rs);
-    load_tile<BQ, D>(sdO, dout + base, q0, S, rs);
-    load_seg<BQ>(sSegQ, segb, q0, S);
-    for (int i = threadIdx.x; i < BQ; i += kThreads) {
-      const bool in = q0 + i < S;
-      sLse[i] = in ? lseb[q0 + i] * kLog2e : 0.f;
-      sDelta[i] = in ? deltab[q0 + i] : 0.f;
-    }
-    __syncthreads();
+  hopper::setmaxnreg_inc<232>();
+  const int cw = wg - 1;
+  const int lane = tid & 31, warp = (tid & 127) >> 5, g = lane >> 2, t = lane & 3;
+  const int key0 = k0 + 64 * cw + 16 * warp + g;  // this thread's keys: key0, key0 + 8
+  int seg_k[2] = {0, 0};
+  if (segb != nullptr) {
+    seg_k[0] = key0 < S ? segb[key0] : 0;
+    seg_k[1] = key0 + 8 < S ? segb[key0 + 8] : 0;
+  }
+  float dk_acc[D / 2], dv_acc[D / 2];  // the first step's first wgmma overwrites them
+  float sc[DKV_QROWS / 2], dp[DKV_QROWS / 2];
+  uint32_t pa[DKV_QROWS / 16][4], da[DKV_QROWS / 16][4];
+  const uint32_t k_addr = hopper::smem_addr(base + L::kK) + cw * 64 * BOX_ROW;
+  const uint32_t v_addr = hopper::smem_addr(base + L::kV) + cw * 64 * BOX_ROW;
+  // ping-pong, as in the forward: the consumers take turns issuing
+  auto my_turn = [&]() { hopper::named_sync(1 + cw, 256); };
+  auto their_turn = [&]() { hopper::named_arrive(2 - cw, 256); };
+  if (cw == 1) hopper::named_arrive(1, 256);
+  hopper::mbar_wait(kvbar, 0);
 
-    // P^T = exp(K Q^T * scale - lse): this warp's 16 keys x BQ queries
-    float p[BQ / 8][4], dp[BQ / 8][4];
+  for (int i = 0; i < steps; ++i) {
+    const int s = i % STAGES, q0 = qs + i * DKV_QROWS;
+    hopper::mbar_wait(&full[s], (i / STAGES) & 1);
+    const uint32_t q_addr = hopper::smem_addr(base + L::kStage + s * 2 * L::kQTile);
+    const uint32_t do_addr = q_addr + L::kQTile;
+    const float* st_lse = reinterpret_cast<const float*>(base + L::kStats + s * L::kStatsBytes);
+    const float* st_delta = st_lse + DKV_QROWS;
+    const int* st_seg = reinterpret_cast<const int*>(st_delta + DKV_QROWS);
+
+    // S^T = K Q^T and dP^T = V dO^T, both operands K-major
+    hopper::fence_regs(sc);
+    hopper::fence_regs(dp);
+    hopper::wgmma_fence();
+    my_turn();
 #pragma unroll
-    for (int i = 0; i < BQ / 8; ++i) {
-      p[i][0] = p[i][1] = p[i][2] = p[i][3] = 0.f;
-      dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.f;
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t ok = kk / 4 * L::kKBox + kk % 4 * 32, oq = kk / 4 * L::kQBox + kk % 4 * 32;
+      hopper::wgmma_m64n64k16<0, 0>(sc, hopper::sw128_desc(k_addr + ok),
+                                    hopper::sw128_desc(q_addr + oq), kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4], av[4];
-      ldsm_x4(a, a_order<LD>(sK, wr, kk * 16, lane));
-      ldsm_x4(av, a_order<LD>(sV, wr, kk * 16, lane));
-#pragma unroll
-      for (int nn = 0; nn < BQ / 16; ++nn) {
-        uint32_t bq[4], bo[4];
-        ldsm_x4(bq, b_order<LD>(sQ, nn * 16, kk * 16, lane));
-        mma16816(p[2 * nn], a, bq[0], bq[1]);
-        mma16816(p[2 * nn + 1], a, bq[2], bq[3]);
-        // dP^T = V dO^T
-        ldsm_x4(bo, b_order<LD>(sdO, nn * 16, kk * 16, lane));
-        mma16816(dp[2 * nn], av, bo[0], bo[1]);
-        mma16816(dp[2 * nn + 1], av, bo[2], bo[3]);
-      }
+      const uint32_t ok = kk / 4 * L::kKBox + kk % 4 * 32, oq = kk / 4 * L::kQBox + kk % 4 * 32;
+      hopper::wgmma_m64n64k16<0, 0>(dp, hopper::sw128_desc(v_addr + ok),
+                                    hopper::sw128_desc(do_addr + oq), kk > 0);
     }
+    hopper::wgmma_commit();
+    their_turn();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    hopper::fence_regs(dp);
+
+    // P^T = valid ? exp(s - lse) : 0 and dS^T = P^T (dP^T - delta) sm_scale,
+    // p in fp32 until both are rounded to bf16
+    const bool masked = __shfl_sync(
+        ~0u, (int)(segb != nullptr || q0 + DKV_QROWS > S || k0 + WG_ROWS > S ||
+                   (causal && q0 < k0 + WG_ROWS)), 0);
+    auto probs = [&](auto mask) {
 #pragma unroll
-    for (int nt = 0; nt < BQ / 8; ++nt) {
+      for (int j = 0; j < DKV_QROWS / 8; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kl = wr + g + (e >> 1) * 8;           // key within the tile
-        const int ql = nt * 8 + t * 2 + (e & 1);        // query within the tile
-        bool valid = (k0 + kl < S) && (q0 + ql < S);
-        if (causal) valid = valid && (q0 + ql >= k0 + kl);
-        if (segb != nullptr) valid = valid && (sSegQ[ql] == sSegK[kl]);
-        const float pv = valid ? exp2f(p[nt][e] * scale_log2 - sLse[ql]) : 0.f;
-        p[nt][e] = pv;
-        dp[nt][e] = pv * (dp[nt][e] - sDelta[ql]) * sm_scale;   // dS^T
+        for (int e = 0; e < 4; ++e) {
+          const int ql = 8 * j + 2 * t + (e & 1);
+          float pv = fast_exp2(fmaf(sc[4 * j + e], scale_log2, -st_lse[ql]));
+          if constexpr (decltype(mask)::value) {
+            const int key = key0 + 8 * (e >> 1), q = q0 + ql;
+            bool valid = key < S && q < S;
+            if (causal) valid = valid && q >= key;
+            if (segb != nullptr) valid = valid && st_seg[ql] == seg_k[e >> 1];
+            if (!valid) pv = 0.f;
+          }
+          sc[4 * j + e] = pv;
+          dp[4 * j + e] = pv * (dp[4 * j + e] - st_delta[ql]) * sm_scale;
+        }
       }
-    }
-    // dV += P^T dO and dK += dS^T Q, contracting over the BQ queries
+    };
+    if (masked) probs(std::true_type{});
+    else probs(std::false_type{});
+    pack_a(pa, sc);
+    pack_a(da, dp);
+
+    // dV += P^T dO and dK += dS^T Q: dO and Q are the MN-major B operands,
+    // read from the same stage, [64 queries][64] boxes (the next 64
+    // columns one box on), a 16-deep slice 16 rows (2048 bytes) down
+    hopper::fence_regs(dv_acc);
+    hopper::fence_regs(dk_acc);
+    hopper::wgmma_fence();
+    my_turn();
 #pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      const uint32_t ap[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                              pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                              pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                              pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-      const uint32_t as[4] = {pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
-                              pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
-                              pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-                              pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+    for (int kk = 0; kk < DKV_QROWS / 16; ++kk)
+      wgmma_rs<D, 1>(dv_acc, pa[kk],
+                     hopper::sw128_mn_desc(do_addr + kk * 16 * BOX_ROW, L::kQBox), i > 0 || kk > 0);
 #pragma unroll
-      for (int dn = 0; dn < D / 16; ++dn) {
-        uint32_t bo[4], bq[4];
-        ldsm_x4_t(bo, a_order<LD>(sdO, kk * 16, dn * 16, lane));
-        mma16816(dv_acc[2 * dn], ap, bo[0], bo[1]);
-        mma16816(dv_acc[2 * dn + 1], ap, bo[2], bo[3]);
-        ldsm_x4_t(bq, a_order<LD>(sQ, kk * 16, dn * 16, lane));
-        mma16816(dk_acc[2 * dn], as, bq[0], bq[1]);
-        mma16816(dk_acc[2 * dn + 1], as, bq[2], bq[3]);
-      }
-    }
+    for (int kk = 0; kk < DKV_QROWS / 16; ++kk)
+      wgmma_rs<D, 1>(dk_acc, da[kk],
+                     hopper::sw128_mn_desc(q_addr + kk * 16 * BOX_ROW, L::kQBox), i > 0 || kk > 0);
+    hopper::wgmma_commit();
+    their_turn();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dv_acc);
+    hopper::fence_regs(dk_acc);
+    hopper::fence_regs(pa);
+    hopper::fence_regs(da);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
   }
-  store_rows<D>(dk + base, dk_acc, k0 + wr + g, S, rs, t, 1.f, 1.f);
-  store_rows<D>(dv + base, dv_acc, k0 + wr + g, S, rs, t, 1.f, 1.f);
+
+  const size_t rs = (size_t)H * D;
+  const size_t off = (size_t)b * S * rs + (size_t)h * D;
+  store_wg_rows<D>(dk + off, dk_acc, key0, S, rs, t, 1.f, 1.f);
+  store_wg_rows<D>(dv + off, dv_acc, key0, S, rs, t, 1.f, 1.f);
 }
 
 // -------------------------------------------------------------- backward dQ
@@ -438,17 +772,33 @@ bool bad_shape(int B, int H, int S, int D) {
   return B <= 0 || H <= 0 || S <= 0 || (D != 64 && D != 128) || (long long)B * H > 65535;
 }
 
+// a tensor map over one bf16 [B, S, H, D] tensor as (H * D, S, B): boxes of
+// 64 values of one head's row by `rows` rows, 128-byte swizzle; rows at or
+// past S (within each batch row) read as zeros
+template <int D>
+bool bshd_map(CUtensorMap* map, const void* base, int B, int H, int S, int rows) {
+  const uint64_t dims[3] = {(uint64_t)H * D, (uint64_t)S, (uint64_t)B};
+  const uint64_t pitch[2] = {(uint64_t)H * D * 2, (uint64_t)S * H * D * 2};
+  const uint32_t box[3] = {64, (uint32_t)rows, 1};
+  return hopper::encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims, pitch, box,
+                            CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
 template <int D>
 cudaError_t fwd(const void* q, const void* k, const void* v, const void* seg, void* o,
                 void* lse, int B, int H, int S, float sm_scale, int causal, cudaStream_t st) {
-  const size_t smem = sizeof(uint16_t) * 3 * 64 * (D + kPad);
+  CUtensorMap mq, mk, mv;
+  if (!bshd_map<D>(&mq, q, B, H, S, WG_ROWS) || !bshd_map<D>(&mk, k, B, H, S, FWD_KEYS) ||
+      !bshd_map<D>(&mv, v, B, H, S, FWD_KEYS))
+    return cudaErrorInvalidValue;
+  const int smem = FwdSmem<D>::kBytes;
   cudaError_t err = launch_cfg(flash_fwd_kernel<D>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + 63) / 64, B * H);
-  flash_fwd_kernel<D><<<grid, kThreads, smem, st>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<const int32_t*>(seg),
-      static_cast<uint16_t*>(o), static_cast<float*>(lse), H, S, sm_scale * kLog2e, causal);
+  const long long grid = (long long)((S + WG_ROWS - 1) / WG_ROWS) * B * H;  // block_tile's order
+  if (grid > INT_MAX) return cudaErrorInvalidValue;
+  flash_fwd_kernel<D><<<(int)grid, WG_THREADS, smem, st>>>(
+      mq, mk, mv, static_cast<const int32_t*>(seg), static_cast<uint16_t*>(o),
+      static_cast<float*>(lse), H, S, sm_scale * kLog2e, causal);
   return cudaGetLastError();
 }
 
@@ -456,14 +806,17 @@ template <int D>
 cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* delta, const void* seg, void* dk, void* dv,
                     int B, int H, int S, float sm_scale, int causal, cudaStream_t st) {
-  const size_t smem = sizeof(uint16_t) * (2 * 64 + 2 * 32) * (D + kPad);
+  CUtensorMap mq, mk, mv, mdo;
+  if (!bshd_map<D>(&mq, q, B, H, S, DKV_QROWS) || !bshd_map<D>(&mk, k, B, H, S, WG_ROWS) ||
+      !bshd_map<D>(&mv, v, B, H, S, WG_ROWS) || !bshd_map<D>(&mdo, dout, B, H, S, DKV_QROWS))
+    return cudaErrorInvalidValue;
+  const int smem = DkvSmem<D>::kBytes;
   cudaError_t err = launch_cfg(flash_bwd_dkv_kernel<D>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + 63) / 64, B * H);
-  flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, st>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<const uint16_t*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
+  const long long grid = (long long)((S + WG_ROWS - 1) / WG_ROWS) * B * H;  // block_tile's order
+  if (grid > INT_MAX) return cudaErrorInvalidValue;
+  flash_bwd_dkv_kernel<D><<<(int)grid, WG_THREADS, smem, st>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<const int32_t*>(seg), static_cast<uint16_t*>(dk), static_cast<uint16_t*>(dv),
       H, S, sm_scale * kLog2e, sm_scale, causal);
   return cudaGetLastError();
@@ -491,8 +844,10 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* dout
 // Plain C entry points for ctypes. Pointers are device pointers to
 // contiguous tensors: q/k/v/o/dout/dq/dk/dv bf16 [B, S, H, D]; lse/delta
 // fp32 [B, H, S]; seg int32 [B, S] or null. The wrapper in
-// ops/kernels/flash_attention.py checks shapes, types and alignment before
-// calling. Each returns cudaGetLastError() of its launch.
+// ops/kernels/flash_attention.py checks shapes, types and alignment (TMA
+// reads from 16-byte aligned bases) before calling. Each returns
+// cudaGetLastError() of its launch, or cudaErrorInvalidValue where the
+// shape is refused or libcuda refuses a tensor map.
 extern "C" int ds_flash_fwd_bf16(const void* q, const void* k, const void* v, const void* seg,
                                  void* o, void* lse, int B, int H, int S, int D, float sm_scale,
                                  int causal, void* stream) {

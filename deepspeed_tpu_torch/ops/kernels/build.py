@@ -73,6 +73,24 @@ def build(source):
     return out, proc.stdout, seconds
 
 
+def sass_counts(source, ops):
+    """How often each SASS opcode in ``ops`` occurs in each kernel of
+    ``source``'s library (built on first use), read with the toolkit's
+    ``cuobjdump -sass`` → ``{mangled kernel name: {op: count}}``. Shows
+    which instructions a design really issues (``HGMMA``: wgmma)."""
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    proc = subprocess.run([tool, "-sass", str(build(source)[0])], stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise KernelBuildError(f"cuobjdump failed on {source}:\n{proc.stdout}")
+    out = {}
+    for chunk in proc.stdout.split("Function : ")[1:]:
+        words = chunk.split()
+        out[words[0]] = {op: words.count(op) + sum(w.startswith(op + ".") for w in words)
+                         for op in ops}
+    return out
+
+
 def load(source):
     """The ``ctypes.CDLL`` of ``source``, building it on first use."""
     lib = _loaded.get(source)

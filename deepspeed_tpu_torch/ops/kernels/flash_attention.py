@@ -22,7 +22,13 @@ plain version on every device, as the JAX package sends it to
 ``_reference`` even on the TPU: an additive [S, S] operand leaves nothing
 for blocking to save. The TPU kernel's 1024-row blocks, 128-lane
 replication of lse/delta/segment ids and [BH, S, D] transposes do not
-carry over.
+carry over. The forward and dK/dV kernels are wgmma designs fed by a TMA
+ring: the forward's block owns 128 query rows and streams 128-key tiles,
+the dK/dV block owns 128 keys and streams 64-row query tiles; dQ keeps
+the first design (mma.sync, 64 x 64 tiles). TMA reads each tensor in
+place through a 3-D tensor map, (H * D, S, B), which needs 16-byte
+aligned bases and 16-byte rows (any S): ``_check``'s alignment and head
+dims are exactly that.
 
 :func:`flash_fwd_ref`, :func:`flash_bwd_dkv_ref` and
 :func:`flash_bwd_dq_ref` are the plain versions of each kernel, in fp32
@@ -144,7 +150,8 @@ def _fn(name, n_ptr, n_int):
 def _check(device, **tensors):
     """bf16 [B, S, H, D] q/k/v/o/do (all one shape, D in HEAD_DIMS), fp32
     [B, H, S] lse/delta, int32 [B, S] segment ids, every tensor contiguous,
-    16-byte aligned and on ``device``."""
+    16-byte aligned (TMA's base alignment; D in HEAD_DIMS makes each
+    tensor map's row pitch a multiple of 16 bytes) and on ``device``."""
     shape = tensors["q"].shape
     if len(shape) != 4:
         raise ValueError(f"want q [B, S, H, D], got {tuple(shape)}")

@@ -30,7 +30,10 @@ at every block size and head dim, per-head layouts and a layout with an
 empty row and a key block no row admits (zeros there, lse ``NEG_INF``),
 each check rejecting a zeroed tile, and a 2-layer BERT ``train_batch``
 through the kernels must match the same step pinned to the plain
-versions. K5's input gradient, its forward over a bf16 stack and its
+versions. The flash forward and dK/dV kernels are wgmma designs: one-hot
+operands pin each operand's layout (exact means of a one-hot v, a one-hot
+score selecting one key, one-hot do and q landing at one column of dv and
+dk), and the built library's SASS shows wgmma in both. K5's input gradient, its forward over a bf16 stack and its
 weight gradient must take the design their shape predicates name (the
 wgmma designs wherever TMA can read the operands, at 64-row tiles for the
 forward and dW), give the same bits on a second run, and reproduce their
@@ -145,12 +148,24 @@ def test_engine_on_card_matches_plain_attention_engine(cuda, max_tokens, max_seq
 # within 1e-3 absolute (fp32, exp2 vs exp and summation order).
 ROW_TOL = 6.0
 FLASH_CASES = {
-    # name: (B, S, H, D, causal, n_segments)
+    # name: (B, S, H, D, causal, segments: a count of random ones, or the cuts)
     "causal_d128": (2, 256, 2, 128, True, 0),
     "causal_ragged_s": (1, 200, 3, 128, True, 0),
     "noncausal_d64": (2, 130, 2, 64, False, 0),
     "segments_causal": (2, 192, 2, 64, True, 3),
     "segments_noncausal": (1, 160, 2, 128, False, 4),
+    # the wgmma designs' edges: S ragged against their 128-row tiles and
+    # below one tile, whole 128-key tiles masked for some rows by segment
+    # ids, both head dims, causal and not, B·H > 1 with H > 1
+    "causal_s1000_d128": (1, 1000, 2, 128, True, 0),
+    "noncausal_s2049_d128": (1, 2049, 2, 128, False, 0),
+    "causal_s2049_d64": (2, 2049, 2, 64, True, 0),
+    "causal_s37_d128": (2, 37, 3, 128, True, 0),
+    "noncausal_s37_d64": (1, 37, 2, 64, False, 0),
+    "segments_tile_masked_causal_d128": (2, 384, 2, 128, True, (150, 300)),
+    "segments_tile_masked_noncausal_d64": (1, 320, 3, 64, False, (130, 260)),
+    "causal_s512_d64_h4": (2, 512, 4, 64, True, 0),
+    "noncausal_s512_d128": (2, 512, 2, 128, False, 0),
 }
 
 
@@ -162,8 +177,11 @@ def _flash_inputs(cuda, B, S, H, D, n_seg, seed=0):
 
     seg = None
     if n_seg:
-        rng = np.random.RandomState(seed)
-        cuts = np.sort(rng.choice(np.arange(1, S), n_seg - 1, replace=False))
+        if isinstance(n_seg, tuple):
+            cuts = np.array(n_seg)
+        else:
+            rng = np.random.RandomState(seed)
+            cuts = np.sort(rng.choice(np.arange(1, S), n_seg - 1, replace=False))
         seg = torch.from_numpy(np.searchsorted(cuts, np.arange(S), side="right")
                                .astype(np.int32)).repeat(B, 1).to(cuda)
     return rand(B, S, H, D), rand(B, S, H, D), rand(B, S, H, D), rand(B, S, H, D), seg
@@ -217,6 +235,131 @@ def test_flash_attention_autograd_matches_reference_grads(cuda, case):
     errs.update({n: ((a.grad.float() - b.grad).norm() / b.grad.norm()).item()
                  for n, a, b in zip(("dq", "dk", "dv"), leaves, ref_leaves)})
     assert errs["o"] <= ROW_TOL and max(errs[n] for n in ("dq", "dk", "dv")) <= 2.0 ** -7, errs
+
+
+# One-hot operands pin each operand's layout in the wgmma designs (which
+# key row and which head-dim column of each swizzled box a product reads):
+# with q = k = 0 every admitted score is 0, so p is exactly uniform over
+# the admitted keys, and a single 1 in v (forward) or do (dK/dV) lands at
+# one (row, column) of the output, zeros everywhere else.
+FLASH_ONE_HOT = [  # (D, causal, row, column): a row past 128 and a column past 64
+    (128, True, 200, 100), (128, False, 5, 64), (64, True, 130, 63), (64, False, 70, 0)]
+
+
+def _one_hot(cuda, shape, row, col):
+    x = torch.zeros(shape, dtype=torch.bfloat16, device=cuda)
+    x[:, row, :, col] = 1
+    return x
+
+
+def _admitted(S, causal, row, cuda):
+    """Keys a query row admits (forward) and query rows a key is admitted
+    by (dK/dV), as [S] bool over the other index."""
+    idx = torch.arange(S, device=cuda)
+    return (idx <= row) if causal else torch.ones(S, dtype=torch.bool, device=cuda), \
+        (idx >= row) if causal else torch.ones(S, dtype=torch.bool, device=cuda)
+
+
+@pytest.mark.parametrize("D, causal, key, col", FLASH_ONE_HOT)
+def test_flash_fwd_one_hot_v_gives_exact_means(cuda, D, causal, key, col):
+    """o[i, col] = 1 / (keys row i admits) where row i admits the key, else
+    0, bit for bit: both sides round the fp32 quotient once."""
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    B, S, H = 2, 256, 2
+    q = torch.zeros(B, S, H, D, dtype=torch.bfloat16, device=cuda)
+    v = _one_hot(cuda, (B, S, H, D), key, col)
+    o, lse = fa.flash_fwd(q, q, v, None, causal)
+    idx = torch.arange(S, device=cuda, dtype=torch.float32)
+    count = idx + 1 if causal else torch.full_like(idx, S)
+    sees = idx >= key if causal else torch.ones(S, dtype=torch.bool, device=cuda)
+    want = torch.zeros(B, S, H, D, device=cuda)
+    want[:, :, :, col] = torch.where(sees, 1.0 / count, 0.0)[None, :, None]
+    assert torch.equal(o, want.to(torch.bfloat16))
+    assert (lse - count.log()[None, None]).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("D, causal, key, col", FLASH_ONE_HOT)
+def test_flash_fwd_one_hot_scores_select_one_key(cuda, D, causal, key, col):
+    """q's column ``col`` large and k's row ``key`` one-hot in that column:
+    a row that admits the key puts all of p on it (the others weigh
+    e^-30), so o's row is v[key] bit for bit; rows before a causal key
+    take the plain version's mean."""
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    B, S, H = 2, 256, 2
+    g = torch.Generator(device=cuda).manual_seed(key)
+    q = torch.zeros(B, S, H, D, dtype=torch.bfloat16, device=cuda)
+    q[..., col] = 30 * D ** 0.5
+    k = _one_hot(cuda, (B, S, H, D), key, col)
+    v = torch.randn(B, S, H, D, generator=g, device=cuda).to(torch.bfloat16)
+    o, lse = fa.flash_fwd(q, k, v, None, causal)
+    o_ref, lse_ref = fa.flash_fwd_ref(q.float(), k.float(), v.float(), None, causal)
+    torch.cuda.synchronize()
+    assert fa.row_scaled_err(o, o_ref) <= ROW_TOL
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    rows = slice(key, None) if causal else slice(None)
+    assert torch.equal(o[:, rows], v[:, key:key + 1].expand_as(o[:, rows]))
+
+
+@pytest.mark.parametrize("D, causal, query, col", FLASH_ONE_HOT)
+def test_flash_dkv_one_hot_do_pins_dv(cuda, D, causal, query, col):
+    """q = k = 0 and do one-hot at (query, col): dv is p(query, key) in
+    column ``col`` of the keys the query admits and exactly 0 elsewhere;
+    dk is exactly 0 (q is)."""
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    B, S, H = 2, 256, 2
+    g = torch.Generator(device=cuda).manual_seed(query)
+    q = torch.zeros(B, S, H, D, dtype=torch.bfloat16, device=cuda)
+    v = torch.randn(B, S, H, D, generator=g, device=cuda).to(torch.bfloat16)
+    do = _one_hot(cuda, (B, S, H, D), query, col)
+    o_ref, lse = fa.flash_fwd_ref(q.float(), q.float(), v.float(), None, causal)
+    delta = fa.flash_delta(o_ref.to(torch.bfloat16), do)
+    dk, dv = fa.flash_bwd_dkv(q, q, v, do, lse, delta, None, causal)
+    dk_ref, dv_ref = fa.flash_bwd_dkv_ref(q, q, v, do, lse, delta, None, causal)
+    torch.cuda.synchronize()
+    keys, _ = _admitted(S, causal, query, cuda)
+    mask = torch.zeros(B, S, H, D, dtype=torch.bool, device=cuda)
+    mask[:, :, :, col] = keys[None, :, None]
+    assert (dv[~mask] == 0).all() and (dv[mask] != 0).all()
+    assert fa.row_scaled_err(dv, dv_ref) <= ROW_TOL
+    assert (dk == 0).all() and (dk_ref == 0).all()
+
+
+@pytest.mark.parametrize("D, causal, query, col", FLASH_ONE_HOT)
+def test_flash_dkv_one_hot_q_pins_dk(cuda, D, causal, query, col):
+    """k = 0 and q one-hot at (query, col): dk[key] = ds(query, key) q[query]
+    lies in column ``col`` of the keys the query admits, 0 elsewhere."""
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    B, S, H = 2, 256, 2
+    g = torch.Generator(device=cuda).manual_seed(query + 1)
+    q = _one_hot(cuda, (B, S, H, D), query, col)
+    k = torch.zeros_like(q)
+    v, do = (torch.randn(B, S, H, D, generator=g, device=cuda).to(torch.bfloat16)
+             for _ in range(2))
+    o_ref, lse = fa.flash_fwd_ref(q.float(), k.float(), v.float(), None, causal)
+    delta = fa.flash_delta(o_ref.to(torch.bfloat16), do)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, None, causal)
+    dk_ref, dv_ref = fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, None, causal)
+    torch.cuda.synchronize()
+    keys, _ = _admitted(S, causal, query, cuda)
+    outside = torch.ones(B, S, H, D, dtype=torch.bool, device=cuda)
+    outside[:, :, :, col] = ~keys[None, :, None]
+    assert (dk[outside] == 0).all() and (dk_ref[outside] == 0).all()
+    assert fa.row_scaled_err(dk, dk_ref) <= ROW_TOL
+    assert fa.row_scaled_err(dv, dv_ref) <= ROW_TOL
+
+
+def test_flash_library_fwd_and_dkv_kernels_are_wgmma(cuda):
+    """The built library's forward and dK/dV kernels (both head dims) issue
+    wgmma (HGMMA in their SASS) and keep nothing in local memory; dQ is
+    the mma.sync design (HMMA, no HGMMA)."""
+    from deepspeed_tpu_torch.ops.kernels import build
+    per = build.sass_counts("flash_attention.cu", ("HGMMA", "HMMA", "LDL", "STL"))
+    kinds = {k: [c for n, c in per.items() if k in n] for k in
+             ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")}
+    assert all(len(v) == 2 for v in kinds.values()), per
+    for k in ("flash_fwd_kernel", "flash_bwd_dkv_kernel"):
+        assert all(c["HGMMA"] > 0 and c["LDL"] == c["STL"] == 0 for c in kinds[k]), per
+    assert all(c["HGMMA"] == 0 and c["HMMA"] > 0 for c in kinds["flash_bwd_dq_kernel"]), per
 
 
 def test_flash_rejects_what_it_cannot_take(cuda):
