@@ -11,8 +11,8 @@ each of which fails the run if it fails:
    and CUDA versions;
 2. build   — builds every CUDA kernel of the port from ``csrc/`` (one
    ``nvcc`` per source) and prints what ptxas reports, then reads K1's
-   designs from the library's SASS (``cuobjdump``): the forward and dK/dV
-   kernels must issue wgmma (HGMMA), dQ is mma.sync;
+   designs from the library's SASS (``cuobjdump``): the forward, dK/dV
+   and dQ kernels must all issue wgmma (HGMMA);
 3. kernels — calls each kernel's wrapper at Mistral-7B attention shapes
    (H=32, Hkv=8, Dh=128, block 32, bf16): the serving run's decode and
    prefill steps, a decode batch over contexts 1..4096, a 512-token
@@ -63,7 +63,9 @@ each of which fails the run if it fails:
    causal; RMS on [8192, 2048]) and beside them S=1000 and S=2049 (not
    multiples of the 128-row tiles), 4 packed segments, non-causal, H=32,
    Dh=64, and the dense BERT comparison's shape (B=4, S=4096, H=16, Dh=64,
-   non-causal), all bf16; it prints the launches by design.
+   non-causal), all bf16 (RMS also at Mixtral's width, [4096, 4096], and
+   in fp32, and at an odd shape); it prints the launches by design, and
+   for each case dQ's time beside SDPA's whole backward and dQ's bound.
    Each is held against its plain version on the same inputs, element by
    element at the scale each element lives at (``row_scaled_err``: |got -
    ref| in units of 2^-8 of |ref| + the rms of its row + the tensor's
@@ -107,7 +109,7 @@ each of which fails the run if it fails:
    from the first step to the last; each kernel's launch count must grow
    by exactly what the path implies per step (flash forward 2·L·gas with
    the remat recompute, dK/dV and dQ L·gas each, RMS (4·L + 1)·gas), and
-   every forward and dK/dV launch must take the wgmma design; no
+   every forward, dK/dV and dQ launch must take the wgmma design; no
    parameter may be NaN. Prints ms per step, tokens/s, MFU (``bench.py``'s
    6N + 12·L·S·H flops per token against 989 TFLOP/s), peak memory and a
    profile of one step (device time by kernel, device busy share).
@@ -1182,7 +1184,7 @@ def flash_designs():
     where it issues HMMA only; both head dims' instances must agree. The
     library holds one forward, one dK/dV and one dQ kernel template, so
     every counted launch of a wrapper takes its kernel's design. Fails
-    unless the forward and dK/dV are the wgmma designs."""
+    unless all three are the wgmma designs."""
     from deepspeed_tpu_torch.ops.kernels import build
     counts = build.sass_counts("flash_attention.cu", ("HGMMA", "HMMA"))
     out = {}
@@ -1192,8 +1194,8 @@ def flash_designs():
         if len(kinds) != 1:
             raise AssertionError(f"{key}: kernels of designs {kinds} in the library: {counts}")
         out[key] = kinds.pop()
-    if out["flash_fwd"] != "wgmma" or out["flash_bwd_dkv"] != "wgmma":
-        raise AssertionError(f"flash designs {out}: the forward and dK/dV must be wgmma")
+    if set(out.values()) != {"wgmma"}:
+        raise AssertionError(f"flash designs {out}: the forward, dK/dV and dQ must be wgmma")
     return out
 
 
@@ -1207,8 +1209,6 @@ def flash_design_launches(launches, where):
 
 
 def train_kernel_phase(device, flush):
-    from deepspeed_tpu_torch.ops.kernels.fused_norms import rms_norm_fwd, rms_norm_ref
-    F = torch.nn.functional
     cases = {  # name: (B, S, H, Dh, causal, segments)
         "path": (TB, TS, 16, 128, True, 0),
         "s1000": (2, 1000, 16, 128, True, 0),
@@ -1220,34 +1220,55 @@ def train_kernel_phase(device, flush):
         "bert_dense": (BERT_B, BERT_S, 16, 64, False, 0),  # phase 25's dense comparison
     }
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
-    out = {"flash_fwd": [], "flash_bwd_dkv": [], "flash_bwd_dq": [], "rms_norm_fwd": []}
+    out = {"flash_fwd": [], "flash_bwd_dkv": [], "flash_bwd_dq": []}
     counters = {"flash_fwd": fa.flash_fwd, "flash_bwd_dkv": fa.flash_bwd_dkv,
                 "flash_bwd_dq": fa.flash_bwd_dq}
     before = {k: f.launches for k, f in counters.items()}
     for i, (name, (B, S, H, D, causal, n_seg)) in enumerate(cases.items()):
         c = flash_case(10 + i, B, S, H, D, causal, n_seg, device)
-        for key, row in flash_kernel_cases(c, name, flush).items():
+        rows = flash_kernel_cases(c, name, flush)
+        for key, row in rows.items():
             log(f"[train-kernels] {key} {json.dumps(row)}")
             out[key].append(row)
+        dq = rows["flash_bwd_dq"]
+        log(f"[train-kernels] dq {name}: {dq['ms'] * 1e3:.1f} us, SDPA's whole backward "
+            f"{dq['library_ms'] * 1e3:.1f} us, bound {dq['bound_ms'] * 1e3:.2f} us "
+            f"({dq['bound_by']})")
         del c
         torch.cuda.empty_cache()
     flash_design_launches({k: f.launches - before[k] for k, f in counters.items()},
                           "train-kernels")
+    out["rms_norm_fwd"] = rms_cases(device, flush)
+    return out
 
-    for name, rows, D in (("path", TB * TS, 2048), ("odd_rows", 37, 4104)):
+
+def rms_cases(device, flush):
+    """The RMS-norm forward at the training path's [8192, 2048], at an odd
+    shape and at Mixtral's width, bf16 and fp32, against its plain version
+    (within one ulp of the output dtype at each element's magnitude), each
+    timed beside the plain version, ``F.rms_norm`` and the bound → rows."""
+    from deepspeed_tpu_torch.ops.kernels.fused_norms import rms_norm_fwd, rms_norm_ref
+    F = torch.nn.functional
+    out = []
+    bf16, fp32 = torch.bfloat16, torch.float32
+    for name, rows, D, dtype in (("path", TB * TS, 2048, bf16), ("odd_rows", 37, 4104, bf16),
+                                 ("mixtral_width", 2 * TS, 4096, bf16),
+                                 ("path_fp32", TB * TS, 2048, fp32),
+                                 ("mixtral_width_fp32", 2 * TS, 4096, fp32)):
         g = torch.Generator(device=device).manual_seed(rows)
-        x = (torch.randn(rows, D, generator=g, device=device) * 3).to(torch.bfloat16)
-        scale = (1 + 0.1 * torch.randn(D, generator=g, device=device)).to(torch.bfloat16)
+        x = (torch.randn(rows, D, generator=g, device=device) * 3).to(dtype)
+        scale = (1 + 0.1 * torch.randn(D, generator=g, device=device)).to(dtype)
         got = rms_norm_fwd(x, scale)
         want = rms_norm_ref(x.float(), scale.float())
         torch.cuda.synchronize()
-        ulp_ok = (got.float() - want).abs() <= 2.0 ** -7 * want.abs() + 1e-6
+        ulp = 2.0 ** -7 if dtype == bf16 else 2.0 ** -23  # one ulp of the output dtype
+        ulp_ok = (got.float() - want).abs() <= ulp * want.abs() + 1e-6
         if not ulp_ok.all():
             raise AssertionError(f"rms case {name}: {int((~ulp_ok).sum())} elements beyond "
-                                 f"one bf16 ulp")
-        nb = 2 * x.numel() * 2 + D * 2
+                                 f"one {dtype} ulp")
+        nb = (2 * x.numel() + D) * x.element_size()
         b_ms, b_by = bound(nb, 4 * x.numel())
-        row = {"case": name, "rows": rows, "D": D,
+        row = {"case": name, "rows": rows, "D": D, "dtype": str(dtype).split(".")[1],
                "max_abs_err": (got.float() - want).abs().max().item(),
                "ms": time_ms(lambda: rms_norm_fwd(x, scale), flush),
                "plain_ms": time_ms(lambda: rms_norm_ref(x, scale), flush),
@@ -1255,7 +1276,7 @@ def train_kernel_phase(device, flush):
                "library_call": "torch.nn.functional.rms_norm",
                "bound_ms": b_ms, "bound_by": b_by, "bytes": nb, "flops": 4 * x.numel()}
         log(f"[train-kernels] rms_norm_fwd {json.dumps(row)}")
-        out["rms_norm_fwd"].append(row)
+        out.append(row)
     return out
 
 
@@ -1394,7 +1415,7 @@ def training_phase(device):
         if n != 4 * per_step[k]:
             raise AssertionError(f"{k}: {n} launches over 4 steps, want 4 x {per_step[k]}")
     by_design = flash_design_launches(launches, "training")
-    for k in ("flash_fwd", "flash_bwd_dkv"):  # every launch a step on the wgmma design
+    for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):  # every launch on wgmma
         if by_design[k].get("wgmma") != 4 * per_step[k]:
             raise AssertionError(f"{k}: launches by design {by_design[k]}, want "
                                  f"4 x {per_step[k]} on wgmma")

@@ -26,10 +26,15 @@
 // operations. The forward does about 2 * 2 * B*H*S*S/2 * D = 6.9e10 flops
 // against 4 * B*S*H*D * 2 = 67 MB of q/k/v/o traffic (about 1000 flops per
 // byte, far above the H100's ~295 flops/byte balance point), so the tensor
-// cores are the limit; the backward's five products likewise.
+// cores are the limit; the backward's five products likewise. dQ alone does
+// three of them (S = Q K^T, dP = dO V^T, dQ += dS K: 1.0e11 flops, 104 us
+// at 989 TFLOP/s) against 5 [B, S, H, D] tensors and 2 [B, H, S] ones
+// (169 MB, 50 us at 3.35 TB/s): operations, and the p and dS arithmetic
+// between its second and third product, which the tensor cores must not
+// wait for.
 //
-// The forward and dK/dV kernels are warp-specialised wgmma designs fed by
-// TMA (csrc/hopper.cuh's building blocks), for head dims 64 and 128:
+// All three kernels are warp-specialised wgmma designs fed by TMA
+// (csrc/hopper.cuh's building blocks), for head dims 64 and 128:
 //   - a block has 384 threads: a producer warpgroup (setmaxnreg 40; one
 //     warp works) and two consumer warpgroups (setmaxnreg 232) of 64 rows
 //     each. The forward's block owns 128 query rows: Q is loaded once, and
@@ -38,7 +43,11 @@
 //     its scores are taken, a V stage once its P V is done). The dK/dV
 //     block owns 128 keys: K and V are loaded once, and 64-row query tiles
 //     of Q and dO, with their lse, delta and segment ids (plain loads by
-//     the producer warp into the stage), stream through a 3-stage ring;
+//     the producer warp into the stage), stream through a 3-stage ring.
+//     The dQ block owns 128 query rows: Q and dO are loaded once, and key
+//     tiles of K and V (64 keys at D 128, 128 at D 64), with their segment
+//     ids, stream through a 4-stage ring (a stage stays until its K has
+//     fed dS K, one tile after its scores);
 //   - tiles come in through 3-D tensor maps (H*D, S, B), boxes of 64 values
 //     by the tile's rows, 128-byte swizzle: rows at or past S read as
 //     zeros within each batch row, so no padded copies are made, and
@@ -52,25 +61,31 @@
 //     then dV += bf16(P^T) dO and dK += bf16(dS^T) Q are m64n{D}k16 with
 //     A from registers and dO, Q read MN-major from the same swizzled stage
 //     that fed the first two products. No atomics: dQ is its own kernel;
+//   - dQ: the forward's shape with one more product. S = Q K^T and dP =
+//     dO V^T are m64n{keys}k16 in one group, both operands K-major; p and
+//     dS = bf16(p (dP - delta) sm_scale) are formed in registers; dQ += dS
+//     K is m64n{D}k16 with dS from registers and K the MN-major B operand
+//     (as V in the forward). Tile i's S and dP are issued with tile i - 1's
+//     dS K, so tile i's p and dS are formed while dS K finishes. No
+//     atomics: each dQ row is stored once, by one block, so two runs give
+//     the same bits. Registers bound the key tile: dQ's accumulator is D/2
+//     a thread, S and dP keys/2 each, dS's fragments keys/4, so D 128
+//     takes 64 keys (144 live) and D 64 takes 128 (192);
 //   - the two consumers take turns issuing their products (ping-pong on
 //     two named barriers), so one's softmax (or p and ds) runs under the
 //     other's products;
 //   - causal tiles wholly above the diagonal are skipped (the forward's
-//     key loop ends at the block's last row, dK/dV's query loop starts at
-//     its first key), the elementwise mask runs only on tiles that cross
-//     the diagonal or S, or on every tile with segment ids; the 1-D grid
-//     (block_tile) takes the heads in groups of 16 and, within a group,
-//     the longest tiles first, which shortens the causal tail while a
-//     group's heads share their tiles in L2.
-// The dQ kernel is the first design: bf16 mma.sync.m16n8k16 tiles fed from
-// shared memory by ldmatrix (attention_tiles.cuh), 64 x 64 tiles loaded
-// synchronously, the score fragment re-packed in place as the A operand of
-// dS K.
+//     and dQ's key loops end at the block's last row, dK/dV's query loop
+//     starts at its first key), the elementwise mask runs only on tiles
+//     that cross the diagonal or S, or on every tile with segment ids; the
+//     1-D grid (block_tile) takes the heads in groups of 16 and, within a
+//     group, the longest tiles first, which shortens the causal tail while
+//     a group's heads share their tiles in L2.
 // Not done yet (work for a later change): dK/dV's p and ds wait for their
 // tile's products (only the other consumer's products overlap them);
-// outputs are stored from registers, not through TMA; the forward's
-// block reads each K/V tile for 128 query rows only (no cluster
-// multicast). dQ keeps mma.sync.
+// outputs are stored from registers, not through TMA; the forward's and
+// dQ's blocks read each K/V tile for 128 query rows only (no cluster
+// multicast).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,35 +99,13 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;  // the dQ kernel's block
-
-// rows [row0, row0 + ROWS) of a [S, D] slice with row stride `rs` elements
-// into a shared tile; rows at or past S are zero-filled
-template <int ROWS, int D>
-__device__ __forceinline__ void load_tile(uint16_t* sm, const uint16_t* g, int row0, int S,
-                                          size_t rs) {
-  constexpr int CH = D / 8;
-  for (int i = threadIdx.x; i < ROWS * CH; i += kThreads) {
-    const int r = i / CH, c = i - (i / CH) * CH;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S) v = *reinterpret_cast<const uint4*>(g + (size_t)(row0 + r) * rs + c * 8);
-    *reinterpret_cast<uint4*>(sm + r * (D + kPad) + c * 8) = v;
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void load_seg(int* sm, const int32_t* seg, int row0, int S) {
-  for (int i = threadIdx.x; i < N; i += kThreads)
-    sm[i] = (seg != nullptr && row0 + i < S) ? seg[row0 + i] : 0;
-}
-
 // ------------------------------------------------------ the wgmma designs
 constexpr int WG_THREADS = 384;   // a producer warpgroup and two consumer warpgroups
 constexpr int WG_ROWS = 128;      // query rows (forward) or keys (dK/dV) a block
 constexpr int FWD_KEYS = 128;     // keys a forward stage
 constexpr int DKV_QROWS = 64;     // query rows a dK/dV stage
 constexpr int STAGES = 3;
+constexpr int DQ_STAGES = 4;      // dQ frees a stage one tile later (K feeds dS K)
 constexpr int BOX_ROW = 128;      // bytes of one swizzled box row: 64 bf16
 
 template <int D>
@@ -143,6 +136,23 @@ struct DkvSmem {
   static constexpr int kBytes = kBar + (1 + 2 * STAGES) * 8 + 1024;
 };
 
+template <int D>
+struct DqSmem {
+  static constexpr int kKeys = D == 64 ? 128 : 64;     // keys a stage (registers: see the header)
+  static constexpr int kQBox = WG_ROWS * BOX_ROW;      // one [128 queries][64] box: 16 KB
+  static constexpr int kQTile = D / 64 * kQBox;
+  static constexpr int kKBox = kKeys * BOX_ROW;        // one [keys][64] box
+  static constexpr int kKTile = D / 64 * kKBox;
+  static constexpr int kQ = 0, kDO = kQTile;
+  static constexpr int kStage = 2 * kQTile;            // stage s: K, then V
+  static constexpr int kSeg = kStage + DQ_STAGES * 2 * kKTile;  // [DQ_STAGES][keys] segment ids
+  static constexpr int kBar = kSeg + DQ_STAGES * kKeys * 4;
+  static constexpr int kBytes = kBar + (1 + 2 * DQ_STAGES) * 8 + 1024;
+};
+
+static_assert(DqSmem<128>::kBytes <= 232448 && DqSmem<64>::kBytes <= 232448,
+              "dQ's ring exceeds a block's shared memory");
+
 // The block order of the wgmma designs' 1-D grids: (B * H) heads in
 // groups of HEAD_GROUP, a group's blocks one after another; within a group
 // the tile ranks in turn, each over the group's heads. Rank 0 is the
@@ -165,6 +175,14 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[
                                          uint64_t desc_b, bool accumulate) {
   if constexpr (D == 128) hopper::wgmma_m64n128k16_rs<TB>(d, a, desc_b, accumulate);
   else hopper::wgmma_m64n64k16_rs<TB>(d, a, desc_b, accumulate);
+}
+
+// d[64 x N] (+)= A[64 x 16] B[16 x N], both from shared memory, K-major
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                         bool accumulate) {
+  if constexpr (N == 128) hopper::wgmma_m64n128k16<0, 0>(d, desc_a, desc_b, accumulate);
+  else hopper::wgmma_m64n64k16<0, 0>(d, desc_a, desc_b, accumulate);
 }
 
 // 2^x on the special-function unit, a result below 2^-126 flushed to zero
@@ -657,108 +675,213 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 }
 
 // -------------------------------------------------------------- backward dQ
-// grid (ceil(S / 64), B * H); 4 warps, each owning 16 query rows; the block
-// walks the key tiles 64 at a time.
+// 1-D grid in block_tile's order: a block owns query rows q0 .. q0 + 127
+// (the longest causal rows first), consumer warpgroup cw the rows 64 cw ..
+// 64 cw + 63 of them, and walks the key tiles DqSmem<D>::kKeys at a time up
+// to its last row (causal) or S.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                    const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    const int32_t* __restrict__ seg, uint16_t* __restrict__ dq, int H, int S,
-                    float scale_log2, float sm_scale, int causal) {
-  constexpr int BR = 64, BC = 64, LD = D + kPad;
-  extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* sQ = smem;
-  uint16_t* sdO = sQ + BR * LD;
-  uint16_t* sK = sdO + BR * LD;
-  uint16_t* sV = sK + BC * LD;
-  __shared__ int sSegQ[BR];
-  __shared__ int sSegK[BC];
-
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BR;
-  const int bh = blockIdx.y, b = bh / H, h = bh - (bh / H) * H;
-  const size_t rs = (size_t)H * D;
-  const size_t base = (size_t)b * S * rs + (size_t)h * D;
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        const __grid_constant__ CUtensorMap map_do,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        const int32_t* __restrict__ seg, uint16_t* __restrict__ dq, int H, int S,
+                        float scale_log2, float sm_scale, int causal) {
+  using L = DqSmem<D>;
+  constexpr int BK = L::kKeys;
+  extern __shared__ __align__(1024) uint8_t wg_smem[];
+  uint8_t* base = wg_smem + ((1024u - (hopper::smem_addr(wg_smem) & 1023u)) & 1023u);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(base + L::kBar);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + DQ_STAGES;
+  int* sSeg = reinterpret_cast<int*>(base + L::kSeg);
+  const int tid = threadIdx.x;
+  const int tiles = (S + WG_ROWS - 1) / WG_ROWS;
+  int rank, bh;
+  block_tile(tiles, (int)(gridDim.x / tiles), rank, bh);
+  const int q0 = (tiles - 1 - rank) * WG_ROWS;  // longest causal rows first
+  const int b = bh / H, h = bh - (bh / H) * H;
+  const int kv_end = causal ? min(S, q0 + WG_ROWS) : S;
+  const int steps = (kv_end + BK - 1) / BK;
   const int32_t* segb = seg != nullptr ? seg + (size_t)b * S : nullptr;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wr = warp * 16;
+  if (tid == 0) {
+    hopper::mbar_init(qbar, 1);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 32);  // the producer warp's lanes (they write segment ids)
+      hopper::mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
 
-  load_tile<BR, D>(sQ, q + base, q0, S, rs);
-  load_tile<BR, D>(sdO, dout + base, q0, S, rs);
-  load_seg<BR>(sSegQ, segb, q0, S);
-  float lse2[2], dlt[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + wr + g + r * 8;
-    lse2[r] = row < S ? lse[(size_t)bh * S + row] * kLog2e : 0.f;
-    dlt[r] = row < S ? delta[(size_t)bh * S + row] : 0.f;
+  const int wg = __shfl_sync(~0u, tid / 128, 0);
+  if (wg == 0) {  // the producer: warp 0 loads Q and dO once and keeps the K/V ring fed
+    hopper::setmaxnreg_dec<40>();
+    if (tid < 32) {
+      const int c0 = h * D;
+      if (tid == 0) {
+        hopper::mbar_expect_tx(qbar, 2 * L::kQTile);
+        for (int j = 0; j < D / 64; ++j) {
+          hopper::tma_load_3d(base + L::kQ + j * L::kQBox, &map_q, qbar, c0 + 64 * j, q0, b);
+          hopper::tma_load_3d(base + L::kDO + j * L::kQBox, &map_do, qbar, c0 + 64 * j, q0, b);
+        }
+      }
+      for (int i = 0; i < steps; ++i) {
+        const int s = i % DQ_STAGES, k0 = i * BK;
+        hopper::mbar_wait(&empty[s], ((i / DQ_STAGES) & 1) ^ 1);
+        if (segb != nullptr) {
+          for (int r = tid; r < BK; r += 32) sSeg[s * BK + r] = k0 + r < S ? segb[k0 + r] : 0;
+        }
+        if (tid == 0) {
+          uint8_t* st = base + L::kStage + s * 2 * L::kKTile;
+          hopper::mbar_expect_tx(&full[s], 2 * L::kKTile);
+          for (int j = 0; j < D / 64; ++j) {
+            hopper::tma_load_3d(st + j * L::kKBox, &map_k, &full[s], c0 + 64 * j, k0, b);
+            hopper::tma_load_3d(st + L::kKTile + j * L::kKBox, &map_v, &full[s], c0 + 64 * j,
+                                k0, b);
+          }
+        } else {
+          hopper::mbar_arrive(&full[s]);
+        }
+      }
+    }
+    return;
   }
 
-  float dq_acc[D / 8][4];
+  hopper::setmaxnreg_inc<232>();
+  const int cw = wg - 1;
+  const int lane = tid & 31, warp = (tid & 127) >> 5, g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + 64 * cw + 16 * warp + g;  // this thread's rows: row0, row0 + 8
+  float lse2[2], dlt[2];  // lse in the exp2 domain, and delta, of this thread's rows
+  int seg_q[2];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) dq_acc[i][0] = dq_acc[i][1] = dq_acc[i][2] = dq_acc[i][3] = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    const bool in = row < S;
+    lse2[r] = in ? lse[(size_t)bh * S + row] * kLog2e : 0.f;
+    dlt[r] = in ? delta[(size_t)bh * S + row] : 0.f;
+    seg_q[r] = in && segb != nullptr ? segb[row] : 0;
+  }
+  float acc[D / 2];  // dQ: the first dS K product overwrites it
+  float sc[BK / 2], dp[BK / 2];
+  uint32_t da[BK / 16][4];
+  const uint32_t q_addr = hopper::smem_addr(base + L::kQ) + cw * 64 * BOX_ROW;
+  const uint32_t do_addr = hopper::smem_addr(base + L::kDO) + cw * 64 * BOX_ROW;
+  auto k_addr = [&](int i) {
+    return hopper::smem_addr(base + L::kStage + i % DQ_STAGES * 2 * L::kKTile);
+  };
+  hopper::mbar_wait(qbar, 0);
 
-  const int kv_end = causal ? min(S, q0 + BR) : S;
-  for (int k0 = 0; k0 < kv_end; k0 += BC) {
-    __syncthreads();
-    load_tile<BC, D>(sK, k + base, k0, S, rs);
-    load_tile<BC, D>(sV, v + base, k0, S, rs);
-    load_seg<BC>(sSegK, segb, k0, S);
-    __syncthreads();
-
-    float p[BC / 8][4], dp[BC / 8][4];
+  // S = Q K^T and dP = dO V^T in one group, both operands K-major: a
+  // 16-deep slice is 32 bytes on along the rows of one box
+  auto sdp = [&](int i) {
+    hopper::mbar_wait(&full[i % DQ_STAGES], (i / DQ_STAGES) & 1);
+    const uint32_t ka = k_addr(i), va = ka + L::kKTile;
 #pragma unroll
-    for (int i = 0; i < BC / 8; ++i) {
-      p[i][0] = p[i][1] = p[i][2] = p[i][3] = 0.f;
-      dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.f;
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t oq = kk / 4 * L::kQBox + kk % 4 * 32, ok = kk / 4 * L::kKBox + kk % 4 * 32;
+      wgmma_ss<BK>(sc, hopper::sw128_desc(q_addr + oq), hopper::sw128_desc(ka + ok), kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[4], ao[4];
-      ldsm_x4(aq, a_order<LD>(sQ, wr, kk * 16, lane));
-      ldsm_x4(ao, a_order<LD>(sdO, wr, kk * 16, lane));
-#pragma unroll
-      for (int nn = 0; nn < BC / 16; ++nn) {
-        uint32_t bk[4], bv[4];
-        ldsm_x4(bk, b_order<LD>(sK, nn * 16, kk * 16, lane));
-        mma16816(p[2 * nn], aq, bk[0], bk[1]);
-        mma16816(p[2 * nn + 1], aq, bk[2], bk[3]);
-        ldsm_x4(bv, b_order<LD>(sV, nn * 16, kk * 16, lane));
-        mma16816(dp[2 * nn], ao, bv[0], bv[1]);
-        mma16816(dp[2 * nn + 1], ao, bv[2], bv[3]);
-      }
+      const uint32_t oq = kk / 4 * L::kQBox + kk % 4 * 32, ok = kk / 4 * L::kKBox + kk % 4 * 32;
+      wgmma_ss<BK>(dp, hopper::sw128_desc(do_addr + oq), hopper::sw128_desc(va + ok), kk > 0);
     }
+    hopper::wgmma_commit();
+  };
+  // dQ += dS K: K is the MN-major B operand, [BK keys][64] boxes (the next
+  // 64 columns one box on), a 16-deep slice 16 keys (2048 bytes) down
+  auto dsk = [&](int i) {
+    const uint32_t ka = k_addr(i);
 #pragma unroll
-    for (int nt = 0; nt < BC / 8; ++nt) {
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs<D, 1>(acc, da[kk], hopper::sw128_mn_desc(ka + kk * 16 * BOX_ROW, L::kKBox),
+                     i > 0 || kk > 0);
+    hopper::wgmma_commit();
+  };
+  // p = valid ? exp(s - lse) : 0 and dS = p (dP - delta) sm_scale in fp32,
+  // into dp; the mask only where the tile crosses the diagonal or S, or
+  // with segment ids
+  auto dscores = [&](int i) {
+    const int s = i % DQ_STAGES, k0 = i * BK;
+    const bool masked = __shfl_sync(
+        ~0u, (int)(segb != nullptr || k0 + BK > S || (causal && k0 + BK > q0)), 0);
+    auto run = [&](auto mask) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int rl = wr + g + (e >> 1) * 8;
-        const int cl = nt * 8 + t * 2 + (e & 1);
-        bool valid = k0 + cl < S;
-        if (causal) valid = valid && (q0 + rl >= k0 + cl);
-        if (segb != nullptr) valid = valid && (sSegQ[rl] == sSegK[cl]);
-        const float pv = valid ? exp2f(p[nt][e] * scale_log2 - lse2[e >> 1]) : 0.f;
-        dp[nt][e] = pv * (dp[nt][e] - dlt[e >> 1]) * sm_scale;   // dS
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, cl = 8 * j + 2 * t + (e & 1);
+          float pv = fast_exp2(fmaf(sc[4 * j + e], scale_log2, -lse2[r]));
+          if constexpr (decltype(mask)::value) {
+            const int row = row0 + 8 * r, col = k0 + cl;
+            bool valid = col < S;
+            if (causal) valid = valid && row >= col;
+            if (segb != nullptr) valid = valid && seg_q[r] == sSeg[s * BK + cl];
+            if (!valid) pv = 0.f;
+          }
+          dp[4 * j + e] = pv * (dp[4 * j + e] - dlt[r]) * sm_scale;
+        }
       }
-    }
-    // dQ += dS K, contracting over the BC keys
-#pragma unroll
-    for (int kk = 0; kk < BC / 16; ++kk) {
-      const uint32_t as[4] = {pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
-                              pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
-                              pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-                              pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
-#pragma unroll
-      for (int dn = 0; dn < D / 16; ++dn) {
-        uint32_t bk[4];
-        ldsm_x4_t(bk, a_order<LD>(sK, kk * 16, dn * 16, lane));
-        mma16816(dq_acc[2 * dn], as, bk[0], bk[1]);
-        mma16816(dq_acc[2 * dn + 1], as, bk[2], bk[3]);
-      }
-    }
+    };
+    if (masked) run(std::true_type{});
+    else run(std::false_type{});
+  };
+  auto release = [&](int i) {
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[i % DQ_STAGES]);
+  };
+  // ping-pong, as in the forward: the consumers take turns issuing
+  auto my_turn = [&]() { hopper::named_sync(1 + cw, 256); };
+  auto their_turn = [&]() { hopper::named_arrive(2 - cw, 256); };
+  if (cw == 1) hopper::named_arrive(1, 256);
+
+  // Tile i's S and dP are issued with tile i - 1's dS K, so that tile i's
+  // p and dS are formed while the tensor cores finish dS K; dS is packed
+  // into the A fragments only once that product is retired, and a stage
+  // is freed once its K has fed dS K.
+  hopper::fence_regs(sc);
+  hopper::fence_regs(dp);
+  hopper::wgmma_fence();
+  my_turn();
+  sdp(0);
+  their_turn();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(sc);
+  hopper::fence_regs(dp);
+  dscores(0);
+  pack_a(da, dp);
+  for (int i = 1; i < steps; ++i) {
+    hopper::fence_regs(sc);
+    hopper::fence_regs(dp);
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+    my_turn();
+    sdp(i);
+    dsk(i - 1);
+    their_turn();
+    hopper::wgmma_wait<1>();  // S and dP of tile i are in; dS K of tile i - 1 may still run
+    hopper::fence_regs(sc);
+    hopper::fence_regs(dp);
+    dscores(i);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    hopper::fence_regs(da);
+    release(i - 1);
+    pack_a(da, dp);
   }
-  store_rows<D>(dq + base, dq_acc, q0 + wr + g, S, rs, t, 1.f, 1.f);
+  hopper::fence_regs(acc);
+  hopper::wgmma_fence();
+  my_turn();
+  dsk(steps - 1);
+  their_turn();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+  hopper::fence_regs(da);
+
+  const size_t rs = (size_t)H * D;
+  store_wg_rows<D>(dq + (size_t)b * S * rs + (size_t)h * D, acc, row0, S, rs, t, 1.f, 1.f);
 }
 
 template <typename Kernel>
@@ -826,14 +949,18 @@ template <int D>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* delta, const void* seg, void* dq, int B, int H,
                    int S, float sm_scale, int causal, cudaStream_t st) {
-  const size_t smem = sizeof(uint16_t) * 4 * 64 * (D + kPad);
+  constexpr int BK = DqSmem<D>::kKeys;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!bshd_map<D>(&mq, q, B, H, S, WG_ROWS) || !bshd_map<D>(&mk, k, B, H, S, BK) ||
+      !bshd_map<D>(&mv, v, B, H, S, BK) || !bshd_map<D>(&mdo, dout, B, H, S, WG_ROWS))
+    return cudaErrorInvalidValue;
+  const int smem = DqSmem<D>::kBytes;
   cudaError_t err = launch_cfg(flash_bwd_dq_kernel<D>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + 63) / 64, B * H);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, st>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<const uint16_t*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
+  const long long grid = (long long)((S + WG_ROWS - 1) / WG_ROWS) * B * H;  // block_tile's order
+  if (grid > INT_MAX) return cudaErrorInvalidValue;
+  flash_bwd_dq_kernel<D><<<(int)grid, WG_THREADS, smem, st>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<const int32_t*>(seg), static_cast<uint16_t*>(dq), H, S, sm_scale * kLog2e,
       sm_scale, causal);
   return cudaGetLastError();

@@ -22,10 +22,11 @@ plain version on every device, as the JAX package sends it to
 ``_reference`` even on the TPU: an additive [S, S] operand leaves nothing
 for blocking to save. The TPU kernel's 1024-row blocks, 128-lane
 replication of lse/delta/segment ids and [BH, S, D] transposes do not
-carry over. The forward and dK/dV kernels are wgmma designs fed by a TMA
-ring: the forward's block owns 128 query rows and streams 128-key tiles,
-the dK/dV block owns 128 keys and streams 64-row query tiles; dQ keeps
-the first design (mma.sync, 64 x 64 tiles). TMA reads each tensor in
+carry over. All three kernels are wgmma designs fed by a TMA ring: the
+forward's block owns 128 query rows and streams 128-key tiles, the dK/dV
+block owns 128 keys and streams 64-row query tiles, the dQ block owns 128
+query rows and streams key tiles (64 keys at head dim 128, 128 at 64),
+each dQ row stored once by one block (no atomics). TMA reads each tensor in
 place through a 3-D tensor map, (H * D, S, B), which needs 16-byte
 aligned bases and 16-byte rows (any S): ``_check``'s alignment and head
 dims are exactly that.

@@ -30,10 +30,12 @@ at every block size and head dim, per-head layouts and a layout with an
 empty row and a key block no row admits (zeros there, lse ``NEG_INF``),
 each check rejecting a zeroed tile, and a 2-layer BERT ``train_batch``
 through the kernels must match the same step pinned to the plain
-versions. The flash forward and dK/dV kernels are wgmma designs: one-hot
-operands pin each operand's layout (exact means of a one-hot v, a one-hot
-score selecting one key, one-hot do and q landing at one column of dv and
-dk), and the built library's SASS shows wgmma in both. K5's input gradient, its forward over a bf16 stack and its
+versions. The flash forward, dK/dV and dQ kernels are wgmma designs:
+one-hot operands pin each operand's layout (exact means of a one-hot v, a
+one-hot score selecting one key, one-hot do and q landing at one column of
+dv and dk, a one-hot k, read MN-major by dS K, landing at one column of
+dq), dQ must reject a zeroed tile and give the same bits on a second run,
+and the built library's SASS shows wgmma in all three. K5's input gradient, its forward over a bf16 stack and its
 weight gradient must take the design their shape predicates name (the
 wgmma designs wherever TMA can read the operands, at 64-row tiles for the
 forward and dW), give the same bits on a second run, and reproduce their
@@ -349,17 +351,78 @@ def test_flash_dkv_one_hot_q_pins_dk(cuda, D, causal, query, col):
 
 
 def test_flash_library_fwd_and_dkv_kernels_are_wgmma(cuda):
-    """The built library's forward and dK/dV kernels (both head dims) issue
-    wgmma (HGMMA in their SASS) and keep nothing in local memory; dQ is
-    the mma.sync design (HMMA, no HGMMA)."""
+    """The built library's forward, dK/dV and dQ kernels (both head dims)
+    issue wgmma (HGMMA in their SASS, no mma.sync HMMA) and keep nothing in
+    local memory."""
     from deepspeed_tpu_torch.ops.kernels import build
     per = build.sass_counts("flash_attention.cu", ("HGMMA", "HMMA", "LDL", "STL"))
     kinds = {k: [c for n, c in per.items() if k in n] for k in
              ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")}
     assert all(len(v) == 2 for v in kinds.values()), per
-    for k in ("flash_fwd_kernel", "flash_bwd_dkv_kernel"):
-        assert all(c["HGMMA"] > 0 and c["LDL"] == c["STL"] == 0 for c in kinds[k]), per
-    assert all(c["HGMMA"] == 0 and c["HMMA"] > 0 for c in kinds["flash_bwd_dq_kernel"]), per
+    for k, v in kinds.items():
+        assert all(c["HGMMA"] > 0 and c["HMMA"] == 0 and c["LDL"] == c["STL"] == 0
+                   for c in v), (k, per)
+
+
+# dQ's wgmma design at its edges: both head dims (64 keys a stage at D 128,
+# 128 at D 64), S 2049 (ragged against the 128-row blocks and both key
+# tiles), non-causal, and segment ids that put whole key tiles outside
+# some rows' segments
+DQ_CASES = {
+    "causal_s2049_d128": (1, 2049, 2, 128, True, 0),
+    "noncausal_s2049_d64": (1, 2049, 2, 64, False, 0),
+    "segments_causal_d64": (2, 520, 2, 64, True, (150, 300)),
+    "segments_noncausal_d128": (1, 400, 3, 128, False, (70, 330)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DQ_CASES))
+def test_flash_dq_kernel_matches_plain_and_repeats(cuda, case):
+    """dQ within ROW_TOL units of its plain version, a zeroed last 64-row
+    tile read as far beyond the limit, and a second run the same bits (each
+    row is stored once, by one block: no atomics)."""
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    B, S, H, D, causal, n_seg = DQ_CASES[case]
+    q, k, v, do, seg = _flash_inputs(cuda, B, S, H, D, n_seg, seed=len(case))
+    o, lse = fa.flash_fwd(q, k, v, seg, causal)
+    delta = fa.flash_delta(o, do)
+    before = fa.flash_bwd_dq.launches
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, seg, causal)
+    again = fa.flash_bwd_dq(q, k, v, do, lse, delta, seg, causal)
+    dq_ref = fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, seg, causal)
+    torch.cuda.synchronize()
+    assert fa.flash_bwd_dq.launches == before + 2
+    zeroed = dq.clone()
+    zeroed[:, -64:] = 0
+    err, err_zeroed = fa.row_scaled_err(dq, dq_ref), fa.row_scaled_err(zeroed, dq_ref)
+    assert torch.isfinite(dq.float()).all()
+    assert err <= ROW_TOL < err_zeroed, (err, err_zeroed)
+    assert torch.equal(dq, again)
+
+
+@pytest.mark.parametrize("D, causal, key, col", FLASH_ONE_HOT)
+def test_flash_dq_one_hot_k_pins_dq(cuda, D, causal, key, col):
+    """k one-hot at (key, col): dq[query] = ds(query, key) k[key] lies in
+    column ``col`` of the query rows that admit the key, exactly 0
+    elsewhere; so dS K reads K's rows and columns (MN-major) where they
+    lie."""
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    B, S, H = 2, 256, 2
+    g = torch.Generator(device=cuda).manual_seed(key + 2)
+    k = _one_hot(cuda, (B, S, H, D), key, col)
+    q, v, do = (torch.randn(B, S, H, D, generator=g, device=cuda).to(torch.bfloat16)
+                for _ in range(3))
+    o_ref, lse = fa.flash_fwd_ref(q.float(), k.float(), v.float(), None, causal)
+    delta = fa.flash_delta(o_ref.to(torch.bfloat16), do)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, None, causal)
+    dq_ref = fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, None, causal)
+    torch.cuda.synchronize()
+    _, queries = _admitted(S, causal, key, cuda)
+    outside = torch.ones(B, S, H, D, dtype=torch.bool, device=cuda)
+    outside[:, :, :, col] = ~queries[None, :, None]
+    assert (dq[outside] == 0).all() and (dq_ref[outside] == 0).all()
+    assert (dq[~outside] != 0).any()
+    assert fa.row_scaled_err(dq, dq_ref) <= ROW_TOL
 
 
 def test_flash_rejects_what_it_cannot_take(cuda):
@@ -381,12 +444,17 @@ def test_flash_rejects_what_it_cannot_take(cuda):
 
 
 # ------------------------------------------------------------ RMS norm (K2)
-@pytest.mark.parametrize("rows,D,dtype", [(8192, 2048, torch.bfloat16), (37, 64, torch.bfloat16),
-                                          (5, 4104, torch.bfloat16), (33, 2048, torch.float32)])
+@pytest.mark.parametrize("rows,D,dtype", [
+    (8192, 2048, torch.bfloat16), (37, 64, torch.bfloat16), (5, 4104, torch.bfloat16),
+    (33, 2048, torch.float32), (8192, 2048, torch.float32), (4096, 4096, torch.bfloat16),
+    (4096, 4096, torch.float32), (3, 4096, torch.bfloat16)])
 def test_rms_kernel_matches_plain(cuda, rows, D, dtype):
     """Within one unit in the last place of the output dtype at each
     element's magnitude (the kernel's output rounding, and rsqrtf's
-    2-ulp fp32 error far below it), against the plain version in fp32."""
+    2-ulp fp32 error far below it), against the plain version in fp32.
+    The models' widths (2048, 4096) take the register-held instances, with
+    rows by grid stride (8192 rows) or fewer rows than warps (3); the
+    others the general one."""
     from deepspeed_tpu_torch.ops.kernels.fused_norms import rms_norm_fwd, rms_norm_ref
     g = torch.Generator(device=cuda).manual_seed(rows)
     x = (torch.randn(rows, D, generator=g, device=cuda) * 3).to(dtype)
