@@ -136,7 +136,14 @@ each of which fails the run if it fails:
    pre-dequantized bf16 weight for K4; ``torch._grouped_mm`` on the bf16
    stack for K5, or the sum of per-expert ``torch.matmul`` times where
    this torch refuses it) and the unfused path (dequantize the stack,
-   then the bf16 grouped kernel; for K4 the plain version is that path);
+   then the bf16 grouped kernel; for K4 the plain version is that path).
+   Each ``gmm_quant`` case names the design ``quant_design`` gives it and
+   must be counted on it (the decode design at 16-row tiles, the forward
+   ring at 64, the one-hot check at both), give the same bits on a second
+   run and zeros past the used tiles; at the decode and prefill routings
+   the first design (x at an unaligned base, the same values) is held to
+   QUANT_TOL and timed beside it. A reading, not a gate: whether a decode
+   row's bits match between the decode design and the forward ring;
 10. quant/MoE parity — a 2-layer Mixtral-8x7B-width engine with int8, fp6
    and bf16 experts, each run twice from the same bf16 weights: through
    the kernels, and with ``quant_matmul``, ``gmm`` and ``gmm_quant``
@@ -154,10 +161,13 @@ each of which fails the run if it fails:
    new tokens, block 32, token budget 264, bursts of 16. Every request must
    get 64 in-vocab tokens, the pool must be empty at the end, ``quant_matmul``
    must launch (4 per layer + 1 for the head) per forward and ``gmm_quant``
-   3 per layer per forward (so every MoE FFN went through the kernels), and peak memory
+   3 per layer per forward (so every MoE FFN went through the kernels), each
+   forward's all on one Hopper design (a decode burst's on the decode
+   design, none on the first), and peak memory
    must stay under the card's. Prints tokens/s, ms per forward, host syncs
-   per token, resident bytes, peak memory and a profile of one prefill step
-   and one decode burst;
+   per token, resident bytes, peak memory, the forwards split by design
+   with their ms each (CUDA events around every forward) and a profile of
+   one prefill step and one decode burst;
 12. bf16 MoE serving — the same preset and traffic in bf16 at 8 of 32
    layers (the bf16 model does not fit one card at full depth); ``gmm``
    must launch 3 per layer per forward. Same prints, and how many ``gmm``
@@ -303,8 +313,13 @@ each of which fails the run if it fails:
    dx and dW launch on the wgmma design. Then the
    frozen base: the dropless FFN over one Mixtral layer's int8 carriers
    from ``init_quantized_params``, gradients in x only, through the
-   kernels (3 ``gmm_quant``, 3 ``gmm_quant_dx``) and the plain versions:
-   dx within GRAD_LEAF_TOL, no gradient for carriers or scales;
+   kernels (3 ``gmm_quant``, on the forward ring, 3 ``gmm_quant_dx``) and
+   the plain versions: dx within GRAD_LEAF_TOL, no gradient for carriers or
+   scales; then that forward through its w1 carriers at phase 19's 8192
+   rows held as phase 19 holds its kernels (QUANT_TOL, zeroed tile, two
+   runs, zeros past the used tiles) and timed beside the first design, the
+   plain version, dequantize + ``torch._grouped_mm`` and
+   ``torch._grouped_mm`` on the dequantized stack;
 21. MoE training — Mixtral-8x7B at its widths, 2 of 32 layers, through
    ``initialize`` → ``train_batch`` (bench.py's ``_train_config``: bf16
    with the fp32 master, Adam lr 1e-4, ZeRO-3), dropless, remat ``"moe"``,
@@ -1554,20 +1569,41 @@ def routing_sizes(case, device):
     return torch.from_numpy(np.bincount(idx, minlength=8)).to(device)
 
 
+def unaligned_copy(x):
+    """``x``'s values in a view one element into its buffer: a base TMA
+    cannot read, so the shape predicates give it the first design."""
+    xm = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)[1:1 + x.numel()]
+    xm = xm.view(x.shape)
+    xm.copy_(x)
+    return xm
+
+
+def quant_designs():
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    return dict(gm.gmm_quant_design_launches)
+
+
+def quant_grew(before):
+    return {k: v - before[k] for k, v in quant_designs().items()}
+
+
 def grouped_cases(device, flush):
     """gmm (bf16) and gmm_quant (int8, fp8, fp6) at Mixtral's expert
-    shapes over four routings. → {"gmm": rows, "gmm_quant": rows}."""
+    shapes over four routings; each ``gmm_quant`` case on the design its
+    predicate names (counted), beside the first design at x's unaligned
+    base (the same values), and the bits of one row between the decode
+    design at 16-row tiles and the forward ring at 64. → {"gmm": rows,
+    "gmm_quant": rows, "tile_invariance": readings}."""
     from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
     from deepspeed_tpu_torch.ops.kernels.flash_attention import row_scaled_err
     from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import dequantize_grouped, row_tile
-    out = {"gmm": [], "gmm_quant": []}
+    out = {"gmm": [], "gmm_quant": [], "tile_invariance": []}
     for si, (wname, (K, N)) in enumerate(zip(("w1", "w2"), MLP_SHAPES)):
         for scheme in ("bf16", "int8", "fp8", "fp6"):
             _, q = quant_inputs(200 + si, 1, (8, K, N), scheme, device)
             quant = scheme != "bf16"
             w_bf16 = (dequantize_grouped(q.values, q.scales, scheme, torch.bfloat16) if quant
                       else q)
-            kernel = gm.gmm_quant if quant else gm.gmm
             key = "gmm_quant" if quant else "gmm"
 
             def run(xp, te, tm, used):
@@ -1582,17 +1618,35 @@ def grouped_cases(device, flush):
                                             tm, used)
                 return gm.gmm_ref(xp, q, te, tm, used)
 
-            # (a) expert 5 takes one-hot rows over all of K: exact decode
+            def design_of(xp, tm):
+                ptrs = xp.data_ptr(), (q.values if quant else q).data_ptr()
+                return gm.quant_design(scheme, tm, K, N, *ptrs) if quant else \
+                    gm.wgmma_design(tm, K, N, *ptrs)
+
+            def checked_run(xp, te, tm, used, name):
+                """One launch, on the design the predicate names where the
+                launches are counted by design (carriers) → (out, design)."""
+                design, before = design_of(xp, tm), quant_designs()
+                got = run(xp, te, tm, used)
+                if quant and quant_grew(before) != {d: int(d == design) for d in before}:
+                    raise AssertionError(f"{name}: launches by design {quant_grew(before)}, want "
+                                         f"one on {design}")
+                return got, design
+
+            # (a) expert 5 takes one-hot rows over all of K: exact decode, at
+            # both row tiles (carriers: the forward ring, the decode design)
             sizes = torch.zeros(8, dtype=torch.int64, device=device)
             sizes[5] = K
-            dst, te, Mp = gm.pad_groups_to_tiles(sizes, K, 64)
-            xp = torch.zeros((Mp, K), dtype=torch.bfloat16, device=device)
-            xp[dst.long()] = torch.eye(K, device=device, dtype=torch.bfloat16)
-            got = run(xp, te, 64, gm.used_tiles(sizes, 64))
-            if not torch.equal(got[:K], w_bf16[5]) or got[K:].any():
-                raise AssertionError(f"{key} {scheme} {wname}: one-hot rows do not reproduce "
-                                     f"the expert's weight exactly")
-            del xp, got
+            for tm in ((16, 64) if quant else (64,)):
+                dst, te, Mp = gm.pad_groups_to_tiles(sizes, K, tm)
+                xp = torch.zeros((Mp, K), dtype=torch.bfloat16, device=device)
+                xp[dst.long()] = torch.eye(K, device=device, dtype=torch.bfloat16)
+                got, _ = checked_run(xp, te, tm, gm.used_tiles(sizes, tm),
+                                     f"{key} {scheme} {wname} one-hot tm {tm}")
+                if not torch.equal(got[:K], w_bf16[5]) or got[K:].any():
+                    raise AssertionError(f"{key} {scheme} {wname} tm {tm}: one-hot rows do not "
+                                         f"reproduce the expert's weight exactly")
+                del xp, got
             for case in ("decode", "prefill", "empty_expert", "one_expert"):
                 sizes = routing_sizes(case, device)
                 n = int(sizes.sum())
@@ -1604,11 +1658,15 @@ def grouped_cases(device, flush):
                 xp = torch.zeros((Mp, K), dtype=torch.bfloat16, device=device)
                 xp[dst.long()] = xs
                 name = f"{key} {scheme} {wname} {case}"
-                got = run(xp, te, tm, used)
+                got, design = checked_run(xp, te, tm, used, name)
+                again, _ = checked_run(xp, te, tm, used, name)
                 want = plain(xp, te, tm, used)
                 torch.cuda.synchronize()
                 if not torch.isfinite(got.float()).all():
                     raise AssertionError(f"{name}: non-finite kernel output")
+                if quant and (not torch.equal(got, again) or got[int(used) * tm:].any()):
+                    raise AssertionError(f"{name}: two runs differ, or rows past the used "
+                                         f"tiles are not zero")
                 err = row_scaled_err(got, want.float())
                 # (c) the rows of the busiest expert zeroed
                 busiest = int(sizes.argmax())
@@ -1624,23 +1682,70 @@ def grouped_cases(device, flush):
                 b_ms, b_by = bound(nbytes, 2 * n * K * N)
                 row = {"case": f"{scheme}_{wname}_{case}", "scheme": scheme, "weight": wname,
                        "rows": n, "tm": tm, "padded_rows": Mp, "K": K, "N": N,
-                       "experts_touched": len(touched), "max_abs_err": max_abs(got, want),
-                       "row_err": err, "zeroed_expert_row_err": zerr, "one_hot_exact": True,
+                       "experts_touched": len(touched), "design": design,
+                       "max_abs_err": max_abs(got, want), "row_err": err,
+                       "zeroed_expert_row_err": zerr, "one_hot_exact": True,
                        "ms": time_ms(lambda: run(xp, te, tm, used), flush),
                        "plain_ms": time_ms(lambda: plain(xp, te, tm, used), flush, iters=5),
                        "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
                        "flops": 2 * n * K * N}
                 row.update(grouped_library(xs, w_bf16, sizes, flush))
                 if quant:  # dequantize the stack, then the bf16 grouped kernel
+                    row["deterministic"] = True
                     row["unfused_ms"] = time_ms(lambda: gm.gmm(
                         xp, dequantize_grouped(q.values, q.scales, scheme, torch.bfloat16), te,
                         tm, used), flush, iters=5)
+                    if case in ("decode", "prefill"):  # the first design on the same values
+                        xm = unaligned_copy(xp)
+                        first, fd = checked_run(xm, te, tm, used, f"{name} unaligned")
+                        ferr = row_scaled_err(first, want.float())
+                        if fd != "general" or ferr > QUANT_TOL:
+                            raise AssertionError(f"{name} unaligned: {fd} design, "
+                                                 f"row_scaled_err {ferr}")
+                        row.update(first_design_ms=time_ms(lambda: run(xm, te, tm, used), flush),
+                                   first_design_row_err=ferr)
+                        del xm, first
                 log(f"[grouped-kernels] {key} {json.dumps(row)}")
                 out[key].append(row)
-                del xs, xp, got, want, zeroed
+                del xs, xp, got, again, want, zeroed
+            if quant:
+                out["tile_invariance"].append(tile_invariance_reading(q, scheme, wname, K,
+                                                                      device))
             del q, w_bf16
             torch.cuda.empty_cache()
     return out
+
+
+def tile_invariance_reading(q, scheme, wname, K, device):
+    """A reading, not a gate: phase 9's decode rows (16 rows, 8 tokens
+    top-2) through ``gmm_quant`` at 16-row tiles (the decode design) and at
+    64-row tiles (the forward ring): do a row's bits match? → row."""
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    sizes = routing_sizes("decode", device)
+    n = int(sizes.sum())
+    g = torch.Generator(device=device).manual_seed(7)
+    xs = torch.randn(n, K, generator=g, device=device).to(torch.bfloat16)
+    rows, designs = {}, {}
+    for tm in (16, 64):
+        dst, te, Mp = gm.pad_groups_to_tiles(sizes, n, tm)
+        xp = torch.zeros((Mp, K), dtype=torch.bfloat16, device=device)
+        xp[dst.long()] = xs
+        designs[tm] = gm.quant_design(scheme, tm, K, carrier_n(q, scheme), xp.data_ptr(),
+                                      q.values.data_ptr())
+        rows[tm] = gm.gmm_quant(xp, q.values, q.scales, te, scheme, torch.bfloat16, tm,
+                                gm.used_tiles(sizes, tm))[dst.long()]
+    same = (rows[16] == rows[64]).all(-1)
+    row = {"case": f"{scheme}_{wname}_tile_invariance", "scheme": scheme, "weight": wname,
+           "designs": {str(t): d for t, d in designs.items()},
+           "row0_bits_equal": bool(same[0]), "rows_bits_equal": int(same.sum()), "rows": n,
+           "max_abs_diff": max_abs(rows[16], rows[64])}
+    log(f"[grouped-kernels] invariance reading (not a gate): {json.dumps(row)}")
+    return row
+
+
+def carrier_n(q, scheme):
+    """The output columns of a carrier stack ``q``."""
+    return q.values.shape[-1] * 4 // 3 if scheme == "fp6" else q.values.shape[-1]
 
 
 def grouped_library(xs, w_bf16, sizes, flush):
@@ -1746,7 +1851,7 @@ def moe_parity_phase(device):
             eng = InferenceEngineV2(cfg, RaggedInferenceEngineConfig(
                 kv_block_size=BS, state_manager=sm, quantization={"quantization_mode": mode}),
                 params=params, device=device)
-            before = {k: f.launches for k, f in counters.items()}
+            before, qd = {k: f.launches for k, f in counters.items()}, quant_designs()
             f0 = eng.forward_steps
             with plain_serving_kernels() if pin == "plain" else contextlib.nullcontext(), \
                     routing(record, replay=pin == "plain") as flips:
@@ -1759,6 +1864,11 @@ def moe_parity_phase(device):
             want = {k: (per[k] * fwd if pin == "kernels" else 0) for k in counters}
             if grew != want:
                 raise AssertionError(f"moe parity {mode} {pin}: launches {grew}, want {want}")
+            by_design = quant_grew(qd)
+            if by_design["general"] or sum(by_design.values()) != want["gmm_quant"]:
+                raise AssertionError(f"moe parity {mode} {pin}: gmm_quant by design {by_design}")
+            if pin == "kernels":
+                quant_by_design = by_design
             logits[pin] = (first, mixed)
             eng.destroy()
             del eng
@@ -1772,7 +1882,8 @@ def moe_parity_phase(device):
         ulp = 2.0 ** (math.floor(math.log2(scale)) - 7)
         res[mode] = {"prefill_abs": errs[0], "mixed_abs": errs[1], "ulps": max(errs) / ulp,
                      "logit_scale": scale, "routing_near_ties": flips[0],
-                     "router_rows": sum(int(r.shape[0]) for r in record)}
+                     "router_rows": sum(int(r.shape[0]) for r in record),
+                     "gmm_quant_designs": quant_by_design}
         log(f"[moe-parity] 2-layer mixtral-8x7b width, {mode}, kernels vs plain: "
             f"{json.dumps(res[mode])} (limit {MOE_PATH_TOL_ULPS} ulps)")
         if max(errs) > MOE_PATH_TOL_ULPS * ulp:
@@ -1819,11 +1930,13 @@ def moe_serving_phase(device, mode, layers):
     for f in counters.values():
         f.launches = 0
     designs = gemm_designs()
+    forwards, restore = forward_split(engine)
     t0 = time.perf_counter()
     streams, steps = run_requests(engine, MOE_N_REQ, MOE_PROMPT, MOE_NEW, 0, MOE_BUDGET,
                                   MOE_BURST)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    restore()
     launches = {k: f.launches for k, f in counters.items()}
     # bf16 experts: prefill's 64-row tiles take the wgmma forward, decode's 16 the first design
     fwd_designs = {k: v - designs["fwd"][k] for k, v in gemm_designs()["fwd"].items()}
@@ -1852,6 +1965,7 @@ def moe_serving_phase(device, mode, layers):
                   total_tokens_per_sec=MOE_N_REQ * (MOE_PROMPT + MOE_NEW) / dt,
                   host_syncs=syncs, syncs_per_token=syncs / max(toks, 1),
                   launches=launches, launches_per_forward=per, gmm_fwd_designs=fwd_designs,
+                  forward_split=split_forwards(forwards, per["gmm_quant"], tag),
                   peak_memory_gb=peak / 1e9, card_memory_gb=card / 1e9)
     log(f"[{tag}] {json.dumps(result)}")
     log(f"[{tag}] request 0 first tokens: {streams[0][:8]}")
@@ -1860,6 +1974,63 @@ def moe_serving_phase(device, mode, layers):
     del engine
     torch.cuda.empty_cache()
     return result, launches
+
+
+def forward_split(engine):
+    """Time each ragged forward of ``engine`` on the card (CUDA events
+    around it, no host sync) and record the ``gmm_quant`` launches it made
+    by design and whether a decode burst ran it. → (records, restore)."""
+    records, state = [], {"burst": False}
+    fwd, burst = engine._forward, engine.decode_burst
+
+    def timed(batch):
+        before = quant_designs()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = fwd(batch)
+        ev[1].record()
+        records.append((ev, quant_grew(before), state["burst"]))
+        return out
+
+    def in_burst(*args, **kwargs):
+        state["burst"] = True
+        try:
+            return burst(*args, **kwargs)
+        finally:
+            state["burst"] = False
+
+    def restore():
+        del engine._forward, engine.decode_burst
+
+    engine._forward, engine.decode_burst = timed, in_burst
+    return records, restore
+
+
+def split_forwards(records, per_forward, tag):
+    """Each forward's ``gmm_quant`` launches on one design (``per_forward``
+    of them; none on the first design where TMA reads every operand),
+    decode bursts' all on the decode design; → ms per forward on the card
+    for decode forwards (16-row tiles: the decode design) and prefill or
+    mixed ones (64-row tiles: the forward ring)."""
+    torch.cuda.synchronize()
+    out = {}
+    for ev, grew, in_burst in records:
+        on = [d for d, v in grew.items() if v]
+        if per_forward and (len(on) != 1 or grew[on[0]] != per_forward or on == ["general"]
+                            or (in_burst and on != ["stream"])):
+            raise AssertionError(f"{tag}: a forward's gmm_quant launches by design {grew} "
+                                 f"(decode burst: {in_burst}), want {per_forward} on one "
+                                 f"Hopper design")
+        kind = "decode" if on == ["stream"] else "prefill" if on == ["wgmma"] else "dense"
+        k = out.setdefault(kind, {"forwards": 0, "in_bursts": 0, "ms": 0.0})
+        k["forwards"] += 1
+        k["in_bursts"] += int(in_burst)
+        k["ms"] += ev[0].elapsed_time(ev[1])
+    for k in out.values():
+        k["ms_per_forward"] = k["ms"] / k["forwards"]
+    log(f"[{tag}] forwards by gmm_quant design (CUDA events around each forward): "
+        f"{json.dumps(out)}")
+    return out
 
 
 # ---------------------------------------------------------------- phase 13
@@ -2956,18 +3127,20 @@ def gemm_designs():
     and dx's wgmma designs build one a launch)."""
     from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
     return {"fwd": dict(gm.gmm_fwd_design_launches), "dx": dict(gm.gmm_dx_design_launches),
-            "dw": dict(gm.gmm_dw_design_launches), "plan": gm.gmm_plan.launches}
+            "dw": dict(gm.gmm_dw_design_launches), "quant": quant_designs(),
+            "plan": gm.gmm_plan.launches}
 
 
 def check_designs(before, want, name, design="wgmma"):
     """Raise unless, since ``before``, each GEMM of ``want`` ({"fwd": n,
     "dx": n, "dw": n}) launched exactly its count, all on ``design``, each
     forward and dx on the wgmma design with one launch of the work list's
-    kernel."""
+    kernel (as is each ``gmm_quant`` on a Hopper design)."""
     now = gemm_designs()
     grew = {g: {k: v - before[g][k] for k, v in now[g].items()} for g in want}
     plans = now["plan"] - before["plan"]
     want_plans = want.get("fwd", 0) + want.get("dx", 0) if design == "wgmma" else 0
+    want_plans += sum(now["quant"][d] - before["quant"][d] for d in ("wgmma", "stream"))
     other = "general" if design == "wgmma" else "wgmma"
     if grew != {g: {design: n, other: 0} for g, n in want.items()} or plans != want_plans:
         raise AssertionError(f"{name}: launches by design {grew}, want {want}, all {design}; "
@@ -3370,6 +3543,7 @@ def frozen_base_check(device):
         if mode == "kernels":
             gm.gmm_quant.launches = gm.gmm_quant_dx.launches = 0
         before, designs = [gm.gmm_quant.launches, gm.gmm_quant_dx.launches], gemm_designs()
+        qd = quant_designs()
         xt = x.clone().requires_grad_()
         with plain_moe_train_kernels() if mode == "plain" else contextlib.nullcontext():
             out = dropless_moe_ffn(xt, idx, vals, *stacks, num_experts=E)
@@ -3384,6 +3558,10 @@ def frozen_base_check(device):
             raise AssertionError("frozen base: the plain run launched a kernel")
         check_designs(designs, {"fwd": 0, "dx": 3 if mode == "kernels" else 0, "dw": 0},
                       f"frozen base {mode}")
+        want_q = {"wgmma": 3 if mode == "kernels" else 0, "stream": 0, "general": 0}
+        if quant_grew(qd) != want_q:  # 8192 rows: 64-row tiles, the forward ring
+            raise AssertionError(f"frozen base {mode}: gmm_quant by design {quant_grew(qd)}, "
+                                 f"want {want_q}")
         dx[mode] = xt.grad
     if any(q.values.grad is not None or q.scales.grad is not None for q in stacks):
         raise AssertionError("frozen base: a carrier or scale got a gradient")
@@ -3395,9 +3573,85 @@ def frozen_base_check(device):
         f"{json.dumps(res)}")
     if not torch.isfinite(dx["kernels"].float()).all() or rel > GRAD_LEAF_TOL:
         raise AssertionError(f"frozen base: dx differs from the plain run's: {res}")
-    del stacks, dx
+    del dx
+    res["forward"] = frozen_forward_case(stacks[0], device)
+    del stacks
     torch.cuda.empty_cache()
     return res, launches
+
+
+def frozen_forward_case(q, device):
+    """The frozen base's forward through its int8 w1 carriers ``q`` at 8192
+    rows (phase 19's routing, 64-row tiles): the forward ring, held against
+    the plain version (the zeroed-tile check), two runs equal bit for bit,
+    rows past the used tiles zero; timed beside the first design (x at an
+    unaligned base), the plain version, dequantize + ``torch._grouped_mm``
+    (the same function) and ``torch._grouped_mm`` on the dequantized
+    stack, and the bound. → row."""
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import row_scaled_err
+    from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import dequantize_grouped
+    sizes, dst, te, used, Mp, tm = moe_train_layout(device)
+    n, (E, K, N) = int(sizes.sum()), q.values.shape
+    g = torch.Generator(device=device).manual_seed(23)
+    x = torch.zeros((Mp, K), dtype=torch.bfloat16, device=device)
+    x[dst] = torch.randn(n, K, generator=g, device=device).to(torch.bfloat16)
+    name = "gmm_quant int8 w1 frozen base"
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+
+    def run(xx):
+        return gm.gmm_quant(xx, q.values, q.scales, te, q.scheme, torch.bfloat16, tm, used)
+
+    qd = quant_designs()
+    got, again = run(x), run(x)
+    want = gm.gmm_quant_ref(x, q.values, q.scales, te, q.scheme, torch.bfloat16, tm, used)
+    torch.cuda.synchronize()
+    if quant_grew(qd) != {"wgmma": 2, "stream": 0, "general": 0}:
+        raise AssertionError(f"{name}: launches by design {quant_grew(qd)}, want 2 on wgmma")
+    busiest = int(sizes.argmax())
+    start = int(((sizes[:busiest] + tm - 1) // tm * tm).sum())
+    zeroed = got.clone()
+    zeroed[start:start + 64] = 0
+    err, zerr = row_scaled_err(got, want.float()), row_scaled_err(zeroed, want.float())
+    if err > QUANT_TOL or zerr <= QUANT_TOL or not torch.equal(got, again) or \
+            got[int(used) * tm:].any():
+        raise AssertionError(f"{name}: row_scaled_err {err} (limit {QUANT_TOL}), zeroed tile "
+                             f"{zerr}, or two runs differ, or rows past the used tiles not zero")
+    xm = unaligned_copy(x)
+    first = run(xm)
+    ferr = row_scaled_err(first, want.float())
+    if ferr > QUANT_TOL:
+        raise AssertionError(f"{name}: the first design's row_scaled_err {ferr}")
+    touched = [e for e in range(E) if int(sizes[e])]
+    b_ms, b_by = bound(carrier_bytes(q, touched) + 2 * n * (K + N), 2 * n * K * N)
+    row = {"case": "int8_w1_frozen_base", "scheme": q.scheme, "rows": n, "tm": tm, "K": K,
+           "N": N, "design": "wgmma", "max_abs_err": max_abs(got, want), "row_err": err,
+           "zeroed_tile_row_err": zerr, "deterministic": True,
+           "ms": time_ms(lambda: run(x), flush), "first_design_ms": time_ms(lambda: run(xm), flush),
+           "first_design_row_err": ferr,
+           "plain_ms": time_ms(lambda: gm.gmm_quant_ref(x, q.values, q.scales, te, q.scheme,
+                                                        torch.bfloat16, tm, used), flush, iters=3),
+           "bound_ms": b_ms, "bound_by": b_by, "flops": 2 * n * K * N}
+    xs = x[dst]
+    offs = torch.cumsum(sizes, 0).to(torch.int32)
+
+    def dequant_grouped_mm():
+        w = dequantize_grouped(q.values, q.scales, q.scheme, torch.bfloat16)
+        return torch._grouped_mm(xs, w.transpose(-2, -1).contiguous().transpose(-2, -1),
+                                 offs=offs)
+
+    if hasattr(torch, "_grouped_mm"):
+        row.update(library_ms=time_ms(dequant_grouped_mm, flush, iters=5),
+                   library_call="dequantize_grouped + torch._grouped_mm")
+    else:
+        row.update(library_ms=None, library_call="none in this torch")
+    w_bf16 = dequantize_grouped(q.values, q.scales, q.scheme, torch.bfloat16)
+    stack = grouped_library(xs, w_bf16, sizes, flush)
+    row.update(bf16_stack_library_ms=stack["library_ms"],
+               bf16_stack_library_call=stack["library_call"])
+    log(f"[moe-train-parity] {name} forward {json.dumps(row)}")
+    del x, xm, got, again, want, zeroed, first, w_bf16, flush
+    return row
 
 
 # ---------------------------------------------------------------- phase 21
@@ -3997,7 +4251,7 @@ def main():
     del flush
     torch.cuda.empty_cache()
     moe_parity_phase(device)
-    _, int8_launches = moe_serving_phase(device, "int8", 32)
+    int8_serving, int8_launches = moe_serving_phase(device, "int8", 32)
     _, bf16_launches = moe_serving_phase(device, "none", MOE_BF16_LAYERS)
     lap("phases 9-12 (quantized and MoE serving)")
 
@@ -4028,7 +4282,8 @@ def main():
     bwd = gmm_bwd_cases(device, flush)
     del flush
     torch.cuda.empty_cache()
-    _, frozen_launches = moe_train_parity_phase(device)
+    moe_train_parity, frozen_launches = moe_train_parity_phase(device)
+    grouped["gmm_quant"].append(moe_train_parity["frozen_base"]["forward"])
     _, moe_train_launches_run = mixtral_training_phase(device)
     bench_train_moe_phase(device)
     lap("phases 19-22 (MoE training)")
@@ -4101,6 +4356,11 @@ def main():
                         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
                         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
                         "library_ms": main_row["library_ms"], "shape": shape, "cases": rows})
+        if name == "gmm_quant":  # the main case's design, and the serving run's forwards by design
+            kernels[-1].update(design=main_row["design"],
+                               first_design_ms=main_row["first_design_ms"],
+                               forwards_by_design=int8_serving["forward_split"],
+                               tile_invariance=grouped["tile_invariance"])
     main_row = next(r for r in lora_cases if r["case"] == "rr_q_proj_r8")
     kernels.append({"name": "lora_delta", "route": "cuda",
                     "source": "deepspeed_tpu_torch/csrc/lora_matmul.cu",

@@ -28,17 +28,17 @@
 //   3. bf16 mma.sync.m16n8k16 tiles with fp32 accumulators, fed by
 //      ldmatrix (the weight tile [k][n] through ldmatrix.trans).
 // A bf16 weight skips step 2: its bytes land in the weight tile directly.
-// This template carries K4 (quant_matmul, dense_matmul), K5's forward
-// through carriers (gmm_quant), and K5's forward over a bf16 stack at
-// decode's 16-row tiles or where TMA cannot read x and W. What bounds it
-// there is the weight bytes (on an H100 at 700 W, a decode call over
-// Mixtral's bf16 w1 runs at ~82% of its byte bound). K5's forward over a
-// bf16 stack at 64-row tiles, its input gradient and its weight gradient
-// run the Hopper designs in grouped_matmul.cu instead (wgmma on 128 x 256 tiles fed by a TMA ring;
-// through carriers, the decoders below fill swizzled bf16 tiles while the
-// previous step's wgmma runs). Prefill-sized calls of this template are
-// operations-bound and are not pipelined: no cp.async or TMA ring, no
-// wgmma, no persistent schedule.
+// This template carries K4 (quant_matmul, dense_matmul), and K5's forward
+// (gmm over a bf16 stack, gmm_quant over carriers) at the shapes TMA
+// cannot read and over a bf16 stack at decode's 16-row tiles. What bounds
+// it there is the weight bytes (on an H100 at 700 W, a decode call over
+// Mixtral's bf16 w1 runs at ~82% of its byte bound). K5's forward at
+// 64-row tiles, gmm_quant at 16-row tiles, its input gradient and its
+// weight gradient run the Hopper designs in grouped_matmul.cu instead
+// (wgmma fed by a TMA ring; through carriers, the decoders below fill
+// swizzled bf16 tiles while the previous step's wgmma runs). Prefill-sized
+// calls of this template are operations-bound and are not pipelined: no
+// cp.async or TMA ring, no wgmma, no persistent schedule.
 
 #pragma once
 

@@ -49,8 +49,14 @@ and never by the routing, and counted by design:
   same work list) or 128 x 256 tiles of dW over each expert's run of rows,
   which each block finds among the used tiles (:func:`gmm_dw_runs_ref`);
 
-else the first, general design (decode's 16-row tiles keep it: it runs
-near its byte bound there). ``gmm_quant`` keeps the first design.
+else the first, general design (a bf16 stack at decode's 16-row tiles
+keeps it: it runs near its byte bound there). The forward through
+carriers (``gmm_quant``) has three, by :func:`quant_design`, counted in
+``gmm_quant_design_launches``: at 64-row tiles the forward ring, its
+carrier stages decoded into the boxes wgmma reads; at 16-row tiles the
+decode design, which streams the carriers through the same decoder and
+swaps the operands (64 weight columns by the item's 16-row x tiles);
+where TMA cannot read x or the carriers, the first design.
 """
 
 import ctypes
@@ -178,28 +184,30 @@ def _check_layout(x, tile_experts, used_tiles, tm, name="x"):
     return used_tiles
 
 
-def _launch(x, w, scales, tile_experts, used_tiles, N, ng, E, scheme_code, tm):
-    """Check the layout operands, then launch → [Mp, N] bf16."""
+def _launch(x, w, scales, tile_experts, used_tiles, N, ng, E, scheme, tm):
+    """Check the layout operands, choose the design by shape, then launch
+    → [Mp, N] bf16."""
     used_tiles = _check_layout(x, tile_experts, used_tiles, tm)
     Mp, K = x.shape
     out = torch.empty((Mp, N), dtype=torch.bfloat16, device=x.device)
     if Mp == 0 or N == 0:
         return out
-    design = wgmma_design(tm, K, N, x.data_ptr(), w.data_ptr()) if scheme_code == 0 else None
-    plan = gmm_plan(tile_experts, used_tiles, tm, E) if design == "wgmma" else None
+    ptrs = x.data_ptr(), w.data_ptr()
+    design = wgmma_design(tm, K, N, *ptrs) if scheme == "bf16" else \
+        quant_design(scheme, tm, K, N, *ptrs)
+    plan = gmm_plan(tile_experts, used_tiles, tm, E) if design != "general" else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         fn = _lib_fn("ds_grouped_matmul", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 +
                      [ctypes.c_void_p, ctypes.c_int])
-        rc = fn(x.data_ptr(), w.data_ptr(), None if scales is None else scales.data_ptr(),
-                tile_experts.data_ptr(), used_tiles.data_ptr(), out.data_ptr(), Mp, K, N, ng, E,
-                scheme_code, tm, None if plan is None else plan.data_ptr(),
+        rc = fn(*ptrs, None if scales is None else scales.data_ptr(), tile_experts.data_ptr(),
+                used_tiles.data_ptr(), out.data_ptr(), Mp, K, N, ng, E, SCHEME_CODE.get(scheme, 0),
+                tm, None if plan is None else plan.data_ptr(),
                 0 if plan is None else plan.shape[0], stream)
     if rc != 0:
-        raise RuntimeError(f"grouped matmul kernel ({design or 'general'} design) failed to "
-                           f"launch: cudaError {rc}")
-    if design is not None:
-        gmm_fwd_design_launches[design] += 1
+        raise RuntimeError(f"grouped matmul kernel ({design} design) failed to launch: "
+                           f"cudaError {rc}")
+    (gmm_fwd_design_launches if scheme == "bf16" else gmm_quant_design_launches)[design] += 1
     return out
 
 
@@ -218,7 +226,7 @@ def gmm(x, w, tile_experts, tm, used_tiles=None):
                          f"{w.dtype} {tuple(w.shape)} on {w.device}")
     if w.shape[1] != x.shape[-1]:
         raise ValueError(f"x [Mp, {x.shape[-1]}] does not contract with w {tuple(w.shape)}")
-    out = _launch(x, w, None, tile_experts, used_tiles, w.shape[2], 1, w.shape[0], 0, tm)
+    out = _launch(x, w, None, tile_experts, used_tiles, w.shape[2], 1, w.shape[0], "bf16", tm)
     gmm.launches += 1
     return out
 
@@ -229,7 +237,9 @@ def gmm_quant(x, values, scales, tile_experts, scheme, dequant_dtype=torch.bfloa
     [E, K, N] (int8 / fp8; packed fp6 [E, K, 3N/4] uint8) and ``scales``
     [E, K, ng] fp32, each weight dequantized to ``dequant_dtype`` before
     the product. CUDA tensors (bf16 x and ``dequant_dtype``) launch the
-    kernel or raise; CPU tensors take :func:`gmm_quant_ref`."""
+    kernel, on the design :func:`quant_design` names (counted in
+    ``gmm_quant_design_launches``), or raise; CPU tensors take
+    :func:`gmm_quant_ref`."""
     if x.device.type == "cpu":
         return gmm_quant_ref(x, values, scales, tile_experts, scheme, dequant_dtype, tm,
                              used_tiles)
@@ -239,8 +249,8 @@ def gmm_quant(x, values, scales, tile_experts, scheme, dequant_dtype=torch.bfloa
     if K != x.shape[-1]:
         raise ValueError(f"x [Mp, {x.shape[-1]}] does not contract with carriers "
                          f"{tuple(values.shape)}")
-    out = _launch(x, values, scales, tile_experts, used_tiles, N, ng, values.shape[0],
-                  SCHEME_CODE[scheme], tm)
+    out = _launch(x, values, scales, tile_experts, used_tiles, N, ng, values.shape[0], scheme,
+                  tm)
     gmm_quant.launches += 1
     return out
 
@@ -284,6 +294,7 @@ PLAN_ROWS = 128  # output rows a block of the wgmma forward and dx designs (csrc
 gmm_dx_design_launches = {"wgmma": 0, "general": 0}
 gmm_fwd_design_launches = {"wgmma": 0, "general": 0}  # gmm over a bf16 stack
 gmm_dw_design_launches = {"wgmma": 0, "general": 0}
+gmm_quant_design_launches = {"wgmma": 0, "stream": 0, "general": 0}  # gmm_quant
 
 
 def dx_design(scheme, N, *ptrs):
@@ -308,6 +319,24 @@ def wgmma_design(tm, K, N, *ptrs):
     never on the row count or the routing."""
     ok = tm == 64 and K % 8 == 0 and N % 8 == 0 and all(p % 16 == 0 for p in ptrs)
     return "wgmma" if ok else "general"
+
+
+def quant_design(scheme, tm, K, N, *ptrs):
+    """The design the forward through ``scheme`` carriers ("int8", "fp8",
+    "fp6"; x [Mp, K] @ carriers [E, K, N]) takes, x and the carriers at
+    device addresses ``ptrs``. Where TMA can read both (16-byte aligned
+    bases, x's rows K % 8, the carriers' rows a multiple of 16 bytes: N %
+    16 for int8 and fp8, N % 64 for fp6's 3N/4 bytes): "wgmma" at 64-row
+    tiles (the forward ring: [64 K][256 N] carrier stages decoded for
+    wgmma), "stream" at 16-row tiles (the decode design, operands
+    swapped: 64 N of decoded carriers times the item's x tiles); else
+    "general", the first design, which takes every shape. It depends on
+    the scheme, the tile, the shape and the alignment, never on the row
+    count or the routing."""
+    row = {"int8": N, "fp8": N, "fp6": 3 * N // 4}[scheme]  # the carriers' row bytes
+    if K % 8 or row % 16 or (scheme == "fp6" and N % 4) or any(p % 16 for p in ptrs):
+        return "general"
+    return {64: "wgmma", 16: "stream"}.get(tm, "general")
 
 
 def _plan_bound(T, tm, num_experts):

@@ -40,7 +40,10 @@ weight gradient must take the design their shape predicates name (the
 wgmma designs wherever TMA can read the operands, at 64-row tiles for the
 forward and dW), give the same bits on a second run, and reproduce their
 operands bit for bit on one-hot rows (dx: the dequantized carriers; the
-forward: the stack; dW: dy)."""
+forward: the stack; dW: dy). So must K5's forward through carriers
+(``gmm_quant``) at Mixtral's shapes: the forward ring at prefill's 64-row
+tiles, the decode design at 16-row tiles, the first design at an
+unaligned base."""
 
 import numpy as np
 import pytest
@@ -640,22 +643,101 @@ def test_grouped_kernel_matches_plain(cuda, scheme, sizes, K, N, tm):
         kernel, fn = gm.gmm, (lambda x: gm.gmm(x, w, te, tm, used))
         want = gm.gmm_ref(xp, w, te, tm, used)
         design = gm.wgmma_design(tm, K, N, xp.data_ptr(), w.data_ptr())
+        counts = gm.gmm_fwd_design_launches
     else:
         q = _carrier((E, K, N), scheme, 4 if N % 8 else 8, cuda, 3)
         kernel = gm.gmm_quant
         fn = (lambda x: gm.gmm_quant(x, q.values, q.scales, te, scheme, torch.bfloat16, tm, used))
         want = gm.gmm_quant_ref(xp, q.values, q.scales, te, scheme, torch.bfloat16, tm, used)
-        design = None  # carriers keep the first design, uncounted
-    before = kernel.launches, dict(gm.gmm_fwd_design_launches)
+        design = gm.quant_design(scheme, tm, K, N, xp.data_ptr(), q.values.data_ptr())
+        counts = gm.gmm_quant_design_launches
+    before = kernel.launches, dict(counts)
     got = fn(xp)
     torch.cuda.synchronize()
     assert kernel.launches == before[0] + 1
-    grew = {k: v - before[1][k] for k, v in gm.gmm_fwd_design_launches.items()}
+    grew = {k: v - before[1][k] for k, v in counts.items()}
     assert grew == {d: int(d == design) for d in grew}, grew
     n_used = int(used) * tm
     assert not got[n_used:].any()  # tiles without rows are written as zeros
     err = row_scaled_err(got[:n_used], want[:n_used].float())
     assert err <= QUANT_TOL, f"row_scaled_err {err}"
+
+
+# gmm_quant's Hopper designs at Mixtral's expert stacks, w1 [8, 4096,
+# 14336] and w2 [8, 14336, 4096], under serving's routings (expert 7
+# empty): decode, 8 tokens top-2 over 16-row tiles (the decode design),
+# and a 264-token prefill chunk, 528 rows over 64-row tiles (the
+# forward ring). Each: within QUANT_TOL of the plain version (fp32 over the
+# same bf16 weights), a zeroed 64-row tile rejected, two runs equal bit for
+# bit, zeros past the used tiles, one-hot rows over all of K reproducing
+# ``dequantize_grouped`` exactly (at 16-row tiles, 128-row items: the
+# widest x operand), and the first design taken at x's unaligned base,
+# counted by design in ``gmm_quant_design_launches``.
+MIXTRAL_QUANT_CASES = [("decode", 4096, 14336), ("decode", 14336, 4096),
+                       ("prefill", 4096, 14336), ("prefill", 14336, 4096)]
+
+
+def _serving_sizes(case):
+    rng = np.random.RandomState(3)
+    tokens = 8 if case == "decode" else 264
+    idx = np.concatenate([rng.choice(7, 2, replace=False) for _ in range(tokens)])
+    return tuple(np.bincount(idx, minlength=8).tolist())
+
+
+def _quant_run(x, q, te, used, tm, scheme):
+    """One ``gmm_quant`` launch → (output, the design it was counted on)."""
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    before = gm.gmm_quant.launches, dict(gm.gmm_quant_design_launches)
+    got = gm.gmm_quant(x, q.values, q.scales, te, scheme, torch.bfloat16, tm, used)
+    torch.cuda.synchronize()
+    assert gm.gmm_quant.launches == before[0] + 1
+    grew = {k: v - before[1][k] for k, v in gm.gmm_quant_design_launches.items()}
+    assert sorted(grew.values()) == [0, 0, 1], grew
+    return got, max(grew, key=grew.get)
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+@pytest.mark.parametrize("case,K,N", MIXTRAL_QUANT_CASES)
+def test_gmm_quant_designs_match_plain(cuda, scheme, case, K, N):
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import row_scaled_err
+    from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import dequantize_grouped
+    sizes, tm = _serving_sizes(case), 16 if case == "decode" else 64
+    assert sizes[7] == 0
+    xp, te, used = _gmm_case(sizes, K, tm, cuda, 21)
+    q = _carrier((8, K, N), scheme, 512, cuda, 22)
+    design = "stream" if tm == 16 else "wgmma"
+    assert gm.quant_design(scheme, tm, K, N, xp.data_ptr(), q.values.data_ptr()) == design
+    got, d1 = _quant_run(xp, q, te, used, tm, scheme)
+    again, d2 = _quant_run(xp, q, te, used, tm, scheme)
+    assert d1 == d2 == design
+    want = gm.gmm_quant_ref(xp.float(), q.values, q.scales, te, scheme, torch.bfloat16, tm, used)
+    assert got.dtype == torch.bfloat16 and got.shape == (xp.shape[0], N)
+    assert torch.equal(got, again)  # each output written once: the same bits every run
+    n_used = int(used) * tm
+    assert not got[n_used:].any()
+    err = row_scaled_err(got[:n_used], want[:n_used])
+    bad_err = row_scaled_err(_zero_tile(got[:n_used]), want[:n_used])
+    assert err <= QUANT_TOL and bad_err > 10 * QUANT_TOL, (err, bad_err)
+    # the first design at x's unaligned base: the same values
+    xm = torch.empty(xp.numel() + 8, dtype=torch.bfloat16, device=cuda)[1:1 + xp.numel()]
+    xm = xm.view(xp.shape)
+    xm.copy_(xp)
+    first, d3 = _quant_run(xm, q, te, used, tm, scheme)
+    assert d3 == "general"
+    assert row_scaled_err(first[:n_used], want[:n_used]) <= QUANT_TOL
+    assert not first[n_used:].any()
+    del xp, xm, got, again, want, first
+    # one-hot rows over all of K through expert 5
+    one = [0] * 8
+    one[5] = K
+    xp, te, used = _gmm_case(one, K, tm, cuda, 0)
+    xp[:K] = torch.eye(K, device=cuda, dtype=torch.bfloat16)
+    got, d4 = _quant_run(xp, q, te, used, tm, scheme)
+    assert d4 == design
+    assert torch.equal(got[:K], dequantize_grouped(q.values[5], q.scales[5], scheme,
+                                                   torch.bfloat16))
+    assert not got[K:].any()
 
 
 # The backward kernels of K5 against their plain versions on the same bf16
