@@ -31,13 +31,17 @@ each of which fails the run if it fails:
    magnitude) of each other. Both attentions compute in fp32 and round
    only their output, so they differ by summation order, and the logits
    come out of a bf16 matmul;
-4b. batch invariance — (a) ``dense_matmul`` (K4's template over a bf16
-   weight, the serving path's dense projections, its K split chosen by
-   (N, K) alone) at Mistral-7B's projections, 16 and 512 rows: within
-   QUANT_TOL units of ``row_scaled_err`` of cuBLAS on the same inputs, a
-   zeroed column tile rejected, timed beside cuBLAS (the plain version and
-   the library call) and the bound, with each one's host µs to enqueue a
-   call; (b) a reading: the row counts (1 to
+4b. batch invariance — (a) ``dense_matmul`` (K4 over a bf16 weight, the
+   serving path's dense projections, K cut into chunks chosen by (N, K)
+   alone) at Mistral-7B's projections, 16 rows (the decode design) and 512
+   (the prefill design), each row naming the design ``k4_design`` gives it
+   (counted on it) and the kernels one call launches: within QUANT_TOL
+   units of ``row_scaled_err`` of cuBLAS on the same inputs, a zeroed
+   column tile rejected, the first design (``design="general"``) held to
+   the same check, timed beside cuBLAS (the plain version and the library
+   call), the first design and the bound,
+   with each one's host µs to enqueue a call; (b) a reading: the row
+   counts (1 to
    512) at which row 0 of cuBLAS's product (also with reduced-precision
    reductions off), of ``dense_matmul`` and of the eager RMS norm moves;
    (c) a 2-layer Mistral-7B-width engine: one request's decode token alone
@@ -52,10 +56,13 @@ each of which fails the run if it fails:
    512, bursts of 16. Every request must get 64 in-vocab tokens, the
    kernel's launch count must grow by layers x forward steps, and the
    pool must be empty again at the end, and ``dense_matmul`` must launch
-   7 x layers + 1 per forward. Prints tokens/s, steps, host
-   syncs per token and peak memory, then profiles one prefill step and
-   one decode burst of the same traffic (device time by kernel, device
-   busy share), then runs the traffic with the projections through
+   7 x layers + 1 per forward, none on the first design: a decode burst's
+   all on the decode design, a prefill or mixed forward's projections on
+   the prefill design (its head, at the 16 sequences' last tokens, on the
+   decode design). Prints tokens/s, steps, host syncs per token, peak
+   memory and the forwards split by K4 design, then profiles one prefill
+   step and one decode burst of the same traffic (device time by kernel,
+   K4's among it, device busy share), then runs the traffic with the projections through
    ``dense_matmul`` and pinned to cuBLAS in turn, three times each
    (generated tokens/s and ms per forward of each: the repair's cost);
 6. train kernels — flash attention forward, dK/dV and dQ, and the RMS-norm
@@ -137,6 +144,12 @@ each of which fails the run if it fails:
    stack for K5, or the sum of per-expert ``torch.matmul`` times where
    this torch refuses it) and the unfused path (dequantize the stack,
    then the bf16 grouped kernel; for K4 the plain version is that path).
+   Each ``quant_matmul`` case names the design ``k4_design`` gives it (the
+   decode design at 8 rows, the prefill design at 37 and 264), is counted
+   on it, gives the same bits on a second run, and the first design on
+   the same inputs is held to the same check and timed beside it; one
+   case a scheme takes the first
+   design by itself (x at an unaligned base).
    Each ``gmm_quant`` case names the design ``quant_design`` gives it and
    must be counted on it (the decode design at 16-row tiles, the forward
    ring at 64, the one-hot check at both), give the same bits on a second
@@ -163,11 +176,13 @@ each of which fails the run if it fails:
    must launch (4 per layer + 1 for the head) per forward and ``gmm_quant``
    3 per layer per forward (so every MoE FFN went through the kernels), each
    forward's all on one Hopper design (a decode burst's on the decode
-   design, none on the first), and peak memory
+   design, none on the first), ``quant_matmul``'s likewise (a prefill
+   forward's projections on the prefill design, the head at the 8
+   sequences' last tokens on the decode design), and peak memory
    must stay under the card's. Prints tokens/s, ms per forward, host syncs
    per token, resident bytes, peak memory, the forwards split by design
    with their ms each (CUDA events around every forward) and a profile of
-   one prefill step and one decode burst;
+   one prefill step and one decode burst, with K4's share of each;
 12. bf16 MoE serving — the same preset and traffic in bf16 at 8 of 32
    layers (the bf16 model does not fit one card at full depth); ``gmm``
    must launch 3 per layer per forward. Same prints, and how many ``gmm``
@@ -460,14 +475,22 @@ def log(msg):
     print(msg, flush=True)
 
 
+SPIN_CYCLES = 400_000  # ~0.2 ms of the card's clock: longer than the host takes to enqueue a call
+
+
 def time_ms(fn, flush, iters=20):
     """Median device ms of ``fn`` over ``iters`` launches, L2 flushed
-    (a 256 MB write) before each, CUDA events around the call only."""
+    (a 256 MB write) before each, CUDA events around the call only. A
+    spin on the card after the flush keeps it busy while the host
+    enqueues the call, so the events bracket the call's kernels and not
+    the host's launch path (a K4 call at decode enqueues in 20-60 µs,
+    longer than its kernel runs)."""
     fn()
     torch.cuda.synchronize()
     events = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -667,43 +690,111 @@ def serving_proj(proj):
         mr._proj = saved
 
 
+def k4_designs(inst):
+    """K4's launches so far by design, of ``inst`` ("dense" or "quant")."""
+    from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import k4_design_launches
+    return dict(k4_design_launches[inst])
+
+
+def k4_grew(inst, before):
+    return {k: v - before[k] for k, v in k4_designs(inst).items()}
+
+
+def one_hot_rows(M, K, device):
+    """M one-hot bf16 rows over K, row i picking weight row (7919 i) % K →
+    (rows, picks)."""
+    picks = (torch.arange(M, device=device) * 7919) % K
+    x = torch.zeros(M, K, device=device, dtype=torch.bfloat16)
+    x[torch.arange(M, device=device), picks] = 1
+    return x, picks
+
+
+def kernels_per_call(fn, calls=4):
+    """The kernels one call of ``fn`` launches on the card, read from a
+    profile of ``calls`` calls (the profiler's first events can go
+    unrecorded)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA) / calls
+
+
+def host_us_per_call(fn, n=200):
+    """Host µs to enqueue one call of ``fn`` (the decode forward is host-bound)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def dense_matmul_cases(device, flush):
-    """``dense_matmul`` at Mistral-7B's projections, decode (16 rows) and
-    prefill (512 rows): within QUANT_TOL of its plain version (cuBLAS on
-    the same bf16 inputs; both sum fp32 products in other orders and round
-    once), the check rejecting one 64-column tile zeroed; timed beside the
-    plain version (which is also the library call) and the bound."""
+    """``dense_matmul`` at Mistral-7B's projections, decode (16 rows: the
+    decode design) and prefill (512 rows: the prefill design): each on the
+    design ``k4_design`` names, within QUANT_TOL of its plain version
+    (cuBLAS on the same bf16 inputs; both sum fp32 products in other
+    orders and round once), the check rejecting one 64-column tile zeroed;
+    the first design ("general") held to the same check; timed beside the
+    plain version (which is also the library call), the first design on
+    the same inputs and the bound, with the kernels a call launches and the
+    host µs to enqueue one."""
     from deepspeed_tpu_torch.ops.kernels.flash_attention import row_scaled_err
-    from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import dense_matmul, dense_matmul_ref
+    from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import (dense_matmul,
+                                                                     dense_matmul_ref,
+                                                                     k4_design)
     rows = []
     for i, (K, N) in enumerate(INV_GEMMS):
         for M in (INV_SEQS, INV_TOKENS):
             g = torch.Generator(device=device).manual_seed(300 + i)
             x = torch.randn(M, K, generator=g, device=device).to(torch.bfloat16)
             w = (torch.randn(K, N, generator=g, device=device) * 0.02).to(torch.bfloat16)
+            design, before = k4_design("bf16", M, K, N, x.data_ptr(), w.data_ptr()), \
+                k4_designs("dense")
             got, want = dense_matmul(x, w), dense_matmul_ref(x, w)
             torch.cuda.synchronize()
+            if k4_grew("dense", before) != {d: int(d == design) for d in before} or \
+                    design == "general":
+                raise AssertionError(f"dense_matmul M={M} [{K}, {N}]: launches by design "
+                                     f"{k4_grew('dense', before)}, want 1 on {design}, a "
+                                     f"Hopper design")
             err, zerr = row_scaled_err(got, want.float()), row_scaled_err(zero_col_tile(got),
                                                                          want.float())
             if err > QUANT_TOL or zerr <= QUANT_TOL:
                 raise AssertionError(f"dense_matmul M={M} [{K}, {N}]: row_scaled_err {err}, "
                                      f"zeroed tile {zerr}")
+            eye, picks = one_hot_rows(M, K, device)
+            if not torch.equal(dense_matmul(x, w), got) or \
+                    not torch.equal(dense_matmul(eye, w), w[picks]):
+                raise AssertionError(f"dense_matmul M={M} [{K}, {N}]: a second run gave other "
+                                     f"bits, or one-hot rows did not give w's rows exactly")
+            first = lambda: dense_matmul(x, w, design="general")  # noqa: E731
+            fgot = first()  # the general design, held to the same check
+            ferr, fzerr = row_scaled_err(fgot, want.float()), \
+                row_scaled_err(zero_col_tile(fgot), want.float())
+            if ferr > QUANT_TOL or fzerr <= QUANT_TOL:
+                raise AssertionError(f"dense_matmul M={M} [{K}, {N}], general design: "
+                                     f"row_scaled_err {ferr}, zeroed tile {fzerr}")
             b_ms, b_by = bound(2 * (M * K + K * N + M * N), 2 * M * K * N)
             plain_ms = time_ms(lambda: dense_matmul_ref(x, w), flush)
-            host = {}
-            for name, fn in (("host_us_per_call", dense_matmul), ("plain_host_us_per_call",
-                                                                 dense_matmul_ref)):
-                torch.cuda.synchronize()  # host time to enqueue one call: the decode
-                t0 = time.perf_counter()  # forward is host-bound
-                for _ in range(200):
-                    fn(x, w)
-                host[name] = (time.perf_counter() - t0) / 200 * 1e6
-                torch.cuda.synchronize()
-            row = {"case": f"M{M}_{K}x{N}", "M": M, "K": K, "N": N, "max_abs_err": max_abs(got, want),
-                   "row_err": err, "zeroed_tile_row_err": zerr,
+            row = {"case": f"M{M}_{K}x{N}", "M": M, "K": K, "N": N, "design": design,
+                   "max_abs_err": max_abs(got, want), "row_err": err, "zeroed_tile_row_err": zerr,
+                   "first_design_row_err": ferr, "first_design_zeroed_tile_row_err": fzerr,
                    "ms": time_ms(lambda: dense_matmul(x, w), flush), "plain_ms": plain_ms,
+                   "first_design_ms": time_ms(first, flush),
                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": plain_ms,
-                   "library_call": "torch.matmul (the plain version)", **host}
+                   "library_call": "torch.matmul (the plain version)",
+                   "kernels_per_call": kernels_per_call(lambda: dense_matmul(x, w)),
+                   "first_design_kernels_per_call": kernels_per_call(first),
+                   "host_us_per_call": host_us_per_call(lambda: dense_matmul(x, w)),
+                   "first_design_host_us_per_call": host_us_per_call(first),
+                   "plain_host_us_per_call": host_us_per_call(lambda: dense_matmul_ref(x, w))}
             log(f"[dense-matmul] {json.dumps(row)}")
             rows.append(row)
     return rows
@@ -904,10 +995,12 @@ def serving_phase(device):
     syncs0, toks0, fwd0 = engine.host_syncs, engine.tokens_emitted, engine.forward_steps
 
     paged_decode_attention.launches = dense_matmul.launches = 0
+    forwards, restore = forward_split(engine, {"k4": lambda: k4_designs("dense")})
     t0 = time.perf_counter()
     streams, steps = run_requests(engine, N_REQ, PROMPT, NEW, seed=0)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    restore()
     launches = paged_decode_attention.launches
     dense_launches = dense_matmul.launches
 
@@ -936,19 +1029,26 @@ def serving_phase(device):
               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     log(f"[serving] {json.dumps(result)}")
     log(f"[serving] request 0 first tokens: {streams[0][:8]}")
+    result["k4_forwards"] = k4_split_forwards(forwards, "k4", 7 * cfg.num_hidden_layers + 1,
+                                              "serving")
     result["profile"] = profile_steps(engine)
+    result["k4_device"] = k4_share(result["profile"], "dense_matmul (K4's bf16 instance)",
+                                   "serving")
     result["invariance_cost"] = invariance_cost(engine)
     engine.destroy()
     return result, launches
 
 
 _CATEGORIES = (  # (category, name patterns: a substring, or a tuple of substrings that must
-    # all appear), first match wins; K4 and K5 are instances of one template ("qgemm")
+    # all appear), first match wins; K4's first design and K5's are instances of one template
+    # ("qgemm"), their Hopper designs of one body (ring_gemm.cuh) under separate names
     ("lora_delta (K6)", ("lora_kernel",)),
-    ("dense_matmul (K4's bf16 instance)", (("qgemm_kernel<0,", "false>"),)),
-    ("quant_matmul (K4)", (("qgemm_kernel", "false>"),)),
-    ("split-K sums (K4, dense_matmul)", ("reduce_splits_kernel",)),
-    ("grouped_matmul (K5)", (("qgemm_kernel", "true>"), ("gmm_wgmma_kernel", "true>"))),
+    ("dense_matmul (K4's bf16 instance)", (("qgemm_kernel<0,", "false>"), "k4_stream_kernel<0>",
+                                           "k4_ring_kernel<0>", "k4_dense_ring_kernel")),
+    ("quant_matmul (K4)", (("qgemm_kernel", "false>"), "k4_stream_kernel", "k4_ring_kernel")),
+    ("split-K sums (K4's first design)", ("reduce_splits_kernel",)),
+    ("grouped_matmul (K5)", (("qgemm_kernel", "true>"), ("gmm_wgmma_kernel", "true>"),
+                             "gmm_stream_kernel")),
     ("grouped_matmul dx (K5 backward)", ("gmm_dx_kernel", ("gmm_wgmma_kernel", "false>"))),
     ("grouped_matmul dW (K5 backward)", ("gmm_dw_kernel", "gmm_dw_wgmma_kernel")),
     ("flash_attention (K1)", ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")),
@@ -1503,32 +1603,48 @@ def zero_col_tile(y):
 
 
 def quant_matmul_cases(device, flush):
-    """K4 at the Mixtral serving shapes, for every scheme. → rows."""
+    """K4 at the Mixtral serving shapes, for every scheme, each on the
+    design ``k4_design`` names (one case a scheme with x at an unaligned
+    base: the first design), the first design on the same inputs held to
+    the same check, and timed beside it. → rows."""
     from deepspeed_tpu_torch.ops.kernels.flash_attention import row_scaled_err
     from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import (dequantize_grouped,
-                                                                     quant_matmul,
+                                                                     k4_design, quant_matmul,
                                                                      quant_matmul_ref)
     cases = [(scheme, M, K, N) for scheme in ("int8", "fp8", "fp6")
              for (K, N) in ATTN_SHAPES for M in (8, 264, 37)]
     cases += [(scheme, M, K, N) for scheme in ("int8", "fp6") for (K, N) in MLP_SHAPES
               for M in (8, 264)]
     cases += [(scheme, 8) + HEAD_SHAPE for scheme in ("int8", "fp8", "fp6")]
+    cases += [(scheme, 8) + ATTN_SHAPES[0] + ("unaligned",) for scheme in ("int8", "fp8", "fp6")]
     rows, exact_done = [], set()
-    for i, (scheme, M, K, N) in enumerate(cases):
+    for i, (scheme, M, K, N, *unaligned) in enumerate(cases):
         x, q = quant_inputs(100 + i, M, (K, N), scheme, device)
+        if unaligned:
+            x = unaligned_copy(x)
         v, sc = q.values, q.scales
-        name = f"quant_matmul {scheme} M={M} [{K}, {N}]"
+        name = f"quant_matmul {scheme} M={M} [{K}, {N}]" + (" unaligned x" if unaligned else "")
+        design = k4_design(scheme, M, K, N, x.data_ptr(), v.data_ptr())
+        if design != ("general" if unaligned else "stream" if M <= 16 else "wgmma"):
+            raise AssertionError(f"{name}: k4_design names {design}")
+        before = k4_designs("quant")
         got = quant_matmul(x, v, sc, scheme)
         want = quant_matmul_ref(x, v, sc, scheme)
         torch.cuda.synchronize()
+        if k4_grew("quant", before) != {d: int(d == design) for d in before}:
+            raise AssertionError(f"{name}: launches by design {k4_grew('quant', before)}, "
+                                 f"want 1 on {design}")
         if not torch.isfinite(got.float()).all():
             raise AssertionError(f"{name}: non-finite kernel output")
+        if not torch.equal(quant_matmul(x, v, sc, scheme), got):
+            raise AssertionError(f"{name}: a second run gave other bits")
         err = row_scaled_err(got, want.float())
         zerr = row_scaled_err(zero_col_tile(got), want.float())
         if err > QUANT_TOL or zerr <= QUANT_TOL:
             raise AssertionError(f"{name}: row_scaled_err {err} (limit {QUANT_TOL}), zeroed "
                                  f"tile {zerr} (must exceed it)")
-        row = {"case": f"{scheme}_M{M}_{K}x{N}", "scheme": scheme, "M": M, "K": K, "N": N,
+        row = {"case": f"{scheme}_M{M}_{K}x{N}" + ("_unaligned" if unaligned else ""),
+               "scheme": scheme, "M": M, "K": K, "N": N, "design": design,
                "group": N // sc.shape[-1], "max_abs_err": max_abs(got, want), "row_err": err,
                "zeroed_tile_row_err": zerr}
         w_bf16 = dequantize_grouped(v, sc, scheme, torch.bfloat16)
@@ -1541,9 +1657,26 @@ def quant_matmul_cases(device, flush):
                                      f"dequantize_grouped exactly")
             exact_done.add((scheme, K, N))
             row["one_hot_exact"] = True
+        eye, picks = one_hot_rows(M, K, device)  # and M of them, through this case's design
+        if unaligned:
+            eye = unaligned_copy(eye)
+        if not torch.equal(quant_matmul(eye, v, sc, scheme), w_bf16[picks]):
+            raise AssertionError(f"{name}: {M} one-hot rows through the {design} design do "
+                                 f"not reproduce dequantize_grouped exactly")
+        if not unaligned:  # the first design on the same inputs, held to the same check
+            fgot = quant_matmul(x, v, sc, scheme, design="general")
+            ferr = row_scaled_err(fgot, want.float())
+            fzerr = row_scaled_err(zero_col_tile(fgot), want.float())
+            if ferr > QUANT_TOL or fzerr <= QUANT_TOL:
+                raise AssertionError(f"{name}, general design: row_scaled_err {ferr} (limit "
+                                     f"{QUANT_TOL}), zeroed tile {fzerr} (must exceed it)")
+            row.update(first_design_row_err=ferr, first_design_zeroed_tile_row_err=fzerr)
+            del fgot
         nbytes = q.nbytes() + x.nbytes + M * N * 2
         b_ms, b_by = bound(nbytes, 2 * M * K * N)
         row.update(ms=time_ms(lambda: quant_matmul(x, v, sc, scheme), flush),
+                   first_design_ms=time_ms(
+                       lambda: quant_matmul(x, v, sc, scheme, design="general"), flush),
                    plain_ms=time_ms(lambda: quant_matmul_ref(x, v, sc, scheme), flush),
                    library_ms=time_ms(lambda: x @ w_bf16, flush),
                    library_call="torch.matmul on the pre-dequantized bf16 weight",
@@ -1930,7 +2063,9 @@ def moe_serving_phase(device, mode, layers):
     for f in counters.values():
         f.launches = 0
     designs = gemm_designs()
-    forwards, restore = forward_split(engine)
+    k4_inst = "dense" if mode == "none" else "quant"  # the attention projections and the head
+    forwards, restore = forward_split(engine, {"gmm_quant": quant_designs,
+                                               "k4": lambda: k4_designs(k4_inst)})
     t0 = time.perf_counter()
     streams, steps = run_requests(engine, MOE_N_REQ, MOE_PROMPT, MOE_NEW, 0, MOE_BUDGET,
                                   MOE_BURST)
@@ -1966,30 +2101,36 @@ def moe_serving_phase(device, mode, layers):
                   host_syncs=syncs, syncs_per_token=syncs / max(toks, 1),
                   launches=launches, launches_per_forward=per, gmm_fwd_designs=fwd_designs,
                   forward_split=split_forwards(forwards, per["gmm_quant"], tag),
+                  k4_forwards=k4_split_forwards(forwards, "k4", 4 * L + 1, f"{tag} K4"),
                   peak_memory_gb=peak / 1e9, card_memory_gb=card / 1e9)
     log(f"[{tag}] {json.dumps(result)}")
     log(f"[{tag}] request 0 first tokens: {streams[0][:8]}")
     result["profile"] = profile_steps(engine, traffic)
+    result["k4_device"] = k4_share(result["profile"], "dense_matmul (K4's bf16 instance)"
+                                   if mode == "none" else "quant_matmul (K4)", tag)
     engine.destroy()
     del engine
     torch.cuda.empty_cache()
     return result, launches
 
 
-def forward_split(engine):
+def forward_split(engine, counters=None):
     """Time each ragged forward of ``engine`` on the card (CUDA events
-    around it, no host sync) and record the ``gmm_quant`` launches it made
-    by design and whether a decode burst ran it. → (records, restore)."""
+    around it, no host sync) and record the launches by design it made of
+    each of ``counters`` (name → launches by design so far; ``gmm_quant``'s
+    by default) and whether a decode burst ran it. → (records, restore)."""
+    counters = counters or {"gmm_quant": quant_designs}
     records, state = [], {"burst": False}
     fwd, burst = engine._forward, engine.decode_burst
 
     def timed(batch):
-        before = quant_designs()
+        before = {k: f() for k, f in counters.items()}
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
         out = fwd(batch)
         ev[1].record()
-        records.append((ev, quant_grew(before), state["burst"]))
+        grew = {k: {d: v - before[k][d] for d, v in f().items()} for k, f in counters.items()}
+        records.append((ev, grew, state["burst"]))
         return out
 
     def in_burst(*args, **kwargs):
@@ -2014,7 +2155,8 @@ def split_forwards(records, per_forward, tag):
     mixed ones (64-row tiles: the forward ring)."""
     torch.cuda.synchronize()
     out = {}
-    for ev, grew, in_burst in records:
+    for ev, grews, in_burst in records:
+        grew = grews["gmm_quant"]
         on = [d for d, v in grew.items() if v]
         if per_forward and (len(on) != 1 or grew[on[0]] != per_forward or on == ["general"]
                             or (in_burst and on != ["stream"])):
@@ -2030,6 +2172,48 @@ def split_forwards(records, per_forward, tag):
         k["ms_per_forward"] = k["ms"] / k["forwards"]
     log(f"[{tag}] forwards by gmm_quant design (CUDA events around each forward): "
         f"{json.dumps(out)}")
+    return out
+
+
+def k4_split_forwards(records, name, per_forward, tag):
+    """Each forward's K4 launches (``records``' counter ``name``):
+    ``per_forward`` of them, none on the first design; a decode burst's
+    all on the decode design; any other forward's projections all on one
+    design by its token count (the head, at the sequences' last tokens,
+    may take the decode design beside the prefill design). → launches by
+    design and ms per forward on the card, by kind of forward ("prefill":
+    one with prefill-design launches; "decode")."""
+    torch.cuda.synchronize()
+    out = {}
+    for ev, grews, in_burst in records:
+        grew = grews[name]
+        wg, st = grew["wgmma"], grew["stream"]
+        if sum(grew.values()) != per_forward or grew["general"] or \
+                (in_burst and st != per_forward) or wg not in (0, per_forward - 1, per_forward):
+            raise AssertionError(f"{tag}: a forward's K4 launches by design {grew} (decode "
+                                 f"burst: {in_burst}), want {per_forward}: the projections on "
+                                 f"one Hopper design, a decode burst's on the decode design")
+        k = out.setdefault("prefill" if wg else "decode",
+                           {"forwards": 0, "in_bursts": 0, "ms": 0.0, "stream": 0, "wgmma": 0})
+        k["forwards"] += 1
+        k["in_bursts"] += int(in_burst)
+        k["ms"] += ev[0].elapsed_time(ev[1])
+        k["stream"] += st
+        k["wgmma"] += wg
+    for k in out.values():
+        k["ms_per_forward"] = k["ms"] / k["forwards"]
+    log(f"[{tag}] forwards by K4 design (CUDA events around each forward): {json.dumps(out)}")
+    return out
+
+
+def k4_share(profile, category, tag):
+    """K4's device ms and share of the device time in each profiled step."""
+    out = {kind: {"k4_ms": p["by_category_ms"].get(category, 0.0), "device_ms": p["device_ms"],
+                  "forwards": p["forwards"],
+                  "k4_share": p["by_category_ms"].get(category, 0.0) / p["device_ms"]
+                  if p["device_ms"] else None}
+           for kind, p in profile.items()}
+    log(f"[{tag}] K4 ({category}) in the profiled steps: {json.dumps(out)}")
     return out
 
 
@@ -4356,6 +4540,10 @@ def main():
                         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
                         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
                         "library_ms": main_row["library_ms"], "shape": shape, "cases": rows})
+        if name == "quant_matmul":  # the main case's design, the serving run's K4 launches
+            kernels[-1].update(design=main_row["design"],
+                               first_design_ms=main_row["first_design_ms"],
+                               forwards_by_design=int8_serving["k4_forwards"])
         if name == "gmm_quant":  # the main case's design, and the serving run's forwards by design
             kernels[-1].update(design=main_row["design"],
                                first_design_ms=main_row["first_design_ms"],
@@ -4425,7 +4613,8 @@ def main():
                     "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
                     "library_ms": main_row["library_ms"],
                     "shape": "serving decode step: M=16 x [4096, 14336] bf16 (gate, up)",
-                    "cases": dense_cases})
+                    "design": main_row["design"], "first_design_ms": main_row["first_design_ms"],
+                    "forwards_by_design": serving["k4_forwards"], "cases": dense_cases})
     slice7 = {  # name: (source, TPU kernel, shape)
         "block_sparse_fwd": ("block_sparse_attention.cu", "block_sparse_attention.py:71",
                              "BERT-large path: B=4, S=4096, H=16, Dh=64, BigBird block 64, bf16"),

@@ -28,9 +28,10 @@
 //   3. bf16 mma.sync.m16n8k16 tiles with fp32 accumulators, fed by
 //      ldmatrix (the weight tile [k][n] through ldmatrix.trans).
 // A bf16 weight skips step 2: its bytes land in the weight tile directly.
-// This template carries K4 (quant_matmul, dense_matmul), and K5's forward
-// (gmm over a bf16 stack, gmm_quant over carriers) at the shapes TMA
-// cannot read and over a bf16 stack at decode's 16-row tiles. What bounds
+// This template is the general design of K4 (quant_matmul, dense_matmul)
+// and of K5's forward (gmm over a bf16 stack, gmm_quant over carriers): the
+// shapes TMA cannot read, and K5's bf16 stack at decode's 16-row tiles.
+// K4's other calls run the Hopper designs of fused_quant_matmul.cu. What bounds
 // it there is the weight bytes (on an H100 at 700 W, a decode call over
 // Mixtral's bf16 w1 runs at ~82% of its byte bound). K5's forward at
 // 64-row tiles, gmm_quant at 16-row tiles, its input gradient and its

@@ -585,32 +585,91 @@ def _carrier(shape, scheme, group, device, seed):
     return q
 
 
-@pytest.mark.parametrize("scheme", SCHEMES)
-@pytest.mark.parametrize("M,K,N,group", [
+def _zero_cols(t):
+    """``t`` with one 64-column tile zeroed in every row (the middle one)."""
+    z = t.clone()
+    c = (t.shape[-1] // 64 // 2) * 64
+    z[..., c:c + 64] = 0
+    return z
+
+
+def _unaligned(x):
+    """``x``'s values at a base one element into a buffer: what TMA cannot
+    read, so K4 takes its general design."""
+    xm = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)[1:1 + x.numel()]
+    xm = xm.view(x.shape)
+    xm.copy_(x)
+    return xm
+
+
+def _one_hot_rows(M, K, device):
+    """M one-hot rows over K (row i picks weight row (7919 i) % K) → (x, picks)."""
+    picks = (torch.arange(M, device=device) * 7919) % K
+    x = torch.zeros(M, K, device=device, dtype=torch.bfloat16)
+    x[torch.arange(M, device=device), picks] = 1
+    return x, picks
+
+
+def _k4_check(cuda, fn, want, x, w_bf16, instance, kernel):
+    """One K4 case: the design k4_design names is the one launched, within
+    QUANT_TOL of ``want`` (a zeroed 64-column tile rejected), two runs the
+    same bits, M one-hot rows through that design giving the weight's rows
+    exactly, and the general design taken, and right, at an unaligned base
+    of x."""
+    from deepspeed_tpu_torch.ops.kernels import fused_quant_matmul as fq
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import row_scaled_err
+    inst = "dense" if instance == "bf16" else "quant"
+    (M, K), N = x.shape, w_bf16.shape[1]
+    design = fq.k4_design(instance, M, K, N, x.data_ptr(), 0)
+    before = kernel.launches, dict(fq.k4_design_launches[inst])
+    got = fn(x)
+    torch.cuda.synchronize()
+    grew = {k: v - before[1][k] for k, v in fq.k4_design_launches[inst].items()}
+    assert kernel.launches == before[0] + 1 and grew == {d: int(d == design) for d in grew}, grew
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    err, bad = row_scaled_err(got, want), row_scaled_err(_zero_cols(got), want)
+    assert err <= QUANT_TOL < bad, (design, err, bad)
+    assert torch.equal(fn(x), got)  # no atomics on outputs: the same bits every run
+    eye, picks = _one_hot_rows(M, K, cuda)
+    assert torch.equal(fn(eye), w_bf16[picks])
+    xu = _unaligned(x)
+    assert fq.k4_design(instance, M, K, N, xu.data_ptr(), 0) == "general"
+    before = fq.k4_design_launches[inst]["general"]
+    assert row_scaled_err(fn(xu), want) <= QUANT_TOL
+    assert fq.k4_design_launches[inst]["general"] == before + 1
+    return design
+
+
+# K4 through carriers: the small shapes beside Mixtral-8x7B's attention
+# projections, MLP widths and head (group 500), at decode (8 rows: the
+# decode design, K split by (N, K)), a 37-row and a 264-row prefill chunk
+# (the prefill design, K split over blocks where the tiles leave SMs idle).
+QMM_CASES = [
     (1, 64, 64, 64),        # M = 1, N = one group
-    (37, 100, 20, 20),      # odd M and K; fp6 rows of 15 bytes, N < one tile
+    (37, 100, 20, 20),      # odd M and K; fp6 rows of 15 bytes, N < one tile: general
     (8, 4096, 1024, 512),   # decode, the K loop split over blocks
     (16, 320, 200, 8),      # group 8 (the router's), N past a tile edge
-    (264, 256, 4096, 512),  # a prefill chunk, 64-row tiles
-])
+    (264, 256, 4096, 512),  # a prefill chunk
+] + [(M, K, N, 512) for K, N in ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
+     for M in (8, 37, 264)] + [(M, 4096, 32000, 500) for M in (8, 37, 264)]
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+@pytest.mark.parametrize("M,K,N,group", QMM_CASES)
 def test_quant_matmul_kernel_matches_plain(cuda, scheme, M, K, N, group):
-    from deepspeed_tpu_torch.ops.kernels.flash_attention import row_scaled_err
     from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import (quant_matmul,
                                                                      quant_matmul_ref)
     q = _carrier((K, N), scheme, group, cuda, M + K)
     x = torch.randn(M, K, generator=torch.Generator(cuda).manual_seed(1),
                     device=cuda).to(torch.bfloat16)
-    before = quant_matmul.launches
-    got = quant_matmul(x, q.values, q.scales, scheme)
-    want = quant_matmul_ref(x, q.values, q.scales, scheme)
-    torch.cuda.synchronize()
-    assert quant_matmul.launches == before + 1
-    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
-    err = row_scaled_err(got, want.float())
-    assert err <= QUANT_TOL, f"row_scaled_err {err}"
-    eye = torch.eye(K, device=cuda, dtype=torch.bfloat16)
-    assert torch.equal(quant_matmul(eye, q.values, q.scales, scheme),
-                       q.dequantized(torch.bfloat16))
+    want = quant_matmul_ref(x, q.values, q.scales, scheme).float()
+    w_bf16 = q.dequantized(torch.bfloat16)
+    design = _k4_check(cuda, lambda a: quant_matmul(a, q.values, q.scales, scheme), want, x,
+                       w_bf16, scheme, quant_matmul)
+    if K >= 4096:  # the Hopper designs at Mixtral's shapes
+        assert design == ("stream" if M <= 16 else "wgmma")
+    eye = torch.eye(K, device=cuda, dtype=torch.bfloat16)  # every weight row, exactly
+    assert torch.equal(quant_matmul(eye, q.values, q.scales, scheme), w_bf16)
 
 
 def _gmm_case(sizes, K, tm, device, seed):
@@ -1519,23 +1578,31 @@ def test_tier_records_own_their_bytes_and_promote_from_host(cuda, quantize):
 
 
 # ------------------------------------------------- batch-invariant serving
-@pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 1024), (14336, 4096), (100, 72)])
+@pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 1024), (14336, 4096), (4096, 14336),
+                                 (4096, 32000), (100, 72)])
 def test_dense_matmul_matches_plain_and_rows_do_not_move(cuda, K, N):
-    """``dense_matmul`` within QUANT_TOL of the fp32 product of the same
-    bf16 inputs, and row 0 the same bits at every row count (cuBLAS's move
-    between 16 and 512 rows at Mistral-7B's shapes on an H100)."""
-    from deepspeed_tpu_torch.ops.kernels.flash_attention import row_scaled_err
+    """``dense_matmul`` at every row count of phase 4b, across its decode
+    (M <= 16) and prefill designs (the general design at (100, 72), whose
+    rows TMA cannot read): each within QUANT_TOL of the fp32 product of the
+    same bf16 inputs, a zeroed tile rejected, two runs the same bits,
+    one-hot rows exact, the general design right at an unaligned base; row
+    0 the same bits at every row count (cuBLAS's move between 16 and 512
+    rows at Mistral-7B's shapes on an H100); and eye(K) giving w exactly."""
     from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import dense_matmul
     g = torch.Generator(cuda).manual_seed(K + N)
     x = torch.randn(512, K, generator=g, device=cuda).to(torch.bfloat16)
     w = (torch.randn(K, N, generator=g, device=cuda) * 0.02).to(torch.bfloat16)
-    before = dense_matmul.launches
-    rows = {M: dense_matmul(x[:M], w) for M in (1, 7, 16, 64, 255, 512)}
+    rows, designs = {}, {}
+    for M in (1, 7, 16, 64, 255, 512):
+        xm = x[:M].contiguous()
+        designs[M] = _k4_check(cuda, lambda a: dense_matmul(a, w), xm.float() @ w.float(), xm,
+                               w, "bf16", dense_matmul)
+        rows[M] = dense_matmul(xm, w)
     torch.cuda.synchronize()
-    assert dense_matmul.launches == before + 6
-    err = row_scaled_err(rows[512], x.float() @ w.float())
-    assert err <= QUANT_TOL, err
+    if K % 8 == 0:
+        assert designs == {M: "stream" if M <= 16 else "wgmma" for M in designs}, designs
     assert all(torch.equal(y[:1], rows[1]) for y in rows.values())
+    assert torch.equal(dense_matmul(torch.eye(K, device=cuda, dtype=torch.bfloat16), w), w)
     with pytest.raises(TypeError):
         dense_matmul(x.float(), w.float())  # fp32 on the card: no fallback
 
