@@ -13,16 +13,24 @@ each of which fails the run if it fails:
    ``nvcc`` per source) and prints what ptxas reports, then reads K1's
    designs from the library's SASS (``cuobjdump``): the forward, dK/dV
    and dQ kernels must all issue wgmma (HGMMA);
-3. kernels — calls each kernel's wrapper at Mistral-7B attention shapes
-   (H=32, Hkv=8, Dh=128, block 32, bf16): the serving run's decode and
-   prefill steps, a decode batch over contexts 1..4096, a 512-token
-   prefill chunk over 16 sequences, and edge rows (position 0, block
-   boundaries, past the table, pad rows). Each result is held against the
-   plain PyTorch version in fp32 on the same bf16 inputs (max-abs 2e-2:
-   the kernel's bf16 output rounding), and timed with CUDA events, L2
+3. kernels — calls K3's wrapper at Mistral-7B attention shapes (H=32,
+   Hkv=8, Dh=128, block 32, bf16): the serving run's decode and prefill
+   steps, a decode batch over contexts 1..4096, a 512-token prefill chunk
+   over 16 sequences, edge rows (position 0, block boundaries, past the
+   table, pad rows), and beyond the serving path block size 16, one and
+   eight query heads a KV head, head dim 64, chunks that start mid-block,
+   contexts across the tiled design's chunk cut at 512, an odd T with the
+   positions 8 bytes off 16, pad rows after a prefill. Each call takes the
+   design ``paged_design`` names (the tiled design at every case; counted
+   on it) and is run again on the first (token) design: both are held
+   against the plain PyTorch version in fp32 on the same bf16 inputs
+   (max-abs 2e-2: the kernels' bf16 output rounding), the tiled design
+   also within ROW_TOL units of ``row_scaled_err`` with one (token, KV
+   head)'s rows zeroed rejected, and a second run must give the same
+   bits. Both designs are timed in the same call with CUDA events, L2
    flushed before every launch, beside the plain version, one PyTorch
-   library call (SDPA over the gathered dense KV, gather excluded) and
-   the bound (bytes over 3.35 TB/s or flops over 989 TFLOP/s);
+   library call (SDPA over the gathered dense KV, gather excluded) and the
+   bound (bytes over 3.35 TB/s or flops over 989 TFLOP/s);
 4. parity  — a 2-layer Mistral-7B-width engine through the kernel and one
    pinned to the plain ``torch_gather`` attention, same weights, odd
    token buckets (255 and 7, so the packed vector's views sit off 16-byte
@@ -49,7 +57,10 @@ each of which fails the run if it fails:
    each serving op's input and output recorded for its row. Gate: equal
    logits bits and no op whose output moves on equal input; with the
    projections pinned to cuBLAS (the path before the repair) the first op
-   that moves is printed;
+   that moves is printed; (d) K3: every row of a sequence's chunk of 1, 7,
+   16, 64 and 128 tokens (the last at position 530, past the chunk cut)
+   beside three decoding sequences and pad rows, its chunk alone, the batch
+   with it last, and each token alone. Gate: no row's bits move;
 5. serving — the full 32-layer Mistral-7B-width engine (random weights
    from a seeded generator) under ``DynamicSplitFuseScheduler``: 16
    requests x 128-token random prompts x 64 new tokens, block 32, budget
@@ -64,7 +75,10 @@ each of which fails the run if it fails:
    step and one decode burst of the same traffic (device time by kernel,
    K4's among it, device busy share), then runs the traffic with the projections through
    ``dense_matmul`` and pinned to cuBLAS in turn, three times each
-   (generated tokens/s and ms per forward of each: the repair's cost);
+   (generated tokens/s and ms per forward of each: the repair's cost).
+   K3's launches by design (all on the tiled design) and K3's device ms in
+   each profiled step are printed; phases 11, 14, 15 and 18 print and gate
+   the same (K6 on its mma design where LoRA is on);
 6. train kernels — flash attention forward, dK/dV and dQ, and the RMS-norm
    forward at the training path's shapes (B=4, S=2048, H=16, Dh=128,
    causal; RMS on [8192, 2048]) and beside them S=1000 and S=2049 (not
@@ -201,7 +215,10 @@ each of which fails the run if it fails:
    the output with one slot's rows zeroed, (c) give 4 rows computed alone
    the same bits as in the mixed launch (row independence), and (d) leave
    base rows bitwise equal to y, the fused add being exactly round(y +
-   delta). Timed beside the plain version, the layout (once per forward),
+   delta). Each case takes the design ``lora_design`` names (counted on
+   it; the mma design wherever x is aligned) and runs again on the first
+   (``design="general"``), held to the same check (a). Timed beside the
+   first design, the plain version, the layout (once per forward),
    the wrapper's host time per call (the all-base case, whose tiles exit at
    once),
    the bound (adapter rows' x, the touched slots' A and B, their y rows
@@ -501,12 +518,17 @@ def time_ms(fn, flush, iters=20):
 
 
 # ---------------------------------------------------------------- phase 3
-def attention_case(seed, contexts, chunk, MB, device, pad_rows=0, extra_pos=()):
+def attention_case(seed, contexts, chunk, MB, device, pad_rows=0, extra_pos=(),
+                   shape=(H, HKV, DH, BS), pos_offset=0):
     """Sequences with ``contexts[i]`` tokens of which the last ``chunk``
     are this step's query tokens, each sequence on its own random blocks
     of one pool; ``extra_pos`` adds single rows at those positions and
     ``pad_rows`` rows on the all-null table at position 0, as the engine
-    packs pad tokens. → dict of device tensors (bf16 q/kc/vc)."""
+    packs pad tokens. ``shape``: (H, Hkv, Dh, bs). ``pos_offset``: the
+    positions as a view that many int32 into a larger vector, as the
+    engine's packed batch puts them. → dict of device tensors (bf16
+    q/kc/vc) and the shape."""
+    nh, nkv, dh, bs = shape
     rng = np.random.RandomState(seed)
     rows_pos, rows_seq = [], []
     for s, ctx in enumerate(contexts):
@@ -530,23 +552,25 @@ def attention_case(seed, contexts, chunk, MB, device, pad_rows=0, extra_pos=()):
     def rand(*shape):
         return torch.randn(shape, generator=g, device=device).to(torch.bfloat16)
 
-    return {"q": rand(T, H, DH) * 2, "kc": rand(NB, BS, HKV, DH), "vc": rand(NB, BS, HKV, DH),
+    pos_buf = torch.from_numpy(np.concatenate([np.zeros(pos_offset, np.int32), pos]))
+    return {"q": rand(T, nh, dh) * 2, "kc": rand(NB, bs, nkv, dh), "vc": rand(NB, bs, nkv, dh),
             "tables": torch.from_numpy(tables).to(device),
-            "pos": torch.from_numpy(pos).to(device)}
+            "pos": pos_buf.to(device)[pos_offset:], "shape": shape}
 
 
 def attention_bound(case):
     """(bound ms, 'bytes'|'operations', bytes, flops) for what this case's
     data needs: every K/V row some token attends read once, q read and
     the output written once, tables and positions read once."""
+    nh, nkv, dh, bs = case["shape"]
     tables, pos = case["tables"].cpu().numpy(), case["pos"].cpu().numpy()
     T, MB = tables.shape
-    n_pos = np.minimum(pos.astype(np.int64) + 1, MB * BS)
+    n_pos = np.minimum(pos.astype(np.int64) + 1, MB * bs)
     rows = np.unique(np.concatenate([
-        tables[t, np.arange(n) // BS].astype(np.int64) * BS + np.arange(n) % BS
+        tables[t, np.arange(n) // bs].astype(np.int64) * bs + np.arange(n) % bs
         for t, n in enumerate(n_pos)]))
-    nbytes = (rows.size * HKV * DH * 2 * 2 + 2 * T * H * DH * 2 + tables.nbytes + pos.nbytes)
-    flops = int(n_pos.sum()) * H * DH * 4
+    nbytes = (rows.size * nkv * dh * 2 * 2 + 2 * T * nh * dh * 2 + tables.nbytes + pos.nbytes)
+    flops = int(n_pos.sum()) * nh * dh * 4
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
@@ -554,51 +578,137 @@ def attention_bound(case):
 def sdpa_inputs(case):
     """Dense [T, H, C, Dh] K/V gathered from the pool and a [T, 1, 1, C]
     mask, for the library yardstick (never used by the port)."""
+    nh, nkv, dh, _ = case["shape"]
     kc, vc, tab, pos = case["kc"], case["vc"], case["tables"].long(), case["pos"].long()
     T = tab.shape[0]
-    k = kc[tab].reshape(T, -1, HKV, DH).repeat_interleave(H // HKV, dim=2).transpose(1, 2)
-    v = vc[tab].reshape(T, -1, HKV, DH).repeat_interleave(H // HKV, dim=2).transpose(1, 2)
+    k = kc[tab].reshape(T, -1, nkv, dh).repeat_interleave(nh // nkv, dim=2).transpose(1, 2)
+    v = vc[tab].reshape(T, -1, nkv, dh).repeat_interleave(nh // nkv, dim=2).transpose(1, 2)
     C = k.shape[2]
     mask = (torch.arange(C, device=kc.device)[None, :] <= pos[:, None])[:, None, None, :]
     return case["q"][:, :, None, :], k.contiguous(), v.contiguous(), mask
 
 
+def paged_designs():
+    """K3's launches so far by design."""
+    from deepspeed_tpu_torch.ops.kernels.paged_attention import paged_design_launches
+    return dict(paged_design_launches)
+
+
+def paged_grew(before):
+    return {k: v - before[k] for k, v in paged_designs().items()}
+
+
+def serving_designs():
+    """K3's and K6's launches so far by design."""
+    from deepspeed_tpu_torch.ops.kernels.lora_matmul import lora_design_launches
+    return {"K3": paged_designs(), "K6": dict(lora_design_launches)}
+
+
+def designs_since(tag, before):
+    """K3's and K6's launches by design since ``before`` (from
+    ``serving_designs``), logged under ``tag``. Every serving lane runs
+    Mistral-7B's or Mixtral's attention (H 32, Hkv 8, Dh 128, bs 32), which
+    the tiled K3 design takes: a launch on the token design, or none on the
+    tiled one, fails the run; so does a K6 launch off its mma design (the
+    LoRA sites' bf16 16-byte rows). → {kernel: {design: launches}}."""
+    now = serving_designs()
+    grew = {k: {d: v - before[k][d] for d, v in now[k].items()} for k in now}
+    if grew["K3"]["token"] or not grew["K3"]["tiled"] or grew["K6"]["general"]:
+        raise AssertionError(f"{tag}: launches by design {grew}, want K3's all on the tiled "
+                             f"design and K6's on the mma design")
+    log(f"[{tag}] launches by design: {json.dumps(grew)}")
+    return grew
+
+
+def kernel_ms(profile, tag):
+    """K3's and K6's device ms in each profiled step, logged under ``tag``."""
+    out = {kind: {"K3_ms": p["by_category_ms"].get("paged_attention (K3)", 0.0),
+                  "K6_ms": p["by_category_ms"].get("lora_delta (K6)", 0.0),
+                  "device_ms": p["device_ms"], "forwards": p["forwards"]}
+           for kind, p in profile.items()}
+    log(f"[{tag}] K3 and K6 in the profiled steps: {json.dumps(out)}")
+    return out
+
+
 def kernel_phase(device, flush):
+    """K3 at the serving shapes and at shapes beyond them, each case on the
+    design ``paged_design`` names (the tiled design at every case here)
+    and on the first (token) design, both within KERNEL_TOL of the plain
+    version in max-abs and the named design within ROW_TOL of
+    ``row_scaled_err`` (a zeroed tile must exceed it); the timed cases
+    time both designs in the same call beside the plain version, SDPA and
+    the bound."""
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import row_scaled_err
     from deepspeed_tpu_torch.ops.kernels.paged_attention import (paged_attention_ref,
-                                                                 paged_decode_attention)
+                                                                 paged_decode_attention,
+                                                                 paged_design)
     F = torch.nn.functional
     serve_mb = math.ceil((PROMPT + NEW) / BS)
-    cases = {
+    cases = {  # name: (case, timed)
         # the serving run's steps: a decode burst step (16 sequences midway
         # through generation) and a prefill step (4 prompts fill the budget)
-        "serving_decode": attention_case(1, [PROMPT + NEW // 2] * N_REQ, 1, serve_mb, device),
-        "serving_prefill": attention_case(2, [PROMPT] * (BUDGET // PROMPT), PROMPT,
-                                          serve_mb, device),
-        "decode_4k": attention_case(3, np.linspace(1, 4096, 16).astype(int).tolist(), 1,
-                                    4096 // BS, device),
-        "prefill_chunk_512": attention_case(4, [480 + 32] * 16, 32, 16, device),
-        "edges": attention_case(5, [1, 32, 33, 64, 65], 1, 3, device, pad_rows=3,
-                                extra_pos=(95, 96 + 40)),
+        "serving_decode": (attention_case(1, [PROMPT + NEW // 2] * N_REQ, 1, serve_mb,
+                                          device), True),
+        "serving_prefill": (attention_case(2, [PROMPT] * (BUDGET // PROMPT), PROMPT,
+                                           serve_mb, device), True),
+        "decode_4k": (attention_case(3, np.linspace(1, 4096, 16).astype(int).tolist(), 1,
+                                     4096 // BS, device), True),
+        "prefill_chunk_512": (attention_case(4, [480 + 32] * 16, 32, 16, device), True),
+        "edges": (attention_case(5, [1, 32, 33, 64, 65], 1, 3, device, pad_rows=3,
+                                 extra_pos=(95, 96 + 40)), False),
+        # beyond the serving path: the engine's default block size 16, one and
+        # eight query heads a KV head, head dim 64, a chunk starting mid-block,
+        # contexts across the tiled design's chunk cut at 512, an odd T with
+        # token_pos 8 bytes off 16, pad rows after a prefill
+        "bs16": (attention_case(6, [PROMPT + 64] * 4, 64, 12, device,
+                                shape=(H, HKV, DH, 16)), True),
+        "g1": (attention_case(7, [300] * 2, 100, 10, device, shape=(32, 32, DH, BS)), True),
+        "g8": (attention_case(8, [300] * 2, 100, 10, device, shape=(32, 4, DH, BS)), True),
+        "dh64": (attention_case(9, [PROMPT] * 4, PROMPT, serve_mb, device,
+                                shape=(H, HKV, 64, BS)), True),
+        "midblock_chunk": (attention_case(10, [211, 77, 150], 45, 8, device), True),
+        "across_chunk_cut": (attention_case(11, [540, 1030, 600], 64, 40, device), True),
+        "odd_t": (attention_case(12, [150, 43, 99], 33, 6, device, pos_offset=2), False),
+        "pad_rows": (attention_case(13, [PROMPT] * 3, PROMPT, serve_mb, device,
+                                    pad_rows=BUDGET - 3 * PROMPT), True),
     }
     out = []
-    for name, c in cases.items():
+    for name, (c, timed) in cases.items():
         args = (c["q"], c["kc"], c["vc"], c["tables"], c["pos"])
+        nh, nkv, dh, bs = c["shape"]
+        design = paged_design(nh, nkv, dh, bs)
+        before = paged_designs()
         got = paged_decode_attention(*args)
+        grew = paged_grew(before)
+        first = paged_decode_attention(*args, design="token")
         want = paged_attention_ref(c["q"].float(), c["kc"].float(), c["vc"].float(),
                                    c["tables"], c["pos"])
         torch.cuda.synchronize()
-        if not torch.isfinite(got).all():
+        if grew != {d: int(d == design) for d in grew} or design != "tiled":
+            raise AssertionError(f"kernel case {name}: launches by design {grew}, want one on "
+                                 f"the tiled design")
+        if not (torch.isfinite(got).all() and torch.isfinite(first).all()):
             raise AssertionError(f"kernel case {name}: non-finite output")
-        err = (got.float() - want).abs().max().item()
+        err, ferr = max_abs(got, want), max_abs(first, want)
+        zeroed = got.clone()
+        zeroed[:1, :nh // nkv] = 0  # one (token, KV head)'s rows
+        rerr, zerr = row_scaled_err(got, want), row_scaled_err(zeroed, want)
         row = {"case": name, "T": int(args[0].shape[0]), "MB": int(args[3].shape[1]),
-               "max_abs_err": err}
-        if err > KERNEL_TOL:
-            raise AssertionError(f"kernel case {name}: max-abs {err} > {KERNEL_TOL}")
-        if name != "edges":
+               "H": nh, "Hkv": nkv, "Dh": dh, "bs": bs, "design": design, "max_abs_err": err,
+               "row_err": rerr, "zeroed_tile_row_err": zerr, "first_design_max_abs_err": ferr}
+        if max(err, ferr) > KERNEL_TOL or rerr > ROW_TOL or zerr <= ROW_TOL:
+            raise AssertionError(f"kernel case {name}: max-abs {err} (first design {ferr}; "
+                                 f"limit {KERNEL_TOL}), row_scaled_err {rerr} (limit {ROW_TOL}), "
+                                 f"zeroed tile {zerr} (must exceed it)")
+        if not torch.equal(paged_decode_attention(*args), got):
+            raise AssertionError(f"kernel case {name}: a second run gave other bits")
+        if timed:
             sq, sk, sv, smask = sdpa_inputs(c)
             bound, by, nbytes, flops = attention_bound(c)
             row.update(
                 ms=time_ms(lambda: paged_decode_attention(*args), flush),
+                first_design_ms=time_ms(lambda: paged_decode_attention(*args, design="token"),
+                                        flush),
                 plain_ms=time_ms(lambda: paged_attention_ref(*args), flush),
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                     sq, sk, sv, attn_mask=smask), flush),
@@ -829,7 +939,40 @@ def invariance_ops_reading(device):
     out["eager_rms_4096"] = moved(lambda a: _rms(a, sc, 1e-5), x)
     log(f"[invariance] per op, the row counts of {list(INV_ROWS)} at which row 0 differs "
         f"from row 0 alone: {json.dumps(out)}")
+    out["paged_attention"] = paged_invariance_reading(device)
     return out
+
+
+INV_CHUNKS = (1, 7, 16, 64, 128)  # chunk lengths of K3's reading
+
+
+def paged_invariance_reading(device):
+    """K3 at Mistral-7B's attention: a sequence's chunk of L tokens (L in
+    INV_CHUNKS, the last at position 530, past the tiled design's chunk
+    cut at 512) beside three decoding sequences and two pad rows, then
+    its chunk alone, the batch with it last, and each of its tokens alone
+    (T 1): → the lengths L at which any of its rows' bits moved."""
+    from deepspeed_tpu_torch.ops.kernels.paged_attention import paged_decode_attention
+    moved = []
+    for L in INV_CHUNKS:
+        c = attention_case(20 + L, [531], L, 24, device, pad_rows=2, extra_pos=(40, 200, 600))
+        T = c["pos"].shape[0]
+
+        def rows(idx):
+            idx = torch.as_tensor(list(idx), device=device)
+            return paged_decode_attention(c["q"][idx].contiguous(), c["kc"], c["vc"],
+                                          c["tables"][idx].contiguous(),
+                                          c["pos"][idx].contiguous())
+
+        mixed = rows(range(T))[:L]
+        same = (torch.equal(rows(range(L)), mixed)
+                and torch.equal(rows(list(range(L, T)) + list(range(L)))[T - L:], mixed)
+                and all(torch.equal(rows([t])[0], mixed[t]) for t in range(L)))
+        if not same:
+            moved.append(L)
+    log(f"[invariance] paged attention (K3): the chunk lengths of {list(INV_CHUNKS)} at which "
+        f"a row's bits moved beside other sequences, alone or last: {moved}")
+    return moved
 
 
 def invariance_trace(cfg, params, device, proj=None):
@@ -907,6 +1050,9 @@ def batch_invariance_phase(device):
         log(f"[invariance] {name}: decode token alone vs at the prefill bucket: logits equal "
             f"{equal}; ops whose output moved on equal input {moved}; first difference "
             f"{first}")
+    if ops["paged_attention"]:
+        raise AssertionError(f"invariance: K3's rows moved with their tile or batch at chunk "
+                             f"lengths {ops['paged_attention']}")
     if not out["port"]["logits_equal"] or out["port"]["ops_that_moved"]:
         raise AssertionError(f"invariance: the serving path moves with the token bucket: "
                              f"{out['port']}")
@@ -996,11 +1142,13 @@ def serving_phase(device):
 
     paged_decode_attention.launches = dense_matmul.launches = 0
     forwards, restore = forward_split(engine, {"k4": lambda: k4_designs("dense")})
+    kd0 = serving_designs()
     t0 = time.perf_counter()
     streams, steps = run_requests(engine, N_REQ, PROMPT, NEW, seed=0)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     restore()
+    kd = designs_since("serving", kd0)
     launches = paged_decode_attention.launches
     dense_launches = dense_matmul.launches
 
@@ -1032,6 +1180,7 @@ def serving_phase(device):
     result["k4_forwards"] = k4_split_forwards(forwards, "k4", 7 * cfg.num_hidden_layers + 1,
                                               "serving")
     result["profile"] = profile_steps(engine)
+    result["designs"] = dict(kd, device_ms=kernel_ms(result["profile"], "serving"))
     result["k4_device"] = k4_share(result["profile"], "dense_matmul (K4's bf16 instance)",
                                    "serving")
     result["invariance_cost"] = invariance_cost(engine)
@@ -1042,7 +1191,7 @@ def serving_phase(device):
 _CATEGORIES = (  # (category, name patterns: a substring, or a tuple of substrings that must
     # all appear), first match wins; K4's first design and K5's are instances of one template
     # ("qgemm"), their Hopper designs of one body (ring_gemm.cuh) under separate names
-    ("lora_delta (K6)", ("lora_kernel",)),
+    ("lora_delta (K6)", ("lora_kernel", "lora_mma_kernel")),
     ("dense_matmul (K4's bf16 instance)", (("qgemm_kernel<0,", "false>"), "k4_stream_kernel<0>",
                                            "k4_ring_kernel<0>", "k4_dense_ring_kernel")),
     ("quant_matmul (K4)", (("qgemm_kernel", "false>"), "k4_stream_kernel", "k4_ring_kernel")),
@@ -1055,7 +1204,7 @@ _CATEGORIES = (  # (category, name patterns: a substring, or a tuple of substrin
     ("rms_norm (K2)", ("rms_fwd_kernel",)),
     ("layer_norm (K2)", ("ln_fwd_kernel",)),
     ("block_sparse_attention (K8)", ("bsa_fwd_kernel", "bsa_dq_kernel", "bsa_dkv_kernel")),
-    ("paged_attention (K3)", ("paged_decode_kernel",)),
+    ("paged_attention (K3)", ("paged_decode_kernel", "paged_tiled_kernel")),
     ("gemm", ("nvjet", "gemm", "cutlass", "xmma", "cublas")),
     ("multi-tensor (Adam, grad accumulation)", ("multi_tensor_apply",)),
     ("reductions", ("reduce_kernel",)),
@@ -2066,12 +2215,14 @@ def moe_serving_phase(device, mode, layers):
     k4_inst = "dense" if mode == "none" else "quant"  # the attention projections and the head
     forwards, restore = forward_split(engine, {"gmm_quant": quant_designs,
                                                "k4": lambda: k4_designs(k4_inst)})
+    kd0 = serving_designs()
     t0 = time.perf_counter()
     streams, steps = run_requests(engine, MOE_N_REQ, MOE_PROMPT, MOE_NEW, 0, MOE_BUDGET,
                                   MOE_BURST)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     restore()
+    kd = designs_since(tag, kd0)
     launches = {k: f.launches for k, f in counters.items()}
     # bf16 experts: prefill's 64-row tiles take the wgmma forward, decode's 16 the first design
     fwd_designs = {k: v - designs["fwd"][k] for k, v in gemm_designs()["fwd"].items()}
@@ -2106,6 +2257,7 @@ def moe_serving_phase(device, mode, layers):
     log(f"[{tag}] {json.dumps(result)}")
     log(f"[{tag}] request 0 first tokens: {streams[0][:8]}")
     result["profile"] = profile_steps(engine, traffic)
+    result["designs"] = dict(kd, device_ms=kernel_ms(result["profile"], tag))
     result["k4_device"] = k4_share(result["profile"], "dense_matmul (K4's bf16 instance)"
                                    if mode == "none" else "quant_matmul (K4)", tag)
     engine.destroy()
@@ -2300,6 +2452,7 @@ def lora_kernel_cases(device, flush):
     view and a rank below its bucket. → rows."""
     from deepspeed_tpu_torch.ops.kernels.flash_attention import row_scaled_err
     from deepspeed_tpu_torch.ops.kernels.lora_matmul import (lora_delta, lora_delta_ref,
+                                                             lora_design, lora_design_launches,
                                                              lora_layout)
     cases = [(f"{kind}_{site}_r{r}", T, K, N, r, kind, 0, None)
              for site, (K, N) in LORA_SHAPES.items() for r in (8, 16)
@@ -2314,14 +2467,23 @@ def lora_kernel_cases(device, flush):
         slots = lora_slots(kind, T)
         x, y, a, b, sc, s = lora_inputs(200 + i, T, K, N, r, slots, device, offset, true_rank)
         lay = lora_layout(s, a.shape[0])
-        got = lora_delta(x, torch.zeros_like(y), a, b, sc, lay)
+        zeros = torch.zeros_like(y)
+        design = lora_design(x.dtype, K, N, r, x.data_ptr(), zeros.data_ptr(), a.data_ptr(),
+                             b.data_ptr(), x.stride(0), zeros.stride(0))
+        before = dict(lora_design_launches)
+        got = lora_delta(x, zeros, a, b, sc, lay)
+        grew = {d: lora_design_launches[d] - before[d] for d in before}
         fused = lora_delta(x, y.clone(), a, b, sc, lay)
+        first = lora_delta(x, torch.zeros_like(y), a, b, sc, lay, design="general")
         want = lora_delta_ref(x, s, a, b, sc)
         torch.cuda.synchronize()
+        if grew != {d: int(d == design) for d in grew} or (offset == 0 and design != "mma"):
+            raise AssertionError(f"lora case {name}: launches by design {grew}, want one on "
+                                 f"{design} (the mma design at an aligned x)")
         if not torch.isfinite(got.float()).all():
             raise AssertionError(f"lora case {name}: non-finite kernel output")
         base, row = s == 0, {"case": name, "T": T, "K": K, "N": N, "rank_bucket": r,
-                             "true_rank": true_rank or r, "slots": kind}
+                             "true_rank": true_rank or r, "slots": kind, "design": design}
         if not torch.equal(fused[base], y[base]) or got[base].any():  # (d)
             raise AssertionError(f"lora case {name}: base rows are not the base projection")
         if not torch.equal(fused, (y.float() + got.float()).to(y.dtype)):
@@ -2331,9 +2493,12 @@ def lora_kernel_cases(device, flush):
             zeroed = got.clone()
             zeroed[s == int(s[0])] = 0
             zerr = row_scaled_err(zeroed[~base], want[~base].float())         # (b)
-            if err > LORA_TOL or zerr <= LORA_TOL:
-                raise AssertionError(f"lora case {name}: row_scaled_err {err} (limit "
-                                     f"{LORA_TOL}), zeroed slot {zerr} (must exceed it)")
+            ferr = row_scaled_err(first[~base], want[~base].float())
+            if err > LORA_TOL or zerr <= LORA_TOL or ferr > LORA_TOL:
+                raise AssertionError(f"lora case {name}: row_scaled_err {err} (first design "
+                                     f"{ferr}; limit {LORA_TOL}), zeroed slot {zerr} (must "
+                                     f"exceed it)")
+            row["first_design_row_err"] = ferr
             picks = [0, T // 3, T // 2 + 1, T - 1]                             # (c)
             for t in picks:
                 solo = lora_delta(x[t:t + 1], torch.zeros_like(y[t:t + 1]), a, b, sc,
@@ -2356,13 +2521,15 @@ def lora_kernel_cases(device, flush):
             row["host_us_per_call"] = (time.perf_counter() - t0) / 200 * 1e6
             torch.cuda.synchronize()
         row.update(ms=time_ms(lambda: lora_delta(x, yt, a, b, sc, lay), flush),
+                   first_design_ms=time_ms(lambda: lora_delta(x, yt, a, b, sc, lay,
+                                                              design="general"), flush),
                    plain_ms=time_ms(lambda: y + lora_delta_ref(x, s, a, b, sc), flush),
                    layout_ms=time_ms(lambda: lora_layout(s, a.shape[0]), flush),
                    bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
                    **lora_library(x, s, a, b, flush))
         log(f"[lora-kernels] {json.dumps(row)}")
         rows.append(row)
-        del x, y, a, b, sc, s, got, fused, want, yt
+        del x, y, a, b, sc, s, got, fused, first, want, yt
     torch.cuda.empty_cache()
     return rows
 
@@ -2426,10 +2593,12 @@ def lora_parity_phase(device):
             for uid in range(4):
                 engine.bind_adapter(uid, 1 + 2 * uid)  # adapters 1, 3, 5, 7
         lora_delta.launches = 0
+        kd0 = serving_designs()
         with plain_lora() if run == "plain" else contextlib.nullcontext():
             first = engine.put([0, 1, 2], toks[:3])
             mixed = engine.put([0, 1, 3, 2], [[11], [12], toks[3], toks[4]])
         torch.cuda.synchronize()
+        designs_since(f"lora-parity {run}", kd0)
         want = 0 if run == "plain" else 2 * 4 * L
         if lora_delta.launches != want:
             raise AssertionError(f"lora parity {run}: {lora_delta.launches} launches, want {want}")
@@ -2502,6 +2671,7 @@ def lora_serving_phase(device):
     order = (("lora_off", [None] * N_REQ), ("base_only", [None] * N_REQ),
              ("single", [1] * N_REQ), ("mixed", mix))
     samples, streams = {name: [] for name, _ in order}, {}
+    kd0 = serving_designs()
     for rnd in range(LORA_ROUNDS):
         for name, adapters in order:
             eng = off if name == "lora_off" else engine
@@ -2526,6 +2696,7 @@ def lora_serving_phase(device):
                 "k6_launches": launches,
                 "hot_hit_rate": (store.hot_hits - hits0) / binds if binds else None})
             log(f"[lora-serving] round {rnd} {name}: {json.dumps(samples[name][-1])}")
+    kd = designs_since("lora-serving", kd0)
     if streams["base_only"] != streams["lora_off"]:
         raise AssertionError("lora serving: with every request on the base, LoRA on must give "
                              "the LoRA-off streams bit for bit")
@@ -2628,6 +2799,7 @@ def lora_serving_phase(device):
                               "kernels_per_forward": burst["kernels_launched"] / burst["forwards"],
                               "busy_share": burst["device_busy_share"]}
     log(f"[lora-serving] decode burst: {json.dumps(result['decode_burst'])}")
+    result["designs"] = dict(kd, device_ms=kernel_ms(result["profile"], "lora-serving"))
     engine.destroy()
     del engine
     torch.cuda.empty_cache()
@@ -3046,8 +3218,10 @@ def prefix_lane(cfg, device, params):
     fleet(10_000, 2, 16, 16, 32)  # warm-up; random prompts that cannot match the system one
     torch.cuda.reset_peak_memory_stats()
     syncs0, toks0 = engine.host_syncs, engine.tokens_emitted
+    kd0 = serving_designs()
     cold_dt, cold_prefill = fleet(0, PFX_N_REQ, PFX_SYS, PFX_SFX, PFX_NEW)
     warm_dt, warm_prefill = fleet(PFX_N_REQ, PFX_N_REQ, PFX_SYS, PFX_SFX, PFX_NEW)
+    kd = designs_since("prefix-lane", kd0)
     gen = PFX_N_REQ * PFX_NEW
     stats = engine.prefix_cache.stats()
     if engine.free_blocks + engine.evictable_blocks != total:
@@ -3064,7 +3238,7 @@ def prefix_lane(cfg, device, params):
                                               "evictions")},
               "syncs_per_token": (engine.host_syncs - syncs0) / max(engine.tokens_emitted - toks0,
                                                                     1),
-              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "designs": kd}
     log(f"[prefix-lane] {json.dumps(result)}")
     engine.destroy()
     torch.cuda.empty_cache()
@@ -3139,6 +3313,7 @@ def tier_lane(cfg, device, params):
         torch.cuda.reset_peak_memory_stats()
         syncs0, toks0 = engine.host_syncs, engine.tokens_emitted
         tq.quantize_int8.launches = tq.dequantize_int8.launches = 0
+        kd0 = serving_designs()
         trace = tier_trace(engine, traffic)
         if mode == "int8":
             launches = {"quantize_int8": tq.quantize_int8.launches,
@@ -3149,7 +3324,8 @@ def tier_lane(cfg, device, params):
                "syncs_per_token": (engine.host_syncs - syncs0) /
                max(engine.tokens_emitted - toks0, 1),
                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-               "prefix": engine.prefix_cache.stats()}
+               "prefix": engine.prefix_cache.stats(),
+               "designs": designs_since(f"tier-lane {mode}", kd0)}
         if engine.kv_tier is not None:
             run["tier"] = engine.kv_tier.stats()
             run["host_pinned"] = host_pinned_stats()
@@ -4492,7 +4668,8 @@ def main():
                 "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
                 "library_ms": main_case["library_ms"],
                 "shape": "serving decode step: T=16, H=32, Hkv=8, Dh=128, bs=32, ctx 160",
-                "cases": cases}]
+                "design": main_case["design"], "first_design_ms": main_case["first_design_ms"],
+                "launches_by_design": serving["designs"]["K3"], "cases": cases}]
     train_kernels = {
         "flash_fwd": ("flash_attention.cu", "flash_attention.py:46",
                       f"training path: B={TB}, S={TS}, H=16, Dh=128, causal, bf16"),
@@ -4559,7 +4736,9 @@ def main():
                     "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
                     "library_ms": main_row["library_ms"],
                     "shape": "serving decode step: T=16 (8 adapters x 2 tokens), q_proj "
-                             "[4096, 4096], rank 8, 9 slots, bf16", "cases": lora_cases})
+                             "[4096, 4096], rank 8, 9 slots, bf16",
+                    "design": main_row["design"], "first_design_ms": main_row["first_design_ms"],
+                    "cases": lora_cases})
     main_row = next(r for r in k7_rows if r["case"] == "slab_bf16_n2")
     kernels.append({"name": "quantize_int8", "route": "cuda",
                     "source": "deepspeed_tpu_torch/csrc/quantization.cu",

@@ -1,9 +1,10 @@
 // Tensor-core building blocks shared by the attention kernels
-// (flash_attention.cu, block_sparse_attention.cu): bf16 mma.sync.m16n8k16
-// with fp32 accumulators, ldmatrix (and .trans) lane addressing over shared
-// tiles whose rows are padded by kPad bf16, bf16 packing, and the quad
-// reductions over the four lanes that hold one accumulator row, and the
-// bf16 store of a warp's 16-row accumulator.
+// (flash_attention.cu, block_sparse_attention.cu, paged_attention.cu) and
+// the LoRA kernel (lora_matmul.cu): bf16 mma.sync.m16n8k16 with fp32
+// accumulators, ldmatrix (and .trans) lane addressing over shared tiles
+// whose rows are padded by kPad bf16, cp.async copies, bf16 packing, the
+// quad reductions over the four lanes that hold one accumulator row, and
+// the bf16 store of a warp's 16-row accumulator.
 
 #pragma once
 
@@ -32,6 +33,34 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const uint16_t* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p)));
+}
+
+// lanes 0-15 give the rows of two 8x8 matrices (.trans: of a [k][n] tile)
+__device__ __forceinline__ void ldsm_x2(uint32_t* r, const uint16_t* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t* r, const uint16_t* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
+// 16 bytes global -> shared without registers; src-size 0 writes 16 zero
+// bytes and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // c[16x8] += a[16x16] * b[16x8], bf16 inputs, fp32 accumulators

@@ -27,6 +27,13 @@ that hold rows stays on the device), and serves all 4 x L calls of that
 forward. :func:`apply_lora_delta` is the JAX module's entry: the delta
 alone.
 
+Each CUDA call takes one of two designs, named before the launch by
+:func:`lora_design` from the dtype, K, N, the rank bucket and the
+operands' alignment: "mma" (bf16 with 16-byte rows: x @ A_g on tensor
+cores, once per row tile, K split over a cluster of blocks) or "general" (the
+first design: fp32, or what the mma design cannot read).
+``lora_design_launches`` counts them.
+
 Not carried over: ``_fit_tile`` (the kernel masks a ragged column edge
 itself), the scalar-prefetch grid (a block reads its own tile's slot),
 and the ``FORCE_INTERPRET`` switch (the device of the tensors decides).
@@ -43,6 +50,22 @@ _SOURCE = "lora_matmul.cu"
 TM = 16                 # the row tile the kernel is built for
 MAX_RANK = 64           # the largest rank bucket the kernel is built for
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
+DESIGNS = ("mma", "general")
+MMA_K_STEP = 512        # the mma design cuts K into 16 slices of whole 32-k steps
+
+lora_design_launches = dict.fromkeys(DESIGNS, 0)
+
+
+def lora_design(dtype, K, N, r, *ptrs_and_strides):
+    """The design a CUDA call takes: "mma" for bf16 with K a multiple of
+    512, N and the rank bucket r multiples of 8, and every pointer and row
+    stride in ``ptrs_and_strides`` (x, y, a, b as byte addresses; ldx,
+    ldy in elements) on a 16-byte boundary; else "general". Never T: a
+    row's bits do not depend on its batch."""
+    ok = (dtype == torch.bfloat16 and K % MMA_K_STEP == 0 and N % 8 == 0 and r % 8 == 0
+          and all(v % 16 == 0 for v in ptrs_and_strides[:4])
+          and all(v % 8 == 0 for v in ptrs_and_strides[4:]))
+    return "mma" if ok else "general"
 
 
 def _slot_sizes(slots, num_groups):
@@ -103,13 +126,23 @@ def lora_delta_ref(x, slots, a, b, scales):
     return torch.where((s != 0)[:, None], d, torch.zeros((), device=d.device)).to(x.dtype)
 
 
-def _lib():
-    from deepspeed_tpu_torch.ops.kernels.build import load
-    fn = load(_SOURCE).ds_lora_delta
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong]
-                       + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+_ENTRIES = {}  # design → the C entry, loaded (and built) on first use
+
+
+def _entry(design):
+    fn = _ENTRIES.get(design)
+    if fn is None:
+        from deepspeed_tpu_torch.ops.kernels.build import load
+        lib = load(_SOURCE)
+        head = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong]
+        if design == "mma":
+            fn = lib.ds_lora_delta_mma
+            fn.argtypes = head + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        else:
+            fn = lib.ds_lora_delta
+            fn.argtypes = head + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        _ENTRIES[design] = fn
     return fn
 
 
@@ -165,30 +198,44 @@ def _check(x, y, a, b, scales, layout):
     return K, N, r
 
 
-def lora_delta(x, y, a, b, scales, layout):
+def lora_delta(x, y, a, b, scales, layout, design=None):
     """``y += delta`` in place and → ``y``: ``x`` [T, K] (rows may be a
     strided view), ``y`` [T, N] the base projection in x's dtype, ``a``
     [S, K, r] / ``b`` [S, r, N] one layer's hot slabs in x's dtype,
     ``scales`` [S] fp32, ``layout`` from :func:`lora_layout`. Each
     element becomes ``round(y + round(delta))`` in x's dtype, as the JAX
     runner's ``y + apply_lora_delta(...)``. CUDA tensors launch the
-    kernel (bf16 or fp32, rank buckets 1-64, row tile 16) or raise; CPU
-    tensors take :func:`lora_delta_ref`."""
+    design :func:`lora_design` names (bf16 or fp32, rank buckets 1-64, row
+    tile 16), or ``design`` where it can take the case (a measurement's or
+    a test's choice), or raise; CPU tensors take :func:`lora_delta_ref`."""
     if x.device.type == "cpu":
         return y.add_(lora_delta_ref(x, layout.slots, a, b, scales))
     K, N, r = _check(x, y, a, b, scales, layout)
     T, Mp = x.shape[0], layout.rows.shape[0]
     if T == 0 or N == 0:
         return y
+    named = lora_design(x.dtype, K, N, r, x.data_ptr(), y.data_ptr(), a.data_ptr(),
+                        b.data_ptr(), x.stride(0), y.stride(0))
+    if design is None:
+        design = named
+    elif design not in DESIGNS or (design == "mma" and named != "mma"):
+        raise ValueError(f"design {design!r} cannot take {x.dtype} K={K}, N={N}, r={r} at "
+                         f"these alignments: the mma design takes bf16, K % {MMA_K_STEP}, "
+                         f"N % 8, r % 8 and 16-byte rows")
+    args = (x.data_ptr(), x.stride(0), y.data_ptr(), y.stride(0), a.data_ptr(), b.data_ptr(),
+            scales.data_ptr(), layout.rows.data_ptr(), layout.tile_groups.data_ptr(),
+            layout.used.data_ptr(), Mp, K, N, r)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib()(x.data_ptr(), x.stride(0), y.data_ptr(), y.stride(0), a.data_ptr(),
-                    b.data_ptr(), scales.data_ptr(), layout.rows.data_ptr(),
-                    layout.tile_groups.data_ptr(), layout.used.data_ptr(), Mp, K, N, r,
-                    _DTYPE_CODE[x.dtype], TM, stream)
+        if design == "mma":
+            rc = _entry("mma")(*args, TM, stream)
+        else:
+            rc = _entry("general")(*args, _DTYPE_CODE[x.dtype], TM, stream)
     if rc != 0:
-        raise RuntimeError(f"LoRA delta kernel failed to launch: cudaError {rc}")
+        raise RuntimeError(f"LoRA delta kernel ({design} design) failed to launch: "
+                           f"cudaError {rc}")
     lora_delta.launches += 1
+    lora_design_launches[design] += 1
     return y
 
 

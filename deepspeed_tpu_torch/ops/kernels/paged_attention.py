@@ -1,23 +1,31 @@
-"""Paged decode attention: one query token against a block-tabled KV.
+"""Paged attention: query tokens against a block-tabled KV.
 
-Port of ``deepspeed_tpu/ops/pallas/paged_attention.py``. The kernel is
+Port of ``deepspeed_tpu/ops/pallas/paged_attention.py``. The kernels are
 CUDA C++ for Hopper, ``csrc/paged_attention.cu`` (its header says what
-bounds it and what the design does about that), built by
+bounds them and what each design does about that), built by
 ``ops/kernels/build.py`` and called through ctypes.
 
 :func:`paged_decode_attention` is the wrapper the ragged model runner
-calls. A CUDA tensor launches the kernel or raises; a CPU tensor takes
-the plain version :func:`paged_attention_ref`, which follows
+calls. A CUDA tensor launches one of two designs or raises; a CPU tensor
+takes the plain version :func:`paged_attention_ref`, which follows
 ``xla_paged_attention``'s math and is also what the tests and
-``chip_smoke.py`` compare the kernel with. The TPU kernel's layout limits
-(``head_dim % 128``, ``block_size % 8``, the scalar-memory budget) do not
-apply here: the kernel takes any ``head_dim`` that is a multiple of 8 up
-to 256 and any block size.
+``chip_smoke.py`` compare the kernels with. :func:`paged_design` names
+the design from the shape alone: "tiled" (query tiles of consecutive
+tokens on tensor cores, long contexts split over blocks by fixed chunks
+of :data:`CHUNK` positions) takes head dims that are multiples of 32 up
+to 256, 1-8 query heads a KV head and block sizes that are multiples of
+8; "token" (one block a token, fp32 on CUDA cores) takes the rest: any
+head dim that is a multiple of 8 up to 256 and any block size.
+``paged_design_launches`` counts the launches by design.
+:func:`paged_tiles_ref` is the plain version of how the tiled kernel
+cuts the tokens into tiles. The TPU kernel's layout limits
+(``head_dim % 128``, the scalar-memory budget) do not apply here.
 """
 
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from deepspeed_tpu_torch.models.llama import repeat_kv
@@ -25,6 +33,56 @@ from deepspeed_tpu_torch.models.llama import repeat_kv
 NEG_INF = torch.finfo(torch.float32).min
 MAX_HEAD_DIM = 256
 _SOURCE = "paged_attention.cu"
+DESIGNS = ("tiled", "token")
+TILE_ROWS = 64   # the tiled design's product rows a block: tokens x query heads a KV head
+CHUNK = 512      # positions a tiled block walks: long contexts split at multiples of it
+MAX_GROUP = 8    # query heads a KV head the tiled design takes
+
+paged_design_launches = dict.fromkeys(DESIGNS, 0)
+
+
+def paged_design(H, Hkv, Dh, bs):
+    """The design a call takes, from its shape alone: "tiled" where the
+    head dim is a multiple of 32 up to 256, there are 1-8 query heads a
+    KV head and the block size is a multiple of 8, else "token"."""
+    ok = (Dh % 32 == 0 and 32 <= Dh <= MAX_HEAD_DIM and Hkv >= 1 and H % Hkv == 0
+          and 1 <= H // Hkv <= MAX_GROUP and bs % 8 == 0 and bs > 0)
+    return "tiled" if ok else "token"
+
+
+def kv_tile(Dh):
+    """KT: the KV rows a tiled block stages at a time (``Cfg<D>::KT`` in
+    the kernel); each of the 4 warps that share a 16-row tile scores a
+    quarter of them."""
+    return 64 if Dh <= 128 else 32
+
+
+def tile_tokens(G):
+    """TQ: the most tokens a tiled block takes at ``G`` query heads a KV
+    head; tiles are cut where a position is a multiple of it."""
+    return TILE_ROWS // G
+
+
+def paged_tiles_ref(block_tables, token_pos, G, bs):
+    """Plain version of the tiled kernel's cut of the tokens → [(first
+    token, tokens)]: token t continues token t - 1's tile when its position
+    is the next one, is not a multiple of TQ (:func:`tile_tokens`), and the
+    blocks token t - 1 reads are the same in both tables; a decode token or
+    a pad row is a tile of one. The kernel reads the tile's last token's
+    table for all of them (each reads a prefix of it)."""
+    tab = np.asarray(block_tables.cpu() if torch.is_tensor(block_tables) else block_tables)
+    pos = np.asarray(token_pos.cpu() if torch.is_tensor(token_pos) else token_pos)
+    T, MB = tab.shape
+    TQ = tile_tokens(G)
+    tiles = []
+    for t in range(T):
+        p = int(pos[t])
+        nb = min((p - 1) // bs + 1, MB)
+        if t and p % TQ and int(pos[t - 1]) == p - 1 and (tab[t - 1, :nb] == tab[t, :nb]).all():
+            tiles[-1][1] += 1
+        else:
+            tiles.append([t, 1])
+    return [tuple(x) for x in tiles]
 
 
 def paged_attention_ref(q, kc, vc, block_tables, token_pos):
@@ -55,13 +113,22 @@ def paged_attention_ref(q, kc, vc, block_tables, token_pos):
     return torch.einsum("thc,tchd->thd", probs, vs).to(q.dtype)
 
 
-def _lib():
-    from deepspeed_tpu_torch.ops.kernels.build import load
-    lib = load(_SOURCE)
-    fn = lib.ds_paged_decode_attention_bf16
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ENTRIES = {}  # design → the C entry, loaded (and built) on first use
+
+
+def _entry(design):
+    fn = _ENTRIES.get(design)
+    if fn is None:
+        from deepspeed_tpu_torch.ops.kernels.build import load
+        lib = load(_SOURCE)
+        if design == "tiled":
+            fn = lib.ds_paged_attention_tiled_bf16
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        else:
+            fn = lib.ds_paged_decode_attention_bf16
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        _ENTRIES[design] = fn
     return fn
 
 
@@ -98,26 +165,45 @@ def _check(q, kc, vc, block_tables, token_pos):
             raise ValueError(f"{name} must be {align}-byte aligned")
 
 
-def paged_decode_attention(q, kc, vc, block_tables, token_pos):
+def paged_decode_attention(q, kc, vc, block_tables, token_pos, design=None):
     """Same contract as :func:`paged_attention_ref`. CUDA tensors (bf16
-    q/kc/vc, int32 tables/positions, contiguous) launch the kernel;
-    CPU tensors take the plain version."""
+    q/kc/vc, int32 tables/positions, contiguous) launch the design
+    :func:`paged_design` names, or ``design`` where it can take the shape
+    (a measurement's or a test's choice), or raise; CPU tensors take the
+    plain version."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, kc, vc, block_tables, token_pos)
     _check(q, kc, vc, block_tables, token_pos)
     T, H, Dh = q.shape
     _, bs, Hkv, _ = kc.shape
+    MB = block_tables.shape[1]
+    named = paged_design(H, Hkv, Dh, bs)
+    if design is None:
+        design = named
+    elif design not in DESIGNS or (design == "tiled" and named != "tiled"):
+        raise ValueError(f"design {design!r} cannot take H={H}, Hkv={Hkv}, Dh={Dh}, bs={bs}: "
+                         f"the tiled design takes Dh % 32, 1-{MAX_GROUP} query heads a KV "
+                         f"head and bs % 8")
     out = torch.empty_like(q)
-    fn = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), kc.data_ptr(), vc.data_ptr(), block_tables.data_ptr(),
-                token_pos.data_ptr(), out.data_ptr(), T, H, Hkv, Dh, bs,
-                block_tables.shape[1], stream)
+        args = (q.data_ptr(), kc.data_ptr(), vc.data_ptr(), block_tables.data_ptr(),
+                token_pos.data_ptr(), out.data_ptr())
+        if design == "tiled":
+            chunks = -(-MB * bs // CHUNK)
+            ws = counts = None
+            if chunks > 1:  # fp32 partials (m, l, acc) a row and chunk; arrivals a tile
+                from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import _workspace
+                ws, counts = _workspace(q.device, stream, T * H * chunks * (Dh + 2), T * Hkv)
+                ws, counts = ws.data_ptr(), counts.data_ptr()
+            rc = _entry("tiled")(*args, ws, counts, T, H, Hkv, Dh, bs, MB, stream)
+        else:
+            rc = _entry("token")(*args, T, H, Hkv, Dh, bs, MB, stream)
     if rc != 0:
-        raise RuntimeError(f"paged decode attention kernel failed to launch: "
+        raise RuntimeError(f"paged attention kernel ({design} design) failed to launch: "
                            f"cudaError {rc}")
     paged_decode_attention.launches += 1
+    paged_design_launches[design] += 1
     return out
 
 

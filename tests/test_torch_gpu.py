@@ -5,11 +5,16 @@ on a GPU machine without the JAX package's dependencies:
 
     python -m pytest --noconftest -q tests/test_torch_gpu.py
 
-The CUDA paged-attention kernel is held against its plain version, in
-fp32 on the same bf16 inputs, at shapes beyond the serving path's: every
+The CUDA paged-attention kernels are held against their plain version,
+in fp32 on the same bf16 inputs, at shapes beyond the serving path's: every
 supported group width (G = 1, 2, 3, 4, 6, 8 and 16, which splits over
-two blocks), head dims 8 to 256, pad rows and positions past the table.
-Tolerance: max-abs 2e-2, the kernel's bf16 output rounding.
+two blocks in the token design), head dims 8 to 256, pad rows and
+positions past the table. Tolerance: max-abs 2e-2, the kernel's bf16
+output rounding. The tiled design (the serving path's) also at the
+serving shapes, across its chunk cut, at bs 16 and 24, G 1-5 and 8, Dh
+32, 64, 96, 160, 224 and 256, with ``row_scaled_err`` rejecting a zeroed tile; a row's
+bits must not move with its tile or batch; each call takes the design
+``paged_design`` names, and a forced design it cannot take is refused.
 
 The flash-attention kernels (forward, dK/dV, dQ) and the RMS-norm forward
 are held against their plain versions element by element at each
@@ -17,7 +22,8 @@ element's scale (limits stated beside each test),
 the wrappers must refuse what the kernels cannot take, and a 2-layer
 bf16 training step through the kernels must match the same step pinned
 to the plain versions. So must the quantized and grouped matmuls and the
-segmented LoRA delta (which must also be bitwise row independent), each
+segmented LoRA delta (which must also be bitwise row independent, and
+take its mma design wherever ``lora_design`` names it), each
 with an engine through the kernels against one pinned to the plain
 versions. The int8 group quantize/dequantize kernels (K7) must equal their
 plain versions bit for bit, stochastic rounding included, a quantized
@@ -143,6 +149,126 @@ def test_engine_on_card_matches_plain_attention_engine(cuda, max_tokens, max_seq
     a, b = outs["cuda_paged"], outs["torch_gather"]
     scale = float(np.abs(b).max())
     assert np.abs(a - b).max() <= 2 * 2.0 ** (np.floor(np.log2(scale)) - 7)
+
+
+# ------------------------------------------- paged attention, tiled design (K3)
+# The serving path's design: query tiles on mma.sync, long contexts split
+# over blocks by chunks of 512 positions. Held against the plain version
+# in fp32 at max-abs TOL and at ``row_scaled_err`` PAGED_ROW_TOL (P rounded
+# to bf16 for P·V adds ~0.3 units a sigma to the output's 1 unit of bf16
+# rounding), the check rejecting a zeroed tile; a row's bits must not move
+# with its tile, its batch mates or T.
+PAGED_ROW_TOL = 6.0
+
+
+def _seq_case(seed, seqs, H, Hkv, Dh, bs, MB, device, pad_rows=0):
+    """``seqs``: (first position, tokens) a sequence, each on its own
+    random blocks; then ``pad_rows`` pad rows (null table, position 0)."""
+    rng = np.random.RandomState(seed)
+    NB = 1 + len(seqs) * MB
+    perm = rng.permutation(np.arange(1, NB)).astype(np.int32).reshape(len(seqs), MB)
+    tabs = [perm[s] for s, (p0, n) in enumerate(seqs) for _ in range(n)]
+    pos = [p for p0, n in seqs for p in range(p0, p0 + n)]
+    tabs += [np.zeros(MB, np.int32)] * pad_rows
+    pos += [0] * pad_rows
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=device).to(torch.bfloat16)
+
+    return (rand(len(pos), H, Dh) * 2, rand(NB, bs, Hkv, Dh), rand(NB, bs, Hkv, Dh),
+            torch.from_numpy(np.stack(tabs).astype(np.int32)).to(device),
+            torch.tensor(pos, dtype=torch.int32, device=device))
+
+
+TILED_CASES = {
+    # name: (seqs, H, Hkv, Dh, bs, MB, pad rows)
+    "serving_decode": ([(160, 1)] * 16, 32, 8, 128, 32, 6, 0),
+    "serving_prefill": ([(0, 128)] * 4, 32, 8, 128, 32, 6, 0),
+    "prefill_chunk_512": ([(480, 32)] * 4, 32, 8, 128, 32, 16, 0),
+    "across_the_chunk_cut": ([(500, 40), (1020, 9)], 32, 8, 128, 32, 40, 3),
+    "decode_long": ([(p, 1) for p in (0, 511, 512, 1500, 4095)], 32, 8, 128, 32, 128, 0),
+    "bs16": ([(37, 50), (3, 1)], 32, 8, 128, 16, 12, 1),
+    "g1_dh64": ([(5, 70), (600, 3)], 8, 8, 64, 16, 40, 0),
+    "g8_dh64": ([(9, 20), (700, 2)], 32, 4, 64, 32, 24, 0),
+    "g3_dh256_bs8": ([(30, 25)], 12, 4, 256, 8, 8, 1),
+    "dh32_bs24": ([(40, 30)], 8, 2, 32, 24, 4, 0),
+    "dh96_g5": ([(3, 40), (500, 20)], 10, 2, 96, 16, 40, 1),
+    "dh160_g4": ([(20, 40)], 16, 4, 160, 16, 8, 1),
+    "dh224_g2_across_the_cut": ([(490, 40)], 8, 4, 224, 32, 20, 0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TILED_CASES))
+def test_tiled_paged_kernel_matches_plain(cuda, name):
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import row_scaled_err
+    from deepspeed_tpu_torch.ops.kernels.paged_attention import (paged_attention_ref,
+                                                                 paged_decode_attention,
+                                                                 paged_design_launches)
+    seqs, H, Hkv, Dh, bs, MB, pad = TILED_CASES[name]
+    q, kc, vc, tab, pos = _seq_case(4, seqs, H, Hkv, Dh, bs, MB, cuda, pad)
+    before = dict(paged_design_launches)
+    got = paged_decode_attention(q, kc, vc, tab, pos)
+    want = paged_attention_ref(q.float(), kc.float(), vc.float(), tab, pos)
+    torch.cuda.synchronize()
+    assert paged_design_launches["tiled"] == before["tiled"] + 1
+    assert paged_design_launches["token"] == before["token"]
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert (got.float() - want).abs().max().item() <= TOL
+    assert row_scaled_err(got, want) <= PAGED_ROW_TOL
+    zeroed = got.clone()
+    zeroed[:1, : H // Hkv] = 0  # one (token, KV head)'s rows
+    assert row_scaled_err(zeroed, want) > PAGED_ROW_TOL
+    assert torch.equal(paged_decode_attention(q, kc, vc, tab, pos), got)  # no atomics in sums
+
+
+@pytest.mark.parametrize("length", [1, 7, 16, 64, 128])
+def test_tiled_paged_rows_do_not_move_with_tile_or_batch(cuda, length):
+    """Every token of a chunk of ``length`` tokens (the last at position
+    530, past the chunk cut at 512): alone, in its chunk, beside other
+    sequences, and after them, the same bits."""
+    from deepspeed_tpu_torch.ops.kernels.paged_attention import paged_decode_attention
+    seqs = [(531 - length, length), (40, 33), (200, 1), (600, 16)]
+    q, kc, vc, tab, pos = _seq_case(5, seqs, 32, 8, 128, 32, 24, cuda, pad_rows=2)
+    T = pos.shape[0]
+
+    def rows(idx):
+        idx = torch.as_tensor(list(idx), device=cuda)
+        return paged_decode_attention(q[idx].contiguous(), kc, vc, tab[idx].contiguous(),
+                                      pos[idx].contiguous())
+
+    mixed = rows(range(T))[:length]
+    assert torch.equal(rows(range(length)), mixed)
+    assert torch.equal(rows(list(range(length, T)) + list(range(length)))[T - length:], mixed)
+    for t in range(length):
+        assert torch.equal(rows([t])[0], mixed[t])
+
+
+def test_paged_design_predicate_and_forced_designs(cuda):
+    from deepspeed_tpu_torch.ops.kernels.paged_attention import (paged_attention_ref,
+                                                                 paged_decode_attention,
+                                                                 paged_design,
+                                                                 paged_design_launches)
+    assert paged_design(32, 8, 128, 32) == "tiled" and paged_design(32, 2, 128, 32) == "token"
+    assert paged_design(16, 2, 40, 16) == "token" and paged_design(16, 16, 16, 1) == "token"
+    assert paged_design(8, 2, 16, 16) == "token" and paged_design(8, 2, 96, 16) == "tiled"
+    q, kc, vc, tab, pos = _seq_case(6, [(10, 20)], 32, 8, 128, 32, 2, cuda)
+    want = paged_attention_ref(q.float(), kc.float(), vc.float(), tab, pos)
+    for design in ("tiled", "token"):
+        before = dict(paged_design_launches)
+        got = paged_decode_attention(q, kc, vc, tab, pos, design=design)
+        torch.cuda.synchronize()
+        assert {d: paged_design_launches[d] - before[d] for d in before} == \
+            {d: int(d == design) for d in before}
+        assert (got.float() - want).abs().max().item() <= TOL
+    q, kc, vc, tab, pos = _seq_case(7, [(10, 4)], 16, 2, 40, 16, 2, cuda)
+    with pytest.raises(ValueError):  # Dh 40: the tiled design does not take it
+        paged_decode_attention(q, kc, vc, tab, pos, design="tiled")
+    with pytest.raises(ValueError):
+        paged_decode_attention(q, kc, vc, tab, pos, design="other")
+    before = dict(paged_design_launches)
+    paged_decode_attention(q, kc, vc, tab, pos)
+    assert paged_design_launches["token"] == before["token"] + 1
 
 
 # ------------------------------------------------- flash attention (K1)
@@ -1286,6 +1412,72 @@ def test_lora_kernel_refuses_what_it_cannot_take(cuda):
         lora_delta(x, y, a, b, scales, lora_layout(slots, 3, tm=8))
     with pytest.raises(ValueError):
         lora_delta(x[:7], y[:7], a, b, scales, lay)
+
+
+# The mma design (bf16, K % 512, N and r % 8, 16-byte rows: the serving
+# path's), at x's aligned base: held to the same bound, a zeroed slot
+# rejected, two runs equal, and each call counted on the design
+# ``lora_design`` names.
+LORA_MMA_CASES = {
+    # name: (T, K, N, S, r, slots)
+    "decode_q_r8": (16, 4096, 4096, 9, 8, "rr"),
+    "decode_k_r16": (16, 4096, 1024, 9, 16, "rr"),
+    "chunk_q_r8": (512, 4096, 4096, 9, 8, "rr"),
+    "chunk_k_r16": (512, 4096, 1024, 9, 16, "rr"),
+    "r24_in_bucket32_n1000": (37, 512, 1000, 5, 24, "rr"),
+    "rank64_one": (33, 512, 512, 3, 64, "one"),
+    "k512_n8": (20, 512, 8, 4, 8, "rr"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LORA_MMA_CASES))
+def test_lora_mma_design_matches_plain(cuda, case):
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import row_scaled_err
+    from deepspeed_tpu_torch.ops.kernels.lora_matmul import (apply_lora_delta, lora_delta,
+                                                             lora_delta_ref,
+                                                             lora_design_launches, lora_layout)
+    T, K, N, S, r, kind = LORA_MMA_CASES[case]
+    x, slots, a, b, scales = _lora_case(cuda, T, K, N, S, r, torch.bfloat16, kind, seed=4)
+    before = dict(lora_design_launches)
+    got = apply_lora_delta(x, slots, a, b, scales)
+    want = lora_delta_ref(x, slots, a, b, scales)
+    torch.cuda.synchronize()
+    assert {d: lora_design_launches[d] - before[d] for d in before} == {"mma": 1, "general": 0}
+    base = slots == 0
+    assert not got[base].any()
+    err = row_scaled_err(got[~base], want[~base].float())
+    assert err <= LORA_TOL, f"row_scaled_err {err}"
+    zeroed = got.clone()
+    zeroed[slots == slots[~base][0]] = 0
+    assert row_scaled_err(zeroed[~base], want[~base].float()) > LORA_TOL
+    assert torch.equal(apply_lora_delta(x, slots, a, b, scales), got)
+    y = torch.randn(T, N, generator=torch.Generator(cuda).manual_seed(9), device=cuda).to(
+        torch.bfloat16)
+    fused = lora_delta(x, y.clone(), a, b, scales, lora_layout(slots, S))
+    assert torch.equal(fused, (y.float() + got.float()).to(torch.bfloat16))
+    first = lora_delta(x, torch.zeros_like(got), a, b, scales, lora_layout(slots, S),
+                       design="general")
+    assert row_scaled_err(first[~base], want[~base].float()) <= LORA_TOL
+
+
+def test_lora_design_predicate_and_forced_designs(cuda):
+    from deepspeed_tpu_torch.ops.kernels.lora_matmul import (lora_delta, lora_design,
+                                                             lora_design_launches, lora_layout)
+    assert lora_design(torch.bfloat16, 4096, 4096, 8, 0, 16, 32, 48, 4096, 4096) == "mma"
+    assert lora_design(torch.float32, 4096, 4096, 8, 0, 16, 32, 48, 4096, 4096) == "general"
+    x, slots, a, b, scales = _lora_case(cuda, 8, 512, 32, 3, 8, torch.float32, "rr")
+    y = torch.zeros(8, 32, device=cuda)
+    with pytest.raises(ValueError):  # fp32: the mma design does not take it
+        lora_delta(x, y, a, b, scales, lora_layout(slots, 3), design="mma")
+    x, slots, a, b, scales = _lora_case(cuda, 8, 512, 32, 3, 8, torch.bfloat16, "rr", offset=1)
+    y = torch.zeros(8, 32, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):  # x 2 bytes off a 16-byte boundary
+        lora_delta(x, y, a, b, scales, lora_layout(slots, 3), design="mma")
+    with pytest.raises(ValueError):
+        lora_delta(x, y, a, b, scales, lora_layout(slots, 3), design="other")
+    before = dict(lora_design_launches)
+    lora_delta(x, y, a, b, scales, lora_layout(slots, 3))
+    assert lora_design_launches["general"] == before["general"] + 1
 
 
 def test_lora_engine_on_card_matches_plain_engine(cuda):
