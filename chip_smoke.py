@@ -380,13 +380,17 @@ each of which fails the run if it fails:
    K1), lse within LSE_TOL on the rows that admit something and exactly
    ``NEG_INF`` on the empty row, zeros on the empty row (o, dq) and the
    unreached key block (dk, dv), each check rejecting the output with its
-   first block of rows zeroed; the LayerNorm forward (``fused_norms.cu``) at
-   [16384, 1024] bf16 within LN_TOL units. Timed beside the plain version
-   (at the path's shape), the library call (SDPA with the layout expanded
-   to a boolean [H, S, S] mask, forward and backward; ``F.layer_norm``) and
-   the bound (bytes over 3.35 TB/s or the admitted pairs' flops over 989
-   TFLOP/s); and, as a reading, K1 non-causal at the same shape: the dense
-   work the layout skips;
+   first block of rows zeroed. dQ and dK/dV launch the design ``bsa_design``
+   names (counted on it: the wgmma design at blocks 64 and 128, the first at
+   16 and 32); where that is the wgmma design, it must give the same bits on
+   a second run, and the first design runs on the same inputs, held to the
+   same checks and timed beside it; the LayerNorm forward (``fused_norms.cu``) at
+   [16384, 1024] bf16 within LN_TOL units. Timed beside the bound (bytes
+   over 3.35 TB/s or the admitted pairs' flops over 989 TFLOP/s) and, at
+   every case the wgmma design takes, the plain version, the library call
+   (SDPA with the layout expanded to a boolean [H, S, S] mask, forward and
+   backward; ``F.layer_norm``) and, as a reading, K1 non-causal at the same
+   shape: the dense work the layout skips;
 24. BERT parity — a 2-layer bert-large-width model at S 4096 with BigBird
    block 64 takes one ``train_batch`` (B 2, gas 2, bf16, Adam) through the
    kernels and again from the same weights with block-sparse attention and
@@ -400,15 +404,20 @@ each of which fails the run if it fails:
    to q·b_k added to a whole row), so both runs hold rounding noise there,
    and each is held under GRAD_LEAF_TOL of its layer's query-bias gradient
    instead. The launches exact in the kernel run (K8's three L per
-   micro-batch each, LayerNorm 2 L + 2) and none in the plain run;
+   micro-batch each, dQ's and dK/dV's all on the wgmma design, LayerNorm
+   2 L + 2) and none in the plain run; the kernel run is profiled and
+   prints K8's device ms by kernel;
 25. BERT-large training — all 24 layers, the position table tiled from 512
    to 4096 by ``replace_model_self_attention_with_sparse_self_attention``,
    BigBird block 64, micro-batch 4, gas 2, S 4096, bf16 Adam, ZeRO-3, no
    attention mask: 4 ``train_batch`` steps on a fixed batch, the loss
-   finite and falling, launches exact (K8's three 48 a step each, LayerNorm
-   100). Prints step ms, tokens/s, MFU (``bench.py``'s formula with its
-   dense attention term) beside the attention flops the layout admits,
-   peak memory and a profiled step; then the same model without a sparse
+   finite and falling, launches exact (K8's three 48 a step each, dQ's and
+   dK/dV's all on the wgmma design, LayerNorm 100). Prints step ms,
+   tokens/s, MFU (``bench.py``'s formula with its dense attention term)
+   beside the attention flops the layout admits, peak memory and a profiled
+   step with K8's device ms by kernel; then 2 steps and a profiled one with
+   K8's backward pinned to its first design, for the step and K8's device
+   ms beside the wgmma design's; then the same model without a sparse
    section (K1 non-causal) for its step time and peak.
 
 The last lines are the card, one JSON object with every kernel's numbers
@@ -1203,7 +1212,8 @@ _CATEGORIES = (  # (category, name patterns: a substring, or a tuple of substrin
     ("flash_attention (K1)", ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")),
     ("rms_norm (K2)", ("rms_fwd_kernel",)),
     ("layer_norm (K2)", ("ln_fwd_kernel",)),
-    ("block_sparse_attention (K8)", ("bsa_fwd_kernel", "bsa_dq_kernel", "bsa_dkv_kernel")),
+    ("block_sparse_attention (K8)", ("bsa_fwd_kernel", "bsa_dq_kernel", "bsa_dkv_kernel",
+                                     "bsa_dq_wgmma_kernel", "bsa_dkv_wgmma_kernel")),
     ("paged_attention (K3)", ("paged_decode_kernel", "paged_tiled_kernel")),
     ("gemm", ("nvjet", "gemm", "cutlass", "xmma", "cublas")),
     ("multi-tensor (Adam, grad accumulation)", ("multi_tensor_apply",)),
@@ -1220,7 +1230,14 @@ def _category(name):
     return "other"
 
 
-def _summarize(prof, wall_ms, forwards):
+def _kernel_name(key):
+    """A kernel's name without its return type, namespace and arguments."""
+    return key.replace("(anonymous namespace)::", "").split("(", 1)[0].replace("void ", "")
+
+
+def _summarize(prof, wall_ms, forwards, detail=None):
+    """→ device ms by category of the profiled window, and by kernel for the
+    category ``detail``."""
     from torch.autograd import DeviceType
     rows = []
     for ev in prof.key_averages():
@@ -1242,6 +1259,9 @@ def _summarize(prof, wall_ms, forwards):
            "kernels_launched": sum(r[2] for r in rows),
            "by_category_ms": dict(sorted(by_category.items(), key=lambda kv: -kv[1])),
            "top": [{"name": n[:70], "ms": ms, "calls": c} for n, ms, c in rows[:12]]}
+    if detail is not None:
+        out["by_kernel_ms"] = {f"{_kernel_name(n)} x{c}": ms for n, ms, c in rows
+                               if _category(n) == detail}
     if not rows:
         out["note"] = "profiler recorded no device time: not measured"
     return out
@@ -1705,9 +1725,10 @@ def training_phase(device):
     return res, launches
 
 
-def profile_train_step(engine, batch):
+def profile_train_step(engine, batch, detail=None):
     """One more ``train_batch`` under torch.profiler → device time by kernel
-    and the device's busy share of the step's wall time."""
+    (each kernel of the category ``detail`` by name) and the device's busy
+    share of the step's wall time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1715,7 +1736,7 @@ def profile_train_step(engine, batch):
         engine.train_batch(batch=batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    out = _summarize(prof, wall_ms, 1)
+    out = _summarize(prof, wall_ms, 1, detail)
     log(f"[profile] train_step {json.dumps(out)}")
     return out
 
@@ -4200,9 +4221,24 @@ def sparse_case_rows(name, B, S, H, D, block, layout, device, flush, timed):
     full = bsa.full_layout(layout, H, S, block)
     o, lse = bsa.block_sparse_fwd(q, k, v, layout, block)
     delta = fa.flash_delta(o, do)
+    design, before = bsa.bsa_design(block, D), bsa_designs()
     dq = bsa.block_sparse_dq(q, k, v, do, lse, delta, layout, block)
     dk, dv = bsa.block_sparse_dkv(q, k, v, do, lse, delta, layout, block)
     torch.cuda.synchronize()
+    grew = bsa_grew(before)
+    if grew != {key: {d: int(d == design) for d in by} for key, by in grew.items()}:
+        raise AssertionError(f"block-sparse case {name}: backward launches by design {grew}, "
+                             f"want one each on {design}")
+    first = {}  # the first design on the same inputs, where the wgmma design takes the case
+    if design == "wgmma":
+        first["dq"] = bsa.block_sparse_dq(q, k, v, do, lse, delta, layout, block, design="first")
+        first["dk"], first["dv"] = bsa.block_sparse_dkv(q, k, v, do, lse, delta, layout, block,
+                                                        design="first")
+        again = (bsa.block_sparse_dq(q, k, v, do, lse, delta, layout, block),
+                 *bsa.block_sparse_dkv(q, k, v, do, lse, delta, layout, block))
+        if not all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv))):
+            raise AssertionError(f"block-sparse case {name}: the wgmma design's second run "
+                                 f"differs from its first")
     o_ref, lse_ref = bsa.block_sparse_fwd_ref(q, k, v, layout, block)
     dq_ref = bsa.block_sparse_dq_ref(q, k, v, do, lse, delta, layout, block)
     dk_ref, dv_ref = bsa.block_sparse_dkv_ref(q, k, v, do, lse, delta, layout, block)
@@ -4216,6 +4252,9 @@ def sparse_case_rows(name, B, S, H, D, block, layout, device, flush, timed):
                 and bool((dk.transpose(1, 2)[~reached] == 0).all())
                 and bool((dv.transpose(1, 2)[~reached] == 0).all()))
     outs = {"o": (o, o_ref), "dq": (dq, dq_ref), "dk": (dk, dk_ref), "dv": (dv, dv_ref)}
+    outs.update({f"first_{t}": (got, outs[t][1]) for t, got in first.items()})
+    zeros_ok = zeros_ok and all(bool((got.transpose(1, 2)[~(live if t == "dq" else reached)] == 0)
+                                     .all()) for t, got in first.items())
     errs = {t: fa.row_scaled_err(got, ref) for t, (got, ref) in outs.items()}
     abs_errs = {t: max_abs(got, ref) for t, (got, ref) in outs.items()}
     zeroed = {}
@@ -4223,7 +4262,7 @@ def sparse_case_rows(name, B, S, H, D, block, layout, device, flush, timed):
         y = got.clone()
         y[:, :block] = 0  # query row 0 and key block 0 are admitted in every case
         zeroed[t] = fa.row_scaled_err(y, ref)
-    del outs, o_ref, dq_ref, dk_ref, dv_ref
+    del outs, o_ref, dq_ref, dk_ref, dv_ref, first
     if max(errs.values()) > ROW_TOL or lse_err > LSE_TOL or not zeros_ok:
         raise AssertionError(f"block-sparse case {name}: errors {errs} (limit {ROW_TOL}), lse "
                              f"{lse_err} (limit {LSE_TOL}), empty rows and unreached blocks "
@@ -4245,12 +4284,12 @@ def sparse_case_rows(name, B, S, H, D, block, layout, device, flush, timed):
             "block_sparse_dkv": (6 * act + 2 * stats + qlists, 8 * D * pairs)}
     calls = {"block_sparse_fwd": (lambda: bsa.block_sparse_fwd(q, k, v, layout, block),
                                   lambda: bsa.block_sparse_fwd_ref(q, k, v, layout, block)),
-             "block_sparse_dq": (lambda: bsa.block_sparse_dq(q, k, v, do, lse, delta, layout,
-                                                             block),
+             "block_sparse_dq": (lambda design=None: bsa.block_sparse_dq(
+                                     q, k, v, do, lse, delta, layout, block, design=design),
                                  lambda: bsa.block_sparse_dq_ref(q, k, v, do, lse, delta,
                                                                  layout, block)),
-             "block_sparse_dkv": (lambda: bsa.block_sparse_dkv(q, k, v, do, lse, delta, layout,
-                                                               block),
+             "block_sparse_dkv": (lambda design=None: bsa.block_sparse_dkv(
+                                      q, k, v, do, lse, delta, layout, block, design=design),
                                   lambda: bsa.block_sparse_dkv_ref(q, k, v, do, lse, delta,
                                                                    layout, block))}
     err_of = {"block_sparse_fwd": ("o",), "block_sparse_dq": ("dq",),
@@ -4278,7 +4317,7 @@ def sparse_case_rows(name, B, S, H, D, block, layout, device, flush, timed):
         dense["flash_bwd_dkv_ms"] = time_ms(
             lambda: fa.flash_bwd_dkv(q, k, v, do, flse, fdelta, None, False), flush)
         del fo, flse, fdelta
-        log(f"[sparse-kernels] K1 non-causal at the path's shape (the dense work): "
+        log(f"[sparse-kernels] K1 non-causal at {name}'s shape (the dense work): "
             f"{json.dumps(dense)}")
     rows = {}
     for key, (nb, nf) in cost.items():
@@ -4290,6 +4329,15 @@ def sparse_case_rows(name, B, S, H, D, block, layout, device, flush, timed):
                    ms=time_ms(fn, flush), bound_ms=b_ms, bound_by=b_by, bytes=nb, flops=nf)
         if key == "block_sparse_fwd":
             row["lse_abs_err"] = lse_err
+        else:
+            row["design"] = design
+        if key != "block_sparse_fwd" and design == "wgmma":  # timed beside the first design
+            row.update(repeat_bitwise=True,
+                       first_design_max_abs_err=max(abs_errs["first_" + t] for t in err_of[key]),
+                       first_design_row_err=max(errs["first_" + t] for t in err_of[key]),
+                       first_design_zeroed_tile_row_err=min(zeroed["first_" + t]
+                                                            for t in err_of[key]),
+                       first_design_ms=time_ms(functools.partial(fn, design="first"), flush))
         if timed:
             row.update(plain_ms=time_ms(plain, flush),
                        library_ms=lib["fwd" if key == "block_sparse_fwd" else "bwd"],
@@ -4302,6 +4350,25 @@ def sparse_case_rows(name, B, S, H, D, block, layout, device, flush, timed):
     return rows
 
 
+def bsa_designs():
+    """K8's backward launches so far by design."""
+    from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import bsa_design_launches
+    return {k: dict(v) for k, v in bsa_design_launches.items()}
+
+
+def bsa_grew(before):
+    return {k: {d: n - before[k][d] for d, n in v.items()} for k, v in bsa_designs().items()}
+
+
+def bsa_on_wgmma(grew, want, where):
+    """Fails unless each backward kernel launched ``want`` times, all on the
+    wgmma design; logs the launches by design under ``where``."""
+    log(f"[{where}] K8 backward launches by design: {json.dumps(grew)}")
+    if grew != {k: {"wgmma": want, "first": 0} for k in grew}:
+        raise AssertionError(f"{where}: K8 backward launches by design {grew}, want {want} "
+                             f"each on the wgmma design")
+
+
 def sparse_kernel_phase(device, flush):
     """Phase 23: K8's three kernels and the LayerNorm forward."""
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
@@ -4309,11 +4376,12 @@ def sparse_kernel_phase(device, flush):
     F = torch.nn.functional
     out = {"block_sparse_fwd": [], "block_sparse_dq": [], "block_sparse_dkv": [],
            "layer_norm_fwd": []}
+    from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import bsa_design
     for name, (B, S, H, D, block, kind) in SPARSE_CASES.items():
         layout = (unreached_layout(H, S // block) if kind == "unreached" else
                   bigbird_layout(H, S, block, per_head=kind == "bigbird_per_head"))
         for key, row in sparse_case_rows(name, B, S, H, D, block, layout, device, flush,
-                                         timed=name == "path").items():
+                                         timed=bsa_design(block, D) == "wgmma").items():
             log(f"[sparse-kernels] {key} {json.dumps(row)}")
             out[key].append(row)
         torch.cuda.empty_cache()
@@ -4350,6 +4418,22 @@ def bert_counters():
     from deepspeed_tpu_torch.ops.kernels.fused_norms import layer_norm_fwd
     return {"block_sparse_fwd": bsa.block_sparse_fwd, "block_sparse_dq": bsa.block_sparse_dq,
             "block_sparse_dkv": bsa.block_sparse_dkv, "layer_norm_fwd": layer_norm_fwd}
+
+
+K8_CATEGORY = "block_sparse_attention (K8)"
+
+
+@contextlib.contextmanager
+def first_bsa_design():
+    """Pin K8's backward to its first design: ``bsa_design``, which the
+    wrappers ask when the caller names no design, names it everywhere."""
+    from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bsa
+    saved = bsa.bsa_design
+    bsa.bsa_design = lambda block, D: "first"
+    try:
+        yield
+    finally:
+        bsa.bsa_design = saved
 
 
 def bert_model(device, layers, seed, sparse=True):
@@ -4395,6 +4479,7 @@ def bert_parity_phase(device):
     """Phase 24: a 2-layer bert-large-width step through the kernels and
     pinned to the plain versions, from the same weights and batch."""
     import deepspeed_tpu_torch
+    from torch.profiler import ProfilerActivity, profile
     from deepspeed_tpu_torch.ops.kernels.flash_attention import row_scaled_err
     L, B, gas = 2, BERT_PARITY_B, BERT_GAS
     results = {}
@@ -4407,8 +4492,18 @@ def bert_parity_phase(device):
         counters = bert_counters()
         for fn in counters.values():
             fn.launches = 0
-        with plain_bert_kernels() if mode == "plain" else contextlib.nullcontext():
-            loss = engine.train_batch(batch=bert_batch(model.config.vocab_size, B, gas, device))
+        designs = bsa_designs()
+        batch = bert_batch(model.config.vocab_size, B, gas, device)
+        if mode == "plain":
+            with plain_bert_kernels():
+                loss = engine.train_batch(batch=batch)
+        else:  # profiled: K8's device ms by kernel
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                loss = engine.train_batch(batch=batch)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            k8 = _summarize(prof, wall_ms, 1, K8_CATEGORY)
         torch.cuda.synchronize()
         launched = {k: fn.launches for k, fn in counters.items()}
         want = ({"block_sparse_fwd": L * gas, "block_sparse_dq": L * gas,
@@ -4416,6 +4511,7 @@ def bert_parity_phase(device):
                 if mode == "kernels" else dict.fromkeys(counters, 0))
         if launched != want:
             raise AssertionError(f"bert parity {mode}: launches {launched}, want {want}")
+        bsa_on_wgmma(bsa_grew(designs), want["block_sparse_dq"], f"bert-parity {mode}")
         results[mode] = (loss.item(), engine.global_grad_norm, grads)
         engine.destroy()
         del model, engine
@@ -4444,6 +4540,8 @@ def bert_parity_phase(device):
            "leaf_grad_row_err_worst": max(rows, key=rows.get),
            "k_bias_grad_vs_q_bias_max": max(kbias_vs_q.values()),
            "k_bias_grad_vs_q_bias": kbias_vs_q,
+           "k8_device_ms": k8["by_category_ms"].get(K8_CATEGORY),
+           "k8_by_kernel_ms": k8["by_kernel_ms"], "kernels_step_device_ms": k8["device_ms"],
            "leaf_grad_rel_diff": leaf, "leaf_grad_row_err": rows}
     log(f"[bert-parity] 2-layer bert-large width, BigBird block 64, B {B}, gas {gas}, "
         f"S {BERT_S}: {json.dumps(res)}")
@@ -4482,12 +4580,15 @@ def bert_training_phase(device):
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
+    designs = bsa_designs()
     steps = timed_steps(engine, batch, 4)
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counters.items()}
     for k, n in launches.items():
         if n != 4 * per_step[k]:
             raise AssertionError(f"{k}: {n} launches over 4 steps, want 4 x {per_step[k]}")
+    by_design = bsa_grew(designs)
+    bsa_on_wgmma(by_design, 4 * per_step["block_sparse_dq"], "bert-training")
     losses = [loss for _, loss in steps]
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"bert losses not finite and falling: {losses}")
@@ -4508,9 +4609,29 @@ def bert_training_phase(device):
            / mean_s / BF16_FLOPS_PER_S,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
            "launches_per_step": per_step, "launches": launches,
-           "grad_norm": engine.global_grad_norm}
+           "k8_backward_launches_by_design": by_design, "grad_norm": engine.global_grad_norm}
     log(f"[bert-training] sparse: {json.dumps(res)}")
-    res["profile"] = profile_train_step(engine, batch)
+    res["profile"] = profile_train_step(engine, batch, K8_CATEGORY)
+    # the same steps with K8's backward pinned to its first design, for the
+    # step's time and K8's device ms beside the wgmma design's
+    with first_bsa_design():
+        designs = bsa_designs()
+        first_steps = timed_steps(engine, batch, 2)
+        first_profile = profile_train_step(engine, batch, K8_CATEGORY)
+        grew = bsa_grew(designs)
+    if grew != {k: {"wgmma": 0, "first": 3 * per_step[k]} for k in grew}:
+        raise AssertionError(f"bert-training, first design: K8 backward launches {grew}")
+    res["first_design"] = {"step_ms": [dt * 1e3 for dt, _ in first_steps],
+                           "ms_per_step": first_steps[-1][0] * 1e3,
+                           "device_ms": first_profile["device_ms"],
+                           "k8_device_ms": first_profile["by_category_ms"].get(K8_CATEGORY),
+                           "k8_by_kernel_ms": first_profile["by_kernel_ms"]}
+    k8 = {"wgmma": {"ms_per_step": res["ms_per_step"],
+                    "device_ms": res["profile"]["device_ms"],
+                    "k8_device_ms": res["profile"]["by_category_ms"].get(K8_CATEGORY),
+                    "k8_by_kernel_ms": res["profile"]["by_kernel_ms"]},
+          "first": res["first_design"]}
+    log(f"[bert-training] K8 in the profiled step, by backward design: {json.dumps(k8)}")
     engine.destroy()
     del model, engine
     gc.collect()
@@ -4655,7 +4776,7 @@ def main():
     del flush
     torch.cuda.empty_cache()
     bert_parity_phase(device)
-    _, bert_launches = bert_training_phase(device)
+    bert, bert_launches = bert_training_phase(device)
     lap("phases 23-25 (BERT)")
 
     main_case = next(c for c in cases if c["case"] == "serving_decode")
@@ -4816,6 +4937,10 @@ def main():
                         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
                         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
                         "library_ms": main_row["library_ms"], "shape": shape, "cases": rows})
+        if name in bert["k8_backward_launches_by_design"]:  # the path's design, the first's time
+            kernels[-1].update(design=main_row["design"],
+                               first_design_ms=main_row["first_design_ms"],
+                               launches_by_design=bert["k8_backward_launches_by_design"][name])
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

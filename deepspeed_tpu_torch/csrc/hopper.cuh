@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for hand-written kernels: mbarriers, TMA
 // tile loads, wgmma with shared-memory descriptors (A and B in shared
-// memory, or A from registers), register handover between warpgroups, and
-// the host-side encoding of a TMA tensor map.
+// memory, or A from registers), bulk copies of plain rows, register
+// handover between warpgroups, and the host-side encoding of a TMA tensor
+// map.
 //
 // The tensor map is encoded with libcuda's cuTensorMapEncodeTiled, taken
 // through cudaGetDriverEntryPoint at run time, so a library built from these
@@ -78,6 +79,44 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// `bytes` (a multiple of 16) from a 16-byte aligned global address into
+// shared memory, completing on `bar` as a TMA load does
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// one box of shared memory into a 3-D tensor map's tile (a TMA store), in
+// the issuing thread's current bulk group
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of the thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// wait until at most N of the thread's bulk groups are not complete
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // a hint: bring `bytes` (a multiple of 16) from a 16-byte aligned global

@@ -11,7 +11,13 @@ called through ctypes:
   → the output and the fp32 logsumexp [B, H, S];
 - :func:`block_sparse_dq` and :func:`block_sparse_dkv` launch the backward
   kernels (``_dq_kernel``, ``_dkv_kernel``), which recompute the
-  probabilities from the saved logsumexp.
+  probabilities from the saved logsumexp. Each has two designs, named by
+  :func:`bsa_design` from the block and head dim alone and counted in
+  ``bsa_design_launches``: "wgmma" (blocks of 64 and 128: a persistent
+  grid whose blocks take one key or query block at a time, its 64-row
+  tiles on wgmma, fed by a TMA ring over its admitted list) and "first"
+  (blocks of 16 and 32, which give no 64-row tile of one list: mma.sync
+  over synchronous loads). ``design=`` forces one that can take the call.
 
 :func:`block_sparse_attention` is what ``SparseSelfAttention`` calls: a
 ``torch.autograd.Function`` over those three on CUDA tensors (bf16, head
@@ -44,7 +50,20 @@ from deepspeed_tpu_torch.ops.kernels.flash_attention import flash_delta
 NEG_INF = -1e30  # the TPU kernel's NEG_INF
 HEAD_DIMS = (64, 128)
 BLOCKS = (16, 32, 64, 128)
+WGMMA_BLOCKS = (64, 128)  # a wgmma tile is 64 rows of one block's list
+DESIGNS = ("wgmma", "first")
 _SOURCE = "block_sparse_attention.cu"
+
+# launches of the backward kernels by design
+bsa_design_launches = {"block_sparse_dq": dict.fromkeys(DESIGNS, 0),
+                       "block_sparse_dkv": dict.fromkeys(DESIGNS, 0)}
+
+
+def bsa_design(block, D):
+    """The design a backward launch takes, from its block and head dim:
+    "wgmma" at blocks of 64 and 128 (head dims 64 and 128), "first" at 16
+    and 32, whose 64-row tiles would span four or two lists."""
+    return "wgmma" if block in WGMMA_BLOCKS and D in HEAD_DIMS else "first"
 
 _INDICES_CACHE = {}
 _DEVICE_CACHE = {}
@@ -158,12 +177,29 @@ def block_sparse_dkv_ref(q, k, v, do, lse, delta, layout, block, sm_scale=None):
     return dk.to(q.dtype), dv.to(q.dtype)
 
 
+LEAD_FACTOR = 4  # a rank leads where its longest list is this many times the mean
+
+
+def lead_ranks(nnz):
+    """How many ranks of every head-row the wgmma designs take before their
+    head groups: the leading ranks whose longest list (over heads) is at
+    least LEAD_FACTOR times the mean list, such as BigBird's global row and
+    column. Started first, a long list does not end after the rest."""
+    longest = -np.sort(-np.asarray(nnz), axis=-1).max(0)  # by rank, over heads
+    short = longest < LEAD_FACTOR * float(np.mean(nnz))
+    return int(np.argmax(short)) if short.any() else 0
+
+
 class Schedule:
     """The kernels' index lists for one [H, nq, nk] ``layout`` on one device:
     for the forward and dQ the query rows' lists (``k_idx`` [H, nq, A],
     ``k_nnz``, ``k_order``), for dK/dV the key rows' (``q_*``); ``*_order``
     [H, rows] lists each head's rows longest first, the order the grid
-    starts them in."""
+    starts them in. ``k_ranked`` and ``q_ranked`` are the same lists in that
+    order (row r of head h is the list of row ``order[h, r]``), which the
+    wgmma designs read, so that a block's reads of its row, its count and
+    its list do not wait on each other; ``k_lead`` and ``q_lead`` are
+    their :func:`lead_ranks`."""
 
     def __init__(self, layout, device):
         k_idx, k_nnz, q_idx, q_nnz = layout_to_indices(layout)
@@ -174,10 +210,19 @@ class Schedule:
         def order(nnz):  # stable, so equal rows keep their index order
             return np.argsort(-nnz, axis=-1, kind="stable")
 
+        def ranked(idx, nnz):
+            o = order(nnz)
+            return (dev(np.take_along_axis(idx, o[..., None], 1)),
+                    dev(np.take_along_axis(nnz, o, 1)), dev(o), idx.shape[-1])
+
         self.layout = layout
         self.shape = layout.shape
         self.k = (dev(k_idx), dev(k_nnz), dev(order(k_nnz)), k_idx.shape[-1])
         self.q = (dev(q_idx), dev(q_nnz), dev(order(q_nnz)), q_idx.shape[-1])
+        self.k_ranked = ranked(k_idx, k_nnz)
+        self.q_ranked = ranked(q_idx, q_nnz)
+        self.k_lead = lead_ranks(k_nnz)
+        self.q_lead = lead_ranks(q_nnz)
 
 
 def schedule(layout, device):
@@ -193,11 +238,11 @@ def schedule(layout, device):
     return hit
 
 
-def _fn(name, n_ptr):
+def _fn(name, n_ptr, n_int):
     from deepspeed_tpu_torch.ops.kernels.build import load
     fn = getattr(load(_SOURCE), name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -237,13 +282,15 @@ def _check(block, sched, **tensors):
     return B, S, H, D
 
 
-def _launch(name, ptrs, lists, dims, sm_scale, device, what):
+def _launch(name, ptrs, lists, dims, sm_scale, device, what, scratch=(), ints=()):
+    """One C entry: ``ptrs``, the lists' three arrays, ``scratch``, then
+    ``dims``, the lists' width and ``ints``."""
     idx, nnz, order, A = lists
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _fn(name, len(ptrs) + 3)(*[t.data_ptr() for t in ptrs],
-                                      idx.data_ptr(), nnz.data_ptr(), order.data_ptr(),
-                                      *dims, A, sm_scale, stream)
+        rc = _fn(name, len(ptrs) + 3 + len(scratch), len(dims) + 1 + len(ints))(
+            *[t.data_ptr() for t in ptrs], idx.data_ptr(), nnz.data_ptr(), order.data_ptr(),
+            *[t.data_ptr() for t in scratch], *dims, A, *ints, sm_scale, stream)
     if rc != 0:
         raise RuntimeError(f"block-sparse {what} kernel failed to launch: cudaError {rc}")
 
@@ -271,25 +318,57 @@ def block_sparse_fwd(q, k, v, layout, block, sm_scale=None):
     return o, lse
 
 
-def block_sparse_dq(q, k, v, do, lse, delta, layout, block, sm_scale=None):
-    """Launch the dQ kernel → dq bf16 [B, S, H, D]."""
+def _counter(device):
+    """The wgmma designs' work counter: one int32 zero, which their
+    persistent grid counts its items off."""
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
+def _design(block, D, design):
+    named = bsa_design(block, D)
+    if design is None:
+        return named
+    if design not in DESIGNS or (design == "wgmma" and named != "wgmma"):
+        raise ValueError(f"design {design!r} cannot take block {block}, head dim {D}: the "
+                         f"wgmma design takes blocks {WGMMA_BLOCKS}")
+    return design
+
+
+def block_sparse_dq(q, k, v, do, lse, delta, layout, block, sm_scale=None, design=None):
+    """Launch the dQ kernel of the design :func:`bsa_design` names (or
+    ``design``) → dq bf16 [B, S, H, D]."""
     sched = _sched(layout, q, block)
     B, S, H, D = _check(block, sched, q=q, k=k, v=v, do=do, lse=lse, delta=delta)
+    design = _design(block, D, design)
     dq = torch.empty_like(q)
-    _launch("ds_bsa_dq_bf16", [q, k, v, do, lse, delta, dq], sched.k, (B, H, S, D, block),
-            _scale(D, sm_scale), q.device, "dQ")
+    if design == "wgmma":
+        _launch("ds_bsa_dq_wgmma_bf16", [q, k, v, do, lse, delta, dq], sched.k_ranked,
+                (B, H, S, D, block), _scale(D, sm_scale), q.device, "dQ (wgmma design)",
+                (_counter(q.device),), (sched.k_lead,))
+    else:
+        _launch("ds_bsa_dq_bf16", [q, k, v, do, lse, delta, dq], sched.k, (B, H, S, D, block),
+                _scale(D, sm_scale), q.device, "dQ (first design)")
     block_sparse_dq.launches += 1
+    bsa_design_launches["block_sparse_dq"][design] += 1
     return dq
 
 
-def block_sparse_dkv(q, k, v, do, lse, delta, layout, block, sm_scale=None):
-    """Launch the dK/dV kernel → (dk, dv) bf16 [B, S, H, D]."""
+def block_sparse_dkv(q, k, v, do, lse, delta, layout, block, sm_scale=None, design=None):
+    """Launch the dK/dV kernel of the design :func:`bsa_design` names (or
+    ``design``) → (dk, dv) bf16 [B, S, H, D]."""
     sched = _sched(layout, q, block)
     B, S, H, D = _check(block, sched, q=q, k=k, v=v, do=do, lse=lse, delta=delta)
+    design = _design(block, D, design)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("ds_bsa_dkv_bf16", [q, k, v, do, lse, delta, dk, dv], sched.q,
-            (B, H, S, D, block), _scale(D, sm_scale), q.device, "dK/dV")
+    if design == "wgmma":
+        _launch("ds_bsa_dkv_wgmma_bf16", [q, k, v, do, lse, delta, dk, dv], sched.q_ranked,
+                (B, H, S, D, block), _scale(D, sm_scale), q.device, "dK/dV (wgmma design)",
+                (_counter(q.device),), (sched.q_lead,))
+    else:
+        _launch("ds_bsa_dkv_bf16", [q, k, v, do, lse, delta, dk, dv], sched.q,
+                (B, H, S, D, block), _scale(D, sm_scale), q.device, "dK/dV (first design)")
     block_sparse_dkv.launches += 1
+    bsa_design_launches["block_sparse_dkv"][design] += 1
     return dk, dv
 
 

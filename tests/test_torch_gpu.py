@@ -1996,9 +1996,19 @@ def test_block_sparse_kernels_match_plain(cuda, case):
     assert min(zeroed.values()) > ROW_TOL, zeroed
 
 
+def _bsa_designs():
+    from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import bsa_design_launches
+    return {k: dict(v) for k, v in bsa_design_launches.items()}
+
+
+def _bsa_grew(before):
+    return {k: {d: n - before[k][d] for d, n in v.items()} for k, v in _bsa_designs().items()}
+
+
 def test_block_sparse_autograd_runs_the_kernels(cuda):
     """``block_sparse_attention``'s backward on CUDA tensors launches dQ and
-    dK/dV once each and gives the launchers' results bit for bit."""
+    dK/dV once each, on the wgmma design at block 64, and gives the
+    launchers' results bit for bit."""
     from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bsa
     from deepspeed_tpu_torch.ops.kernels.flash_attention import flash_delta
     B, S, H, D, block = 2, 512, 2, 64, 64
@@ -2007,16 +2017,106 @@ def test_block_sparse_autograd_runs_the_kernels(cuda):
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     before = [f.launches for f in (bsa.block_sparse_fwd, bsa.block_sparse_dq,
                                    bsa.block_sparse_dkv)]
+    designs = _bsa_designs()
     out = bsa.block_sparse_attention(*leaves, layout, block)
     out.backward(do)
     assert [f.launches - b for f, b in zip(
         (bsa.block_sparse_fwd, bsa.block_sparse_dq, bsa.block_sparse_dkv), before)] == [1, 1, 1]
+    assert _bsa_grew(designs) == {k: {"wgmma": 1, "first": 0} for k in designs}
     o, lse = bsa.block_sparse_fwd(q, k, v, layout, block)
     delta = flash_delta(o, do)
     assert torch.equal(out, o)
     assert torch.equal(leaves[0].grad, bsa.block_sparse_dq(q, k, v, do, lse, delta, layout, block))
     dk, dv = bsa.block_sparse_dkv(q, k, v, do, lse, delta, layout, block)
     assert torch.equal(leaves[1].grad, dk) and torch.equal(leaves[2].grad, dv)
+
+
+# K8's backward on its wgmma designs: blocks 64 and 128 at head dims 64
+# and 128, BigBird (shared and per-head) and a layout with an empty row and
+# a key block no row admits
+K8_WGMMA_CASES = {  # name: (B, S, H, D, block, layout maker)
+    "bigbird_b64_d64": (2, 1024, 2, 64, 64, lambda: _bigbird(1, 1024, 64)),
+    "per_head_b64_d128": (1, 1024, 3, 128, 64, lambda: _bigbird(3, 1024, 64, True)),
+    "per_head_b128_d64": (2, 1024, 3, 64, 128, lambda: _bigbird(3, 1024, 128, True)),
+    "bigbird_b128_d128": (1, 2048, 2, 128, 128, lambda: _bigbird(1, 2048, 128)),
+    "unreached_b64_d64": (1, 512, 2, 64, 64, lambda: _unreached_layout(2, 8)),
+    "unreached_b64_d128": (2, 640, 2, 128, 64, lambda: _unreached_layout(2, 10)),
+    "unreached_b128_d64": (1, 1024, 2, 64, 128, lambda: _unreached_layout(2, 8)),
+    "unreached_b128_d128": (2, 1024, 2, 128, 128, lambda: _unreached_layout(2, 8)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K8_WGMMA_CASES))
+def test_block_sparse_wgmma_backward_matches_plain_and_first(cuda, case):
+    """dQ and dK/dV on the wgmma design (counted on it): within ROW_TOL units
+    of ``row_scaled_err`` of the plain versions and of the first design on
+    the same inputs, the check rejecting the output with its first block of
+    rows zeroed; the same bits on a second run; exactly zero dq on an empty
+    row and dk, dv on a key block no row admits."""
+    from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import flash_delta, row_scaled_err
+    B, S, H, D, block, make = K8_WGMMA_CASES[case]
+    layout = make()
+    assert bsa.bsa_design(block, D) == "wgmma"
+    q, k, v, do, _ = _flash_inputs(cuda, B, S, H, D, 0, seed=len(case) + 7)
+    o, lse = bsa.block_sparse_fwd(q, k, v, layout, block)
+    delta = flash_delta(o, do)
+    args = (q, k, v, do, lse, delta, layout, block)
+    designs = _bsa_designs()
+    dq, (dk, dv) = bsa.block_sparse_dq(*args), bsa.block_sparse_dkv(*args)
+    dq2, (dk2, dv2) = bsa.block_sparse_dq(*args), bsa.block_sparse_dkv(*args)
+    first = {"dq": bsa.block_sparse_dq(*args, design="first")}
+    first["dk"], first["dv"] = bsa.block_sparse_dkv(*args, design="first")
+    dq_ref = bsa.block_sparse_dq_ref(*args)
+    dk_ref, dv_ref = bsa.block_sparse_dkv_ref(*args)
+    torch.cuda.synchronize()
+    assert _bsa_grew(designs) == {k: {"wgmma": 2, "first": 1} for k in designs}
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    full = bsa.full_layout(layout, H, S, block)
+    live = torch.from_numpy(full.any(-1)).to(cuda).repeat_interleave(block, 1)[None]
+    reached = torch.from_numpy(full.any(-2)).to(cuda).repeat_interleave(block, 1)[None]
+    assert torch.all(dq.transpose(1, 2)[~live.expand(B, -1, -1)] == 0)
+    for t in (dk, dv):
+        assert torch.all(t.transpose(1, 2)[~reached.expand(B, -1, -1)] == 0)
+    got = {"dq": (dq, dq_ref), "dk": (dk, dk_ref), "dv": (dv, dv_ref)}
+    errs = {n: row_scaled_err(g, r) for n, (g, r) in got.items()}
+    vs_first = {n: row_scaled_err(g, first[n]) for n, (g, _) in got.items()}
+    zeroed = {n: row_scaled_err(_zero_first_block(g, block), r) for n, (g, r) in got.items()}
+    assert max(errs.values()) <= ROW_TOL, errs
+    assert max(vs_first.values()) <= ROW_TOL, vs_first
+    assert min(zeroed.values()) > ROW_TOL, zeroed
+
+
+def test_bsa_design_predicate_and_forced_designs(cuda):
+    """Blocks of 64 and 128 take the wgmma design, 16 and 32 the first; the
+    wgmma design cannot be forced on a block of 32."""
+    from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import flash_delta
+    assert [bsa.bsa_design(b, d) for b in (16, 32, 64, 128) for d in (64, 128)] == \
+        ["first"] * 4 + ["wgmma"] * 4
+    q, k, v, do, _ = _flash_inputs(cuda, 1, 256, 2, 64, 0)
+    layout = _bigbird(1, 256, 32)
+    o, lse = bsa.block_sparse_fwd(q, k, v, layout, 32)
+    args = (q, k, v, do, lse, flash_delta(o, do), layout, 32)
+    for fn in (bsa.block_sparse_dq, bsa.block_sparse_dkv):
+        with pytest.raises(ValueError):
+            fn(*args, design="wgmma")
+        with pytest.raises(ValueError):
+            fn(*args, design="tiled")
+
+
+def test_bsa_wgmma_kernels_are_wgmma(cuda):
+    """The built library's wgmma dQ and dK/dV kernels (blocks 64 and 128,
+    head dims 64 and 128) issue wgmma (HGMMA) and no mma.sync (HMMA). (Their
+    producer warps, held to 24 or 40 registers so that the consumers get
+    232, spill a few words around the item counter; ptxas reports it.)"""
+    from deepspeed_tpu_torch.ops.kernels import build
+    per = build.sass_counts("block_sparse_attention.cu", ("HGMMA", "HMMA"))
+    kinds = {k: [c for n, c in per.items() if k in n] for k in
+             ("bsa_dq_wgmma_kernel", "bsa_dkv_wgmma_kernel")}
+    assert all(len(v) == 4 for v in kinds.values()), per
+    for k, v in kinds.items():
+        assert all(c["HGMMA"] > 0 and c["HMMA"] == 0 for c in v), (k, per)
 
 
 def test_block_sparse_rejects_what_it_cannot_take(cuda):
