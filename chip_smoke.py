@@ -273,10 +273,15 @@ each of which fails the run if it fails:
    plain versions bit for bit (the contract: true divisions, rounding half
    to even, the stochastic hash computed alike), and the comparison must
    catch one flipped code; stochastic codes must each be the floor or the
-   ceiling of x / scale. Timed beside the plain versions and the bound
-   (each value read and written once plus 4 bytes a group, over 3.35 TB/s);
-   no single PyTorch call computes grouped absmax-scaled int8 (library
-   null). Then the device→host copy of a demoted handle's k into pageable,
+   ceiling of x / scale. The quantize takes the design ``k7_design``
+   names (counted on it: the cluster design at a demotion's slabs, n = 1
+   and 2; the two-pass design at 12 and 16 blocks' slabs and at groups of
+   2048), and the two-pass design (the first) runs on the same inputs,
+   held bitwise too. Timed beside the plain versions and the bound (each value read
+   and written once plus 4 bytes a group, over 3.35 TB/s), the quantize
+   by CUDA events and by the profiler's kernel span (``profiled_us``), on
+   both designs; no single PyTorch call computes grouped absmax-scaled
+   int8 (library null). Then the device→host copy of a demoted handle's k into pageable,
    freshly pinned and cached pinned memory (the tier's records are pinned),
    as a reading;
 17. tier parity — a 2-layer Mistral-7B-width engine with an int8 KV tier
@@ -302,7 +307,8 @@ each of which fails the run if it fails:
    asserts tier on = tier off); every promoted block equals its demoted
    bytes (a device copy at demotion); the tier saves at least twice the
    A'-phase prefill tokens of the tier-off run; the no-prefetch tier stages
-   nothing; no block leaks. Readings: tokens/s per phase, demoted /
+   nothing; no block leaks; the int8 tier's quantizes run on the cluster
+   design (its launches by design are printed). Readings: tokens/s per phase, demoted /
    promoted / prefetched blocks, stage hits, prefetch wait, bytes and ms
    per demotion (gather, quantize, device→host copy) and per promotion
    (host→device copies and the restore: from staged copies, and from host
@@ -380,11 +386,13 @@ each of which fails the run if it fails:
    K1), lse within LSE_TOL on the rows that admit something and exactly
    ``NEG_INF`` on the empty row, zeros on the empty row (o, dq) and the
    unreached key block (dk, dv), each check rejecting the output with its
-   first block of rows zeroed. dQ and dK/dV launch the design ``bsa_design``
-   names (counted on it: the wgmma design at blocks 64 and 128, the first at
-   16 and 32); where that is the wgmma design, it must give the same bits on
-   a second run, and the first design runs on the same inputs, held to the
-   same checks and timed beside it; the LayerNorm forward (``fused_norms.cu``) at
+   first block of rows zeroed (and o with its last 64-row tile zeroed). All
+   three launch the design ``bsa_design`` names (counted on it: the wgmma
+   design at blocks 64 and 128, the first at 16 and 32), the backward on
+   that forward's o and lse; where that is the wgmma design, each must give
+   the same bits on a second run, and the first design runs on the same
+   inputs, held to the same checks (the forward's lse too) and timed
+   beside it; the LayerNorm forward (``fused_norms.cu``) at
    [16384, 1024] bf16 within LN_TOL units. Timed beside the bound (bytes
    over 3.35 TB/s or the admitted pairs' flops over 989 TFLOP/s) and, at
    every case the wgmma design takes, the plain version, the library call
@@ -404,20 +412,20 @@ each of which fails the run if it fails:
    to q·b_k added to a whole row), so both runs hold rounding noise there,
    and each is held under GRAD_LEAF_TOL of its layer's query-bias gradient
    instead. The launches exact in the kernel run (K8's three L per
-   micro-batch each, dQ's and dK/dV's all on the wgmma design, LayerNorm
-   2 L + 2) and none in the plain run; the kernel run is profiled and
+   micro-batch each, all on the wgmma design, LayerNorm 2 L + 2) and none
+   in the plain run; the kernel run is profiled and
    prints K8's device ms by kernel;
 25. BERT-large training — all 24 layers, the position table tiled from 512
    to 4096 by ``replace_model_self_attention_with_sparse_self_attention``,
    BigBird block 64, micro-batch 4, gas 2, S 4096, bf16 Adam, ZeRO-3, no
    attention mask: 4 ``train_batch`` steps on a fixed batch, the loss
-   finite and falling, launches exact (K8's three 48 a step each, dQ's and
-   dK/dV's all on the wgmma design, LayerNorm 100). Prints step ms,
+   finite and falling, launches exact (K8's three 48 a step each, all on
+   the wgmma design, LayerNorm 100). Prints step ms,
    tokens/s, MFU (``bench.py``'s formula with its dense attention term)
    beside the attention flops the layout admits, peak memory and a profiled
-   step with K8's device ms by kernel; then 2 steps and a profiled one with
-   K8's backward pinned to its first design, for the step and K8's device
-   ms beside the wgmma design's; then the same model without a sparse
+   step with K8's device ms by kernel (the forward's, dQ's and dK/dV's);
+   then 2 steps and a profiled one with K8 pinned to its first design, for
+   the step and K8's device ms beside the wgmma design's; then the same model without a sparse
    section (K1 non-causal) for its step time and peak.
 
 The last lines are the card, one JSON object with every kernel's numbers
@@ -524,6 +532,25 @@ def time_ms(fn, flush, iters=20):
         events.append((start, end))
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in events]))
+
+
+def profiled_us(fn, flush, match, iters=20):
+    """Median device µs of the kernels named with ``match`` that ``fn``
+    launches, as torch.profiler's CUDA activity records them (the kernel's
+    own span: no host enqueue, no spin), L2 flushed before each call; None
+    when the profiler recorded no such kernel (not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    spans = [ev.time_range.elapsed_us() for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA and match in ev.name]
+    return float(np.median(spans)) if spans else None
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1213,7 +1240,8 @@ _CATEGORIES = (  # (category, name patterns: a substring, or a tuple of substrin
     ("rms_norm (K2)", ("rms_fwd_kernel",)),
     ("layer_norm (K2)", ("ln_fwd_kernel",)),
     ("block_sparse_attention (K8)", ("bsa_fwd_kernel", "bsa_dq_kernel", "bsa_dkv_kernel",
-                                     "bsa_dq_wgmma_kernel", "bsa_dkv_wgmma_kernel")),
+                                     "bsa_fwd_wgmma_kernel", "bsa_dq_wgmma_kernel",
+                                     "bsa_dkv_wgmma_kernel")),
     ("paged_attention (K3)", ("paged_decode_kernel", "paged_tiled_kernel")),
     ("gemm", ("nvjet", "gemm", "cutlass", "xmma", "cublas")),
     ("multi-tensor (Adam, grad accumulation)", ("multi_tensor_apply",)),
@@ -2854,8 +2882,11 @@ def k7_cases(device, flush):
         g = torch.Generator(device=device).manual_seed(300 + i)
         x = (torch.randn((K7_LAYERS, n, BS, HKV, DH), generator=g, device=device) * 2).to(dtype)
         x[:, :, :, 0] = 0  # a zero head in every slab
-        v, s, shape = tq.quantize_int8(x, gs, stochastic=stochastic, seed=i)
         groups = x.reshape(-1, gs)
+        design = tq.k7_design(gs, dtype, groups.shape[0], tq.sm_count(device))
+        before = dict(tq.k7_design_launches)
+        v, s, shape = tq.quantize_int8(x, gs, stochastic=stochastic, seed=i)
+        fv, fs, _ = tq.quantize_int8(x, gs, stochastic=stochastic, seed=i, design="two_pass")
         rv, rs = tq.quantize_int8_ref(groups, stochastic, i)
         deq = tq.dequantize_int8(v, s, shape, dtype=torch.bfloat16)
         rdeq = tq.dequantize_int8_ref(rv, rs, torch.bfloat16).reshape(shape)
@@ -2863,10 +2894,16 @@ def k7_cases(device, flush):
         flipped = v.clone()
         flipped.view(-1)[v.numel() // 3] ^= 1
         same = (torch.equal(v, rv), torch.equal(s.view(torch.int32), rs.view(torch.int32)),
-                torch.equal(deq, rdeq))
+                torch.equal(deq, rdeq), torch.equal(fv, rv),
+                torch.equal(fs.view(torch.int32), rs.view(torch.int32)))
+        grew = {d: c - before[d] for d, c in tq.k7_design_launches.items()}
         if not all(same) or torch.equal(flipped, rv):
-            raise AssertionError(f"k7 case {name}: values/scales/dequant bitwise {same}, "
-                                 f"flipped code caught {not torch.equal(flipped, rv)}")
+            raise AssertionError(f"k7 case {name}: values/scales/dequant/first design's values "
+                                 f"and scales bitwise {same}, flipped code caught "
+                                 f"{not torch.equal(flipped, rv)}")
+        if grew != {d: (d == design) + (d == "two_pass") for d in grew}:
+            raise AssertionError(f"k7 case {name}: quantize launches by design {grew}, want one "
+                                 f"on {design} and one on two_pass")
         if stochastic:  # every code is the floor or the ceiling of x / scale
             scaled = groups.float() / s[:, None]
             q = v.float()
@@ -2876,12 +2913,16 @@ def k7_cases(device, flush):
         N, G, eb = x.numel(), groups.shape[0], x.element_size()
         qb_ms, qb_by, qbytes = k7_bound(N, eb, 1, G)
         db_ms, db_by, dbytes = k7_bound(N, 1, 2, G)
+        quant = functools.partial(tq.quantize_int8, x, gs, stochastic=stochastic)
+        first = functools.partial(quant, design="two_pass")
         row = {"case": name, "blocks": n, "group": gs, "dtype": str(dtype).split(".")[-1],
-               "stochastic": stochastic, "values": N, "groups": G,
-               "bitwise": True, "flipped_code_caught": True,
+               "stochastic": stochastic, "values": N, "groups": G, "design": design,
+               "bitwise": True, "first_design_bitwise": True, "flipped_code_caught": True,
                "quant_max_abs_err": max(max_abs(v, rv), max_abs(s, rs)),
                "max_abs_err": max_abs(deq, rdeq),
-               "ms": time_ms(lambda: tq.quantize_int8(x, gs, stochastic=stochastic), flush),
+               "ms": time_ms(quant, flush), "profiled_us": profiled_us(quant, flush, "quant"),
+               "first_design_ms": time_ms(first, flush),
+               "first_design_profiled_us": profiled_us(first, flush, "quant"),
                "plain_ms": time_ms(lambda: tq.quantize_int8_ref(groups, stochastic), flush),
                "bound_ms": qb_ms, "bound_by": qb_by, "bytes": qbytes, "library_ms": None,
                "dequant_ms": time_ms(lambda: tq.dequantize_int8(v, s, shape), flush),
@@ -2889,7 +2930,7 @@ def k7_cases(device, flush):
                "dequant_bound_ms": db_ms, "dequant_bytes": dbytes}
         log(f"[k7-kernels] {json.dumps(row)}")
         rows.append(row)
-        del x, v, s, groups, rv, rs, deq, rdeq, flipped
+        del x, v, s, fv, fs, groups, rv, rs, deq, rdeq, flipped
     torch.cuda.empty_cache()
     return rows
 
@@ -2960,8 +3001,8 @@ def plain_k7():
             out.copy_(deq)
         else:
             out[rows.long()] = deq
-    tq._quant_kernel = lambda groups, stochastic, seed: tq.quantize_int8_ref(groups, stochastic,
-                                                                              seed)
+    tq._quant_kernel = lambda groups, stochastic, seed, design=None: tq.quantize_int8_ref(
+        groups, stochastic, seed)
     tq._dequant_kernel = dequant
     try:
         yield
@@ -3334,11 +3375,17 @@ def tier_lane(cfg, device, params):
         torch.cuda.reset_peak_memory_stats()
         syncs0, toks0 = engine.host_syncs, engine.tokens_emitted
         tq.quantize_int8.launches = tq.dequantize_int8.launches = 0
-        kd0 = serving_designs()
+        kd0, k7d0 = serving_designs(), dict(tq.k7_design_launches)
         trace = tier_trace(engine, traffic)
         if mode == "int8":
+            by_design = {d: n - k7d0[d] for d, n in tq.k7_design_launches.items()}
             launches = {"quantize_int8": tq.quantize_int8.launches,
-                        "dequantize_int8": tq.dequantize_int8.launches}
+                        "dequantize_int8": tq.dequantize_int8.launches,
+                        "quantize_int8_by_design": by_design}
+            log(f"[tier-lane] K7 quantize launches by design: {json.dumps(by_design)}")
+            if by_design["cluster"] == 0 or by_design["warp"]:
+                raise AssertionError(f"tier lane: K7 quantize launches by design {by_design}, "
+                                     f"want the demotions' slabs on the cluster design")
         run = {"phases": {p: {k: v for k, v in r.items() if k != "streams"}
                           for p, r in trace.items()},
                "streams": {p: r["streams"] for p, r in trace.items()},
@@ -4219,24 +4266,27 @@ def sparse_case_rows(name, B, S, H, D, block, layout, device, flush, timed):
     c = flash_case(230 + len(name), B, S, H, D, False, 0, device)
     q, k, v, do = c["q"], c["k"], c["v"], c["do"]
     full = bsa.full_layout(layout, H, S, block)
-    o, lse = bsa.block_sparse_fwd(q, k, v, layout, block)
-    delta = fa.flash_delta(o, do)
     design, before = bsa.bsa_design(block, D), bsa_designs()
+    o, lse = bsa.block_sparse_fwd(q, k, v, layout, block)
+    delta = fa.flash_delta(o, do)  # the backward runs on this design's o and lse
     dq = bsa.block_sparse_dq(q, k, v, do, lse, delta, layout, block)
     dk, dv = bsa.block_sparse_dkv(q, k, v, do, lse, delta, layout, block)
     torch.cuda.synchronize()
     grew = bsa_grew(before)
     if grew != {key: {d: int(d == design) for d in by} for key, by in grew.items()}:
-        raise AssertionError(f"block-sparse case {name}: backward launches by design {grew}, "
-                             f"want one each on {design}")
+        raise AssertionError(f"block-sparse case {name}: launches by design {grew}, want one "
+                             f"each on {design}")
     first = {}  # the first design on the same inputs, where the wgmma design takes the case
+    first_lse = None
     if design == "wgmma":
+        first["o"], first_lse = bsa.block_sparse_fwd(q, k, v, layout, block, design="first")
         first["dq"] = bsa.block_sparse_dq(q, k, v, do, lse, delta, layout, block, design="first")
         first["dk"], first["dv"] = bsa.block_sparse_dkv(q, k, v, do, lse, delta, layout, block,
                                                         design="first")
-        again = (bsa.block_sparse_dq(q, k, v, do, lse, delta, layout, block),
+        again = (*bsa.block_sparse_fwd(q, k, v, layout, block),
+                 bsa.block_sparse_dq(q, k, v, do, lse, delta, layout, block),
                  *bsa.block_sparse_dkv(q, k, v, do, lse, delta, layout, block))
-        if not all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv))):
+        if not all(torch.equal(a, b) for a, b in zip(again, (o, lse, dq, dk, dv))):
             raise AssertionError(f"block-sparse case {name}: the wgmma design's second run "
                                  f"differs from its first")
     o_ref, lse_ref = bsa.block_sparse_fwd_ref(q, k, v, layout, block)
@@ -4246,6 +4296,12 @@ def sparse_case_rows(name, B, S, H, D, block, layout, device, flush, timed):
     reached = torch.from_numpy(full.any(-2)).to(q.device).repeat_interleave(block, 1)[None]
     live, reached = live.expand(B, -1, -1), reached.expand(B, -1, -1)   # [B, H, S]
     lse_err = (lse - lse_ref)[live].abs().max().item()
+    first_lse_err = None
+    if first_lse is not None:
+        first_lse_err = (first_lse - lse_ref)[live].abs().max().item()
+        if not torch.equal(first_lse == bsa.NEG_INF, ~live):
+            raise AssertionError(f"block-sparse case {name}: the first design's lse is not "
+                                 f"NEG_INF exactly on the empty rows")
     zeros_ok = (torch.equal(lse == bsa.NEG_INF, ~live)
                 and bool((o.transpose(1, 2)[~live] == 0).all())
                 and bool((dq.transpose(1, 2)[~live] == 0).all())
@@ -4253,8 +4309,9 @@ def sparse_case_rows(name, B, S, H, D, block, layout, device, flush, timed):
                 and bool((dv.transpose(1, 2)[~reached] == 0).all()))
     outs = {"o": (o, o_ref), "dq": (dq, dq_ref), "dk": (dk, dk_ref), "dv": (dv, dv_ref)}
     outs.update({f"first_{t}": (got, outs[t][1]) for t, got in first.items()})
-    zeros_ok = zeros_ok and all(bool((got.transpose(1, 2)[~(live if t == "dq" else reached)] == 0)
-                                     .all()) for t, got in first.items())
+    zeros_ok = zeros_ok and all(bool((got.transpose(1, 2)[~(live if t in ("o", "dq") else
+                                                             reached)] == 0).all())
+                                for t, got in first.items())
     errs = {t: fa.row_scaled_err(got, ref) for t, (got, ref) in outs.items()}
     abs_errs = {t: max_abs(got, ref) for t, (got, ref) in outs.items()}
     zeroed = {}
@@ -4262,14 +4319,19 @@ def sparse_case_rows(name, B, S, H, D, block, layout, device, flush, timed):
         y = got.clone()
         y[:, :block] = 0  # query row 0 and key block 0 are admitted in every case
         zeroed[t] = fa.row_scaled_err(y, ref)
+    # the forward's last 64-row tile (its last item's last consumer; the last
+    # query block is admitted in every case) zeroed
+    zeroed_last = {t: fa.row_scaled_err(zero_last_tile(got), ref) for t, (got, ref) in outs.items()
+                   if t in ("o", "first_o")}
     del outs, o_ref, dq_ref, dk_ref, dv_ref, first
-    if max(errs.values()) > ROW_TOL or lse_err > LSE_TOL or not zeros_ok:
+    if max(errs.values()) > ROW_TOL or max(lse_err, first_lse_err or 0.0) > LSE_TOL \
+            or not zeros_ok:
         raise AssertionError(f"block-sparse case {name}: errors {errs} (limit {ROW_TOL}), lse "
                              f"{lse_err} (limit {LSE_TOL}), empty rows and unreached blocks "
                              f"zero: {zeros_ok}")
-    if min(zeroed.values()) <= ROW_TOL:
+    if min(zeroed.values()) <= ROW_TOL or min(zeroed_last.values()) <= ROW_TOL:
         raise AssertionError(f"block-sparse case {name}: the check passes a zeroed block: "
-                             f"{zeroed}")
+                             f"{zeroed}, the forward's last tile {zeroed_last}")
     admitted = int(full.sum())                 # admitted (head, row, key block) triples
     pairs = B * admitted * block * block       # (query, key) pairs over the batch
     act, stats = B * S * H * D * 2, B * H * S * 4
@@ -4282,7 +4344,8 @@ def sparse_case_rows(name, B, S, H, D, block, layout, device, flush, timed):
     cost = {"block_sparse_fwd": (4 * act + stats + lists, 4 * D * pairs),
             "block_sparse_dq": (5 * act + 2 * stats + lists, 6 * D * pairs),
             "block_sparse_dkv": (6 * act + 2 * stats + qlists, 8 * D * pairs)}
-    calls = {"block_sparse_fwd": (lambda: bsa.block_sparse_fwd(q, k, v, layout, block),
+    calls = {"block_sparse_fwd": (lambda design=None: bsa.block_sparse_fwd(
+                                      q, k, v, layout, block, design=design),
                                   lambda: bsa.block_sparse_fwd_ref(q, k, v, layout, block)),
              "block_sparse_dq": (lambda design=None: bsa.block_sparse_dq(
                                      q, k, v, do, lse, delta, layout, block, design=design),
@@ -4326,12 +4389,12 @@ def sparse_case_rows(name, B, S, H, D, block, layout, device, flush, timed):
         row = dict(shape, max_abs_err=max(abs_errs[t] for t in err_of[key]),
                    row_err=max(errs[t] for t in err_of[key]),
                    zeroed_tile_row_err=min(zeroed[t] for t in err_of[key]),
-                   ms=time_ms(fn, flush), bound_ms=b_ms, bound_by=b_by, bytes=nb, flops=nf)
+                   ms=time_ms(fn, flush), bound_ms=b_ms, bound_by=b_by, bytes=nb, flops=nf,
+                   design=design, launches_by_design=grew[key])
         if key == "block_sparse_fwd":
-            row["lse_abs_err"] = lse_err
-        else:
-            row["design"] = design
-        if key != "block_sparse_fwd" and design == "wgmma":  # timed beside the first design
+            row.update(lse_abs_err=lse_err, first_design_lse_abs_err=first_lse_err,
+                       zeroed_last_tile_row_err=zeroed_last["o"])
+        if design == "wgmma":  # timed beside the first design
             row.update(repeat_bitwise=True,
                        first_design_max_abs_err=max(abs_errs["first_" + t] for t in err_of[key]),
                        first_design_row_err=max(errs["first_" + t] for t in err_of[key]),
@@ -4351,7 +4414,7 @@ def sparse_case_rows(name, B, S, H, D, block, layout, device, flush, timed):
 
 
 def bsa_designs():
-    """K8's backward launches so far by design."""
+    """K8's launches so far by kernel and design."""
     from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import bsa_design_launches
     return {k: dict(v) for k, v in bsa_design_launches.items()}
 
@@ -4361,12 +4424,13 @@ def bsa_grew(before):
 
 
 def bsa_on_wgmma(grew, want, where):
-    """Fails unless each backward kernel launched ``want`` times, all on the
-    wgmma design; logs the launches by design under ``where``."""
-    log(f"[{where}] K8 backward launches by design: {json.dumps(grew)}")
+    """Fails unless each of K8's kernels (forward, dQ, dK/dV) launched
+    ``want`` times, all on the wgmma design; logs the launches by design
+    under ``where``."""
+    log(f"[{where}] K8 launches by design: {json.dumps(grew)}")
     if grew != {k: {"wgmma": want, "first": 0} for k in grew}:
-        raise AssertionError(f"{where}: K8 backward launches by design {grew}, want {want} "
-                             f"each on the wgmma design")
+        raise AssertionError(f"{where}: K8 launches by design {grew}, want {want} each on the "
+                             f"wgmma design")
 
 
 def sparse_kernel_phase(device, flush):
@@ -4425,8 +4489,8 @@ K8_CATEGORY = "block_sparse_attention (K8)"
 
 @contextlib.contextmanager
 def first_bsa_design():
-    """Pin K8's backward to its first design: ``bsa_design``, which the
-    wrappers ask when the caller names no design, names it everywhere."""
+    """Pin K8's three kernels to their first design: ``bsa_design``, which
+    the wrappers ask when the caller names no design, names it everywhere."""
     from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bsa
     saved = bsa.bsa_design
     bsa.bsa_design = lambda block, D: "first"
@@ -4556,6 +4620,15 @@ def bert_parity_phase(device):
     return res
 
 
+def k8_split(by_kernel_ms):
+    """K8's device ms of a profiled step by kernel (``_summarize``'s
+    ``by_kernel_ms``) → the forward's, dQ's and dK/dV's, over both designs."""
+    out = {"forward": 0.0, "dq": 0.0, "dkv": 0.0}
+    for name, ms in by_kernel_ms.items():
+        out["forward" if "bsa_fwd" in name else "dq" if "bsa_dq" in name else "dkv"] += ms
+    return out
+
+
 def bert_training_phase(device):
     """Phase 25: bert-large at S 4096 with BigBird block 64, 4 steps, then
     the dense model (K1 non-causal) for its step time and peak."""
@@ -4609,29 +4682,31 @@ def bert_training_phase(device):
            / mean_s / BF16_FLOPS_PER_S,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
            "launches_per_step": per_step, "launches": launches,
-           "k8_backward_launches_by_design": by_design, "grad_norm": engine.global_grad_norm}
+           "k8_launches_by_design": by_design, "grad_norm": engine.global_grad_norm}
     log(f"[bert-training] sparse: {json.dumps(res)}")
     res["profile"] = profile_train_step(engine, batch, K8_CATEGORY)
-    # the same steps with K8's backward pinned to its first design, for the
-    # step's time and K8's device ms beside the wgmma design's
+    # the same steps with K8 pinned to its first design, for the step's time
+    # and K8's device ms beside the wgmma design's
     with first_bsa_design():
         designs = bsa_designs()
         first_steps = timed_steps(engine, batch, 2)
         first_profile = profile_train_step(engine, batch, K8_CATEGORY)
         grew = bsa_grew(designs)
     if grew != {k: {"wgmma": 0, "first": 3 * per_step[k]} for k in grew}:
-        raise AssertionError(f"bert-training, first design: K8 backward launches {grew}")
+        raise AssertionError(f"bert-training, first design: K8 launches {grew}")
     res["first_design"] = {"step_ms": [dt * 1e3 for dt, _ in first_steps],
                            "ms_per_step": first_steps[-1][0] * 1e3,
                            "device_ms": first_profile["device_ms"],
                            "k8_device_ms": first_profile["by_category_ms"].get(K8_CATEGORY),
+                           "k8_split_ms": k8_split(first_profile["by_kernel_ms"]),
                            "k8_by_kernel_ms": first_profile["by_kernel_ms"]}
     k8 = {"wgmma": {"ms_per_step": res["ms_per_step"],
                     "device_ms": res["profile"]["device_ms"],
                     "k8_device_ms": res["profile"]["by_category_ms"].get(K8_CATEGORY),
+                    "k8_split_ms": k8_split(res["profile"]["by_kernel_ms"]),
                     "k8_by_kernel_ms": res["profile"]["by_kernel_ms"]},
           "first": res["first_design"]}
-    log(f"[bert-training] K8 in the profiled step, by backward design: {json.dumps(k8)}")
+    log(f"[bert-training] K8 in the profiled step, by design: {json.dumps(k8)}")
     engine.destroy()
     del model, engine
     gc.collect()
@@ -4871,6 +4946,10 @@ def main():
                     "library_ms": None,
                     "shape": "KV tier demotion: one of k, v of 2 Mistral-7B blocks "
                              "[32, 2, 32, 8, 128] bf16, one group a (layer, block) slab",
+                    "design": main_row["design"], "first_design_ms": main_row["first_design_ms"],
+                    "profiled_us": main_row["profiled_us"],
+                    "first_design_profiled_us": main_row["first_design_profiled_us"],
+                    "launches_by_design": k7_launches["quantize_int8_by_design"],
                     "cases": k7_rows})
     main_row = next(r for r in k7_rows if r["case"] == "slab_bf16_n12")
     kernels.append({"name": "dequantize_int8", "route": "cuda",
@@ -4937,10 +5016,10 @@ def main():
                         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
                         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
                         "library_ms": main_row["library_ms"], "shape": shape, "cases": rows})
-        if name in bert["k8_backward_launches_by_design"]:  # the path's design, the first's time
+        if name in bert["k8_launches_by_design"]:  # the path's design, the first's time
             kernels[-1].update(design=main_row["design"],
                                first_design_ms=main_row["first_design_ms"],
-                               launches_by_design=bert["k8_backward_launches_by_design"][name])
+                               launches_by_design=bert["k8_launches_by_design"][name])
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

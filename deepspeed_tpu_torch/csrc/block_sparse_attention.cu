@@ -2,7 +2,8 @@
 // fp32 accumulation, on [B, S, H, D] tensors read with their strides.
 //
 // Replaces the TPU kernels of deepspeed_tpu/ops/pallas/block_sparse_attention.py:
-//   _fwd_kernel (the `pl.pallas_call` in _fwd_impl)         -> bsa_fwd_kernel
+//   _fwd_kernel (the `pl.pallas_call` in _fwd_impl)         -> bsa_fwd_wgmma_kernel
+//                                         (blocks 64, 128), bsa_fwd_kernel (16, 32)
 //   _dq_kernel  (the first `pl.pallas_call` in _bwd_impl)   -> bsa_dq_wgmma_kernel
 //                                         (blocks 64, 128), bsa_dq_kernel (16, 32)
 //   _dkv_kernel (the second `pl.pallas_call` in _bwd_impl)  -> bsa_dkv_wgmma_kernel
@@ -38,8 +39,8 @@
 // reads each admitted block once per visiting block re-reads k and v (or q
 // and do) about 5x (the median row's admitted count) from L2.
 //
-// The first design (the forward at every block; dQ and dK/dV at blocks of
-// 16 and 32, which give no 64-row tile of one list):
+// The first design (all three kernels at blocks of 16 and 32, which give no
+// 64-row tile of one list):
 //   - the TPU kernel's SMEM index-list DMA does not carry over: each group
 //     of warps reads its row's admitted-block list (k_idx, k_nnz) itself
 //     and walks it, loading each admitted block's rows into shared memory;
@@ -58,19 +59,30 @@
 //     in the median row, and every row admits key block 0. The grid's slow
 //     dimension is a rank, and `order` maps rank r of head h to its r-th
 //     longest row, so the longest rows of every (b, h) start first.
-// The wgmma designs of dQ and dK/dV (blocks of 64 and 128, whose 64-row
-// tiles are wgmma's M): K1's backward designs (flash_attention.cu, on
+// The wgmma designs of the forward, dQ and dK/dV (blocks of 64 and 128,
+// whose 64-row tiles are wgmma's M): K1's designs (flash_attention.cu, on
 // hopper.cuh and attention_wgmma.cuh) walking the layout's lists instead
 // of a causal range:
-//   - an item is one key block (dK/dV) or query block (dQ); a consumer
-//     warpgroup owns 64 of its rows (one at block 64, two at block 128,
-//     which take turns issuing, as in K1). The item's own K and V (or Q,
-//     dO, lse and delta) come by TMA into one of two item slots, and the
-//     tiles of its list stream through a ring of full/empty mbarriers:
-//     dK/dV's 64-row Q and dO tiles with their lse and delta (two bulk
-//     copies into the same stage), dQ's K and V tiles (64 keys, 128 at
-//     block 128 and D 64). 3-D tensor maps over [B, S, H, D], 128-byte
-//     swizzle;
+//   - an item is one query block (forward, dQ) or key block (dK/dV); a
+//     consumer warpgroup owns 64 of its rows (one at block 64, two at block
+//     128, which take turns issuing, as in K1). The item's own Q (forward),
+//     Q, dO, lse and delta (dQ) or K and V (dK/dV) come by TMA into one of
+//     two item slots, and the tiles of its list stream through a ring of
+//     full/empty mbarriers: the forward's and dQ's K and V tiles (64 keys,
+//     128 at block 128 and D 64), dK/dV's 64-row Q and dO tiles with their
+//     lse and delta (two bulk copies into the same stage). The forward's
+//     slot holds Q alone, so its ring keeps 4 stages at every shape (3 at
+//     block 64 and D 128, for two blocks an SM) where dQ's keeps 2 at block
+//     128 and D 128. 3-D tensor maps over [B, S, H, D], 128-byte swizzle;
+//   - forward: S = Q K^T is m64n{keys}k16 (both K-major); the online
+//     softmax runs in registers in the exp2 domain (the row max over the raw
+//     scores, p = 2^(s scale log2(e) - m) one FFMA and one MUFU, l the sum of
+//     fp32 p); O is rescaled by alpha and O += bf16(P) V is m64n{D}k16 with
+//     P re-packed from the S accumulator as the A operand from registers
+//     and V MN-major (K1's forward). Tile i's S is issued with tile i - 1's
+//     P V, so its softmax runs under P V; the rescale of O waits for that P
+//     V. o = O / l leaves by TMA store from the slot's Q boxes (Q is dead
+//     once the item's last S is in), lse from registers;
 //   - dK/dV: S^T = K Q^T and dP^T = V dO^T are m64n64k16 in one group,
 //     p and dS^T = bf16(p (dP^T - delta) sm_scale) in registers, then dV +=
 //     bf16(P^T) dO and dK += dS^T Q are m64n{D}k16 with A from registers
@@ -89,7 +101,8 @@
 //     descriptors, so the loading thread never waits on a global read; an
 //     item's output leaves by TMA store from the slot its own rows came in,
 //     so no thread waits on scattered stores; an item whose list is empty
-//     is written as zeros by the fetcher and never reaches a consumer;
+//     is written as zeros (and the forward's lse as NEG_INF) by the fetcher
+//     and never reaches a consumer;
 //   - at block 64 a block is 256 threads and two blocks share an SM, so one
 //     block's exponentials run under the other's products (the producer
 //     keeps 24 registers, and spills a few words around the counter, so
@@ -101,10 +114,11 @@
 // dK/dV consumers in one block taking a key block's tiles by parity (their
 // partial sums added in order at the end), and chaining dQ's items (an
 // item's first S and dP issued with the last item's dS K).
-// Not done yet (work for a later change): the forward on wgmma; keeping k
-// and v of shared key blocks (the global columns) resident; overlapping a
-// consumer's exponentials with its own next products (registers). Head
-// dims 64 and 128 and blocks of 16, 32, 64 and 128 rows are instantiated.
+// Not done yet (work for a later change): keeping k and v of shared key
+// blocks (the global columns) resident; overlapping a consumer's
+// exponentials with its own next products beyond the forward's one-tile
+// lag (registers). Head dims 64 and 128 and blocks of 16, 32, 64 and 128
+// rows are instantiated.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -498,15 +512,15 @@ bsa_dkv_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   store_rows<D>(dv + base, dv_acc, k0 + w.wr + g, S, rs, t, 1.f, 1.f);
 }
 
-// ------------------------------------------------ the wgmma designs (backward)
+// ------------------------------------------------------- the wgmma designs
 // Blocks of 64 and 128 rows at head dims 64 and 128 (bsa_design in the
 // wrapper). The grid is persistent: its blocks take work items from a
 // counter in the order item_at gives. An item is one key block (dK/dV) or
-// query block (dQ); each consumer warpgroup owns 64 of its rows (one
-// consumer at block 64, two at block 128). Warp 1 of the producer
+// query block (forward, dQ); each consumer warpgroup owns 64 of its rows
+// (one consumer at block 64, two at block 128). Warp 1 of the producer
 // warpgroup (the fetcher) takes the items and reads their lists; thread 0
-// (the loader) brings each item's own rows (K and V, or Q and dO with lse
-// and delta) into one of two item slots, so the next item's are loaded
+// (the loader) brings each item's own rows (K and V, Q, or Q and dO with
+// lse and delta) into one of two item slots, so the next item's are loaded
 // while this one runs, and streams the tiles of its list through a ring of
 // full/empty mbarriers. The lists come ranked: row r of head h of idx and
 // nnz is the list of block order[h * rows + r], so an item's reads of its
@@ -541,6 +555,23 @@ struct WgDq {
   static constexpr int kStage = 2 * 2 * kQTile;        // item slot j: Q, dO; then stage s: K, V
   static constexpr int kStats = kStage + kStages * 2 * kKTile;  // slot j: lse, delta [BLOCK]
   static constexpr int kItem = kStats + 2 * 2 * BLOCK * 4;      // item slot j: row, nnz, b H + h
+  static constexpr int kBar = kItem + 2 * 16;
+  static constexpr int kDescs = kBar + (2 * kStages + 4 + 2 * DESCS) * 8;
+};
+
+// The forward's item slot holds Q only, half of dQ's, so its ring has room
+// for 4 stages at every shape (dQ's has 2 at block 128 and D 128).
+template <int D, int BLOCK>
+struct WgFwd {
+  static constexpr int kConsumers = BLOCK / 64;
+  static constexpr int kKeys = WgDq<D, BLOCK>::kKeys;  // keys a stage: registers, as dQ
+  static constexpr int kStages = D == 128 && BLOCK == 64 ? 3 : 4;  // two blocks an SM at 64
+  static constexpr int kQBox = BLOCK * BOX_ROW;
+  static constexpr int kQTile = D / 64 * kQBox;
+  static constexpr int kKBox = kKeys * BOX_ROW;
+  static constexpr int kKTile = D / 64 * kKBox;
+  static constexpr int kStage = 2 * kQTile;            // item slot j: Q; then stage s: K, V
+  static constexpr int kItem = kStage + kStages * 2 * kKTile;  // item slot j: row, nnz, b H + h
   static constexpr int kBar = kItem + 2 * 16;
   static constexpr int kDescs = kBar + (2 * kStages + 4 + 2 * DESCS) * 8;
 };
@@ -594,14 +625,16 @@ __device__ __forceinline__ void store_zero_rows(uint16_t* g, size_t rs, int lane
 // ({row, nnz, b H + h, -}, then the list; `ints` a descriptor), so that the
 // loader never waits on the counter or a list. An item's block, count and
 // padded list are read together, none waiting on another. An item whose
-// list is empty is stored as zeros (into z0, and z1 when given) here and
-// not handed on; a descriptor of row -1 ends the loader's items.
+// list is empty is stored as zeros (into z0, and z1 when given; its lse,
+// fp32 [B H, S], as NEG_INF into zlse when given) here and not handed on;
+// a descriptor of row -1 ends the loader's items.
 template <int D, int BLOCK>
 __device__ __forceinline__ void fetch_items(int32_t* descs, int ints, uint64_t* desc_full,
                                             uint64_t* desc_empty, int* counter,
                                             const int32_t* idx, const int32_t* nnz,
                                             const int32_t* order, int BH, int H, int S, int A,
-                                            int lead, uint16_t* z0, uint16_t* z1, int lane) {
+                                            int lead, uint16_t* z0, uint16_t* z1, float* zlse,
+                                            int lane) {
   const int rows = S / BLOCK;
   const size_t rs = (size_t)H * D;
   for (int n = 0;;) {
@@ -622,6 +655,9 @@ __device__ __forceinline__ void fetch_items(int32_t* descs, int ints, uint64_t* 
       const size_t off = ((size_t)b * S + (size_t)row * BLOCK) * rs + (size_t)h * D;
       store_zero_rows<D, BLOCK>(z0 + off, rs, lane);
       if (z1 != nullptr) store_zero_rows<D, BLOCK>(z1 + off, rs, lane);
+      if (zlse != nullptr)  // the forward's lse of those rows
+        for (int i = lane; i < BLOCK; i += 32)
+          zlse[(size_t)bh * S + (size_t)row * BLOCK + i] = kNegInf;
       continue;
     }
     const int d = n % DESCS;
@@ -692,7 +728,7 @@ __global__ void __launch_bounds__(WgThreads<BLOCK>::kThreads, WgThreads<BLOCK>::
     hopper::setmaxnreg_dec<WgThreads<BLOCK>::kProducerRegs>();
     if (tid >= 32 && tid < 64) {
       fetch_items<D, BLOCK>(descs, ints, desc_full, desc_empty, counter, q_idx, q_nnz, q_order,
-                            BH, H, S, A, lead, dk, dv, tid - 32);
+                            BH, H, S, A, lead, dk, dv, nullptr, tid - 32);
     } else if (tid == 0) {  // an item's K and V into its slot, then its tiles into the ring
       int t = 0;            // tiles asked for so far: the ring's position
       for (int n = 0;; ++n) {
@@ -913,7 +949,7 @@ __global__ void __launch_bounds__(WgThreads<BLOCK>::kThreads, WgThreads<BLOCK>::
     hopper::setmaxnreg_dec<WgThreads<BLOCK>::kProducerRegs>();
     if (tid >= 32 && tid < 64) {
       fetch_items<D, BLOCK>(descs, ints, desc_full, desc_empty, counter, k_idx, k_nnz, k_order,
-                            BH, H, S, A, lead, dq, nullptr, tid - 32);
+                            BH, H, S, A, lead, dq, nullptr, nullptr, tid - 32);
     } else if (tid == 0) {  // an item's Q, dO, lse and delta into its slot, then K/V tiles
       int t = 0;
       for (int n = 0;; ++n) {
@@ -1097,6 +1133,262 @@ __global__ void __launch_bounds__(WgThreads<BLOCK>::kThreads, WgThreads<BLOCK>::
   if ((tid & 127) == 0) hopper::bulk_wait<0>();
 }
 
+// The forward: an item is query rows row * BLOCK .. + BLOCK - 1 (consumer
+// cw the 64 from 64 cw); Q is loaded once into its slot, and its admitted
+// key blocks are walked kKeys keys a stage, each stage's K and V together.
+// o leaves by TMA store from the slot's Q boxes, lse from registers.
+template <int D, int BLOCK>
+__global__ void __launch_bounds__(WgThreads<BLOCK>::kThreads, WgThreads<BLOCK>::kMinBlocks)
+    bsa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v,
+                         const __grid_constant__ CUtensorMap map_o, uint16_t* __restrict__ o,
+                         float* __restrict__ lse, const int32_t* __restrict__ k_idx,
+                         const int32_t* __restrict__ k_nnz, const int32_t* __restrict__ k_order,
+                         int* __restrict__ counter, int BH, int H, int S, int A, int lead,
+                         float scale_log2) {
+  using L = WgFwd<D, BLOCK>;
+  constexpr int NC = L::kConsumers, BK = L::kKeys, TPB = BLOCK / BK, ST = L::kStages;
+  extern __shared__ __align__(1024) uint8_t wg_smem[];
+  uint8_t* base = wg_smem + ((1024u - (hopper::smem_addr(wg_smem) & 1023u)) & 1023u);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBar);
+  uint64_t* empty = full + ST;
+  uint64_t* slot_full = empty + ST;
+  uint64_t* slot_empty = slot_full + 2;
+  uint64_t* desc_full = slot_empty + 2;
+  uint64_t* desc_empty = desc_full + DESCS;
+  int* sItem = reinterpret_cast<int*>(base + L::kItem);
+  int32_t* descs = reinterpret_cast<int32_t*>(base + L::kDescs);
+  const int tid = threadIdx.x, ints = 4 + (A + 3) / 4 * 4;
+  if (tid == 0) {
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 4 * NC);
+    }
+    for (int j = 0; j < 2; ++j) {
+      hopper::mbar_init(&slot_full[j], 1);
+      hopper::mbar_init(&slot_empty[j], NC);  // each consumer's storing thread
+    }
+    for (int d = 0; d < DESCS; ++d) {
+      hopper::mbar_init(&desc_full[d], 32);
+      hopper::mbar_init(&desc_empty[d], 1);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(~0u, tid / 128, 0);
+  if (wg == 0) {  // the producer: warp 1 fetches items, thread 0 loads them
+    hopper::setmaxnreg_dec<WgThreads<BLOCK>::kProducerRegs>();
+    if (tid >= 32 && tid < 64) {
+      fetch_items<D, BLOCK>(descs, ints, desc_full, desc_empty, counter, k_idx, k_nnz, k_order,
+                            BH, H, S, A, lead, o, nullptr, lse, tid - 32);
+    } else if (tid == 0) {  // an item's Q into its slot, then its K/V tiles into the ring
+      int t = 0;
+      for (int n = 0;; ++n) {
+        const int d = n % DESCS, slot = n & 1;
+        hopper::mbar_wait(&desc_full[d], (n / DESCS) & 1);
+        const int32_t* desc = descs + d * ints;
+        const int row = desc[0], nnz = desc[1], bh = desc[2];
+        hopper::mbar_wait(&slot_empty[slot], ((n >> 1) & 1) ^ 1);
+        sItem[4 * slot] = row;
+        sItem[4 * slot + 1] = nnz;
+        sItem[4 * slot + 2] = bh;
+        if (row < 0) {
+          hopper::mbar_arrive(&slot_full[slot]);  // no more items
+          break;
+        }
+        const int b = bh / H, c0 = (bh - b * H) * D, q0 = row * BLOCK;
+        uint8_t* qs = base + slot * L::kQTile;
+        hopper::mbar_expect_tx(&slot_full[slot], L::kQTile);
+        for (int c = 0; c < D / 64; ++c)
+          hopper::tma_load_3d(qs + c * L::kQBox, &map_q, &slot_full[slot], c0 + 64 * c, q0, b);
+        for (int i = 0; i < nnz * TPB; ++i, ++t) {
+          const int s = t % ST, k0 = desc[4 + i / TPB] * BLOCK + (i % TPB) * BK;
+          hopper::mbar_wait(&empty[s], ((t / ST) & 1) ^ 1);
+          uint8_t* st = base + L::kStage + s * 2 * L::kKTile;
+          hopper::mbar_expect_tx(&full[s], 2 * L::kKTile);
+          for (int c = 0; c < D / 64; ++c) {
+            hopper::tma_load_3d(st + c * L::kKBox, &map_k, &full[s], c0 + 64 * c, k0, b);
+            hopper::tma_load_3d(st + L::kKTile + c * L::kKBox, &map_v, &full[s], c0 + 64 * c,
+                                k0, b);
+          }
+        }
+        hopper::mbar_arrive(&desc_empty[d]);
+      }
+    }
+    return;
+  }
+
+  hopper::setmaxnreg_inc<232>();
+  const int cw = wg - 1;
+  const int lane = tid & 31, warp = (tid & 127) >> 5, t4 = lane & 3;
+  const int r0 = 64 * cw + 16 * warp + (lane >> 2);  // this thread's rows of an item: r0, r0 + 8
+  float acc[D / 2];  // O: an item's first P V overwrites it
+  float sc[BK / 2];
+  uint32_t pa[BK / 16][4];
+  float m[2], l[2], alpha[2];  // the online softmax of this thread's rows, exp2 domain
+  uint32_t q_addr = 0;
+  auto k_addr = [&](int t) { return hopper::smem_addr(base + L::kStage + t % ST * 2 * L::kKTile); };
+  // S = Q K^T, both operands K-major (ring tile t)
+  auto qk = [&](int t) {
+    hopper::mbar_wait(&full[t % ST], (t / ST) & 1);
+    const uint32_t ka = k_addr(t);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t oq = kk / 4 * L::kQBox + kk % 4 * 32, ok = kk / 4 * L::kKBox + kk % 4 * 32;
+      wgmma_ss<BK>(sc, hopper::sw128_desc(q_addr + oq), hopper::sw128_desc(ka + ok), kk > 0);
+    }
+    hopper::wgmma_commit();
+  };
+  // O += P V: V is the MN-major B operand, a 16-deep slice 16 keys down;
+  // `first` (the item's first tile) overwrites the accumulator
+  auto pv = [&](int t, bool first) {
+    const uint32_t va = k_addr(t) + L::kKTile;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs<D, 1>(acc, pa[kk], hopper::sw128_mn_desc(va + kk * 16 * BOX_ROW, L::kKBox),
+                     !first || kk > 0);
+    hopper::wgmma_commit();
+  };
+  // the tile's scores → p (fp32) in sc; m and l move on, alpha is the
+  // factor O takes. The row max is taken over the raw scores (the scale is
+  // positive), so p = 2^(s scale log2(e) - m) is one FFMA and one MUFU; no
+  // mask inside an admitted block.
+  auto softmax = [&]() {
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]) * scale_log2);
+      alpha[r] = fast_exp2(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int r = (i >> 1) & 1;
+      const float p = fast_exp2(fmaf(sc[i], scale_log2, -m[r]));
+      sc[i] = p;
+      l[r] += p;
+    }
+  };
+  // O *= alpha, and P (bf16) into the A fragments of the next P V
+  auto rescale_pack = [&]() {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[4 * j] *= alpha[0];
+      acc[4 * j + 1] *= alpha[0];
+      acc[4 * j + 2] *= alpha[1];
+      acc[4 * j + 3] *= alpha[1];
+    }
+    pack_a(pa, sc);
+  };
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(bar);
+  };
+  auto my_turn = [&]() {
+    if constexpr (NC == 2) hopper::named_sync(1 + cw, 256);
+  };
+  auto their_turn = [&]() {
+    if constexpr (NC == 2) hopper::named_arrive(2 - cw, 256);
+  };
+  if (NC == 2 && cw == 1) hopper::named_arrive(1, 256);
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  int t = 0;  // tiles taken so far: the ring's position
+  for (int j = 0;; ++j) {
+    const int slot = j & 1;
+    hopper::mbar_wait(&slot_full[slot], (j >> 1) & 1);
+    // (item values are broadcast from lane 0, so that ptxas sees the
+    // branches and trip counts they give as warp-uniform)
+    const int row = __shfl_sync(~0u, sItem[4 * slot], 0);
+    if (row < 0) break;
+    const int steps = __shfl_sync(~0u, sItem[4 * slot + 1], 0) * TPB;  // key tiles, >= 1
+    const int bh = __shfl_sync(~0u, sItem[4 * slot + 2], 0);
+    q_addr = hopper::smem_addr(base + slot * L::kQTile) + cw * 64 * BOX_ROW;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m[r] = kNegInf;
+      l[r] = 0.f;
+    }
+
+    // Tile i's S is issued with tile i - 1's P V, so that tile i's softmax
+    // runs while the tensor cores finish P V (K1's forward); O is rescaled
+    // and P repacked only once that P V is retired, and a stage is freed
+    // once its V has fed P V.
+    hopper::fence_regs(sc);
+    hopper::wgmma_fence();
+    my_turn();
+    qk(t);
+    their_turn();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    softmax();
+    rescale_pack();
+    for (int i = 1; i < steps; ++i) {
+      hopper::fence_regs(sc);
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+      my_turn();
+      qk(t + i);
+      pv(t + i - 1, i == 1);
+      their_turn();
+      hopper::wgmma_wait<1>();  // S of tile i is in; P V of tile i - 1 may still run
+      hopper::fence_regs(sc);
+      softmax();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      hopper::fence_regs(pa);
+      release(&empty[(t + i - 1) % ST]);
+      rescale_pack();
+    }
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+    my_turn();
+    pv(t + steps - 1, steps == 1);
+    their_turn();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    hopper::fence_regs(pa);
+    release(&empty[(t + steps - 1) % ST]);
+    t += steps;
+
+    // o = O / l and lse = m ln 2 + log(l) (NEG_INF where l is 0); o goes out
+    // by TMA from the slot's boxes that this consumer's Q rows came in (its
+    // last S has read them), and the slot is free once the store has read it
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float lt = quad_sum(l[r]);
+      const float inv = lt == 0.f ? 1.f : 1.f / lt;
+      if (t4 == 0)
+        lse[(size_t)bh * S + (size_t)row * BLOCK + r0 + 8 * r] =
+            lt == 0.f ? kNegInf : m[r] * kLn2 + logf(lt);
+#pragma unroll
+      for (int jj = 0; jj < D / 8; ++jj) {
+        acc[4 * jj + 2 * r] *= inv;
+        acc[4 * jj + 2 * r + 1] *= inv;
+      }
+    }
+    uint8_t* out = base + slot * L::kQTile + cw * 64 * BOX_ROW;
+    stage_wg_rows<D>(out, L::kQBox, acc, 16 * warp + (lane >> 2), t4);
+    hopper::fence_proxy_async();
+    hopper::named_sync(3 + cw, 128);
+    if ((tid & 127) == 0) {
+      const int b = bh / H, c0 = (bh - b * H) * D, q0 = row * BLOCK + 64 * cw;
+      for (int c = 0; c < D / 64; ++c)
+        hopper::tma_store_3d(&map_o, out + c * L::kQBox, c0 + 64 * c, q0, b);
+      hopper::bulk_commit();
+      hopper::bulk_wait_read<0>();
+      hopper::mbar_arrive(&slot_empty[slot]);
+    }
+  }
+  if ((tid & 127) == 0) hopper::bulk_wait<0>();
+}
+
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta, *idx, *nnz, *order;
   void *o, *lse_out, *dq, *dk, *dv, *counter;
@@ -1158,22 +1450,24 @@ cudaError_t persistent_grid(Kernel kernel, int threads, size_t smem, int items, 
   return cudaSuccess;
 }
 
-// kind 1 = dQ, 2 = dK/dV on the wgmma designs; idx and nnz ranked (see
-// the kernels' note), `counter` one int the caller zeroed
+// kind 0 = forward, 1 = dQ, 2 = dK/dV on the wgmma designs; idx and nnz
+// ranked (see the kernels' note), `counter` one int the caller zeroed
 template <int D, int BLOCK>
 cudaError_t run_wgmma(int kind, const Args& a) {
-  const bool dq = kind == 1;
-  const int q_rows = dq ? BLOCK : 64, k_rows = dq ? WgDq<D, BLOCK>::kKeys : BLOCK;
+  const bool dkv = kind == 2;
+  const int q_rows = dkv ? 64 : BLOCK, k_rows = dkv ? BLOCK : WgDq<D, BLOCK>::kKeys;
   CUtensorMap mq, mk, mv, mdo, m0, m1;  // m0, m1: the outputs, stored 64 rows a box
   if (!bshd_map<D>(&mq, a.q, a.B, a.H, a.S, q_rows) ||
       !bshd_map<D>(&mk, a.k, a.B, a.H, a.S, k_rows) ||
       !bshd_map<D>(&mv, a.v, a.B, a.H, a.S, k_rows) ||
-      !bshd_map<D>(&mdo, a.dout, a.B, a.H, a.S, q_rows) ||
-      !bshd_map<D>(&m0, dq ? a.dq : a.dk, a.B, a.H, a.S, 64) ||
-      (!dq && !bshd_map<D>(&m1, a.dv, a.B, a.H, a.S, 64)))
+      (kind != 0 && !bshd_map<D>(&mdo, a.dout, a.B, a.H, a.S, q_rows)) ||
+      !bshd_map<D>(&m0, kind == 0 ? a.o : kind == 1 ? a.dq : a.dk, a.B, a.H, a.S, 64) ||
+      (dkv && !bshd_map<D>(&m1, a.dv, a.B, a.H, a.S, 64)))
     return cudaErrorInvalidValue;
   // + the fetcher's descriptors, and slack to align the base to 1024 bytes
-  const size_t smem = (size_t)(dq ? WgDq<D, BLOCK>::kDescs : WgDkv<D, BLOCK>::kDescs) +
+  const size_t smem = (size_t)(kind == 0   ? WgFwd<D, BLOCK>::kDescs
+                               : kind == 1 ? WgDq<D, BLOCK>::kDescs
+                                           : WgDkv<D, BLOCK>::kDescs) +
                       (size_t)DESCS * 4 * (4 + (a.A + 3) / 4 * 4) + 1024;
   if (smem > 232448) return cudaErrorInvalidValue;
   const float scale_log2 = a.sm_scale * kLog2e;
@@ -1187,7 +1481,13 @@ cudaError_t run_wgmma(int kind, const Args& a) {
   constexpr int threads = WgThreads<BLOCK>::kThreads;
   int grid = 0;
   cudaError_t err;
-  if (dq) {
+  if (kind == 0) {
+    auto kernel = bsa_fwd_wgmma_kernel<D, BLOCK>;
+    if ((err = persistent_grid(kernel, threads, smem, items, grid)) != cudaSuccess) return err;
+    kernel<<<grid, threads, smem, a.st>>>(mq, mk, mv, m0, static_cast<uint16_t*>(a.o),
+                                          static_cast<float*>(a.lse_out), idx, nnz, order,
+                                          counter, BH, a.H, a.S, a.A, a.lead, scale_log2);
+  } else if (kind == 1) {
     auto kernel = bsa_dq_wgmma_kernel<D, BLOCK>;
     if ((err = persistent_grid(kernel, threads, smem, items, grid)) != cudaSuccess) return err;
     kernel<<<grid, threads, smem, a.st>>>(mq, mk, mv, mdo, m0, lse, delta,
@@ -1218,7 +1518,7 @@ int dispatch(int kind, int D, int block, const Args& a, bool wgmma = false) {
   if (a.B <= 0 || a.H <= 0 || a.S <= 0 || a.A <= 0 || (D != 64 && D != 128) ||
       (block != 16 && block != 32 && block != 64 && block != 128) || a.S % block != 0 ||
       a.S / block > 65535 * (block > 64 ? 1 : 64 / block) || (long long)a.B * a.H > 0x7fffffff ||
-      (wgmma && (kind == 0 || block < 64 || a.A > a.S / block || a.lead < 0 ||
+      (wgmma && (block < 64 || a.A > a.S / block || a.lead < 0 ||
                  a.lead > a.S / block ||
                  (long long)a.B * a.H * (a.S / block) > 0x7fffffff - 0x10000)))
     return (int)cudaErrorInvalidValue;
@@ -1273,12 +1573,25 @@ extern "C" int ds_bsa_dkv_bf16(const void* q, const void* k, const void* v, cons
   return dispatch(2, D, block, a);
 }
 
-// The wgmma designs of dQ and dK/dV (blocks of 64 and 128), with the same
-// arguments as the entries above except that idx and nnz are ranked (row r
-// of head h is the list, and count, of block order[h * rows + r]),
-// `counter` is one int32, zero, that the persistent grid takes its work
-// items from, and `lead` (0 .. rows) is how many ranks of every head-row
-// to take before the head groups (see item_at).
+// The wgmma designs of the forward, dQ and dK/dV (blocks of 64 and 128),
+// with the same arguments as the entries above except that idx and nnz are
+// ranked (row r of head h is the list, and count, of block order[h * rows +
+// r]), `counter` is one int32, zero, that the persistent grid takes its
+// work items from, and `lead` (0 .. rows) is how many ranks of every
+// head-row to take before the head groups (see item_at).
+extern "C" int ds_bsa_fwd_wgmma_bf16(const void* q, const void* k, const void* v, void* o,
+                                     void* lse, const void* k_idx, const void* k_nnz,
+                                     const void* k_order, void* counter, int B, int H, int S,
+                                     int D, int block, int A, int lead, float sm_scale,
+                                     void* stream) {
+  Args a = {};
+  a.q = q; a.k = k; a.v = v; a.o = o; a.lse_out = lse;
+  a.idx = k_idx; a.nnz = k_nnz; a.order = k_order; a.counter = counter;
+  a.B = B; a.H = H; a.S = S; a.A = A; a.lead = lead; a.sm_scale = sm_scale;
+  a.st = static_cast<cudaStream_t>(stream);
+  return dispatch(0, D, block, a, true);
+}
+
 extern "C" int ds_bsa_dq_wgmma_bf16(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse, const void* delta,
                                     void* dq, const void* k_idx, const void* k_nnz,

@@ -11,13 +11,17 @@ called through ctypes:
   → the output and the fp32 logsumexp [B, H, S];
 - :func:`block_sparse_dq` and :func:`block_sparse_dkv` launch the backward
   kernels (``_dq_kernel``, ``_dkv_kernel``), which recompute the
-  probabilities from the saved logsumexp. Each has two designs, named by
-  :func:`bsa_design` from the block and head dim alone and counted in
-  ``bsa_design_launches``: "wgmma" (blocks of 64 and 128: a persistent
-  grid whose blocks take one key or query block at a time, its 64-row
-  tiles on wgmma, fed by a TMA ring over its admitted list) and "first"
-  (blocks of 16 and 32, which give no 64-row tile of one list: mma.sync
-  over synchronous loads). ``design=`` forces one that can take the call.
+  probabilities from the saved logsumexp.
+
+Each of the three has two designs, named by :func:`bsa_design` from the
+block and head dim alone and counted in ``bsa_design_launches``: "wgmma"
+(blocks of 64 and 128: a persistent grid whose blocks take one query block
+(forward, dQ) or key block (dK/dV) at a time, its 64-row tiles on wgmma,
+fed by a TMA ring over its admitted list; the forward's online softmax in
+registers between its two products, as K1's forward) and "first" (blocks
+of 16 and 32, which give no 64-row tile of one list: mma.sync over
+synchronous loads). ``design=`` forces one that can take the call; a CUDA
+call that no design takes raises.
 
 :func:`block_sparse_attention` is what ``SparseSelfAttention`` calls: a
 ``torch.autograd.Function`` over those three on CUDA tensors (bf16, head
@@ -54,15 +58,16 @@ WGMMA_BLOCKS = (64, 128)  # a wgmma tile is 64 rows of one block's list
 DESIGNS = ("wgmma", "first")
 _SOURCE = "block_sparse_attention.cu"
 
-# launches of the backward kernels by design
-bsa_design_launches = {"block_sparse_dq": dict.fromkeys(DESIGNS, 0),
+# launches of the three kernels by design
+bsa_design_launches = {"block_sparse_fwd": dict.fromkeys(DESIGNS, 0),
+                       "block_sparse_dq": dict.fromkeys(DESIGNS, 0),
                        "block_sparse_dkv": dict.fromkeys(DESIGNS, 0)}
 
 
 def bsa_design(block, D):
-    """The design a backward launch takes, from its block and head dim:
-    "wgmma" at blocks of 64 and 128 (head dims 64 and 128), "first" at 16
-    and 32, whose 64-row tiles would span four or two lists."""
+    """The design a launch takes, from its block and head dim: "wgmma" at
+    blocks of 64 and 128 (head dims 64 and 128), "first" at 16 and 32,
+    whose 64-row tiles would span four or two lists."""
     return "wgmma" if block in WGMMA_BLOCKS and D in HEAD_DIMS else "first"
 
 _INDICES_CACHE = {}
@@ -305,19 +310,6 @@ def _sched(layout, q, block):
     return schedule(full_layout(layout, q.shape[2], q.shape[1], block), q.device)
 
 
-def block_sparse_fwd(q, k, v, layout, block, sm_scale=None):
-    """Launch the forward kernel → (o bf16 [B, S, H, D], lse fp32 [B, H, S]).
-    ``layout``: [1 or H, nq, nk] bool, or its :class:`Schedule`."""
-    sched = _sched(layout, q, block)
-    B, S, H, D = _check(block, sched, q=q, k=k, v=v)
-    o = torch.empty_like(q)
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    _launch("ds_bsa_fwd_bf16", [q, k, v, o, lse], sched.k, (B, H, S, D, block),
-            _scale(D, sm_scale), q.device, "forward")
-    block_sparse_fwd.launches += 1
-    return o, lse
-
-
 def _counter(device):
     """The wgmma designs' work counter: one int32 zero, which their
     persistent grid counts its items off."""
@@ -332,6 +324,27 @@ def _design(block, D, design):
         raise ValueError(f"design {design!r} cannot take block {block}, head dim {D}: the "
                          f"wgmma design takes blocks {WGMMA_BLOCKS}")
     return design
+
+
+def block_sparse_fwd(q, k, v, layout, block, sm_scale=None, design=None):
+    """Launch the forward kernel of the design :func:`bsa_design` names (or
+    ``design``) → (o bf16 [B, S, H, D], lse fp32 [B, H, S]). ``layout``:
+    [1 or H, nq, nk] bool, or its :class:`Schedule`."""
+    sched = _sched(layout, q, block)
+    B, S, H, D = _check(block, sched, q=q, k=k, v=v)
+    design = _design(block, D, design)
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    if design == "wgmma":
+        _launch("ds_bsa_fwd_wgmma_bf16", [q, k, v, o, lse], sched.k_ranked, (B, H, S, D, block),
+                _scale(D, sm_scale), q.device, "forward (wgmma design)", (_counter(q.device),),
+                (sched.k_lead,))
+    else:
+        _launch("ds_bsa_fwd_bf16", [q, k, v, o, lse], sched.k, (B, H, S, D, block),
+                _scale(D, sm_scale), q.device, "forward (first design)")
+    block_sparse_fwd.launches += 1
+    bsa_design_launches["block_sparse_fwd"][design] += 1
+    return o, lse
 
 
 def block_sparse_dq(q, k, v, do, lse, delta, layout, block, sm_scale=None, design=None):

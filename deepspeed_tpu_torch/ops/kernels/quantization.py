@@ -9,8 +9,17 @@ half to even, or stochastic rounding from a seed.
 :func:`quantize_int8` and :func:`dequantize_int8` are the JAX package's
 entry points. A CUDA tensor launches the CUDA C++ kernels of
 ``csrc/quantization.cu`` (its header says what bounds them and what the
-design does about that) or raises; a CPU tensor takes the plain versions
-:func:`quantize_int8_ref` and :func:`dequantize_int8_ref`.
+designs do about that) or raises; a CPU tensor takes the plain versions
+:func:`quantize_int8_ref` and :func:`dequantize_int8_ref`. The quantize
+kernel has three designs, named by :func:`k7_design` from the group size,
+the dtype, the group count and the alignment, and counted in
+``k7_design_launches``: "warp" (a warp a group, up to 1024 values),
+"cluster" (a group of 4097 to 65536 values in 8-value units split over a
+thread block cluster of 2-8 blocks, :func:`k7_cluster_size`: each value
+read once into registers, the group's absmax reduced across the cluster
+through distributed shared memory; where the groups' blocks fit in one
+wave, as a KV tier demotion's do) and "two_pass" (one block a group: an
+absmax pass, then the codes; every other group).
 :func:`dequantize_int8_rows` writes each group into a chosen row of
 another tensor (the KV pool's blocks on a restore) through the same
 dequantize kernel.
@@ -37,6 +46,53 @@ _SOURCE = "quantization.cu"
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _VEC = {torch.bfloat16: 8, torch.float32: 4}  # values per 16-byte vector
 _M32 = 0xFFFFFFFF
+
+# the quantize kernel's designs (the C entry's codes 0, 1, 2) and their launches
+DESIGNS = ("warp", "cluster", "two_pass")
+k7_design_launches = dict.fromkeys(DESIGNS, 0)
+WARP_MAX = 1024                  # a warp a group up to here
+CLUSTER_THREADS = 256            # threads a block of the cluster design
+MAX_CLUSTER = 8                  # blocks a cluster at most (the portable size)
+CLUSTER_MAX = MAX_CLUSTER * CLUSTER_THREADS * 32  # values a group at most: 32 a thread
+CLUSTER_MIN = CLUSTER_THREADS * 16 + 1             # values a group at least: two blocks
+WAVE_BLOCKS_PER_SM = 4           # the cluster design's blocks an SM runs at once
+
+
+def k7_design(gs, dtype, groups, sms, aligned=True):
+    """The quantize design for ``groups`` groups of ``gs`` values of
+    ``dtype`` (bf16 or fp32) on a card of ``sms`` SMs: "warp" (one warp a
+    group) up to WARP_MAX values; "cluster" (a group split over a thread
+    block cluster of 2-8 blocks, every value read once into registers) for
+    groups of CLUSTER_MIN to CLUSTER_MAX values in whole 8-value units,
+    ``aligned`` (16-byte vectors), few enough that their blocks run in one
+    wave (WAVE_BLOCKS_PER_SM an SM): a KV tier demotion's 64 slabs; else
+    "two_pass" (one block a group: an absmax pass, then the codes), whose
+    blocks stream with 8 loads in flight a thread once the groups alone
+    fill the card. On the H100 the cluster design took 7.7 µs against
+    10.4 at 64 slab groups, and 13.3 against 11.8 at 128 (``PERF.md``)."""
+    if gs <= WARP_MAX:
+        return "warp"
+    if cluster_takes(gs, dtype, aligned) and \
+            groups * k7_cluster_size(gs) <= WAVE_BLOCKS_PER_SM * sms:
+        return "cluster"
+    return "two_pass"
+
+
+def cluster_takes(gs, dtype, aligned=True):
+    """Whether the cluster design can take groups of ``gs`` values of
+    ``dtype`` (whatever their count): CLUSTER_MIN to CLUSTER_MAX values in
+    whole 8-value units, bf16 or fp32, 16-byte ``aligned``."""
+    return aligned and gs % 8 == 0 and CLUSTER_MIN <= gs <= CLUSTER_MAX and dtype in _VEC
+
+
+def k7_cluster_size(gs):
+    """Blocks in the cluster design's cluster (``k7_cluster_size`` in the
+    source): the least power of two up to MAX_CLUSTER that gives each thread
+    at most 16 values."""
+    cs = 1
+    while cs < MAX_CLUSTER and cs * CLUSTER_THREADS * 16 < gs:
+        cs *= 2
+    return cs
 
 
 def _group_view(x, group_size):
@@ -115,12 +171,23 @@ def _lib():
     lib = load(_SOURCE)
     if lib.ds_quantize_int8.argtypes is None:
         lib.ds_quantize_int8.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_uint, ctypes.c_void_p]
+            ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_uint, ctypes.c_int,
+                                                       ctypes.c_void_p]
         lib.ds_quantize_int8.restype = ctypes.c_int
         lib.ds_dequantize_int8.argtypes = [ctypes.c_void_p] * 4 + [
             ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         lib.ds_dequantize_int8.restype = ctypes.c_int
     return lib
+
+
+_SMS = {}
+
+
+def sm_count(device):
+    """The card's SM count (``k7_design``'s ``sms``), asked once a device."""
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SMS[device]
 
 
 def _check_cuda(name, *tensors):
@@ -132,23 +199,33 @@ def _check_cuda(name, *tensors):
             raise ValueError(f"{name}: tensors must be contiguous")
 
 
-def _quant_kernel(groups, stochastic, seed):
+def _quant_kernel(groups, stochastic, seed, design=None):
     if groups.dtype not in _DTYPE_CODE:
         raise TypeError(f"quantize_int8 kernel takes bf16 or fp32, got {groups.dtype}")
     groups = groups.contiguous()
     _check_cuda("quantize_int8", groups)
     G, gs = groups.shape
+    vec = gs % _VEC[groups.dtype] == 0 and groups.data_ptr() % 16 == 0
+    named = k7_design(gs, groups.dtype, G, sm_count(groups.device), vec)
+    if design is None:
+        design = named
+    elif design not in DESIGNS or (design == "cluster" and not cluster_takes(gs, groups.dtype,
+                                                                               vec)):
+        raise ValueError(f"quantize design {design!r} cannot take groups of {gs} "
+                         f"{groups.dtype} values (aligned {vec}); k7_design names {named!r}")
     values = torch.empty((G, gs), dtype=torch.int8, device=groups.device)
     scales = torch.empty(G, dtype=torch.float32, device=groups.device)
-    vec = gs % _VEC[groups.dtype] == 0 and groups.data_ptr() % 16 == 0
     with torch.cuda.device(groups.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().ds_quantize_int8(groups.data_ptr(), values.data_ptr(), scales.data_ptr(),
                                      G, gs, _DTYPE_CODE[groups.dtype], int(vec),
-                                     int(bool(stochastic)), _seed_key(seed), stream)
+                                     int(bool(stochastic)), _seed_key(seed),
+                                     DESIGNS.index(design), stream)
     if rc != 0:
-        raise RuntimeError(f"int8 quantize kernel failed to launch: cudaError {rc}")
+        raise RuntimeError(f"int8 quantize kernel ({design} design) failed to launch: "
+                           f"cudaError {rc}")
     quantize_int8.launches += 1
+    k7_design_launches[design] += 1
     return values, scales
 
 
@@ -182,13 +259,15 @@ def _device_kind(t, name):
 
 
 # -------------------------------------------------------- entry points
-def quantize_int8(x, group_size=2048, stochastic=False, seed=0):
+def quantize_int8(x, group_size=2048, stochastic=False, seed=0, design=None):
     """→ ``(values int8 [G, group_size], scales fp32 [G], orig_shape)``.
     Groups are taken over the flattened tensor, zero-padded to a group
-    multiple. Pass a step-varying ``seed`` when ``stochastic``."""
+    multiple. Pass a step-varying ``seed`` when ``stochastic``. On the card
+    the kernel's design is the one :func:`k7_design` names, or ``design``
+    where that design can take the groups (measurements, tests)."""
     groups, _ = _group_view(x, int(group_size))
     if _device_kind(groups, "quantize_int8") == "cuda":
-        values, scales = _quant_kernel(groups, stochastic, seed)
+        values, scales = _quant_kernel(groups, stochastic, seed, design)
     else:
         values, scales = quantize_int8_ref(groups, stochastic, seed)
     return values, scales, tuple(x.shape)

@@ -446,3 +446,116 @@ def test_tiled_backward_matches_jax_kernels(case):
     dk16, dv16 = tiled_dkv(*t, layout, block, round_p=True)
     for got, want in ((dq16, dq_j), (dk16, dk_j), (dv16, dv_j)):
         assert row_scaled_err(got, torch.from_numpy(want)) <= ROW_TOL
+
+
+# ---------------------------------------------------------------- the forward
+# ``bsa_fwd_wgmma_kernel`` walks dQ's items: the ranked query-row lists in
+# ``item_at``'s order, Q loaded once into an item's slot, key tiles of
+# ``WgFwd::kKeys`` (dQ's ``kKeys``) keys, each stage's K and V together;
+# an item whose list is empty is stored by the fetcher as o = 0 and lse =
+# NEG_INF and never reaches a consumer.
+def tiled_fwd(q, k, v, layout, block, round_p, seen=None):
+    """The forward's wgmma design on fp32 [B, S, H, D] tensors, tile by tile
+    over ``dq_plan``, in the exp2 domain: m starts at NEG_INF, the row max
+    of the raw scores times scale log2(e), alpha = exp2(m_prev - m_new), p =
+    exp2(s scale log2(e) - m_new), l = l alpha + sum(p) with fp32 p, O = O
+    alpha + p V (p rounded to bf16 when ``round_p``) → (o, lse [B, H, S]),
+    o = O / l and lse = m ln 2 + log(l). ``seen`` [H, S, S] counts the
+    (query, key) pairs batch row 0 visits."""
+    B, S, H, D = q.shape
+    scale_log2 = LOG2E / np.sqrt(D)
+    o = torch.full((B, S, H, D), float("nan"))
+    lse = torch.full((B, H, S), float("nan"))
+    for b in range(B):
+        for h, _, row, n, work in dq_plan(layout, block, D):
+            if n == 0:  # the fetcher's store
+                o[b, row * block:(row + 1) * block, h] = 0.0
+                lse[b, h, row * block:(row + 1) * block] = bsa.NEG_INF
+                continue
+            for r0, tiles in work:
+                rows = slice(r0, r0 + ROWS)
+                qt = q[b, rows, h]
+                m = torch.full((ROWS,), bsa.NEG_INF)
+                l, acc = torch.zeros(ROWS), torch.zeros(ROWS, D)
+                for keys in tiles:
+                    if seen is not None and b == 0:
+                        seen[h, r0:r0 + ROWS, keys[0]:keys[-1] + 1] += 1
+                    s = qt @ k[b, keys, h].T
+                    m_new = torch.maximum(m, s.max(1).values * scale_log2)
+                    alpha = torch.exp2(m - m_new)
+                    p = torch.exp2(s * scale_log2 - m_new[:, None])
+                    l = l * alpha + p.sum(1)
+                    acc = acc * alpha[:, None] + _bf16(p, round_p) @ v[b, keys, h]
+                    m = m_new
+                o[b, rows, h] = acc / torch.where(l == 0, 1.0, l)[:, None]
+                lse[b, h, rows] = torch.where(l == 0, bsa.NEG_INF, m * np.log(2.0) + torch.log(l))
+    return o, lse
+
+
+def _jax_fwd(q, k, v, layout, block):
+    """The JAX package's forward kernel in interpret mode → (o [B, S, H, D],
+    lse [B, H, S]) numpy."""
+    k_idx, k_nnz, _, _ = (jnp.asarray(a) for a in bsa.layout_to_indices(layout))
+    o, lse = _fwd_impl(*(jnp.asarray(x.transpose(0, 2, 1, 3)) for x in (q, k, v)), k_idx, k_nnz,
+                       block, True)
+    return np.array(o).transpose(0, 2, 1, 3), np.array(lse)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("name", sorted(LAYOUTS))
+def test_fwd_visits_each_admitted_pair_once(name, D):
+    """Over dQ's plan the forward visits every admitted (query, key) pair
+    exactly once and no other pair, and writes every row once: by a
+    consumer, or as o = 0 and lse = NEG_INF by the fetcher where the row
+    admits nothing."""
+    layout, S, block = _layout(name)
+    H = layout.shape[0]
+    rng = np.random.RandomState(S + D)
+    q, k, v = (torch.from_numpy(rng.randn(1, S, H, D).astype(np.float32)) for _ in range(3))
+    seen = torch.zeros(H, S, S, dtype=torch.int64)
+    o, lse = tiled_fwd(q, k, v, layout, block, False, seen)
+    admitted = torch.from_numpy(bsa.block_mask(layout, block).numpy().astype(np.int64))
+    assert torch.equal(seen, admitted)
+    empty = ~bsa.block_mask(layout, block).any(-1)  # [H, S]
+    assert not torch.isnan(o).any() and not torch.isnan(lse).any()
+    assert torch.equal(lse[0] == bsa.NEG_INF, empty)
+    assert torch.all(o[0].transpose(0, 1)[empty] == 0)
+
+
+@pytest.mark.parametrize("name", ["unreached_b64", "unreached_b128"])
+def test_fwd_empty_row_item_is_zeros_and_neg_inf(name):
+    """An item whose list is empty never reaches a consumer: its o is 0 and
+    its lse NEG_INF, exactly the JAX kernel's (interpret mode)."""
+    layout, S, block = _layout(name)
+    H, D = layout.shape[0], 64
+    items = [it for it in dq_plan(layout, block, D) if it[3] == 0]
+    assert len(items) == H  # row 2 of every head
+    rng = np.random.RandomState(3)
+    q, k, v = (rng.randn(1, S, H, D).astype(np.float32) for _ in range(3))
+    o, lse = tiled_fwd(*(torch.from_numpy(x) for x in (q, k, v)), layout, block, False)
+    o_j, lse_j = _jax_fwd(q, k, v, layout, block)
+    for h, _, row, _, _ in items:
+        rows = slice(row * block, (row + 1) * block)
+        assert torch.all(o[0, rows, h] == 0) and np.all(o_j[0, rows, h] == 0)
+        assert torch.all(lse[0, h, rows] == bsa.NEG_INF)
+        np.testing.assert_array_equal(lse[0, h, rows].numpy(), lse_j[0, h, rows])
+
+
+@pytest.mark.parametrize("case", sorted(ARITH_CASES))
+def test_tiled_forward_matches_jax_kernel(case):
+    """The forward's tiles against the JAX package's ``_fwd_impl`` (its
+    Pallas kernel in interpret mode): o and lse within 1e-5 with fp32
+    inputs; with p rounded to bf16 before P V, as the kernel rounds it, o
+    within ``row_scaled_err`` ROW_TOL and lse still within 1e-5."""
+    B, S, H, D, block, make = ARITH_CASES[case]
+    layout = bsa.full_layout(make(), H, S, block)
+    rng = np.random.RandomState(len(case) + 11)
+    q, k, v = (rng.randn(B, S, H, D).astype(np.float32) for _ in range(3))
+    o_j, lse_j = _jax_fwd(q, k, v, layout, block)
+    t = [torch.from_numpy(x) for x in (q, k, v)]
+    o, lse = tiled_fwd(*t, layout, block, round_p=False)
+    np.testing.assert_allclose(o.numpy(), o_j, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), lse_j, atol=1e-5, rtol=1e-5)
+    o16, lse16 = tiled_fwd(*t, layout, block, round_p=True)
+    assert row_scaled_err(o16, torch.from_numpy(o_j)) <= ROW_TOL
+    np.testing.assert_allclose(lse16.numpy(), lse_j, atol=1e-5, rtol=1e-5)

@@ -1590,6 +1590,63 @@ def test_int8_quant_kernel_on_unaligned_view(cuda):
     assert torch.equal(v, rv) and torch.equal(s, rs)
 
 
+# K7's quantize designs: the cluster design at groups its slices divide and
+# do not (8200 bf16 values: 1025 units over 4 blocks; 40008: 5001 over 8;
+# 4104: 513 over 2), at its largest group (65536 fp32: 4 units a thread),
+# stochastic, and at a demotion's 64 slabs; the two-pass design where the
+# groups fill the card (512 slabs) or are too large; a warp group
+K7_DESIGN_CASES = {  # name: (groups, group size, dtype, stochastic, design k7_design names)
+    "cluster_bf16_8200": (3, 8200, torch.bfloat16, False, "cluster"),
+    "cluster_bf16_40008": (2, 40008, torch.bfloat16, False, "cluster"),
+    "cluster_fp32_65536": (2, 65536, torch.float32, False, "cluster"),
+    "cluster_fp32_4104_stochastic": (5, 4104, torch.float32, True, "cluster"),
+    "cluster_bf16_slab_stochastic": (64, 32768, torch.bfloat16, True, "cluster"),
+    "two_pass_bf16_slab_512": (512, 32768, torch.bfloat16, False, "two_pass"),
+    "two_pass_bf16_65544": (2, 65544, torch.bfloat16, False, "two_pass"),
+    "two_pass_bf16_2048": (9, 2048, torch.bfloat16, False, "two_pass"),
+    "warp_fp32_1000": (7, 1000, torch.float32, False, "warp"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K7_DESIGN_CASES))
+def test_int8_quant_designs_match_plain_bitwise(cuda, case):
+    """The design ``k7_design`` names (counted on it), the two-pass design
+    forced on the same groups, and the cluster design forced where it can
+    take them give the plain version's codes and scales bit for bit; two
+    runs give the same bits."""
+    from deepspeed_tpu_torch.ops.kernels import quantization as tq
+    G, gs, dtype, stochastic, design = K7_DESIGN_CASES[case]
+    x = _k7_input(cuda, (G, gs), dtype, seed=G)
+    x[-1] = 0  # an all-zero group: scale 1
+    assert tq.k7_design(gs, dtype, G, tq.sm_count(x.device)) == design
+    forced = ["two_pass"] + (["cluster"] if tq.cluster_takes(gs, dtype) else [])
+    rv, rs = tq.quantize_int8_ref(x, stochastic, 9)
+    before = dict(tq.k7_design_launches)
+    got = [tq.quantize_int8(x, gs, stochastic=stochastic, seed=9)[:2] for _ in range(2)]
+    got += [tq.quantize_int8(x, gs, stochastic=stochastic, seed=9, design=d)[:2] for d in forced]
+    torch.cuda.synchronize()
+    grew = {d: n - before[d] for d, n in tq.k7_design_launches.items()}
+    assert grew == {d: 2 * (d == design) + (d in forced) for d in tq.DESIGNS}
+    for v, s in got:
+        assert torch.equal(v, rv), f"{int((v != rv).sum())} codes differ"
+        assert torch.equal(s.view(torch.int32), rs.view(torch.int32))
+    assert rs[-1].item() == 1.0
+
+
+def test_int8_quant_forced_design_it_cannot_take_raises(cuda):
+    from deepspeed_tpu_torch.ops.kernels import quantization as tq
+    x = _k7_input(cuda, (2, 65544), torch.bfloat16)
+    with pytest.raises(ValueError):  # past the largest cluster's group
+        tq.quantize_int8(x, 65544, design="cluster")
+    with pytest.raises(ValueError):  # a group one block takes
+        tq.quantize_int8(x[:, :2048], 2048, design="cluster")
+    with pytest.raises(ValueError):  # 2 bytes off 16: no 16-byte vectors
+        tq.quantize_int8(_k7_input(cuda, (2 * 2048 + 1,), torch.bfloat16)[1:], 2048,
+                         design="cluster")
+    with pytest.raises(ValueError):
+        tq.quantize_int8(x, 65544, design="tiled")
+
+
 def test_dequantize_rows_and_quantized_restore_match_cpu(cuda):
     from deepspeed_tpu_torch.inference.v2.ragged import BlockedKVCache
     from deepspeed_tpu_torch.ops.kernels import quantization as tq
@@ -1631,7 +1688,7 @@ def test_int8_quant_kernels_refuse_what_they_cannot_take(cuda):
 
 def _plain_k7(tq):
     """Pin K7's launchers to the plain versions (no launch counted)."""
-    def quant(groups, stochastic, seed):
+    def quant(groups, stochastic, seed, design=None):
         return tq.quantize_int8_ref(groups, stochastic, seed)
 
     def dequant(values, scales, out, rows):
@@ -2070,7 +2127,9 @@ def test_block_sparse_wgmma_backward_matches_plain_and_first(cuda, case):
     dq_ref = bsa.block_sparse_dq_ref(*args)
     dk_ref, dv_ref = bsa.block_sparse_dkv_ref(*args)
     torch.cuda.synchronize()
-    assert _bsa_grew(designs) == {k: {"wgmma": 2, "first": 1} for k in designs}
+    assert _bsa_grew(designs) == {key: {"wgmma": 2 * (key != "block_sparse_fwd"),
+                                        "first": int(key != "block_sparse_fwd")}
+                                  for key in designs}
     assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
     full = bsa.full_layout(layout, H, S, block)
     live = torch.from_numpy(full.any(-1)).to(cuda).repeat_interleave(block, 1)[None]
@@ -2087,9 +2146,56 @@ def test_block_sparse_wgmma_backward_matches_plain_and_first(cuda, case):
     assert min(zeroed.values()) > ROW_TOL, zeroed
 
 
+# the forward's wgmma design at K8_WGMMA_CASES and at chip_smoke.py's phase
+# 23 shapes that it takes (BERT-large's path; Dh 128 at block 128; an empty
+# row and a key block no row admits)
+K8_FWD_CASES = dict(
+    K8_WGMMA_CASES,
+    path=(4, 4096, 16, 64, 64, lambda: _bigbird(16, 4096, 64)),
+    dh128_block128=(2, 2048, 8, 128, 128, lambda: _bigbird(8, 2048, 128)),
+    empty_row_unreached=(2, 1024, 4, 64, 64, lambda: _unreached_layout(4, 16)))
+
+
+@pytest.mark.parametrize("case", sorted(K8_FWD_CASES))
+def test_block_sparse_wgmma_forward_matches_plain_and_first(cuda, case):
+    """The forward on the wgmma design (counted on it): o within ROW_TOL
+    units of ``row_scaled_err`` of the plain version and of the first
+    design on the same inputs, the check rejecting o with its first block
+    of rows zeroed; lse within 1e-3 of the plain version's where a row
+    admits something, and exactly NEG_INF (o exactly 0) where it admits
+    nothing; the same bits on a second run."""
+    from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import row_scaled_err
+    B, S, H, D, block, make = K8_FWD_CASES[case]
+    layout = make()
+    assert bsa.bsa_design(block, D) == "wgmma"
+    q, k, v, _, _ = _flash_inputs(cuda, B, S, H, D, 0, seed=len(case) + 3)
+    designs = _bsa_designs()
+    o, lse = bsa.block_sparse_fwd(q, k, v, layout, block)
+    o2, lse2 = bsa.block_sparse_fwd(q, k, v, layout, block)
+    o_f, lse_f = bsa.block_sparse_fwd(q, k, v, layout, block, design="first")
+    o_ref, lse_ref = bsa.block_sparse_fwd_ref(q, k, v, layout, block)
+    torch.cuda.synchronize()
+    assert _bsa_grew(designs) == {key: {"wgmma": 2 * (key == "block_sparse_fwd"),
+                                        "first": int(key == "block_sparse_fwd")}
+                                  for key in designs}
+    assert torch.equal(o, o2) and torch.equal(lse.view(torch.int32), lse2.view(torch.int32))
+    full = bsa.full_layout(layout, H, S, block)
+    live = torch.from_numpy(full.any(-1)).to(cuda).repeat_interleave(block, 1)[None]
+    live = live.expand(B, -1, -1)  # [B, H, S]
+    for got_o, got_lse in ((o, lse), (o_f, lse_f)):
+        assert torch.equal(got_lse == bsa.NEG_INF, ~live)
+        assert (got_lse - lse_ref)[live].abs().max().item() <= 1e-3
+        assert torch.all(got_o.transpose(1, 2)[~live] == 0)
+    errs = {"plain": row_scaled_err(o, o_ref), "first": row_scaled_err(o, o_f)}
+    assert max(errs.values()) <= ROW_TOL, errs
+    assert row_scaled_err(_zero_first_block(o, block), o_ref) > ROW_TOL
+
+
 def test_bsa_design_predicate_and_forced_designs(cuda):
     """Blocks of 64 and 128 take the wgmma design, 16 and 32 the first; the
-    wgmma design cannot be forced on a block of 32."""
+    wgmma design cannot be forced on a block of 32, for any of the three
+    kernels."""
     from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bsa
     from deepspeed_tpu_torch.ops.kernels.flash_attention import flash_delta
     assert [bsa.bsa_design(b, d) for b in (16, 32, 64, 128) for d in (64, 128)] == \
@@ -2103,17 +2209,21 @@ def test_bsa_design_predicate_and_forced_designs(cuda):
             fn(*args, design="wgmma")
         with pytest.raises(ValueError):
             fn(*args, design="tiled")
+    for design in ("wgmma", "tiled"):
+        with pytest.raises(ValueError):
+            bsa.block_sparse_fwd(q, k, v, layout, 32, design=design)
 
 
 def test_bsa_wgmma_kernels_are_wgmma(cuda):
-    """The built library's wgmma dQ and dK/dV kernels (blocks 64 and 128,
-    head dims 64 and 128) issue wgmma (HGMMA) and no mma.sync (HMMA). (Their
-    producer warps, held to 24 or 40 registers so that the consumers get
-    232, spill a few words around the item counter; ptxas reports it.)"""
+    """The built library's wgmma forward, dQ and dK/dV kernels (blocks 64
+    and 128, head dims 64 and 128) issue wgmma (HGMMA) and no mma.sync
+    (HMMA). (Their producer warps, held to 24 or 40 registers so that the
+    consumers get 232, spill a few words around the item counter; ptxas
+    reports it.)"""
     from deepspeed_tpu_torch.ops.kernels import build
     per = build.sass_counts("block_sparse_attention.cu", ("HGMMA", "HMMA"))
     kinds = {k: [c for n, c in per.items() if k in n] for k in
-             ("bsa_dq_wgmma_kernel", "bsa_dkv_wgmma_kernel")}
+             ("bsa_fwd_wgmma_kernel", "bsa_dq_wgmma_kernel", "bsa_dkv_wgmma_kernel")}
     assert all(len(v) == 4 for v in kinds.values()), per
     for k, v in kinds.items():
         assert all(c["HGMMA"] > 0 and c["HMMA"] == 0 for c in v), (k, per)

@@ -1,15 +1,15 @@
-"""Where K8's wgmma backward spends its time, on one GPU.
+"""Where K8's wgmma designs spend their time, on one GPU.
 
-Runs ``block_sparse_dq`` and ``block_sparse_dkv`` (their wgmma designs,
-``deepspeed_tpu_torch/csrc/block_sparse_attention.cu``) at BERT-large's
-path shape (B 4, S 4096, H 16, Dh 64, block 64) and prints one JSON line a
-reading:
+Runs ``block_sparse_fwd``, ``block_sparse_dq`` and ``block_sparse_dkv``
+(their wgmma designs, ``deepspeed_tpu_torch/csrc/block_sparse_attention.cu``)
+at BERT-large's path shape (B 4, S 4096, H 16, Dh 64, block 64) and prints
+one JSON line a reading:
 
 - ``layouts``: banded layouts of 1, 2, 6, 16 and 64 blocks a row (64 is
   dense) beside BigBird: µs per 64-row tile and SM. Items of w tiles cost
   a + o / w per tile, so the widths separate a tile's cost from an
-  item's; the dense row also times K1's non-causal dQ and dK/dV, which do
-  the same work in tiles of their own;
+  item's; the dense row also times K1's non-causal forward, dQ and dK/dV,
+  which do the same work in tiles of their own;
 - ``lead``: BigBird with the take order's ``lead`` at 0, the schedule's
   own and rows (every rank leads: rank-major, the first design's grid
   order): what starting the global row and column first, and the head
@@ -63,11 +63,12 @@ def inputs(device):
 
 
 def backward(q, k, v, do, layout):
-    """→ the schedule and the two kernels as zero-argument calls."""
+    """→ the schedule and the three kernels as zero-argument calls."""
     sched = bsa.schedule(layout, q.device)
     o, lse = bsa.block_sparse_fwd(q, k, v, sched, BLOCK)
     delta = fa.flash_delta(o, do)
-    return sched, {"dq": lambda: bsa.block_sparse_dq(q, k, v, do, lse, delta, sched, BLOCK),
+    return sched, {"fwd": lambda: bsa.block_sparse_fwd(q, k, v, sched, BLOCK),
+                   "dq": lambda: bsa.block_sparse_dq(q, k, v, do, lse, delta, sched, BLOCK),
                    "dkv": lambda: bsa.block_sparse_dkv(q, k, v, do, lse, delta, sched, BLOCK)}
 
 
@@ -86,6 +87,7 @@ def layouts_reading(q, k, v, do, flush):
             row[key + "_ms"] = ms
             row[key + "_us_per_tile_sm"] = ms * 1e3 * sms(q.device) / tiles
         if name == "band64":
+            row["k1_fwd_ms"] = cs.time_ms(lambda: fa.flash_fwd(q, k, v, None, False), flush)
             fo, flse = fa.flash_fwd(q, k, v, None, False)
             fdelta = fa.flash_delta(fo, do)
             row["k1_dq_ms"] = cs.time_ms(
@@ -132,18 +134,22 @@ def traced_source():
 
     edits = [  # (text, count, what goes after it, or before it when the flag is set)
         # an item's slot is ready
-        ("    hopper::mbar_wait(&slot_full[slot], (j >> 1) & 1);\n", 2, rec(0), False),
-        # its first tile is in (dK/dV), or its first S and dP are done (dQ)
+        ("    hopper::mbar_wait(&slot_full[slot], (j >> 1) & 1);\n", 3, rec(0), False),
+        # its first tile is in (dK/dV), or its first S (forward), or its
+        # first S and dP (dQ) are done
         ("      hopper::mbar_wait(&full[s], ((t + i) / ST) & 1);\n", 1,
          "if (i == 0) { " + rec(1) + " }", False),
         ("    sdp(t);\n    their_turn();\n    hopper::wgmma_wait<0>();\n", 1, rec(1), False),
+        ("    qk(t);\n    their_turn();\n    hopper::wgmma_wait<0>();\n", 1, rec(1), False),
         # its tiles are done, and how many
         ("    uint8_t* out = base + slot * 2 * L::kKTile + cw * 64 * BOX_ROW;\n", 1,
          rec(2) + rec(7, "steps"), True),
         ("    uint8_t* out = base + slot * 2 * L::kQTile + cw * 64 * BOX_ROW;\n", 1,
          rec(2) + rec(7, "steps"), True),
+        ("    uint8_t* out = base + slot * L::kQTile + cw * 64 * BOX_ROW;\n", 1,
+         rec(2) + rec(7, "steps"), True),
         # its stores have read its slot
-        ("      hopper::mbar_arrive(&slot_empty[slot]);\n    }\n  }\n", 2, rec(3), False),
+        ("      hopper::mbar_arrive(&slot_empty[slot]);\n    }\n  }\n", 3, rec(3), False),
     ]
     for text, count, code, before in edits:
         if src.count(text) != count:
