@@ -426,7 +426,33 @@ each of which fails the run if it fails:
    step with K8's device ms by kernel (the forward's, dQ's and dK/dV's);
    then 2 steps and a profiled one with K8 pinned to its first design, for
    the step and K8's device ms beside the wgmma design's; then the same model without a sparse
-   section (K1 non-causal) for its step time and peak.
+   section (K1 non-causal) for its step time and peak;
+26. sampled serving — ``bench_serving_2b_sampled``'s protocol (``bench.py``)
+   on the full 32-layer Mistral-7B-width engine (bf16, random weights from a
+   seeded generator): 8 requests x 256-token prompts x 64 new tokens, block
+   32, budget 264, bursts of 8, each request with its own spec (the lane's
+   temperature, top_k and top_p pattern, seed 1000 + i). A greedy and a
+   sampled warm-up, then the greedy and the sampled run, timed. Gates: 64
+   in-vocab tokens a request, K3's launches layers x forwards and
+   ``dense_matmul``'s (7 x layers + 1) x forwards in the sampled run (counts
+   zeroed before it), the engine's host syncs those of its puts and bursts
+   (2 a put, requests + 1 a burst), the sampled trace replayed under fresh
+   uids bit-identical, a ``max_burst`` 1 run equal to the ``max_burst`` 8
+   run's first 16 tokens, a ``top_k: 1`` request (stepwise, beside its
+   greedy twin on the same logits) equal to greedy except where the logits'
+   maximum ties, where it must draw one of the tied tokens (bf16 logits tie
+   at ~4% of steps; the step it parts at and the tied steps are printed),
+   one device→host ``cpu()`` of a sampled burst's tokens (PyTorch's sync
+   debug mode counts the burst's synchronizing calls, printed), and the
+   counter PRNG's keys at every position of the run and the bits of 32 of
+   them on the card bitwise equal to the port's CPU version. Prints, each
+   beside the card's name and power limit: greedy and sampled generated
+   tokens/s and their ratio, host syncs per token, the sampler's device
+   launches and device µs per sampled forward in a burst (the position fold
+   and ``sample_rows`` on [8, 32000] logits, profiled over 20 calls, and ms
+   a call by CUDA events), and the tokens the card's sampler and the CPU's
+   draw differently from the same captured logits and keys (8 positions of
+   the 8 requests).
 
 The last lines are the card, one JSON object with every kernel's numbers
 and, last, ``{"ok": true, "device": {...}}``."""
@@ -503,6 +529,11 @@ SPARSE_CASES = {"path": (BERT_B, BERT_S, 16, 64, 64, "bigbird"),
 LN_TOL = 2.0                  # phase 23, units of row_scaled_err (bf16 output rounding: 1)
 BERT_LOSS_TOL = 1e-4          # phase 24, relative
 BERT_GRAD_ROW_TOL = 256.0     # phase 24, units of row_scaled_err per parameter gradient
+# phase 26: bench.py's bench_serving_2b_sampled: 8 requests x 256-token prompts x 64 new
+# tokens, token budget prompt_len + n_req, bursts of 8; the max_burst 1 run over 16 tokens
+SAMPLED_N_REQ, SAMPLED_PROMPT, SAMPLED_NEW, SAMPLED_BURST = 8, 256, 64, 8
+SAMPLED_BUDGET = SAMPLED_PROMPT + SAMPLED_N_REQ
+SAMPLED_STEP_TOKENS = 16
 
 
 def log(msg):
@@ -4743,6 +4774,350 @@ def bert_training_phase(device):
     return res, launches
 
 
+# ---------------------------------------------------------------- phase 26
+def sampled_specs(n):
+    """``bench_serving_2b_sampled``'s per-request specs: its temperature,
+    top_k and top_p pattern, seed 1000 + i."""
+    specs = [{"temperature": 0.7 + 0.2 * (i % 3), "top_k": 16 + 16 * (i % 2),
+              "top_p": (0.9 if i % 2 else None), "seed": 1000 + i} for i in range(n)]
+    return [{k: v for k, v in s.items() if v is not None} for s in specs]
+
+
+def sampled_fleet(engine, uid0, prompts, specs, ntok, burst=SAMPLED_BURST):
+    """``bench_serving_2b_sampled``'s ``fleet``: every prompt with its spec
+    (greedy when ``specs`` is None) to completion under one scheduler; the
+    requests retired after. → (seconds, streams, engine.put calls,
+    engine.decode_burst calls)."""
+    from deepspeed_tpu_torch.inference.v2 import DynamicSplitFuseScheduler
+    calls = {"put": 0, "decode_burst": 0}
+    inner = {name: getattr(engine, name) for name in calls}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return inner[name](*args, **kwargs)
+        return call
+    for name in calls:
+        setattr(engine, name, counted(name))
+    try:
+        sched = DynamicSplitFuseScheduler(engine, token_budget=SAMPLED_BUDGET, max_burst=burst)
+        for i, p in enumerate(prompts):
+            sched.add_request(uid0 + i, p, max_new_tokens=ntok,
+                              sample=specs[i] if specs else None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sched.run_to_completion(max_steps=100_000)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        for name in calls:
+            delattr(engine, name)
+    for i in range(len(prompts)):
+        sched.retire(uid0 + i)
+    return dt, [out[uid0 + i] for i in range(len(prompts))], calls["put"], calls["decode_burst"]
+
+
+def prefill_each(engine, uids, prompts, specs=None):
+    """Each prompt in a put of its own (a prompt fits the token budget, all
+    of them do not), with its spec, or returning logits when ``specs`` is
+    None → the puts' outputs stacked."""
+    return np.concatenate([engine.put([uid], [p], sample=None if specs is None else [specs[i]])
+                           for i, (uid, p) in enumerate(zip(uids, prompts))])
+
+
+def host_copies_of_a_burst(engine, prompts, specs):
+    """One sampled ``decode_burst`` of every request after its prefill, with
+    ``Tensor.cpu`` counted on CUDA tensors and PyTorch's sync debug mode
+    recording every synchronizing call. → (device→host ``cpu()`` calls,
+    synchronizing calls, burst tokens)."""
+    import warnings
+    uids = list(range(900, 900 + len(prompts)))
+    first = prefill_each(engine, uids, prompts, specs)
+    cpu, copies = torch.Tensor.cpu, []
+
+    def counted(t, *args, **kwargs):
+        if t.is_cuda:
+            copies.append(tuple(t.shape))
+        return cpu(t, *args, **kwargs)
+    torch.cuda.synchronize()
+    torch.Tensor.cpu = counted
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            toks = engine.decode_burst(uids, [[int(t)] for t in first], SAMPLED_BURST,
+                                       sample=specs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        torch.Tensor.cpu = cpu
+    syncs = sum("synchronizing" in str(w.message) for w in caught)
+    for uid in uids:
+        engine.flush(uid)
+    return copies, syncs, toks
+
+
+def topk1_check(engine, prompt, ntok):
+    """``top_k: 1`` against greedy on one prompt, stepwise over ``ntok``
+    steps: request A takes the argmax of its logits (``put`` returning
+    logits), request B the sampled token of ``{"temperature": 0.7,
+    "top_k": 1}`` (its own puts, the same slot, bucket and positions, so
+    the same logits bits). At every step B's token must be the argmax, or
+    one of the tied maxima where the logits hold a tie (bf16 logits tie at
+    ~4% of steps over 32000 tokens; the filter keeps every tied token and
+    the Gumbel draw picks one, in JAX's sampler as here). B's token feeds
+    both requests, so the check goes on past a tie. → {"steps",
+    "tied_steps", "parted_steps"} (parted: B drew a tied token other than
+    the first)."""
+    spec = {"temperature": 0.7, "top_k": 1, "seed": 1234}
+    tok = None
+    tied = parted = 0
+    for step in range(ntok):
+        feed = prompt if tok is None else [tok]
+        logits = engine.put([1], [feed])[0]
+        tok = int(engine.put([2], [feed], sample=[spec])[0])
+        top = np.flatnonzero(logits == logits.max())
+        if tok not in top:
+            raise AssertionError(f"top_k 1 drew {tok} at step {step}, the argmax set "
+                                 f"is {top.tolist()}")
+        tied += len(top) > 1
+        parted += int(tok != top[0])
+    for uid in (1, 2):
+        engine.flush(uid)
+    return {"steps": ntok, "tied_steps": tied, "parted_steps": parted}
+
+
+def device_by_op(prof, per):
+    """A profile's device activities (kernels and copies) by the aten op
+    that launched them, divided by ``per`` → ({op: [launches, device µs]},
+    launches, device µs). Activities that no aten op launched (the port's
+    own kernels, called through ctypes) fall under "(no aten op)"; the
+    profiler links some of them to runtime events such as
+    ``cudaLaunchKernel``, which are not ops."""
+    from torch.autograd import DeviceType
+    ops, n, us = {}, 0, 0.0
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            n += 1
+            us += ev.time_range.elapsed_us()
+        elif ev.device_type == DeviceType.CPU and ev.name.startswith("aten::"):
+            for k in ev.kernels:
+                row = ops.setdefault(ev.name, [0, 0.0])
+                row[0] += 1
+                row[1] += k.duration
+    rest = [n - sum(r[0] for r in ops.values()), us - sum(r[1] for r in ops.values())]
+    if rest[0]:
+        ops["(no aten op)"] = rest
+    return {op: [r[0] / per, r[1] / per] for op, r in ops.items()}, n / per, us / per
+
+
+def burst_profile(engine, uid0, prompts, specs):
+    """One ``decode_burst`` of ``SAMPLED_BURST`` steps over every request
+    after its prefill (sampled with ``specs``, greedy when None), under
+    the profiler → ``device_by_op`` per forward."""
+    from torch.profiler import ProfilerActivity, profile
+    uids = list(range(uid0, uid0 + len(prompts)))
+    first = prefill_each(engine, uids, prompts, specs)
+    if specs is None:
+        first = first.argmax(-1)  # the puts returned logits
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.decode_burst(uids, [[int(t)] for t in first], SAMPLED_BURST, sample=specs)
+        torch.cuda.synchronize()
+    for uid in uids:
+        engine.flush(uid)
+    return device_by_op(prof, SAMPLED_BURST)
+
+
+def sampler_in_burst(engine, prompts, specs):
+    """The sampler's cost on the main path: a sampled burst against a
+    greedy burst of the same shape (the same prompts, positions and
+    [max_seqs, vocab] logits), per forward. The model's forward is the
+    same in both, so the ops whose launch counts differ are the sampler's
+    less the greedy argmax. → {"by_op": {op: [launches, device µs]} (the
+    difference, at those ops), "launches": the difference in all device
+    launches, "device_us": the sum at those ops, "greedy_device_us",
+    "sampled_device_us": the whole forward's}."""
+    greedy, g_n, g_us = burst_profile(engine, 700, prompts, None)
+    sampled, s_n, s_us = burst_profile(engine, 750, prompts, specs)
+    by_op = {}
+    for op in sorted(set(greedy) | set(sampled)):
+        g, s = greedy.get(op, [0, 0.0]), sampled.get(op, [0, 0.0])
+        if g[0] != s[0]:
+            by_op[op] = [s[0] - g[0], s[1] - g[1]]
+    return {"by_op": by_op, "launches": s_n - g_n,
+            "device_us": sum(r[1] for r in by_op.values()),
+            "greedy_device_us": g_us, "sampled_device_us": s_us}
+
+
+def sampler_cost(logits, keys, meta, flush):
+    """Cross-check of :func:`sampler_in_burst`: the sampler of one sampled
+    forward alone (the position fold and ``sample_rows`` on the card's
+    [max_seqs, vocab] logits), profiled over 20 calls → ({op: [launches,
+    device µs]} a call, device launches a call, device µs a call, ms a call
+    by CUDA events)."""
+    from torch.profiler import ProfilerActivity, profile
+    from deepspeed_tpu_torch.inference.structured.prng import fold_in_rows
+    from deepspeed_tpu_torch.inference.structured.sampling import sample_rows
+    temp, topk, topp, _, _, _ = meta
+    pos = torch.arange(keys.shape[0], dtype=torch.int32, device=logits.device) + 300
+
+    def one():
+        return sample_rows(logits, fold_in_rows(keys, pos), temp, topk, topp)
+    ms = time_ms(one, flush)
+    one()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            one()
+        torch.cuda.synchronize()
+    return (*device_by_op(prof, 20), ms)
+
+
+def sampled_serving_phase(device, flush):
+    """Phase 26: ``bench_serving_2b_sampled``'s protocol on the full-depth
+    Mistral-7B engine. → (result, {kernel: launches in the sampled run})."""
+    from deepspeed_tpu_torch.device import gpu_report
+    from deepspeed_tpu_torch.inference.structured import prng
+    from deepspeed_tpu_torch.inference.structured.sampling import (pack_sample_meta,
+                                                                   sample_rows,
+                                                                   unpack_sample_meta)
+    from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig, InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.models import llama_config
+    from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import dense_matmul
+    from deepspeed_tpu_torch.ops.kernels.paged_attention import paged_decode_attention
+    card = gpu_report()
+    cfg = llama_config("mistral-7b")
+    n, plen, ntok = SAMPLED_N_REQ, SAMPLED_PROMPT, SAMPLED_NEW
+    engine = InferenceEngineV2(cfg, RaggedInferenceEngineConfig(
+        kv_block_size=BS, state_manager=DSStateManagerConfig(
+            max_ragged_batch_size=SAMPLED_BUDGET, max_ragged_sequence_count=n,
+            max_tracked_sequences=n + 2, max_context=plen + ntok + 8)),
+        device=device, generator=torch.Generator(device=device).manual_seed(0))
+    free0 = engine.free_blocks
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, size=plen).astype(np.int32) for _ in range(n)]
+    specs = sampled_specs(n)
+    sampled_fleet(engine, 10_000, prompts, None, 8)   # greedy warm-up
+    sampled_fleet(engine, 20_000, prompts, specs, 8)  # sampled warm-up
+    greedy_dt, greedy, _, _ = sampled_fleet(engine, 0, prompts, None, ntok)
+
+    syncs0, toks0, fwd0 = engine.host_syncs, engine.tokens_emitted, engine.forward_steps
+    paged_decode_attention.launches = dense_matmul.launches = 0
+    sampled_dt, sampled, puts, bursts = sampled_fleet(engine, 100, prompts, specs, ntok)
+    launches = {"paged_decode_attention": paged_decode_attention.launches,
+                "dense_matmul": dense_matmul.launches}
+    fwd = engine.forward_steps - fwd0
+    syncs, toks = engine.host_syncs - syncs0, engine.tokens_emitted - toks0
+    if launches["paged_decode_attention"] != cfg.num_hidden_layers * fwd or \
+            launches["dense_matmul"] != (7 * cfg.num_hidden_layers + 1) * fwd:
+        raise AssertionError(f"sampled run launches {launches}, {fwd} forwards")
+    for s in sampled + greedy:
+        if len(s) != ntok or not all(0 <= t < cfg.vocab_size for t in s):
+            raise AssertionError(f"a stream of {len(s)} tokens, want {ntok} in vocab")
+    if sampled == greedy:
+        raise AssertionError("sampled streams equal the greedy ones")
+    # the sync sites: a put copies its inputs and its tokens, a burst reads
+    # each entry token and copies its tokens once (every seed is given)
+    want_syncs = 2 * puts + bursts * (n + 1)
+    if syncs != want_syncs:
+        raise AssertionError(f"host syncs {syncs}, want {want_syncs} ({puts} puts, {bursts} "
+                             f"bursts of {n})")
+
+    _, replay, _, _ = sampled_fleet(engine, 200, prompts, specs, ntok)
+    if replay != sampled:
+        raise AssertionError("seeded sampled streams failed to replay bit-identically")
+    _, stepwise, _, step_bursts = sampled_fleet(engine, 300, prompts, specs,
+                                                SAMPLED_STEP_TOKENS, burst=1)
+    if step_bursts or stepwise != [s[:SAMPLED_STEP_TOKENS] for s in sampled]:
+        raise AssertionError(f"max_burst 1 streams differ from max_burst {SAMPLED_BURST}'s "
+                             f"first {SAMPLED_STEP_TOKENS} tokens")
+    topk1 = topk1_check(engine, prompts[0], ntok)
+    copies, sync_calls, _ = host_copies_of_a_burst(engine, prompts, specs)
+    if len(copies) != 1:
+        raise AssertionError(f"a sampled burst copied {copies} to the host, want its tokens once")
+
+    # the counter PRNG on the card against the port's CPU version: the
+    # engine's base key, the phase's seeds at every position of the run
+    seeds = torch.tensor([s["seed"] for s in specs], dtype=torch.int32)
+    pos = torch.arange(plen, plen + ntok, dtype=torch.int32).repeat_interleave(n)
+    base, base_cpu = engine._base_key, engine._base_key.cpu()
+    keys_cpu = prng.token_keys(base_cpu, seeds.repeat(ntok), pos)
+    keys_gpu = prng.token_keys(base, seeds.repeat(ntok).to(device), pos.to(device))
+    bits_rows = keys_cpu[:4 * n]
+    bits_equal = torch.equal(keys_gpu.cpu(), keys_cpu) and torch.equal(
+        prng.row_bits(bits_rows.to(device), cfg.vocab_size).cpu(),
+        prng.row_bits(bits_rows, cfg.vocab_size))
+    if not bits_equal:
+        raise AssertionError("CUDA keys or bits differ from the CPU's")
+
+    # captured logits: every request's last-token logits after its prompt,
+    # drawn at 8 positions, on the card and on the CPU
+    uids = list(range(800, 800 + n))
+    logits = torch.from_numpy(prefill_each(engine, uids, prompts)).to(device)
+    for uid in uids:
+        engine.flush(uid)
+    meta_np = pack_sample_meta(specs, n)
+    meta = unpack_sample_meta(torch.from_numpy(meta_np).to(device), n)
+    meta_cpu = unpack_sample_meta(torch.from_numpy(meta_np), n)
+    mismatches = 0
+    for p in range(8):
+        at = torch.full((n,), plen + p, dtype=torch.int32)
+        got = sample_rows(logits, prng.token_keys(base, meta[3], at.to(device)), *meta[:3])
+        want = sample_rows(logits.cpu(), prng.token_keys(base_cpu, meta_cpu[3], at),
+                           *meta_cpu[:3])
+        mismatches += int((got.cpu() != want).sum())
+    in_burst = sampler_in_burst(engine, prompts, specs)
+    alone_by_op, alone_launches, alone_us, alone_ms = sampler_cost(
+        logits, prng.fold_in_rows(base, meta[3]), meta, flush)
+    if engine.free_blocks != free0:
+        raise AssertionError(f"free blocks {engine.free_blocks} != {free0} after flushes")
+
+    gen = n * ntok
+    result = {"card": card, "requests": n, "prompt_len": plen, "new_tokens": ntok,
+              "token_budget": SAMPLED_BUDGET, "max_burst": SAMPLED_BURST,
+              "greedy_gen_tokens_per_sec": gen / greedy_dt,
+              "sampled_gen_tokens_per_sec": gen / sampled_dt,
+              "sampled_vs_greedy": greedy_dt / sampled_dt,
+              "forward_steps": fwd, "ms_per_forward": sampled_dt * 1e3 / fwd,
+              "puts": puts, "bursts": bursts, "host_syncs": syncs,
+              "syncs_per_token": syncs / max(toks, 1),
+              "burst_host_copies": len(copies), "burst_synchronizing_calls": sync_calls,
+              "replay_bit_identical": True,
+              f"max_burst_1_equals_{SAMPLED_BURST}_over_{SAMPLED_STEP_TOKENS}": True,
+              "top_k_1": topk1, "cuda_bits_equal_cpu": bits_equal,
+              "cuda_vs_cpu_token_mismatches": mismatches, "cuda_vs_cpu_tokens": 8 * n,
+              "sampler_launches_per_forward": in_burst["launches"],
+              "sampler_device_us_per_forward": in_burst["device_us"],
+              "sampler_by_op_per_forward": in_burst["by_op"],
+              "burst_device_us_per_forward": {"greedy": in_burst["greedy_device_us"],
+                                              "sampled": in_burst["sampled_device_us"]},
+              "sampler_alone": {"launches": alone_launches, "device_us": alone_us,
+                                "ms_by_cuda_events": alone_ms, "by_op": alone_by_op},
+              "launches": launches}
+    log(f"[sampled-serving] {card}: greedy {result['greedy_gen_tokens_per_sec']:.1f} and "
+        f"sampled {result['sampled_gen_tokens_per_sec']:.1f} generated tokens/s, "
+        f"ratio {result['sampled_vs_greedy']:.3f}")
+    log(f"[sampled-serving] {card}: host syncs per token {result['syncs_per_token']:.4f}, "
+        f"a sampled burst's host copies {len(copies)}, synchronizing calls {sync_calls}")
+    log(f"[sampled-serving] {card}: sampler in a burst (sampled less greedy) "
+        f"{in_burst['launches']:.1f} device launches and {in_burst['device_us']:.1f} device µs "
+        f"per forward, of {in_burst['sampled_device_us']:.1f} (greedy "
+        f"{in_burst['greedy_device_us']:.1f}); alone {alone_launches:.1f} launches, "
+        f"{alone_us:.1f} device µs, {alone_ms * 1e3:.1f} µs by CUDA events a call")
+    log(f"[sampled-serving] {card}: sampler by op per forward (launches, device µs), in a "
+        f"burst {json.dumps(in_burst['by_op'])}; alone {json.dumps(alone_by_op)}")
+    log(f"[sampled-serving] {card}: CUDA vs CPU token mismatches on captured logits "
+        f"{mismatches} of {8 * n}; top_k 1 vs greedy {json.dumps(topk1)}")
+    log(f"[sampled-serving] {json.dumps(result)}")
+    log(f"[sampled-serving] request 0 first tokens: sampled {sampled[0][:8]}, greedy "
+        f"{greedy[0][:8]}")
+    engine.destroy()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result, launches
+
+
 def grid_fraction_of(cfg):
     """The layout density the model's sparse section gives at BERT_S."""
     from deepspeed_tpu_torch.models.bert import _sparse_self_attention
@@ -4854,6 +5229,13 @@ def main():
     bert, bert_launches = bert_training_phase(device)
     lap("phases 23-25 (BERT)")
 
+    # on-device sampling on the Mistral-7B ragged engine
+    torch.cuda.empty_cache()
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    _, sampled_launches = sampled_serving_phase(device, flush)
+    del flush
+    lap("phase 26 (sampled serving)")
+
     main_case = next(c for c in cases if c["case"] == "serving_decode")
     kernels = [{"name": "paged_decode_attention", "route": "cuda",
                 "source": "deepspeed_tpu_torch/csrc/paged_attention.cu",
@@ -4865,7 +5247,9 @@ def main():
                 "library_ms": main_case["library_ms"],
                 "shape": "serving decode step: T=16, H=32, Hkv=8, Dh=128, bs=32, ctx 160",
                 "design": main_case["design"], "first_design_ms": main_case["first_design_ms"],
-                "launches_by_design": serving["designs"]["K3"], "cases": cases}]
+                "launches_by_design": serving["designs"]["K3"],
+                "launches_sampled_serving": sampled_launches["paged_decode_attention"],
+                "cases": cases}]
     train_kernels = {
         "flash_fwd": ("flash_attention.cu", "flash_attention.py:46",
                       f"training path: B={TB}, S={TS}, H=16, Dh=128, causal, bf16"),
@@ -4993,7 +5377,9 @@ def main():
                     "library_ms": main_row["library_ms"],
                     "shape": "serving decode step: M=16 x [4096, 14336] bf16 (gate, up)",
                     "design": main_row["design"], "first_design_ms": main_row["first_design_ms"],
-                    "forwards_by_design": serving["k4_forwards"], "cases": dense_cases})
+                    "forwards_by_design": serving["k4_forwards"],
+                    "launches_sampled_serving": sampled_launches["dense_matmul"],
+                    "cases": dense_cases})
     slice7 = {  # name: (source, TPU kernel, shape)
         "block_sparse_fwd": ("block_sparse_attention.cu", "block_sparse_attention.py:71",
                              "BERT-large path: B=4, S=4096, H=16, Dh=64, BigBird block 64, bf16"),

@@ -1,17 +1,25 @@
 """InferenceEngineV2: ragged (continuous-batching) serving engine.
 
-Port of ``deepspeed_tpu/inference/v2/engine_v2.py`` for greedy serving
-of Llama-family models, dense or MoE (dropless top-k), with bf16 weights
+Port of ``deepspeed_tpu/inference/v2/engine_v2.py`` for serving
+Llama-family models, dense or MoE (dropless top-k), with bf16 weights
 or weight-only quantized ones (``quantization.quantization_mode`` of
 ``"int8"``, ``"fp8"`` or ``"fp6"``: grouped carriers that the fused
 kernels consume in place): ``put`` runs one ragged batch (mixed
 prefill chunks and decodes, the Dynamic SplitFuse model) and returns
-last-token logits or on-device greedy tokens; ``decode_burst`` runs
-``k`` greedy decode steps with the argmax staying on the device and one
-device→host copy per burst; ``flush``/``query``/``rewind`` manage
-sequence state. The batch metadata crosses host→device as one packed
-int32 vector per step (per burst for ``decode_burst``), byte-identical
-to the JAX engine's.
+last-token logits, or tokens picked on the device: greedy, or sampled
+per sequence (``sample=`` a spec dict or a per-uid list of dict/None);
+``decode_burst`` runs ``k`` decode steps with each step's token staying
+on the device and one device→host copy per burst;
+``flush``/``query``/``rewind`` manage sequence state. The batch
+metadata crosses host→device as one packed int32 vector per step (per
+burst for ``decode_burst``), byte-identical to the JAX engine's; a
+sampled batch appends the six sampling-spec rows per sequence.
+
+Sampling keys every token by ``(DS_SEED, request seed, absolute
+position)`` through the counter PRNG (``inference.structured.prng``,
+bit-exact with JAX's threefry), so a seeded request replays its stream
+on any engine, stepwise or in bursts of any length. A spec without a
+``seed`` takes one from :meth:`draw_seed`, the engine's own stream.
 
 Multi-tenant LoRA (``lora.enabled``): an :class:`AdapterStore` holds the
 hot adapter slabs on the engine's device; ``register_adapter`` installs
@@ -35,16 +43,25 @@ engines as a validated handoff record. ``suspend``/``resume`` swap a live
 sequence's KV to host memory and back.
 
 Features outside this slice raise ``NotImplementedError`` at
-construction (:func:`unported_features`), as does a sampled ``sample=``
-at call time. The ``DS_*`` environment kill switches are not read."""
+construction (:func:`unported_features`). Of the ``DS_*`` environment
+variables only ``DS_SEED`` is read (:func:`ds_seed`)."""
+
+import os
 
 import numpy as np
 import torch
 
 from deepspeed_tpu_torch.device import resolve_device
+from deepspeed_tpu_torch.inference.sampling import validate_sample_spec
 from deepspeed_tpu_torch.inference.quantization.quantization import (QuantizedWeight,
                                                                      quantize_params_tree,
                                                                      quantized_bytes)
+from deepspeed_tpu_torch.inference.structured.prng import (base_sampling_key, fold_in,
+                                                           fold_in_rows, key_tensor, prng_key,
+                                                           randint31, split, token_keys)
+from deepspeed_tpu_torch.inference.structured.sampling import (SAMPLE_META_ROWS,
+                                                               pack_sample_meta, sample_rows,
+                                                               unpack_sample_meta)
 from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
 from deepspeed_tpu_torch.inference.v2.kv_tier import (TierManager, kv_tier_bytes, kv_tier_enabled,
                                                       kv_tier_quantized)
@@ -65,6 +82,17 @@ from deepspeed_tpu_torch.utils.logging import logger
 
 _QUEUE4 = "ROADMAP.md, port queue item 4 (serving features on the ragged engine)"
 _QUEUE5 = "ROADMAP.md, port queue item 5 (tensor- and expert-parallel serving)"
+DS_SEED_DEFAULT = 42  # the JAX package's env registry default for DS_SEED
+
+
+def ds_seed():
+    """``DS_SEED`` (the base of the sampling counter PRNG and of
+    ``draw_seed``'s stream): the environment's integer, else 42, as the
+    JAX package's env registry reads it."""
+    try:
+        return int(os.environ.get("DS_SEED", DS_SEED_DEFAULT))
+    except ValueError:
+        return DS_SEED_DEFAULT
 
 
 def unported_features(config):
@@ -82,14 +110,17 @@ def unported_features(config):
     return out
 
 
-def _burst_layout(ms, mb, lora=False):
-    """Wire format of the greedy decode-burst metadata vector: field →
-    (start, end) offsets into the flat int32 vector (the JAX engine's
-    ``_burst_layout`` with sampling and async entry off). ``lora``
-    appends the per-sequence adapter-slot row."""
+def _burst_layout(ms, mb, lora=False, sampled=False):
+    """Wire format of the decode-burst metadata vector: field → (start,
+    end) offsets into the flat int32 vector (the JAX engine's
+    ``_burst_layout`` with async entry off). ``lora`` appends the
+    per-sequence adapter-slot row and ``sampled`` the per-sequence
+    sampling-spec rows after it."""
     fields = [("tokens0", ms), ("token_seq", ms), ("pos0", ms), ("tables", (ms + 1) * mb)]
     if lora:
         fields.append(("seq_adapters", ms + 1))
+    if sampled:
+        fields.append(("sample_meta", SAMPLE_META_ROWS * ms))
     o, lay = 0, {}
     for name, size in fields:
         lay[name] = (o, o + size)
@@ -164,6 +195,13 @@ class InferenceEngineV2:
         self.host_syncs = 0
         self.tokens_emitted = 0
         self.forward_steps = 0
+        # Counter-PRNG root for sampling: every sampled token's key folds
+        # (request seed, absolute position) into this DS_SEED-derived
+        # base, so a replica replaying a request reproduces it bit for bit
+        seed = ds_seed()
+        self._base_key = key_tensor(base_sampling_key(seed), self.device)
+        # per-request seed fallback stream (draw_seed), on the host
+        self._rng = fold_in(prng_key(seed), 7)
         # Radix prefix cache (cross-request KV reuse): retired sequences'
         # full blocks become content-addressable and new prompts start
         # past their longest cached prefix.
@@ -272,8 +310,12 @@ class InferenceEngineV2:
         ``batch_uids[i]``. Returns fp32 logits ``[len(uids), vocab]`` for
         each sequence's last scheduled token — or, with
         ``sample="greedy"``, int32 argmax token ids ``[len(uids)]``
-        picked on the device. The batch is always validated first."""
-        mode = self._classify_sample(sample, len(batch_uids))
+        picked on the device. A ``{"temperature", "top_k", "top_p",
+        "seed"}`` dict samples every row on the device with its counter
+        key; a per-uid list of dict/None mixes sampled and greedy rows in
+        one step (the specs ride the packed vector as data). The batch is
+        always validated first."""
+        mode, specs = self._classify_sample(sample, len(batch_uids))
         self.count_host_sync()
         batch_tokens = [np.atleast_1d(np.asarray(t, np.int32)) for t in batch_tokens]
         # Validate the WHOLE batch before touching any sequence state: a
@@ -326,31 +368,88 @@ class InferenceEngineV2:
         # decode bucket: a batch of ≤ max_seqs tokens (pure decode round)
         # runs the small step; prefill chunks run the full-budget one
         bucket = self.max_seqs if total <= self.max_seqs else self.max_tokens
-        packed = torch.from_numpy(self._batch.finalize_packed(bucket=bucket)).to(self.device)
-        logits = self._forward(unpack_batch(packed, self.max_seqs, self.max_blocks_per_seq,
-                                            lora=self.lora_store is not None))
-        out = logits.argmax(dim=-1).to(torch.int32) if mode == "greedy" else logits
+        arrays = self._batch.finalize_packed(bucket=bucket)
+        sampled = mode == "packed"
+        if sampled:
+            # sampling specs ride the same vector: resolve engine-stream
+            # seeds for specs submitted without one, then append the six
+            # int32 rows per sequence
+            self._resolve_seeds(specs)
+            arrays = np.concatenate([arrays, pack_sample_meta(specs, self.max_seqs)])
+        batch = unpack_batch(self._upload(arrays), self.max_seqs, self.max_blocks_per_seq,
+                             lora=self.lora_store is not None, sampled=sampled)
+        logits = self._forward(batch)
+        if sampled:
+            temp, topk, topp, seed, _, _ = unpack_sample_meta(batch["sample_meta"],
+                                                              self.max_seqs)
+            # the token this step emits lands one past the row's last
+            # scheduled token: the same absolute position (and so the
+            # same counter key) every other path derives for it
+            pos_out = batch["token_pos"][batch["last_index"].long()] + 1
+            out = sample_rows(logits, token_keys(self._base_key, seed, pos_out), temp, topk,
+                              topp)
+        else:
+            out = logits.argmax(dim=-1).to(torch.int32) if mode == "greedy" else logits
         self.count_host_sync()
         self.tokens_emitted += len(batch_uids)
         return out.cpu().numpy()[np.asarray(slots, np.int64)]
 
+    def _upload(self, arrays):
+        """The one host→device copy of a step's or burst's packed int32
+        metadata vector."""
+        return torch.from_numpy(arrays).to(self.device)
+
     @staticmethod
     def _classify_sample(sample, n):
-        """``None`` → raw logits, ``"greedy"`` (or an all-None per-uid
-        list) → on-device argmax. Sampling specs are not ported yet."""
+        """Normalize ``put``/burst ``sample`` arguments → ``(mode,
+        specs)``: ``("logits", None)`` for raw logits, ``("greedy",
+        None)`` for on-device argmax, or ``("packed", [dict|None] * n)``
+        with every dict VALIDATED and copied (seeds resolve later, after
+        batch validation — no state mutates for a rejected batch)."""
         if sample is None:
-            return "logits"
-        if sample == "greedy":
-            return "greedy"
-        if isinstance(sample, (list, tuple)) and len(sample) == n and \
-                all(s is None for s in sample):
-            return "greedy"
-        raise NotImplementedError(
-            f"sample={sample!r}: on-device sampling is not ported yet ({_QUEUE4}); "
-            f"use None (logits) or 'greedy'")
+            return "logits", None
+        if isinstance(sample, str) and sample == "greedy":
+            return "greedy", None
+        if isinstance(sample, dict):
+            validate_sample_spec(sample)
+            return "packed", [dict(sample) for _ in range(n)]
+        if isinstance(sample, (list, tuple)):
+            if len(sample) != n:
+                raise ValueError(f"sample list has {len(sample)} specs for {n} sequences")
+            out = []
+            for s in sample:
+                if s is None:
+                    out.append(None)
+                    continue
+                if not isinstance(s, dict):
+                    raise ValueError(f"sample list entries are dict/None, got {s!r}")
+                validate_sample_spec(s)
+                out.append(dict(s))
+            if not any(s is not None for s in out):
+                return "greedy", None  # all-greedy list: plain argmax
+            return "packed", out
+        raise ValueError(f"sample={sample!r}: supported modes are None (logits), "
+                         f"'greedy' (on-device argmax), a sampling dict "
+                         f"{{'temperature', 'top_k', 'top_p', 'seed'}}, or a "
+                         f"per-sequence list of dict/None")
+
+    def _resolve_seeds(self, specs):
+        for s in specs:
+            if s is not None and "seed" not in s:
+                s["seed"] = self.draw_seed()
 
     def count_host_sync(self, n=1):
         self.host_syncs += n
+
+    def draw_seed(self):
+        """One per-request sampling seed from the engine's deterministic
+        DS_SEED-rooted stream (``jax.random.split`` then ``randint(0,
+        2**31 - 1)``, computed on the host) — for specs submitted
+        without an explicit ``seed``. Counts one host sync, as the JAX
+        engine's device read does."""
+        self._rng, sub = split(self._rng, 2)
+        self.count_host_sync()
+        return randint31(sub)
 
     def _validate_burst(self, batch_uids, k):
         """Shared pre-flight for ``can_burst`` and ``decode_burst``: every
@@ -385,15 +484,19 @@ class InferenceEngineV2:
         return err is None
 
     def decode_burst(self, batch_uids, batch_tokens, k, sample=None):
-        """Run ``k`` greedy decode steps for one current token per uid:
-        each step's argmax feeds the next on the device, and the host
-        copies the tokens once, at the end. Returns int32 tokens
-        ``[k, len(uids)]``. KV blocks for all ``k`` tokens are reserved
-        up front, so the block tables are fixed across the burst."""
+        """Run ``k`` decode steps for one current token per uid: each
+        step's token feeds the next on the device, and the host copies
+        the tokens once, at the end. ``sample=None`` decodes greedily; a
+        spec dict or a per-uid list of dict/None draws with counter keys
+        ``(seed, absolute position)``, so burst length and scheduling
+        never change the emitted stream. Returns int32 tokens ``[k,
+        len(uids)]``. KV blocks for all ``k`` tokens are reserved up
+        front, so the block tables are fixed across the burst."""
         k = int(k)
         if k < 1:
             raise ValueError("k must be >= 1")
-        self._classify_sample(sample, len(batch_uids))  # greedy only
+        mode, specs = self._classify_sample(sample, len(batch_uids))
+        sampled = mode == "packed"
         if len(batch_uids) != len(batch_tokens):
             raise ValueError(f"{len(batch_uids)} uids vs {len(batch_tokens)} tokens")
         if len(batch_uids) > self.max_seqs:
@@ -423,9 +526,11 @@ class InferenceEngineV2:
             tables[i, :len(desc.blocks)] = desc.blocks
             desc.advance(k)
         parts = [tokens0, token_seq, pos0, tables.ravel()] + ([adapters] if lora_on else [])
-        meta = torch.from_numpy(np.concatenate(parts))
-        meta = meta.to(self.device)  # the one host→device copy of the burst
-        lay = _burst_layout(ms, mb, lora=lora_on)
+        if sampled:
+            self._resolve_seeds(specs)
+            parts.append(pack_sample_meta(specs, ms))
+        meta = self._upload(np.concatenate(parts))
+        lay = _burst_layout(ms, mb, lora=lora_on, sampled=sampled)
         toks = meta[slice(*lay["tokens0"])]
         batch = {"token_seq": meta[slice(*lay["token_seq"])],
                  "block_tables": meta[slice(*lay["tables"])].reshape(ms + 1, mb),
@@ -433,10 +538,20 @@ class InferenceEngineV2:
         if lora_on:
             batch["seq_adapters"] = meta[slice(*lay["seq_adapters"])]
         pos0 = meta[slice(*lay["pos0"])]
+        if sampled:
+            temp, topk, topp, seed, _, _ = unpack_sample_meta(meta[slice(*lay["sample_meta"])],
+                                                              ms)
+            seed_keys = fold_in_rows(self._base_key, seed)  # the first fold, once a burst
         out = torch.empty((k, ms), dtype=torch.int32, device=self.device)
         for i in range(k):
             logits = self._forward(dict(batch, token_ids=toks, token_pos=pos0 + i))
-            toks = logits.argmax(dim=-1).to(torch.int32)
+            if sampled:
+                # step i's token lands at absolute position pos0 + i + 1,
+                # so its counter key matches the stepwise path exactly
+                toks = sample_rows(logits, fold_in_rows(seed_keys, pos0 + i + 1), temp, topk,
+                                   topp)
+            else:
+                toks = logits.argmax(dim=-1).to(torch.int32)
             out[i] = toks
         self.count_host_sync()
         self.tokens_emitted += k * len(batch_uids)

@@ -14,6 +14,7 @@ step ready for capture in a CUDA graph."""
 
 import numpy as np
 
+from deepspeed_tpu_torch.inference.structured.sampling import SAMPLE_META_ROWS
 from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import NULL_BLOCK
 
 
@@ -116,16 +117,19 @@ class RaggedBatchWrapper:
         return list(self._order)
 
 
-def unpack_batch(packed, max_seqs, max_blocks, lora=False):
+def unpack_batch(packed, max_seqs, max_blocks, lora=False, sampled=False):
     """Inverse of :meth:`RaggedBatchWrapper.finalize_packed`: views of
     the flat (device) tensor back into the step's dict. The token-bucket
     length is derived from the vector's size. ``lora`` must match the
     wrapper's flag: on, the trailing per-sequence adapter-slot row comes
-    out as ``seq_adapters``. The JAX package's sampling-spec rows are not
-    part of this wire format yet; they come with the slice that ports
-    sampling."""
+    out as ``seq_adapters``. ``sampled`` parses the per-sequence
+    sampling-spec rows the engine's sampled step appends AFTER the
+    wrapper's own fields (``SAMPLE_META_ROWS`` int32 rows of ``max_seqs``,
+    see ``inference.structured.sampling``) as ``sample_meta``."""
     ms, mb = max_seqs, max_blocks
     extra = (ms + 1) if lora else 0
+    if sampled:
+        extra += SAMPLE_META_ROWS * ms
     mt = (packed.shape[0] - (ms + 1) * mb - ms - 1 - extra) // 3
     o = 0
     token_ids = packed[o:o + mt]; o += mt
@@ -139,4 +143,6 @@ def unpack_batch(packed, max_seqs, max_blocks, lora=False):
            "num_tokens": num_tokens}
     if lora:
         out["seq_adapters"] = packed[o + 1:o + 2 + ms]
+    if sampled:
+        out["sample_meta"] = packed[packed.shape[0] - SAMPLE_META_ROWS * ms:]
     return out

@@ -8,21 +8,18 @@ remaining budget is filled with chunks of pending prompts — long
 prompts are SPLIT across steps, decodes are FUSED into prefill steps,
 so step latency stays flat and the MXU stays fed.
 
-Port: a copy of ``deepspeed_tpu/inference/v2/scheduler.py``. Greedy
-decoding on the device and a host ``sample_fn`` work; on-device sampling
-(``sampling=`` or a per-request ``sample``) raises ``NotImplementedError``,
-because its spec validator and sampler live in JAX modules that are not
-ported yet. The speculative, pipelined-burst and pause paths are kept as
-in the JAX package and stay inert: the port's engine has no ``spec``,
-``async_burst`` or ``suspend``."""
+Port: a copy of ``deepspeed_tpu/inference/v2/scheduler.py``. Greedy and
+sampled decoding on the device (``sampling=`` for every request, or a
+per-request ``sample``) and a host ``sample_fn`` work. The speculative,
+pipelined-burst and schema paths are kept as in the JAX package and stay
+inert: the port's engine has no ``spec``, ``async_burst`` or
+``structured``."""
 
 from collections import OrderedDict, deque
 
 import numpy as np
 
-_SAMPLING_NOT_PORTED = ("on-device sampling is not ported yet: ROADMAP.md, port queue "
-                        "item 4 (serving features on the ragged engine); use greedy "
-                        "decoding or a host sample_fn")
+from deepspeed_tpu_torch.inference.sampling import validate_sample_spec
 
 
 class Request:
@@ -92,7 +89,7 @@ class DynamicSplitFuseScheduler:
         # path and unfiltered T=1.0 sampling on the other
         self._sampling = dict(sampling) if sampling else None
         if self._sampling is not None:
-            raise NotImplementedError(_SAMPLING_NOT_PORTED)
+            validate_sample_spec(self._sampling)
         self._device_greedy = sample_fn is None
         # multi-step decode: when every live request is decoding, run up
         # to max_burst steps in one compiled program (on-device sampled
@@ -121,7 +118,16 @@ class DynamicSplitFuseScheduler:
         if uid in self.requests:
             raise ValueError(f"uid {uid} already queued")
         if sample is not None:
-            raise NotImplementedError(_SAMPLING_NOT_PORTED)
+            validate_sample_spec(sample)  # typed, pre-admission
+            sample = dict(sample)
+            if "seed" not in sample:
+                # resolve the seed AT ADMISSION from the engine's
+                # deterministic stream: the emitted tokens then depend
+                # only on (seed, position), never on how later
+                # scheduling interleaves this request with others
+                draw = getattr(self.engine, "draw_seed", None)
+                if draw is not None:
+                    sample["seed"] = draw()
         if schema is not None and sample is None and not self._device_greedy:
             raise ValueError(f"uid {uid}: schema-constrained requests sample "
                              f"on device; host sample_fn cannot enforce the "

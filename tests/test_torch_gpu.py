@@ -49,7 +49,12 @@ operands bit for bit on one-hot rows (dx: the dequantized carriers; the
 forward: the stack; dW: dy). So must K5's forward through carriers
 (``gmm_quant``) at Mixtral's shapes: the forward ring at prefill's 64-row
 tiles, the decode design at 16-row tiles, the first design at an
-unaligned base."""
+unaligned base. On-device sampling: the counter PRNG's keys, bits and
+uniforms on the card equal its CPU version bit for bit, the packed
+sampler on the card draws the CPU's tokens from the same logits and keys
+but for near-ties (at most SAMPLE_MISMATCHES of 512 rows), and a sampled
+engine on the card replays a seeded trace, gives the same streams
+stepwise and in bursts, and draws ``top_k: 1`` as greedy."""
 
 import numpy as np
 import pytest
@@ -2375,3 +2380,133 @@ def test_two_layer_bert_training_step_kernels_vs_plain(cuda):
     assert np.isfinite(lk) and readings["loss_rel"] <= 1e-4, readings
     assert readings["leaf_grad_rel_max"] <= 2.0 ** -4, readings
     assert readings["k_bias_vs_q_bias_max"] <= 2.0 ** -4, readings
+
+
+# ------------------------------------------------------- on-device sampling
+# The counter PRNG and the packed sampler are PyTorch ops on the card: the
+# keys, bits and uniforms must equal the port's CPU version bit for bit.
+# The card's ``log`` and its parallel ``cumsum`` are not the CPU's, so a
+# token may differ only where two Gumbel-perturbed logits, or a cumulative
+# probability and ``top_p``, lie within a few ulps: at most
+# SAMPLE_MISMATCHES of the 512 rows below.
+SAMPLE_MISMATCHES = 1
+
+
+def _sample_specs(rng, n, V):
+    out = []
+    for i in range(n):
+        kind = i % 8
+        if kind == 0:
+            out.append(None)  # a greedy row
+            continue
+        s = {"temperature": float(rng.uniform(0.3, 1.5)), "seed": int(rng.randint(0, 2 ** 31))}
+        s.update([{}, {"top_k": 1}, {"top_k": V + 5}, {"top_p": 0.05}, {"top_p": 1.0},
+                  {"top_k": 20, "top_p": 0.9}, {"top_p": 0.7}, {}][kind])
+        out.append(s)
+    return out
+
+
+def test_counter_prng_on_card_equals_cpu(cuda):
+    from deepspeed_tpu_torch.inference.structured import prng
+    rng = np.random.RandomState(0)
+    seeds = torch.from_numpy(rng.randint(0, 2 ** 31, 64).astype(np.int32))
+    pos = torch.from_numpy(rng.randint(0, 2 ** 20, 64).astype(np.int32))
+    base = prng.base_sampling_key(42)
+    keys = prng.token_keys(prng.key_tensor(base, "cpu"), seeds, pos)
+    keys_gpu = prng.token_keys(prng.key_tensor(base, cuda), seeds.to(cuda), pos.to(cuda))
+    assert torch.equal(keys_gpu.cpu(), keys)
+    bits, bits_gpu = prng.row_bits(keys, 32000), prng.row_bits(keys_gpu, 32000)
+    assert torch.equal(bits_gpu.cpu(), bits)
+    assert torch.equal(prng.uniform_from_bits(bits_gpu).cpu(), prng.uniform_from_bits(bits))
+    assert torch.equal(prng.flat_bits(prng.key_tensor(base, cuda), (64, 1000)).cpu(),
+                       prng.flat_bits(prng.key_tensor(base, "cpu"), (64, 1000)))
+
+
+def test_sample_rows_on_card_against_cpu(cuda):
+    """``sample_rows`` on the card and on the CPU over the same fixed fp32
+    logits, specs and keys: greedy rows equal, at most SAMPLE_MISMATCHES of
+    512 rows apart, the result an int32 tensor on the card."""
+    from deepspeed_tpu_torch.inference.structured import prng
+    from deepspeed_tpu_torch.inference.structured.sampling import (pack_sample_meta,
+                                                                   sample_rows,
+                                                                   unpack_sample_meta)
+    rng = np.random.RandomState(1)
+    n, V = 64, 32000
+    base = prng.base_sampling_key(42)
+    mismatches = 0
+    for trial in range(8):
+        logits = torch.from_numpy((rng.randn(n, V) * (1 + trial % 3)).astype(np.float32))
+        meta = torch.from_numpy(pack_sample_meta(_sample_specs(rng, n, V), n))
+        pos = torch.from_numpy(rng.randint(0, 2 ** 20, n).astype(np.int32))
+        outs = []
+        for dev in ("cpu", cuda):
+            t = unpack_sample_meta(meta.to(dev), n)
+            keys = prng.token_keys(prng.key_tensor(base, dev), t[3], pos.to(dev))
+            outs.append(sample_rows(logits.to(dev), keys, t[0], t[1], t[2]))
+        assert outs[1].is_cuda and outs[1].dtype == torch.int32
+        got, want = outs[1].cpu(), outs[0]
+        assert torch.equal(got[0::8], want[0::8])  # greedy rows: the argmax
+        mismatches += int((got != want).sum())
+    assert mismatches <= SAMPLE_MISMATCHES, mismatches
+
+
+def _topk1_against_greedy(eng, prompt, ntok):
+    """Stepwise over ``ntok`` steps: request 1 takes its logits' argmax,
+    request 2 the token of ``top_k: 1`` (its own puts at the same slot,
+    bucket and positions: the same logits). At every step the draw must be
+    the argmax, or one of the tied maxima where the logits tie; the draw
+    feeds both requests, so the check goes on past a tie. → (tied steps,
+    steps where the draw was a tied token other than the first)."""
+    spec = {"temperature": 0.7, "top_k": 1, "seed": 9}
+    tok = None
+    tied = parted = 0
+    for step in range(ntok):
+        feed = prompt if tok is None else [tok]
+        logits = eng.put([1], [feed])[0]
+        tok = int(eng.put([2], [feed], sample=[spec])[0])
+        top = np.flatnonzero(logits == logits.max())
+        assert tok in top, (step, tok, top)
+        tied += len(top) > 1
+        parted += int(tok != top[0])
+    eng.flush(1)
+    eng.flush(2)
+    return tied, parted
+
+
+def test_sampled_engine_on_card(cuda):
+    """A small bf16 engine on the card: a seeded sampled trace replays
+    bit-identically under fresh uids, ``max_burst`` 1 gives the streams of
+    ``max_burst`` 4, and ``top_k: 1`` follows greedy."""
+    from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig,
+                                                  DynamicSplitFuseScheduler, InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.models import init_params, llama_config
+    cfg = llama_config("debug", hidden_size=256, num_attention_heads=4,
+                       num_key_value_heads=2, num_hidden_layers=2)
+    params = init_params(cfg, cuda, torch.bfloat16, torch.Generator(cuda).manual_seed(5),
+                         std=0.05)
+    eng = InferenceEngineV2(cfg, RaggedInferenceEngineConfig(
+        kv_block_size=16, state_manager=DSStateManagerConfig(
+            max_ragged_batch_size=64, max_ragged_sequence_count=4, max_tracked_sequences=8,
+            max_context=96)), params=params, device=cuda)
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32) for n in (9, 30, 17, 24)]
+    specs = [{"temperature": 0.8, "top_k": 40, "seed": 11}, {"temperature": 1.1, "seed": 12},
+             {"temperature": 0.6, "top_p": 0.9, "seed": 13}, None]
+
+    def run(uid0, max_burst, sample):
+        sched = DynamicSplitFuseScheduler(eng, token_budget=64, max_burst=max_burst)
+        for i, p in enumerate(prompts):
+            sched.add_request(uid0 + i, p, max_new_tokens=24, sample=sample[i])
+        out = sched.run_to_completion()
+        return [out[uid0 + i] for i in range(len(prompts))]
+
+    free0 = eng.free_blocks
+    sampled = run(0, 4, specs)
+    assert run(100, 4, specs) == sampled
+    assert run(200, 1, specs) == sampled
+    greedy = run(300, 4, [None] * 4)
+    assert sampled[3] == greedy[3] and sampled[:3] != greedy[:3]
+    for p in prompts[:2]:
+        _topk1_against_greedy(eng, p, 24)
+    assert eng.free_blocks == free0

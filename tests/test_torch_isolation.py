@@ -11,7 +11,8 @@
   its ROADMAP item; so do the training engine's checkpoint methods. The
   prefix cache and the KV spill tier are ported: their configs build an
   engine that serves. MoE models serve and train, dropless or
-  capacity-routed."""
+  capacity-routed. On-device sampling is ported: an invalid spec raises
+  ``ValueError`` at the engine and the scheduler."""
 
 import ast
 import pathlib
@@ -137,6 +138,22 @@ def test_scans_cover_the_bert_sparse_slice():
     assert "ds_layer_norm_fwd" in (build.CSRC / "fused_norms.cu").read_text()
 
 
+SLICE17_MODULES = ("deepspeed_tpu_torch.inference.sampling",
+                   "deepspeed_tpu_torch.inference.structured",
+                   "deepspeed_tpu_torch.inference.structured.prng",
+                   "deepspeed_tpu_torch.inference.structured.sampling")
+
+
+def test_scans_cover_the_sampling_slice():
+    """The AST scan and the jax-free import above reach the sampling
+    modules; the structured package exports ``derive_seed`` and nothing of
+    constrained decoding."""
+    assert set(SLICE17_MODULES) <= set(_modules())
+    from deepspeed_tpu_torch.inference import structured
+    assert structured.__all__ == ["derive_seed"]
+    assert not hasattr(structured, "constrained_enabled")
+
+
 def test_default_device_is_the_gpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None would rightly use it")
@@ -193,14 +210,16 @@ def test_ported_feature_builds_and_serves(flag):
 
 
 def test_off_slice_model_and_sampling_raise():
+    """Sampling is ported: an invalid spec raises ``ValueError`` at the
+    engine and the scheduler, as the JAX validator does."""
     eng = InferenceEngineV2("debug", dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="sampling"):
-        eng.put([1], [[1, 2, 3]], sample={"temperature": 1.0})
-    with pytest.raises(NotImplementedError, match="sampling"):
-        DynamicSplitFuseScheduler(eng, sampling={"temperature": 0.7})
+    with pytest.raises(ValueError, match="temperature must be > 0"):
+        eng.put([1], [[1, 2, 3]], sample={"temperature": 0.0})
+    with pytest.raises(ValueError, match="unknown sampling keys"):
+        DynamicSplitFuseScheduler(eng, sampling={"temp": 0.7})
     sched = DynamicSplitFuseScheduler(eng)
-    with pytest.raises(NotImplementedError, match="sampling"):
-        sched.add_request(1, [1, 2], sample={"temperature": 0.7})
+    with pytest.raises(ValueError, match="top_p must be in"):
+        sched.add_request(1, [1, 2], sample={"top_p": 1.5})
     cfg = RaggedInferenceEngineConfig(implementation_overrides={"attention": "cuda_paged"})
     with pytest.raises(ValueError, match="cuda_paged"):
         InferenceEngineV2("debug", cfg, dtype=torch.float32, device="cpu")

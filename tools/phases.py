@@ -1,6 +1,6 @@
 """Runs some of ``chip_smoke.py``'s phases alone, on one GPU.
 
-    python3 tools/phases.py sparse bert k7
+    python3 tools/phases.py sparse bert k7 sampled
 
 Builds the kernel sources those phases need (one ``nvcc`` each, all
 started together), then runs each named phase as ``chip_smoke.py`` runs
@@ -13,7 +13,9 @@ it, with its checks, and prints its lines. The phases:
   BigBird block 64, K8's device ms a step by kernel and by design);
 - ``k7``: phase 16's kernel cases (``k7_cases``: K7's quantize and
   dequantize at the KV tier's shapes, each timed by CUDA events and by
-  the profiler).
+  the profiler);
+- ``sampled``: phase 26 (``sampled_serving_phase``: on-device sampling on
+  the Mistral-7B engine under ``bench_serving_2b_sampled``'s protocol).
 
 Run it from the root of a checkout on a machine with a CUDA device. The
 last line is ``{"ok": true}`` when every phase passed.
@@ -39,6 +41,7 @@ PHASES = {  # name: (sources, run(device, flush))
     "bert_parity": (SPARSE, lambda device, flush: cs.bert_parity_phase(device)),
     "bert": (SPARSE, lambda device, flush: cs.bert_training_phase(device)),
     "k7": (("quantization.cu",), cs.k7_cases),
+    "sampled": (("paged_attention.cu", "fused_quant_matmul.cu"), cs.sampled_serving_phase),
 }
 
 
