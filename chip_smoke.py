@@ -48,10 +48,12 @@ each of which fails the run if it fails:
    column tile rejected, the first design (``design="general"``) held to
    the same check, timed beside cuBLAS (the plain version and the library
    call), the first design and the bound,
-   with each one's host µs to enqueue a call; (b) a reading: the row
-   counts (1 to
-   512) at which row 0 of cuBLAS's product (also with reduced-precision
-   reductions off), of ``dense_matmul`` and of the eager RMS norm moves;
+   with each one's host µs to enqueue a call; (b) the row counts (1 to
+   512, 40 a verify's) at which any row's bits differ from the same row
+   alone, of cuBLAS's product (also with reduced-precision reductions
+   off), of ``dense_matmul``, of the eager RMS norm (the serving path's
+   former norm, a reading) and of the serving path's RMS norm (K2's RMS
+   forward): gated none for ``dense_matmul`` and the serving RMS;
    (c) a 2-layer Mistral-7B-width engine: one request's decode token alone
    (the 16-token bucket) and beside another prompt (the 512-token bucket),
    each serving op's input and output recorded for its row. Gate: equal
@@ -452,7 +454,47 @@ each of which fails the run if it fails:
    and ``sample_rows`` on [8, 32000] logits, profiled over 20 calls, and ms
    a call by CUDA events), and the tokens the card's sampler and the CPU's
    draw differently from the same captured logits and keys (8 positions of
-   the 8 requests).
+   the 8 requests);
+27. speculative decoding — ``bench_serving_2b_spec``'s protocol on the
+   full 32-layer Mistral-7B engine (bf16; phases 27 and 28 share one set
+   of random weights, seed 0): 8 requests x (a 256-token system prompt, a
+   16-token pattern of ``RandomState(0)`` tiled, + a 64-token template, an
+   8-token pattern tiled, its first token + i) x 64 new tokens, block 32,
+   budget 328, draft_len 4, bursts of 16; the engine built with
+   ``DS_SPEC_DECODE=0`` (off: a greedy run and a sampled one with phase
+   26's specs), then without it (on). The random-weight model repeats no
+   suffix n-gram of its history within 64 tokens, so on this trace the
+   n-gram drafter proposes nothing (a reading); the on engine runs the
+   trace with it, then with ``StreamDrafter`` (oracle drafts taken from
+   the spec-off streams, a seeded quarter of the positions altered),
+   greedy and sampled.
+   Gates: every on run's streams equal to the off run's (greedy bit-
+   identical); the drafted runs take verify steps and accept some drafts
+   but not all; every verify forward launching K3 once a layer and
+   ``dense_matmul`` 7 x layers + 1 times, none on K4's first design, and
+   K2's RMS forward 2 x layers + 1 times; then
+   one verify of the 8 requests after their prefill, with drafts taken
+   from the spec-off sampled streams (rows 0-3 all correct, row 4 + j one
+   altered at j), accepting 4, 4, 4, 4, 0, 1, 2, 3 and emitting the streams'
+   tokens. Prints, for each on run, verify steps, the accept rate, tokens a
+   verify step, generated tokens/s beside plain, ms a verify forward by
+   rows and d beside a plain forward, K3's and K4's launches a verify
+   forward and K4's by design, host syncs a token, the verify forwards'
+   seconds beside the other forwards', and the sequences whose drafting
+   the accept-rate EMA turned off;
+28. constrained decoding — ``bench_serving_2b_json``'s protocol on the
+   same weights: the schema ``{"ok": boolean, "mode": enum fast|safe}``
+   compiled over ``byte_vocab(32000)`` with EOS 2, 8 random 64-token
+   prompts x 64 new tokens, temperature 1.1, top_k 40, seeds 500 + i,
+   bursts of 8, unconstrained then constrained, 3 repeats each. Gates:
+   every constrained lane ends at EOS and parses to the schema's fields,
+   the repeats replay bit-identically, a greedy constrained run is valid
+   too, K3 and K4 launch their counts a forward in each constrained run,
+   and a batch of 4 constrained and 4 unconstrained requests on an engine
+   with spec decoding on never verifies while a constrained row is live.
+   Prints the DFA's states, compile and bind ms, the slabs' bytes and
+   plain vs constrained generated tokens/s, the overhead a reading beside
+   the JAX bench's 10% bound.
 
 The last lines are the card, one JSON object with every kernel's numbers
 and, last, ``{"ok": true, "device": {...}}``."""
@@ -534,6 +576,17 @@ BERT_GRAD_ROW_TOL = 256.0     # phase 24, units of row_scaled_err per parameter 
 SAMPLED_N_REQ, SAMPLED_PROMPT, SAMPLED_NEW, SAMPLED_BURST = 8, 256, 64, 8
 SAMPLED_BUDGET = SAMPLED_PROMPT + SAMPLED_N_REQ
 SAMPLED_STEP_TOKENS = 16
+# phase 27: bench.py's bench_serving_2b_spec: 8 requests x (a 256-token system prompt, a
+# 16-token pattern tiled, + a 64-token template, an 8-token pattern tiled, its first token + i)
+# x 64 new tokens, draft_len 4, bursts of 16, token budget prompt_len + n_req
+SPEC_N_REQ, SPEC_SYS, SPEC_TMPL, SPEC_NEW, SPEC_BURST, SPEC_DRAFT = 8, 256, 64, 64, 16, 4
+SPEC_PROMPT = SPEC_SYS + SPEC_TMPL
+SPEC_BUDGET = SPEC_PROMPT + SPEC_N_REQ
+# phase 28: bench.py's bench_serving_2b_json: 8 random 64-token prompts x 64 new tokens,
+# temperature 1.1, top_k 40, seeds 500 + i, EOS 2, bursts of 8, 3 repeats
+JSON_N_REQ, JSON_PROMPT, JSON_NEW, JSON_BURST, JSON_REPEATS, JSON_EOS = 8, 64, 64, 8, 3, 2
+JSON_BUDGET = JSON_PROMPT + JSON_N_REQ
+JSON_OVERHEAD_BOUND = 0.10  # the JAX bench's bound on the constrained overhead: a reading here
 
 
 def log(msg):
@@ -840,7 +893,7 @@ def parity_phase(device):
 
 # ---------------------------------------------------------------- phase 4b
 INV_SEQS, INV_TOKENS = 16, 512  # the serving engine's two token buckets (max_seqs, budget)
-INV_ROWS = (1, 7, 16, 64, 255, 512)  # row counts of the per-op reading
+INV_ROWS = (1, 7, 16, 40, 64, 255, 512)  # row counts of the per-op reading (40: a verify's)
 INV_GEMMS = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 32000))
 INV_ROUNDS = 3  # the cost reading: each path in turn, three times
 # each serving op the layer step calls, in order (model_runner._layer_step), then the tail
@@ -981,14 +1034,16 @@ def invariance_ops_reading(device):
     """Row 0 of each op at every row count of INV_ROWS against row 0
     alone (M = 1), bitwise: the row counts at which its bits move."""
     from deepspeed_tpu_torch.inference.v2.model_runner import _rms
+    from deepspeed_tpu_torch.ops.kernels.fused_norms import rms_norm_ref
     from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import dense_matmul
     g = torch.Generator(device=device).manual_seed(11)
     M = max(INV_ROWS)
     out = {}
 
     def moved(f, x):
-        ref = f(x[:1].contiguous())
-        return [m for m in INV_ROWS if not torch.equal(f(x[:m].contiguous())[:1], ref)]
+        """The row counts at which any row differs from that row alone."""
+        alone = torch.cat([f(x[r:r + 1].contiguous()) for r in range(M)])
+        return [m for m in INV_ROWS if not torch.equal(f(x[:m].contiguous()), alone[:m])]
 
     for K, N in INV_GEMMS:
         x = torch.randn(M, K, generator=g, device=device).to(torch.bfloat16)
@@ -1003,9 +1058,10 @@ def invariance_ops_reading(device):
         out[f"dense_matmul_{K}x{N}"] = moved(lambda a: dense_matmul(a, w), x)
     x = torch.randn(M, 4096, generator=g, device=device).to(torch.bfloat16) * 3
     sc = (1 + 0.1 * torch.randn(4096, generator=g, device=device)).to(torch.bfloat16)
-    out["eager_rms_4096"] = moved(lambda a: _rms(a, sc, 1e-5), x)
-    log(f"[invariance] per op, the row counts of {list(INV_ROWS)} at which row 0 differs "
-        f"from row 0 alone: {json.dumps(out)}")
+    out["eager_rms_4096"] = moved(lambda a: rms_norm_ref(a, sc, 1e-5), x)  # the former path
+    out["rms_4096"] = moved(lambda a: _rms(a, sc, 1e-5), x)  # serving's: K2's RMS forward
+    log(f"[invariance] per op, the row counts of {list(INV_ROWS)} at which any row differs "
+        f"from the same row alone: {json.dumps(out)}")
     out["paged_attention"] = paged_invariance_reading(device)
     return out
 
@@ -1120,6 +1176,10 @@ def batch_invariance_phase(device):
     if ops["paged_attention"]:
         raise AssertionError(f"invariance: K3's rows moved with their tile or batch at chunk "
                              f"lengths {ops['paged_attention']}")
+    serving_ops = {k: v for k, v in ops.items() if k.startswith(("dense_matmul", "rms_4096"))}
+    if any(serving_ops.values()):
+        raise AssertionError(f"invariance: a serving op's rows moved with the row count: "
+                             f"{serving_ops}")
     if not out["port"]["logits_equal"] or out["port"]["ops_that_moved"]:
         raise AssertionError(f"invariance: the serving path moves with the token bucket: "
                              f"{out['port']}")
@@ -5118,6 +5178,427 @@ def sampled_serving_phase(device, flush):
     return result, launches
 
 
+# ---------------------------------------------------------------- phase 27
+def serving_params(device):
+    """Mistral-7B's bf16 serving weights, drawn as phases 5 and 26 draw
+    them (seed 0): phases 27 and 28 share one set across their engines."""
+    from deepspeed_tpu_torch.models import init_params, llama_config
+    cfg = llama_config("mistral-7b")
+    return cfg, init_params(cfg, device, torch.bfloat16,
+                            torch.Generator(device=device).manual_seed(0))
+
+
+def spec_prompts(n, vocab):
+    """``bench_serving_2b_spec``'s trace: a 16-token pattern from
+    ``RandomState(0)`` tiled to the system prompt, then an 8-token pattern
+    tiled to the template, its first token + i."""
+    rng = np.random.RandomState(0)
+    system = np.tile(rng.randint(0, vocab, size=16).astype(np.int32), SPEC_SYS // 16)[:SPEC_SYS]
+    template = np.tile(rng.randint(0, vocab, size=8).astype(np.int32),
+                       SPEC_TMPL // 8)[:SPEC_TMPL]
+    prompts = []
+    for i in range(n):
+        t = template.copy()
+        t[0] = (t[0] + i) % vocab  # requests differ by one slot-filled token
+        prompts.append(np.concatenate([system, t]))
+    return prompts
+
+
+def spec_engine(cfg, params, device, spec, structured=False):
+    """The phase's engine over ``params``; ``spec`` False builds it with
+    ``DS_SPEC_DECODE=0`` over a config that enables spec decoding (the
+    kill switch, as the bench's off run)."""
+    import os
+    from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig, InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    saved = os.environ.get("DS_SPEC_DECODE")
+    if not spec:
+        os.environ["DS_SPEC_DECODE"] = "0"
+    try:
+        engine = InferenceEngineV2(cfg, RaggedInferenceEngineConfig(
+            kv_block_size=BS, spec_decode={"enabled": True, "draft_len": SPEC_DRAFT},
+            structured={"enabled": structured}, state_manager=DSStateManagerConfig(
+                max_ragged_batch_size=SPEC_BUDGET, max_ragged_sequence_count=SPEC_N_REQ,
+                max_tracked_sequences=SPEC_N_REQ + 2,
+                max_context=SPEC_PROMPT + SPEC_NEW + 8)), params=params, device=device)
+    finally:
+        if saved is None:
+            os.environ.pop("DS_SPEC_DECODE", None)
+        else:
+            os.environ["DS_SPEC_DECODE"] = saved
+    if (engine.spec is not None) != spec:
+        raise AssertionError(f"spec decoding {'off' if spec else 'on'} in a spec={spec} engine")
+    return engine
+
+
+def fleet(engine, uid0, prompts, ntok, specs=None, burst=SPEC_BURST, budget=SPEC_BUDGET,
+          eos=None, schemas=None):
+    """Every prompt (with its spec, greedy when None; its schema when
+    given) to completion under one scheduler, timed to a synchronize, the
+    requests retired after → (seconds, streams)."""
+    from deepspeed_tpu_torch.inference.v2 import DynamicSplitFuseScheduler
+    sched = DynamicSplitFuseScheduler(engine, token_budget=budget, max_burst=burst,
+                                      eos_token_id=eos)
+    for i, p in enumerate(prompts):
+        sched.add_request(uid0 + i, p, max_new_tokens=ntok, sample=specs[i] if specs else None,
+                          schema=schemas[i] if schemas else None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sched.run_to_completion(max_steps=100_000)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    for i in range(len(prompts)):
+        sched.retire(uid0 + i)
+    return dt, [out[uid0 + i] for i in range(len(prompts))]
+
+
+def record_verifies(engine):
+    """Wraps ``engine.verify_burst``: each call's rows, draft length d,
+    wall ms (host packing, the forward and the one device→host copy it
+    ends in), K3's and K4's launches and K4's launches by design. →
+    (records, restore)."""
+    from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import dense_matmul
+    from deepspeed_tpu_torch.ops.kernels.paged_attention import paged_decode_attention
+    from deepspeed_tpu_torch.ops.kernels.fused_norms import rms_norm_fwd
+    records, inner = [], engine.verify_burst
+
+    def call(uids, tokens, drafts, sample=None):
+        k3, k4, kd = paged_decode_attention.launches, dense_matmul.launches, k4_designs("dense")
+        k2 = rms_norm_fwd.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(uids, tokens, drafts, sample=sample)
+        records.append({"rows": len(uids), "d": max(len(x) for x in drafts),
+                        "ms": (time.perf_counter() - t0) * 1e3,
+                        "k3": paged_decode_attention.launches - k3,
+                        "k4": dense_matmul.launches - k4, "k4_by_design": k4_grew("dense", kd),
+                        "rms": rms_norm_fwd.launches - k2})
+        return out
+    engine.verify_burst = call
+    return records, lambda: delattr(engine, "verify_burst")
+
+
+def check_verifies(records, layers, where):
+    """Every verify forward launched K3 once a layer, K4 7 times a layer
+    and once for the head, none on K4's first design, and K2's RMS forward
+    twice a layer and once for the final norm."""
+    for r in records:
+        if r["k3"] != layers or r["k4"] != 7 * layers + 1 or r["k4_by_design"]["general"] \
+                or r["rms"] != 2 * layers + 1:
+            raise AssertionError(f"{where}: a verify forward launched {r}")
+
+
+def forced_verify_check(engine, prompts, specs, streams, vocab):
+    """Drafts taken from spec-off sampled ``streams`` in one verify of
+    every request after its prefill: rows 0-3 all four drafts correct,
+    row 4 + j one altered at j. Each must accept its correct prefix and
+    emit the stream's tokens. → (accepted, records of the verify)."""
+    uids = list(range(600, 600 + len(prompts)))
+    first = prefill_each(engine, uids, prompts, specs)
+    if [int(t) for t in first] != [s[0] for s in streams]:
+        raise AssertionError("prefill draws differ from the spec-off streams' first tokens")
+    drafts, want = [], []
+    for i, s in enumerate(streams):
+        d = list(s[1:1 + SPEC_DRAFT])
+        j = i - 4 if i >= 4 else SPEC_DRAFT
+        if j < SPEC_DRAFT:
+            d[j] = (d[j] + 1) % vocab
+        drafts.append(d)
+        want.append(j)
+    records, restore = record_verifies(engine)
+    try:
+        toks, acc = engine.verify_burst(uids, [[int(t)] for t in first], drafts, sample=specs)
+    finally:
+        restore()
+    for i, s in enumerate(streams):
+        if int(acc[i]) != want[i] or toks[i, :want[i] + 1].tolist() != s[1:want[i] + 2]:
+            raise AssertionError(f"forced verify row {i}: accepted {int(acc[i])} (want "
+                                 f"{want[i]}), emitted {toks[i].tolist()}, stream {s[:6]}")
+    for uid in uids:
+        engine.flush(uid)
+    return acc.tolist(), records
+
+
+class StreamDrafter:
+    """An oracle drafter whose proposals are taken from reference streams
+    (the spec-off run's), each prompt's own: the random-weight model
+    repeats no suffix n-gram of its history within 64 tokens (phase 27
+    prints each greedy stream's distinct tokens and tokens found in its
+    prompt), so the n-gram drafter proposes nothing on this trace. A
+    seeded share ``alter`` of each stream's positions has its draft
+    altered, drawn independently a position, so a verify's drafts fail at
+    any of its positions and its accept rate is about ``1 - alter`` a
+    draft position."""
+
+    def __init__(self, prompts, streams, vocab, alter=0.25, seed=0):
+        rng = np.random.RandomState(seed)
+        self.refs = {tuple(int(t) for t in p): (s, rng.random_sample(len(s)) < alter)
+                     for p, s in zip(prompts, streams)}
+        self.plen = len(prompts[0])
+        self.vocab = vocab
+
+    def propose(self, history, max_tokens):
+        """History = prompt + generated[:m] (the entry token last) → the
+        reference's generated[m:m + max_tokens], altered where drawn."""
+        ref, bad = self.refs[tuple(int(t) for t in history[:self.plen])]
+        m = len(history) - self.plen
+        return [(ref[k] + 1) % self.vocab if bad[k] else ref[k]
+                for k in range(m, min(m + max_tokens, len(ref)))]
+
+
+def spec_serving_phase(device, weights=None):
+    """Phase 27: ``bench_serving_2b_spec``'s protocol on the full-depth
+    Mistral-7B engine, then the same trace with drafts taken from the
+    spec-off streams. → (result, {kernel: launches in the drafted greedy
+    run's verify forwards})."""
+    from deepspeed_tpu_torch.device import gpu_report
+    card = gpu_report()
+    cfg, params = weights or serving_params(device)
+    L, V, n = cfg.num_hidden_layers, cfg.vocab_size, SPEC_N_REQ
+    prompts = spec_prompts(n, V)
+    specs = sampled_specs(n)  # phase 26's: temperature, top_k and top_p, seed 1000 + i
+
+    off = spec_engine(cfg, params, device, False)
+    fleet(off, 10_000, prompts[:2], 16)  # warm-up, as the bench
+    syncs0, toks0, fwd0 = off.host_syncs, off.tokens_emitted, off.forward_steps
+    plain_dt, plain = fleet(off, 0, prompts, SPEC_NEW)
+    plain_fwd, plain_syncs = off.forward_steps - fwd0, off.host_syncs - syncs0
+    plain_toks = off.tokens_emitted - toks0
+    _, sampled = fleet(off, 100, prompts, SPEC_NEW, specs)
+    off.destroy()
+
+    engine = spec_engine(cfg, params, device, True)
+    free0 = engine.free_blocks
+    fleet(engine, 10_000, prompts[:2], 16)
+    runs = {}
+    for name, drafter, specs_ in (("ngram", None, None),
+                                  ("drafted", StreamDrafter(prompts, plain, V), None),
+                                  ("drafted_sampled", StreamDrafter(prompts, sampled, V), specs)):
+        if drafter is not None:
+            engine.spec.drafter = drafter
+        stats0 = engine.spec.stats()
+        syncs0, toks0, fwd0 = engine.host_syncs, engine.tokens_emitted, engine.forward_steps
+        records, restore = record_verifies(engine)
+        dt, out = fleet(engine, 1_000 * (len(runs) + 1), prompts, SPEC_NEW, specs_)
+        restore()
+        runs[name] = {"dt": dt, "out": out, "verifies": records,
+                      "syncs": engine.host_syncs - syncs0, "tokens": engine.tokens_emitted - toks0,
+                      "forwards": engine.forward_steps - fwd0,
+                      **{k: v - stats0[k] for k, v in engine.spec.stats().items()
+                         if k in ("verify_steps", "tokens_drafted", "tokens_accepted",
+                                  "disabled_sequences")}}
+        check_verifies(records, L, f"spec-serving {name}")
+    forced = forced_verify_check(engine, prompts, specs, sampled, V)
+    check_verifies(forced[1], L, "spec-serving forced")
+    if engine.free_blocks != free0:
+        raise AssertionError(f"free blocks {engine.free_blocks} != {free0} after flushes")
+    engine.destroy()
+
+    for s in plain + sampled:
+        if len(s) != SPEC_NEW or not all(0 <= t < V for t in s):
+            raise AssertionError(f"a stream of {len(s)} tokens, want {SPEC_NEW} in vocab")
+    for name, want in (("ngram", plain), ("drafted", plain), ("drafted_sampled", sampled)):
+        if runs[name]["out"] != want:
+            bad = [i for i in range(n) if runs[name]["out"][i] != want[i]]
+            raise AssertionError(f"spec decoding ({name}) changed the streams of requests {bad}")
+    for name in ("drafted", "drafted_sampled"):
+        r = runs[name]
+        if not 0 < r["tokens_accepted"] < r["tokens_drafted"] or r["verify_steps"] <= 0:
+            raise AssertionError(f"{name}: {r['verify_steps']} verify steps, "
+                                 f"{r['tokens_accepted']} of {r['tokens_drafted']} drafts accepted")
+    gen = n * SPEC_NEW
+    result = {"card": card, "requests": n, "system_prompt_len": SPEC_SYS,
+              "template_len": SPEC_TMPL, "new_tokens": SPEC_NEW, "draft_len": SPEC_DRAFT,
+              "max_burst": SPEC_BURST, "token_budget": SPEC_BUDGET,
+              "plain_gen_tokens_per_sec": gen / plain_dt, "plain_forwards": plain_fwd,
+              "plain_ms_per_forward": plain_dt * 1e3 / plain_fwd,
+              "plain_syncs_per_token": plain_syncs / max(plain_toks, 1),
+              # why the n-gram drafter finds nothing on random weights: a
+              # draft needs the entry token earlier in the sequence
+              "greedy_distinct_tokens": [len(set(s)) for s in plain],
+              "greedy_tokens_in_prompt": [sum(t in set(p.tolist()) for t in s)
+                                          for p, s in zip(prompts, plain)],
+              "greedy_bit_identical": True, "sampled_equal": True,
+              "forced_verify_accepted": forced[0], "forced_verify_ms": forced[1][0]["ms"]}
+    for name, r in runs.items():
+        v = r["verifies"]
+        by_shape = {}
+        for rec in v:
+            by_shape.setdefault(f"rows{rec['rows']}_d{rec['d']}", []).append(rec["ms"])
+        result[name] = {
+            "verify_steps": r["verify_steps"], "tokens_drafted": r["tokens_drafted"],
+            "tokens_accepted": r["tokens_accepted"],
+            "accept_rate": r["tokens_accepted"] / max(r["tokens_drafted"], 1),
+            "tokens_per_verify_step": (r["tokens_accepted"] + r["verify_steps"])
+            / max(r["verify_steps"], 1),
+            "gen_tokens_per_sec": gen / r["dt"], "vs_plain": plain_dt / r["dt"],
+            "syncs_per_token": r["syncs"] / max(r["tokens"], 1), "verify_forwards": len(v),
+            # where the run's time went: verify calls (host packing, the
+            # forward, the copy) against every other forward of the run
+            "forwards": r["forwards"], "verify_s": sum(rec["ms"] for rec in v) / 1e3,
+            "other_s": r["dt"] - sum(rec["ms"] for rec in v) / 1e3,
+            "disabled_sequences": r["disabled_sequences"],
+            "verify_ms": {k: float(np.median(x)) for k, x in by_shape.items()},
+            "verify_k3_k4_launches": [v[0]["k3"], v[0]["k4"]] if v else None,
+            "verify_k4_by_design": {k: sum(rec["k4_by_design"][k] for rec in v)
+                                    for k in v[0]["k4_by_design"]} if v else None}
+        log(f"[spec-serving] {card}: {name}: {r['verify_steps']} verify steps, accept rate "
+            f"{result[name]['accept_rate']:.3f}, {result[name]['tokens_per_verify_step']:.3f} "
+            f"tokens a verify step, {result[name]['gen_tokens_per_sec']:.1f} generated tokens/s "
+            f"against plain {result['plain_gen_tokens_per_sec']:.1f} "
+            f"({result[name]['vs_plain']:.3f}x); ms a verify forward "
+            f"{json.dumps(result[name]['verify_ms'])} against "
+            f"{result['plain_ms_per_forward']:.2f} a plain forward; K3, K4 launches a verify "
+            f"forward {result[name]['verify_k3_k4_launches']}, K4 by design "
+            f"{json.dumps(result[name]['verify_k4_by_design'])}; host syncs a token "
+            f"{result[name]['syncs_per_token']:.4f} (plain {result['plain_syncs_per_token']:.4f}); "
+            f"{result[name]['verify_forwards']} verify forwards in {result[name]['verify_s']:.3f} s "
+            f"and {result[name]['forwards'] - result[name]['verify_forwards']} other forwards in "
+            f"{result[name]['other_s']:.3f} s (plain {plain_fwd} in {plain_dt:.3f} s); "
+            f"drafting disabled for {r['disabled_sequences']} sequences")
+    log(f"[spec-serving] {json.dumps(result)}")
+    v = runs["drafted"]["verifies"]
+    launches = {"paged_decode_attention": sum(r["k3"] for r in v),
+                "dense_matmul": sum(r["k4"] for r in v), "rms_norm_fwd": sum(r["rms"] for r in v)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result, launches
+
+
+# ---------------------------------------------------------------- phase 28
+def json_serving_phase(device, weights=None):
+    """Phase 28: ``bench_serving_2b_json``'s protocol on the full-depth
+    Mistral-7B engine. → (result, {kernel: launches in a constrained
+    run})."""
+    from deepspeed_tpu_torch.device import gpu_report
+    from deepspeed_tpu_torch.inference.structured import (CompiledSchema, byte_vocab,
+                                                          detokenize)
+    from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig, InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import dense_matmul
+    from deepspeed_tpu_torch.ops.kernels.paged_attention import paged_decode_attention
+    card = gpu_report()
+    cfg, params = weights or serving_params(device)
+    L, V, n = cfg.num_hidden_layers, cfg.vocab_size, JSON_N_REQ
+    schema = {"type": "object", "properties": {"ok": {"type": "boolean"},
+                                               "mode": {"enum": ["fast", "safe"]}},
+              "required": ["ok", "mode"]}
+    vocab = byte_vocab(V)
+    t0 = time.perf_counter()
+    compiled = CompiledSchema(schema, vocab, eos_token_id=JSON_EOS)
+    compile_ms = (time.perf_counter() - t0) * 1e3
+    engine = InferenceEngineV2(cfg, RaggedInferenceEngineConfig(
+        kv_block_size=BS, structured={"enabled": True, "max_schemas": 4,
+                                      "max_states": max(64, compiled.n_states)},
+        state_manager=DSStateManagerConfig(
+            max_ragged_batch_size=JSON_BUDGET, max_ragged_sequence_count=n,
+            max_tracked_sequences=n + 2, max_context=JSON_PROMPT + JSON_NEW + 8)),
+        params=params, device=device)
+    masks, trans = engine.structured.slabs()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.bind_schema(-1, compiled)  # the install: one copy of the schema's rows
+    torch.cuda.synchronize()
+    bind_ms = (time.perf_counter() - t0) * 1e3
+    engine.structured.release(-1)
+    free0 = engine.free_blocks
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, V, size=JSON_PROMPT).astype(np.int32) for _ in range(n)]
+    specs = [{"temperature": 1.1, "top_k": 40, "seed": 500 + i} for i in range(n)]
+
+    def run(uid0, constrained, ntok, sample=specs):
+        return fleet(engine, uid0, prompts, ntok, sample, burst=JSON_BURST, budget=JSON_BUDGET,
+                     eos=JSON_EOS, schemas=[compiled] * n if constrained else None)
+
+    def valid(toks, where):
+        if toks[-1] != JSON_EOS:
+            raise AssertionError(f"{where}: a constrained lane never reached EOS: {toks}")
+        doc = json.loads(detokenize(toks[:-1], vocab))  # raises if invalid
+        if not (isinstance(doc.get("ok"), bool) and doc.get("mode") in ("fast", "safe")):
+            raise AssertionError(f"{where}: off-schema JSON {doc}")
+        return doc
+
+    run(10_000, False, 8)  # plain sampled warm-up
+    run(20_000, True, 8)   # constrained warm-up
+    plain_tput = json_tput = 0.0
+    outs = []
+    for r in range(JSON_REPEATS):
+        dt, plain = run(1_000 + 100 * r, False, JSON_NEW)
+        plain_tput = max(plain_tput, sum(map(len, plain)) / dt)
+        paged_decode_attention.launches = dense_matmul.launches = 0
+        fwd0 = engine.forward_steps
+        dt, out = run(5_000 + 100 * r, True, JSON_NEW)
+        fwd = engine.forward_steps - fwd0
+        launches = {"paged_decode_attention": paged_decode_attention.launches,
+                    "dense_matmul": dense_matmul.launches}
+        if launches["paged_decode_attention"] != L * fwd or \
+                launches["dense_matmul"] != (7 * L + 1) * fwd:
+            raise AssertionError(f"constrained run launches {launches}, {fwd} forwards")
+        json_tput = max(json_tput, sum(map(len, out)) / dt)
+        outs.append(out)
+    docs = [valid(t, "sampled") for t in outs[-1]]
+    if any(o != outs[0] for o in outs[1:]):
+        raise AssertionError("constrained sampled streams failed to replay per seed")
+    _, greedy = run(30_000, True, JSON_NEW, sample=[None] * n)
+    greedy_docs = [valid(t, "greedy") for t in greedy]
+    if engine.free_blocks != free0 or engine.structured.any_bound():
+        raise AssertionError("a constrained run left blocks or leases behind")
+    engine.destroy()
+    mixed = mixed_spec_check(cfg, params, device, compiled, prompts, specs, valid)
+    overhead = plain_tput / json_tput - 1.0
+    result = {"card": card, "requests": n, "prompt_len": JSON_PROMPT, "max_new_tokens": JSON_NEW,
+              "max_burst": JSON_BURST, "repeats": JSON_REPEATS, "dfa_states": compiled.n_states,
+              "compile_ms": compile_ms, "bind_ms": bind_ms,
+              "slab_bytes": masks.numel() * masks.element_size()
+              + trans.numel() * trans.element_size(),
+              "plain_gen_tokens_per_sec": plain_tput, "json_gen_tokens_per_sec": json_tput,
+              "constrained_overhead": overhead, "jax_bench_bound": JSON_OVERHEAD_BOUND,
+              "schema_valid_frac": len(docs) / n, "replay_bit_identical": True,
+              "json_tokens": [len(t) for t in outs[-1]], "greedy_docs": greedy_docs[:1],
+              "launches": launches, "mixed_with_spec": mixed}
+    log(f"[json-serving] {card}: {compiled.n_states} DFA states, compile {compile_ms:.1f} ms "
+        f"(V {V}), bind {bind_ms:.2f} ms, slabs {result['slab_bytes'] / 1e6:.1f} MB; plain "
+        f"{plain_tput:.1f} and constrained {json_tput:.1f} generated tokens/s, overhead "
+        f"{overhead:.4f} (a reading; the JAX bench's bound {JSON_OVERHEAD_BOUND})")
+    log(f"[json-serving] {json.dumps(result)}")
+    log(f"[json-serving] lane 0: {detokenize(outs[-1][0][:-1], vocab)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result, launches
+
+
+def mixed_spec_check(cfg, params, device, compiled, json_prompts, specs, valid):
+    """Constrained and unconstrained rows in one batch on an engine with
+    spec and constrained decoding on: the constrained rows (the JSON
+    traffic's first four, sampled) take plain bursts, and no verify runs
+    while one is live; the unconstrained rows (greedy, the spec trace's
+    first four) draft once they are alone. → readings."""
+    engine = spec_engine(cfg, params, device, True, structured=True)
+    bursts_with_schema, verifies = [], []
+    burst, verify = engine.decode_burst, engine.verify_burst
+
+    def counted_burst(uids, *args, **kwargs):
+        bursts_with_schema.append(any(engine.structured.bound(u) for u in uids))
+        return burst(uids, *args, **kwargs)
+
+    def counted_verify(uids, *args, **kwargs):
+        verifies.append(any(engine.structured.bound(u) for u in uids))
+        return verify(uids, *args, **kwargs)
+    engine.decode_burst, engine.verify_burst = counted_burst, counted_verify
+    prompts = json_prompts[:4] + spec_prompts(4, cfg.vocab_size)
+    _, out = fleet(engine, 0, prompts, SPEC_NEW, specs[:4] + [None] * 4, eos=JSON_EOS,
+                   schemas=[compiled] * 4 + [None] * 4)
+    for toks in out[:4]:
+        valid(toks, "mixed")
+    if any(verifies) or not any(bursts_with_schema):
+        raise AssertionError(f"mixed batch: verifies with a constrained row {sum(verifies)}, "
+                             f"bursts with one {sum(bursts_with_schema)}")
+    stats = engine.spec.stats()
+    engine.destroy()
+    return {"bursts_with_constrained_rows": sum(bursts_with_schema),
+            "verify_steps_after": len(verifies), "tokens_drafted": stats["tokens_drafted"]}
+
+
 def grid_fraction_of(cfg):
     """The layout density the model's sparse section gives at BERT_S."""
     from deepspeed_tpu_torch.models.bert import _sparse_self_attention
@@ -5236,6 +5717,15 @@ def main():
     del flush
     lap("phase 26 (sampled serving)")
 
+    # speculative and constrained decoding on the Mistral-7B ragged engine, one set of weights
+    weights = serving_params(device)
+    _, spec_launches = spec_serving_phase(device, weights)
+    _, json_launches = json_serving_phase(device, weights)
+    del weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("phases 27-28 (speculative and constrained decoding)")
+
     main_case = next(c for c in cases if c["case"] == "serving_decode")
     kernels = [{"name": "paged_decode_attention", "route": "cuda",
                 "source": "deepspeed_tpu_torch/csrc/paged_attention.cu",
@@ -5249,6 +5739,8 @@ def main():
                 "design": main_case["design"], "first_design_ms": main_case["first_design_ms"],
                 "launches_by_design": serving["designs"]["K3"],
                 "launches_sampled_serving": sampled_launches["paged_decode_attention"],
+                "launches_spec_verify": spec_launches["paged_decode_attention"],
+                "launches_constrained_serving": json_launches["paged_decode_attention"],
                 "cases": cases}]
     train_kernels = {
         "flash_fwd": ("flash_attention.cu", "flash_attention.py:46",
@@ -5274,6 +5766,8 @@ def main():
         if name in designs:
             kernels[-1]["design"] = designs[name]
             kernels[-1]["library_call"] = main_row["library_call"]
+        if name == "rms_norm_fwd":  # the serving path's norms too
+            kernels[-1]["launches_spec_verify"] = spec_launches["rms_norm_fwd"]
     slice3 = {  # name: (source, TPU kernel, cases, main case, launches, shape)
         "quant_matmul": ("fused_quant_matmul.cu", "fused_quant_matmul.py:90", qmm_cases,
                          "int8_M8_{}x{}".format(*ATTN_SHAPES[0]), int8_launches["quant_matmul"],
@@ -5379,6 +5873,8 @@ def main():
                     "design": main_row["design"], "first_design_ms": main_row["first_design_ms"],
                     "forwards_by_design": serving["k4_forwards"],
                     "launches_sampled_serving": sampled_launches["dense_matmul"],
+                    "launches_spec_verify": spec_launches["dense_matmul"],
+                    "launches_constrained_serving": json_launches["dense_matmul"],
                     "cases": dense_cases})
     slice7 = {  # name: (source, TPU kernel, shape)
         "block_sparse_fwd": ("block_sparse_attention.cu", "block_sparse_attention.py:71",

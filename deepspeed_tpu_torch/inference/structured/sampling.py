@@ -1,13 +1,12 @@
 """Packed per-sequence sampling: spec parameters as data.
 
-Port of ``deepspeed_tpu/inference/structured/sampling.py`` without the
-constrained-decoding mask (``apply_dfa_mask`` comes with the port of
-structured decoding). A sampling spec rides the batch as DATA: six int32
-rows per sequence (float bits for temperature/top_p, plus top_k, the
-counter-PRNG seed, and the DFA slot/state, 0 until structured decoding is
-ported), packed into the same flat metadata vector the step and the burst
-already copy to the device, byte-equal to the JAX engine's, so one step
-serves every mix of greedy and sampled rows.
+Port of ``deepspeed_tpu/inference/structured/sampling.py``. A sampling
+spec rides the batch as DATA: six int32 rows per sequence (float bits for
+temperature/top_p, plus top_k, the counter-PRNG seed, and the
+constrained-decoding DFA slot/state), packed into the same flat metadata
+vector the step and the burst already copy to the device, byte-equal to
+the JAX engine's, so one step serves every mix of greedy, sampled and
+schema-constrained rows.
 
 Row convention: ``temperature == 0.0`` (all-zero bits — the natural
 value of an untouched meta row) marks a GREEDY row, decoded by argmax;
@@ -32,14 +31,14 @@ def _f32_bits(x):
     return int(np.array(x, np.float32).view(np.int32))
 
 
-def pack_sample_meta(specs, max_seqs):
-    """Host pack: per-row sampling specs → one flat int32 vector of
-    ``SAMPLE_META_ROWS * max_seqs`` entries.
+def pack_sample_meta(specs, max_seqs, dfa=None):
+    """Host pack: per-row sampling specs (+ optional DFA bindings) → one
+    flat int32 vector of ``SAMPLE_META_ROWS * max_seqs`` entries.
 
     ``specs[i]`` is the resolved sampling dict for batch row i (seed
     already present) or None for a greedy row; rows past ``len(specs)``
-    are padding. The DFA rows stay 0 (the trivial all-allow DFA) until
-    constrained decoding is ported."""
+    are padding. ``dfa[i]`` is ``(schema_slot, dfa_state)`` when
+    constrained decoding is live (slot 0 = the trivial all-allow DFA)."""
     meta = np.zeros((SAMPLE_META_ROWS, max_seqs), np.int32)
     for i, spec in enumerate(specs):
         if spec is None:
@@ -48,6 +47,10 @@ def pack_sample_meta(specs, max_seqs):
         meta[_TOP_K, i] = int(spec.get("top_k", 0))
         meta[_TOP_P_BITS, i] = _f32_bits(float(spec.get("top_p", 1.0)))
         meta[_SEED, i] = np.int32(int(spec.get("seed", 0)) & 0x7FFFFFFF)
+    if dfa is not None:
+        for i, (slot, state) in enumerate(dfa):
+            meta[_DFA_SLOT, i] = int(slot)
+            meta[_DFA_STATE, i] = int(state)
     return meta.ravel()
 
 
@@ -58,6 +61,15 @@ def unpack_sample_meta(flat, max_seqs):
     m = flat.reshape(SAMPLE_META_ROWS, max_seqs)
     return (m[_TEMP_BITS].view(torch.float32), m[_TOP_K], m[_TOP_P_BITS].view(torch.float32),
             m[_SEED], m[_DFA_SLOT], m[_DFA_STATE])
+
+
+def apply_dfa_mask(logits, masks, slots, states):
+    """Compose the constrained-decoding logits mask on the device:
+    ``masks[slots[i], states[i]]`` is row i's allowed-token row (bool
+    ``[V]``); disallowed tokens drop to -inf. Slot 0 is the trivial
+    all-allow DFA, so unconstrained rows pass through unchanged."""
+    allowed = masks[slots.long(), states.long()]
+    return torch.where(allowed, logits, -torch.inf)
 
 
 def sample_rows(logits, keys, temperature, top_k, top_p):

@@ -42,9 +42,26 @@ continues into them; ``prefetch_prefix`` stages them on a worker,
 engines as a validated handoff record. ``suspend``/``resume`` swap a live
 sequence's KV to host memory and back.
 
+Self-speculative decoding (``spec_decode.enabled``, ``DS_SPEC_DECODE``):
+``propose_drafts`` looks the sequence's own token log up for a recurring
+suffix n-gram, and ``verify_burst`` scores each sequence's entry token and
+its drafts as one (d+1)-token chunk in one ragged forward, accepting the
+longest prefix of drafts that equal the model's own choices there (the
+argmax, or the counter-keyed draw stepwise decode makes at that
+position), so the emitted stream equals the spec-off stream.
+
+Constrained decoding (``structured.enabled``, ``DS_CONSTRAINED``):
+``bind_schema`` leases a JSON schema's or regex's token DFA a slot of the
+:class:`StructuredStore`'s device slabs; every on-device pick of a bound
+sequence masks its logits by its DFA state's allowed tokens (rows 4-5 of
+the sampling rows carry the slot and the state), and a burst advances
+the state on the device from the picked token.
+
 Features outside this slice raise ``NotImplementedError`` at
 construction (:func:`unported_features`). Of the ``DS_*`` environment
-variables only ``DS_SEED`` is read (:func:`ds_seed`)."""
+variables ``DS_SEED`` (:func:`ds_seed`), ``DS_SPEC_DECODE``,
+``DS_SPEC_DRAFT_LEN`` and ``DS_CONSTRAINED`` (``utils/env.py``) are
+read."""
 
 import os
 
@@ -59,9 +76,13 @@ from deepspeed_tpu_torch.inference.quantization.quantization import (QuantizedWe
 from deepspeed_tpu_torch.inference.structured.prng import (base_sampling_key, fold_in,
                                                            fold_in_rows, key_tensor, prng_key,
                                                            randint31, split, token_keys)
+from deepspeed_tpu_torch.inference.structured import constrained_enabled
+from deepspeed_tpu_torch.inference.structured.grammar import CompiledSchema
 from deepspeed_tpu_torch.inference.structured.sampling import (SAMPLE_META_ROWS,
+                                                               apply_dfa_mask,
                                                                pack_sample_meta, sample_rows,
                                                                unpack_sample_meta)
+from deepspeed_tpu_torch.inference.structured.store import StructuredStore, schema_cache
 from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
 from deepspeed_tpu_torch.inference.v2.kv_tier import (TierManager, kv_tier_bytes, kv_tier_enabled,
                                                       kv_tier_quantized)
@@ -73,6 +94,7 @@ from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import NULL_BLOCK, Blocked
 from deepspeed_tpu_torch.inference.v2.ragged.ragged_manager import DSStateManager
 from deepspeed_tpu_torch.inference.v2.ragged.ragged_wrapper import (RaggedBatchWrapper,
                                                                     unpack_batch)
+from deepspeed_tpu_torch.inference.v2.spec import SpecDecodeState, spec_decode_enabled
 from deepspeed_tpu_torch.models.llama import (check_servable, init_params,
                                               init_quantized_params, llama_config)
 from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import SCHEMES
@@ -99,9 +121,8 @@ def unported_features(config):
     """→ [(feature, roadmap item)] the config turns on that the port
     does not serve yet."""
     out = []
-    for name in ("spec_decode", "structured", "async_burst"):
-        if getattr(config, name).enabled:
-            out.append((name, _QUEUE4))
+    if config.async_burst.enabled:
+        out.append(("async_burst", _QUEUE4))
     if config.lora.enabled and config.lora.publish_root:
         out.append(("lora.publish_root (the adapter disk tier)", _QUEUE4))
     for name in ("tensor_parallel_degree", "expert_parallel_degree"):
@@ -121,6 +142,27 @@ def _burst_layout(ms, mb, lora=False, sampled=False):
         fields.append(("seq_adapters", ms + 1))
     if sampled:
         fields.append(("sample_meta", SAMPLE_META_ROWS * ms))
+    return _offsets(fields)
+
+
+def _verify_layout(ms, mb, d, lora=False, sampled=False):
+    """Wire format of the verify-burst metadata vector, ``_burst_layout``'s
+    twin for the speculative path (the JAX engine's ``_verify_layout``):
+    per sequence, the entry token plus ``d`` (padded) draft tokens, the
+    real draft count, and the usual slot/position/block-table fields
+    (plus the adapter-slot row when LoRA serving is on and the
+    sampling-spec rows for the rejection-sampled verify)."""
+    fields = [("tokens", ms * (d + 1)), ("dlen", ms), ("token_seq", ms), ("pos0", ms),
+              ("tables", (ms + 1) * mb)]
+    if lora:
+        fields.append(("seq_adapters", ms + 1))
+    if sampled:
+        fields.append(("sample_meta", SAMPLE_META_ROWS * ms))
+    return _offsets(fields)
+
+
+def _offsets(fields):
+    """[(field, size)] → field → (start, end) offsets into one vector."""
     o, lay = 0, {}
     for name, size in fields:
         lay[name] = (o, o + size)
@@ -232,9 +274,28 @@ class InferenceEngineV2:
                     prefetch=bool(tier_cfg.prefetch),
                     count_sync=self.count_host_sync)
                 self.prefix_cache.attach_tier(self.kv_tier)
-        # the per-sequence KV-content token log feeds the prefix cache's
-        # retire-time content addressing
-        self._log_tokens = self.prefix_cache is not None
+        # Self-speculative decoding (n-gram drafting + batched verify):
+        # config-gated with the DS_SPEC_DECODE env kill switch. When
+        # live, schedulers draft via propose_drafts() and score drafts
+        # in one forward via verify_burst().
+        self.spec = None
+        if spec_decode_enabled(self._config.spec_decode):
+            self.spec = SpecDecodeState(self._config.spec_decode)
+        # Structured (grammar/JSON-schema constrained) decoding:
+        # config-gated with the DS_CONSTRAINED env kill switch. When
+        # live, bound schemas install token-DFA slabs on the device and
+        # every on-device pick gathers a per-sequence logits mask from
+        # them; off, no DFA row is packed and no mask applied.
+        self.structured = None
+        if constrained_enabled(self._config.structured):
+            scfg = self._config.structured
+            self.structured = StructuredStore(int(cfg.vocab_size),
+                                              max_schemas=int(scfg.max_schemas),
+                                              max_states=int(scfg.max_states),
+                                              device=self.device)
+        # the per-sequence KV-content token log feeds BOTH the prefix
+        # cache (retire-time content addressing) and the n-gram drafter
+        self._log_tokens = self.prefix_cache is not None or self.spec is not None
         self._suspended = {}  # uid -> {"handle": host KV, "seen_tokens", "tokens"}
         # positions are bounded by BOTH the block table and the RoPE table
         self.max_ctx_tokens = min(self.max_blocks_per_seq * self.block_size,
@@ -270,6 +331,8 @@ class InferenceEngineV2:
                     f"lora={'on' if self.lora_store is not None else 'off'} "
                     f"prefix_cache={'on' if self.prefix_cache is not None else 'off'} "
                     f"kv_tier={tier} "
+                    f"spec_decode={'on' if self.spec is not None else 'off'} "
+                    f"structured={'on' if self.structured is not None else 'off'} "
                     f"param_bytes={self.quantized_bytes/1e6:.1f}MB "
                     f"kv_bytes={self.kv_cache.bytes()/1e6:.1f}MB")
 
@@ -313,9 +376,13 @@ class InferenceEngineV2:
         picked on the device. A ``{"temperature", "top_k", "top_p",
         "seed"}`` dict samples every row on the device with its counter
         key; a per-uid list of dict/None mixes sampled and greedy rows in
-        one step (the specs ride the packed vector as data). The batch is
-        always validated first."""
+        one step (the specs ride the packed vector as data). Sequences
+        with a bound schema (:meth:`bind_schema`) additionally gather
+        their DFA logits mask on the device and MUST use an on-device
+        mode (``"greedy"`` or a spec): the raw-logits path cannot enforce
+        the constraint. The batch is always validated first."""
         mode, specs = self._classify_sample(sample, len(batch_uids))
+        mode, specs = self._constrain_mode(batch_uids, mode, specs)
         self.count_host_sync()
         batch_tokens = [np.atleast_1d(np.asarray(t, np.int32)) for t in batch_tokens]
         # Validate the WHOLE batch before touching any sequence state: a
@@ -375,13 +442,16 @@ class InferenceEngineV2:
             # seeds for specs submitted without one, then append the six
             # int32 rows per sequence
             self._resolve_seeds(specs)
-            arrays = np.concatenate([arrays, pack_sample_meta(specs, self.max_seqs)])
+            arrays = np.concatenate([arrays, pack_sample_meta(specs, self.max_seqs,
+                                                              dfa=self._dfa_rows(batch_uids))])
         batch = unpack_batch(self._upload(arrays), self.max_seqs, self.max_blocks_per_seq,
                              lora=self.lora_store is not None, sampled=sampled)
         logits = self._forward(batch)
         if sampled:
-            temp, topk, topp, seed, _, _ = unpack_sample_meta(batch["sample_meta"],
-                                                              self.max_seqs)
+            temp, topk, topp, seed, slot, state = unpack_sample_meta(batch["sample_meta"],
+                                                                     self.max_seqs)
+            if self.structured is not None:
+                logits = apply_dfa_mask(logits, self.structured.slabs()[0], slot, state)
             # the token this step emits lands one past the row's last
             # scheduled token: the same absolute position (and so the
             # same counter key) every other path derives for it
@@ -433,6 +503,28 @@ class InferenceEngineV2:
                          f"{{'temperature', 'top_k', 'top_p', 'seed'}}, or a "
                          f"per-sequence list of dict/None")
 
+    def _any_bound(self, batch_uids):
+        """True when constrained decoding is live and a uid has a schema."""
+        return self.structured is not None and any(self.structured.bound(u) for u in batch_uids)
+
+    def _constrain_mode(self, batch_uids, mode, specs):
+        """A batch holding a schema-bound sequence runs the packed mode
+        (greedy rows still need their DFA meta rows) and refuses the
+        raw-logits mode, which cannot enforce the constraint."""
+        if not self._any_bound(batch_uids):
+            return mode, specs
+        if mode == "logits":
+            raise RuntimeError("constrained sequences sample on device — call put with "
+                               "sample='greedy' or a sampling spec, not the raw-logits path")
+        return "packed", specs if specs is not None else [None] * len(batch_uids)
+
+    def _dfa_rows(self, batch_uids):
+        """Each row's ``(schema slot, DFA state)`` when constrained decoding
+        is live, else None (the DFA rows stay 0)."""
+        if self.structured is None:
+            return None
+        return [(self.structured.slot_of(u), self.structured.state_of(u)) for u in batch_uids]
+
     def _resolve_seeds(self, specs):
         for s in specs:
             if s is not None and "seed" not in s:
@@ -483,6 +575,32 @@ class InferenceEngineV2:
         _, err = self._validate_burst(batch_uids, int(k))
         return err is None
 
+    def _pack_rows(self, descs, batch_tokens, n_tok):
+        """The wire rows a burst and a verify share: each sequence takes
+        row ``i``, its adapter slot and KV blocks for ``n_tok`` more
+        tokens; pad rows write the null slot with the base adapter. →
+        [entry tokens, token_seq, pos0, tables, (adapters)]: the entries a
+        list, the rest the packed vector's arrays in wire order."""
+        ms, mb = self.max_seqs, self.max_blocks_per_seq
+        lora_on = self.lora_store is not None
+        entries = []
+        token_seq = np.full(ms, ms, np.int32)
+        pos0 = np.zeros(ms, np.int32)
+        tables = np.full((ms + 1, mb), NULL_BLOCK, np.int32)
+        adapters = np.zeros(ms + 1, np.int32)
+        for i, (desc, tok) in enumerate(zip(descs, batch_tokens)):
+            desc.slot = i
+            if lora_on:
+                desc.adapter_slot = self.lora_store.slot_of(desc.uid)
+                adapters[i] = desc.adapter_slot
+            self.state_manager.allocate_for(desc, n_tok)
+            self.count_host_sync()
+            entries.append(int(np.asarray(tok).reshape(-1)[-1]))
+            token_seq[i] = i
+            pos0[i] = desc.seen_tokens
+            tables[i, :len(desc.blocks)] = desc.blocks
+        return [entries, token_seq, pos0, tables.ravel()] + ([adapters] if lora_on else [])
+
     def decode_burst(self, batch_uids, batch_tokens, k, sample=None):
         """Run ``k`` decode steps for one current token per uid: each
         step's token feeds the next on the device, and the host copies
@@ -490,12 +608,18 @@ class InferenceEngineV2:
         spec dict or a per-uid list of dict/None draws with counter keys
         ``(seed, absolute position)``, so burst length and scheduling
         never change the emitted stream. Returns int32 tokens ``[k,
-        len(uids)]``. KV blocks for all ``k`` tokens are reserved up
-        front, so the block tables are fixed across the burst."""
+        len(uids)]``. Sequences with a bound schema mask their logits by
+        their DFA state at every step, and the state advances on the
+        device from the picked token. KV blocks for all ``k`` tokens are
+        reserved up front, so the block tables are fixed across the
+        burst."""
         k = int(k)
         if k < 1:
             raise ValueError("k must be >= 1")
         mode, specs = self._classify_sample(sample, len(batch_uids))
+        if mode == "logits":
+            mode = "greedy"  # a burst has no raw-logits mode
+        mode, specs = self._constrain_mode(batch_uids, mode, specs)
         sampled = mode == "packed"
         if len(batch_uids) != len(batch_tokens):
             raise ValueError(f"{len(batch_uids)} uids vs {len(batch_tokens)} tokens")
@@ -509,26 +633,14 @@ class InferenceEngineV2:
 
         lora_on = self.lora_store is not None
         tokens0 = np.zeros(ms, np.int32)
-        token_seq = np.full(ms, ms, np.int32)   # pad rows write the null slot
-        pos0 = np.zeros(ms, np.int32)
-        tables = np.full((ms + 1, mb), NULL_BLOCK, np.int32)
-        adapters = np.zeros(ms + 1, np.int32)   # pad row stays slot 0 = base
-        for i, (desc, tok) in enumerate(zip(descs, batch_tokens)):
-            desc.slot = i
-            if lora_on:
-                desc.adapter_slot = self.lora_store.slot_of(desc.uid)
-                adapters[i] = desc.adapter_slot
-            self.state_manager.allocate_for(desc, k)
-            self.count_host_sync()
-            tokens0[i] = int(np.asarray(tok).reshape(-1)[-1])
-            token_seq[i] = i
-            pos0[i] = desc.seen_tokens
-            tables[i, :len(desc.blocks)] = desc.blocks
+        rows = self._pack_rows(descs, batch_tokens, k)
+        tokens0[:len(descs)] = rows[0]
+        for desc in descs:
             desc.advance(k)
-        parts = [tokens0, token_seq, pos0, tables.ravel()] + ([adapters] if lora_on else [])
+        parts = [tokens0] + rows[1:]
         if sampled:
             self._resolve_seeds(specs)
-            parts.append(pack_sample_meta(specs, ms))
+            parts.append(pack_sample_meta(specs, ms, dfa=self._dfa_rows(batch_uids)))
         meta = self._upload(np.concatenate(parts))
         lay = _burst_layout(ms, mb, lora=lora_on, sampled=sampled)
         toks = meta[slice(*lay["tokens0"])]
@@ -538,18 +650,26 @@ class InferenceEngineV2:
         if lora_on:
             batch["seq_adapters"] = meta[slice(*lay["seq_adapters"])]
         pos0 = meta[slice(*lay["pos0"])]
+        slabs = None
         if sampled:
-            temp, topk, topp, seed, _, _ = unpack_sample_meta(meta[slice(*lay["sample_meta"])],
-                                                              ms)
+            temp, topk, topp, seed, slot, st = unpack_sample_meta(
+                meta[slice(*lay["sample_meta"])], ms)
             seed_keys = fold_in_rows(self._base_key, seed)  # the first fold, once a burst
+            if self.structured is not None:
+                slabs = self.structured.slabs()
+                slot = slot.long()
         out = torch.empty((k, ms), dtype=torch.int32, device=self.device)
         for i in range(k):
             logits = self._forward(dict(batch, token_ids=toks, token_pos=pos0 + i))
             if sampled:
+                if slabs is not None:
+                    logits = apply_dfa_mask(logits, slabs[0], slot, st)
                 # step i's token lands at absolute position pos0 + i + 1,
                 # so its counter key matches the stepwise path exactly
                 toks = sample_rows(logits, fold_in_rows(seed_keys, pos0 + i + 1), temp, topk,
                                    topp)
+                if slabs is not None:
+                    st = slabs[1][slot, st.long(), toks.long()]  # the DFA advance, on the device
             else:
                 toks = logits.argmax(dim=-1).to(torch.int32)
             out[i] = toks
@@ -562,9 +682,202 @@ class InferenceEngineV2:
             # token followed by the first k-1 outputs
             for i, desc in enumerate(descs):
                 desc.tokens.fence()
-                desc.tokens.append(int(tokens0[i]))
+                desc.tokens.append(int(rows[0][i]))
                 desc.tokens.extend(int(t) for t in toks[:-1, i])
         return toks
+
+    # -------------------------------------------- speculative decoding
+    def propose_drafts(self, batch_uids, batch_tokens, max_lens=None):
+        """Host-side n-gram (prompt-lookup) drafting against each
+        sequence's KV-content token log plus its pending entry token. →
+        one (possibly empty) list of draft ids per uid; empty when spec
+        decoding is off, the per-sequence accept EMA disabled drafting
+        for that uid, ``max_lens[i]`` caps it to 0, or the log holds no
+        recurring suffix n-gram."""
+        if self.spec is None:
+            return [[] for _ in batch_uids]
+        out = []
+        for i, (uid, tok) in enumerate(zip(batch_uids, batch_tokens)):
+            desc = self.state_manager.query(uid)
+            cap = self.spec.draft_len(uid)
+            if max_lens is not None:
+                cap = min(cap, int(max_lens[i]))
+            if desc is None or cap < 1:
+                out.append([])
+                continue
+            self.count_host_sync()  # the entry token, from the previous step's host copy
+            entry = int(np.asarray(tok).reshape(-1)[-1])
+            desc.tokens.fence()
+            out.append(self.spec.drafter.propose(desc.tokens + [entry], cap))
+        return out
+
+    def verify_burst(self, batch_uids, batch_tokens, batch_drafts, sample=None):
+        """Score each sequence's entry token plus its draft tokens in ONE
+        ragged forward — the drafts enter as a (d+1)-token chunk through
+        the same paged path a prefill chunk takes — and accept the
+        longest draft prefix matching the model's own choices, followed
+        by the model's next token at the first mismatch.
+
+        Greedy (``sample=None``): the model's choice is the argmax, so
+        the emitted stream equals stepwise greedy decoding. Sampled (a
+        spec dict or per-uid list): position ``j``'s choice is drawn from
+        the filtered target with the SAME counter key ``(seed, pos0 + j +
+        1)`` stepwise decode would use there, and a draft survives iff it
+        equals that draw. The n-gram drafter proposes point-mass drafts,
+        so accept-iff-equal IS the rejection-sampling correction, and the
+        emitted stream equals the spec-off sampled stream per seed.
+
+        → ``(tokens [n, d+1] int32, accepted [n] int64)``: row ``i``
+        emits ``tokens[i, :accepted[i] + 1]``. KV blocks are reserved for
+        the full ``d+1`` tokens up front, but ``seen_tokens`` and the
+        token log advance only by the accepted count; the rejected tail
+        is abandoned in place and trailing whole blocks return to the
+        pool. The tokens and accept counts leave the device in one
+        copy."""
+        if self.spec is None:
+            raise RuntimeError("speculative decoding is disabled "
+                               "(config.spec_decode / DS_SPEC_DECODE)")
+        mode, specs = self._classify_sample(sample, len(batch_uids))
+        sampled = mode == "packed"
+        if self._any_bound(batch_uids):
+            raise RuntimeError(
+                "constrained sequences cannot enter verify bursts — the "
+                "drafter proposed tokens without the DFA mask; schedulers "
+                "route schema-bound sequences through plain bursts")
+        if not len(batch_uids) == len(batch_tokens) == len(batch_drafts):
+            raise ValueError(f"{len(batch_uids)} uids vs {len(batch_tokens)} "
+                             f"tokens vs {len(batch_drafts)} drafts")
+        if len(batch_uids) > self.max_seqs:
+            raise ValueError(f"{len(batch_uids)} sequences > "
+                             f"max_ragged_sequence_count={self.max_seqs}")
+        d = max((len(dr) for dr in batch_drafts), default=0)
+        if d < 1:
+            raise ValueError("verify_burst needs at least one draft token; "
+                             "use put()/decode_burst for draft-free decoding")
+        descs, err = self._validate_burst(batch_uids, d + 1)
+        if err is not None:
+            raise err
+        ms, mb = self.max_seqs, self.max_blocks_per_seq
+        lora_on = self.lora_store is not None
+        toks = np.zeros((ms, d + 1), np.int32)
+        dlen = np.zeros(ms, np.int32)
+        rows = self._pack_rows(descs, batch_tokens, d + 1)
+        entries = rows[0]
+        for i, (entry, drafts) in enumerate(zip(entries, batch_drafts)):
+            toks[i] = entry  # inert pad past the drafts: dlen masks acceptance
+            toks[i, 1:1 + len(drafts)] = [int(t) for t in drafts]
+            dlen[i] = len(drafts)
+        parts = [toks.ravel(), dlen] + rows[1:]
+        if sampled:
+            self._resolve_seeds(specs)
+            parts.append(pack_sample_meta(specs, ms))
+        meta = self._upload(np.concatenate(parts))
+        lay = _verify_layout(ms, mb, d, lora=lora_on, sampled=sampled)
+        nxt, acc = self._verify(meta, lay, ms, d, sampled)
+        # THE one device→host copy of a verify: tokens and accept counts
+        # leave together (counted as the JAX engine's two sync sites)
+        self.count_host_sync(2)
+        wire = torch.cat([nxt.reshape(-1), acc]).cpu().numpy()
+        out = wire[:ms * (d + 1)].reshape(ms, d + 1)
+        acc = wire[ms * (d + 1):].astype(np.int64)
+        n = len(batch_uids)
+        for i, desc in enumerate(descs):
+            a = int(acc[i])
+            self.tokens_emitted += a + 1
+            # KV positions [seen, seen+a] hold the entry token and the a
+            # accepted drafts; the bonus token out[i, a] is the NEXT
+            # step's entry and was never written (same convention as the
+            # plain burst). Advance by accepted only, then return whole
+            # unused trailing blocks.
+            desc.advance(a + 1)
+            if self._log_tokens:
+                desc.tokens.fence()
+                desc.tokens.append(entries[i])
+                desc.tokens.extend(int(t) for t in out[i, :a])
+            self.state_manager.release_unused_blocks(desc)
+            if int(dlen[i]):
+                self.spec.note(desc.uid, accepted=a, drafted=int(dlen[i]))
+        return out[:n], acc[:n]
+
+    def _verify(self, meta, lay, ms, d, sampled):
+        """The verify's device work: one ragged forward over ``ms * (d +
+        1)`` tokens (``last_index = arange(T)`` selects every token's
+        logits), each position's pick — the argmax, or the counter-keyed
+        draw from its filtered target — and the longest matching draft
+        prefix. → (picks int32 [ms, d+1], accepted int32 [ms]), on the
+        device; nothing here reads a device value on the host."""
+        toks = meta[slice(*lay["tokens"])].reshape(ms, d + 1)
+        dlen = meta[slice(*lay["dlen"])]
+        token_seq = meta[slice(*lay["token_seq"])]
+        pos0 = meta[slice(*lay["pos0"])]
+        T = ms * (d + 1)
+        steps = torch.arange(d + 1, dtype=torch.int32, device=self.device)
+        # each sequence enters as one (d+1)-token chunk at positions
+        # pos0..pos0+d, exactly a packed prefill chunk: the layer writes
+        # the chunk's KV first and attention masks by position, so
+        # within-chunk causality holds as it does for split prefills
+        batch = {"token_ids": toks.reshape(-1),
+                 "token_seq": token_seq.repeat_interleave(d + 1),
+                 "token_pos": (pos0[:, None] + steps[None, :]).reshape(-1),
+                 "block_tables": meta[slice(*lay["tables"])].reshape(ms + 1, -1),
+                 "last_index": torch.arange(T, dtype=torch.int32, device=self.device)}
+        if "seq_adapters" in lay:
+            batch["seq_adapters"] = meta[slice(*lay["seq_adapters"])]
+        logits = self._forward(batch)
+        if not sampled:
+            nxt = logits.argmax(dim=-1).to(torch.int32)
+        else:
+            # position j of row i draws with key (seed[i], pos0[i] + j +
+            # 1), the key stepwise decode uses for that position
+            temp, topk, topp, seed, _, _ = unpack_sample_meta(meta[slice(*lay["sample_meta"])],
+                                                              ms)
+            rep = lambda x: x.repeat_interleave(d + 1)  # noqa: E731
+            pos = (pos0[:, None] + steps[None, :] + 1).reshape(-1)
+            nxt = sample_rows(logits, token_keys(self._base_key, rep(seed), pos), rep(temp),
+                              rep(topk), rep(topp))
+        nxt = nxt.reshape(ms, d + 1)
+        # draft j survives iff every earlier draft did AND it equals the
+        # model's own pick there: the sum of the running cumprod counts
+        # the matching prefix
+        match = (toks[:, 1:] == nxt[:, :-1]) & (steps[None, :d] < dlen[:, None])
+        acc = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1).to(torch.int32)
+        return nxt, acc
+
+    # ---------------------------------------------- constrained decoding
+    def bind_schema(self, uid, schema, token_strings=None, eos_token_id=None):
+        """Constrain ``uid``'s generated tokens to ``schema``: a
+        :class:`~deepspeed_tpu_torch.inference.structured.grammar.CompiledSchema`,
+        or a raw JSON-schema dict / regex string compiled through the
+        process-wide schema cache (``token_strings`` — the vocab's
+        per-token surface strings — required then). The token-DFA mask
+        composes into every later on-device pick of ``uid``. → the
+        leased slot."""
+        if self.structured is None:
+            raise RuntimeError("constrained decoding is disabled "
+                               "(config.structured / DS_CONSTRAINED)")
+        if not isinstance(schema, CompiledSchema):
+            if token_strings is None:
+                raise ValueError(
+                    "raw schemas need token_strings to compile against — "
+                    "pass a CompiledSchema or the vocab surface strings")
+            schema = schema_cache().get_or_compile(schema, token_strings,
+                                                   eos_token_id=eos_token_id)
+        return self.structured.bind(uid, schema)
+
+    def advance_schema(self, uid, token):
+        """Advance ``uid``'s authoritative host DFA state through one
+        ACCEPTED token (no-op → 0 for unconstrained uids). Schedulers
+        call this from their accept loop only, so tokens a burst drew
+        past EOS/max_new and then discarded never advance it."""
+        if self.structured is None:
+            return 0
+        return self.structured.advance(uid, int(token))
+
+    def schema_accepting(self, uid):
+        """True when ``uid``'s constraint (if any) is at an accepting DFA
+        state: the emitted stream so far is schema-complete and EOS is
+        currently grammatical."""
+        return self.structured is None or self.structured.accepting(uid)
 
     def rewind(self, uid, n_tokens):
         """Roll ``uid`` back by ``n_tokens`` of KV content; now-unused
@@ -704,8 +1017,12 @@ class InferenceEngineV2:
             self.state_manager.flush_sequence(uid)
         elif not suspended:
             raise KeyError(f"unknown sequence {uid}")
+        if self.spec is not None:
+            self.spec.forget(uid)
         if self.lora_store is not None:
             self.lora_store.release(uid)  # drop the adapter-slot lease
+        if self.structured is not None:
+            self.structured.release(uid)  # drop the schema lease + DFA state
 
     def suspend(self, uid):
         """Swap a live sequence's KV blocks to host memory and release
@@ -788,6 +1105,8 @@ class InferenceEngineV2:
         if self.lora_store is not None:
             self.lora_store.shutdown()  # stop the adapter prefetch worker
         self.lora_store = None
+        self.spec = None
+        self.structured = None
 
     @property
     def free_blocks(self):

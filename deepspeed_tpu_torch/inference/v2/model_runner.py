@@ -12,8 +12,9 @@ knobs), with dense or weight-only quantized params:
   decodes in one step (Dynamic SplitFuse);
 - the layer stack is a Python loop over the stacked layer params;
 - dense projections go through ``dense_matmul``, a hand-written GEMM
-  whose per-row sums do not depend on the batch's row count, so greedy
-  streams are the same at every token bucket;
+  whose per-row sums do not depend on the batch's row count, and the RMS
+  norms through the hand-written RMS forward (one warp a row), so greedy
+  streams are the same at every token bucket and in a verify forward;
 - quantized carriers (``inference/quantization``) stay quantized: every
   projection runs through the fused dequant-matmul kernel
   (``QuantizedWeight.matmul``), the MoE expert stacks through the grouped kernels
@@ -39,14 +40,20 @@ from deepspeed_tpu_torch.inference.v2.modules.heuristics import instantiate_attn
 from deepspeed_tpu_torch.models.llama import check_servable, rope_frequencies, rope_scaling_of
 from deepspeed_tpu_torch.moe.sharded_moe import top_k
 from deepspeed_tpu_torch.ops.grouped_gemm import dropless_moe_ffn
+from deepspeed_tpu_torch.ops.kernels.fused_norms import rms_norm_fwd, rms_norm_ref
 from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import dense_matmul
 from deepspeed_tpu_torch.ops.kernels.lora_matmul import lora_delta, lora_layout
 
 
 def _rms(x, scale, eps):
-    x32 = x.float()
-    y = x32 * torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
-    return (y * scale.float()).to(x.dtype)
+    """RMS norm, fp32 statistics, x's dtype out: on CUDA the hand-written
+    RMS forward (``csrc/fused_norms.cu``, one warp a row summing in a fixed
+    order, so a row's bits do not depend on the batch; PyTorch's mean
+    reduction takes another order at another row count), on the CPU its
+    plain version."""
+    if x.is_cuda:
+        return rms_norm_fwd(x.contiguous(), scale.to(x.dtype), eps)
+    return rms_norm_ref(x, scale, eps)
 
 
 def _proj(x, w, b=None):
@@ -153,7 +160,9 @@ def _embed(embed, ids, dtype):
 
 def ragged_forward(params, kcache, vcache, batch, cfg, dtype=torch.bfloat16,
                    attn_impl=None, rope=None, lora=None):
-    """→ (last-token logits [max_seqs, vocab] fp32, kcache, vcache).
+    """→ (logits [len(last_index), vocab] fp32 of the tokens ``last_index``
+    selects, kcache, vcache): each sequence's last token in a put or a
+    burst step (``max_seqs`` rows), every token in a verify (``arange(T)``).
 
     ``kcache``/``vcache``: [L, NB, bs, Hkv, Dh], updated in place and
     returned; ``batch``: the tensors of ``unpack_batch`` on the params'

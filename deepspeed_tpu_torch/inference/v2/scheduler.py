@@ -10,10 +10,12 @@ so step latency stays flat and the MXU stays fed.
 
 Port: a copy of ``deepspeed_tpu/inference/v2/scheduler.py``. Greedy and
 sampled decoding on the device (``sampling=`` for every request, or a
-per-request ``sample``) and a host ``sample_fn`` work. The speculative,
-pipelined-burst and schema paths are kept as in the JAX package and stay
-inert: the port's engine has no ``spec``, ``async_burst`` or
-``structured``."""
+per-request ``sample``), a host ``sample_fn``, speculative verify bursts
+(when the engine's ``spec`` is on) and schema-constrained requests
+(``add_request(schema=)``, when the engine's ``structured`` is on; such a
+batch takes plain bursts, never a verify) work. The pipelined-burst path
+is kept as in the JAX package and stays inert: the port's engine has no
+``async_burst``."""
 
 from collections import OrderedDict, deque
 

@@ -54,7 +54,13 @@ uniforms on the card equal its CPU version bit for bit, the packed
 sampler on the card draws the CPU's tokens from the same logits and keys
 but for near-ties (at most SAMPLE_MISMATCHES of 512 rows), and a sampled
 engine on the card replays a seeded trace, gives the same streams
-stepwise and in bursts, and draws ``top_k: 1`` as greedy."""
+stepwise and in bursts, and draws ``top_k: 1`` as greedy. Speculative
+decoding: a verify on the card with forced drafts (greedy and sampled)
+emits the stepwise stream bit for bit through the kernels, and spec on
+gives the spec-off greedy streams; the serving RMS norm's rows keep their
+bits at every row count; constrained decoding: the DFA mask and
+advance on the card equal the CPU's, and a constrained engine on the card
+emits schema-valid JSON."""
 
 import numpy as np
 import pytest
@@ -2510,3 +2516,134 @@ def test_sampled_engine_on_card(cuda):
     for p in prompts[:2]:
         _topk1_against_greedy(eng, p, 24)
     assert eng.free_blocks == free0
+
+
+# ------------------------------------------- speculative and constrained decoding
+def _spec_engine(cuda, spec=True, structured=False):
+    from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig, InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.models import init_params, llama_config
+    cfg = llama_config("debug", hidden_size=256, num_attention_heads=4,
+                       num_key_value_heads=2, num_hidden_layers=2)
+    params = init_params(cfg, cuda, torch.bfloat16, torch.Generator(cuda).manual_seed(5),
+                         std=0.05)
+    return InferenceEngineV2(cfg, RaggedInferenceEngineConfig(
+        kv_block_size=16, spec_decode={"enabled": spec, "draft_len": 4},
+        structured={"enabled": structured}, state_manager=DSStateManagerConfig(
+            max_ragged_batch_size=64, max_ragged_sequence_count=4, max_tracked_sequences=8,
+            max_context=128)), params=params, device=cuda)
+
+
+def test_verify_burst_on_card_equals_stepwise(cuda):
+    """Forced drafts on the card (all correct, one wrong, two rows and pad
+    rows; greedy and sampled): every emitted token equals the stepwise
+    stream, bit for bit, and the verify forward runs the paged-attention
+    and ``dense_matmul`` kernels; then schedulers with spec on and off
+    over repetitive prompts give the same greedy streams, with verify
+    steps taken."""
+    from deepspeed_tpu_torch.inference.v2 import DynamicSplitFuseScheduler
+    from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import dense_matmul
+    from deepspeed_tpu_torch.ops.kernels.paged_attention import paged_decode_attention
+    eng = _spec_engine(cuda)
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(0, 256, 21).astype(np.int32), rng.randint(0, 256, 40).astype(np.int32)]
+    spec = {"temperature": 1.1, "top_k": 24, "seed": 8}
+    free0 = eng.free_blocks
+    for sample in (None, spec):
+        refs = []
+        for uid, p in enumerate(prompts):  # stepwise: one put a token
+            toks = [int(eng.put([uid], [p], sample=sample or "greedy")[0])]
+            for _ in range(6):
+                toks.append(int(eng.put([uid], [[toks[-1]]], sample=sample or "greedy")[0]))
+            refs.append(toks)
+            eng.flush(uid)
+        first = eng.put([10, 11], prompts, sample=sample or "greedy")
+        assert first.tolist() == [r[0] for r in refs]
+        a0, a1 = paged_decode_attention.launches, dense_matmul.launches
+        wrong = refs[1][1:3] + [(refs[1][3] + 1) % 256, refs[1][4]]
+        toks, acc = eng.verify_burst([10, 11], [[first[0]], [first[1]]],
+                                     [refs[0][1:5], wrong], sample=sample)
+        assert paged_decode_attention.launches - a0 == 2 and dense_matmul.launches - a1 == 15
+        assert acc.tolist() == [4, 2], (sample, acc)
+        assert toks[0].tolist() == refs[0][1:6] and toks[1, :3].tolist() == refs[1][1:4]
+        for uid in (10, 11):
+            eng.flush(uid)
+    assert eng.free_blocks == free0
+
+    def run(engine, uid0):
+        sched = DynamicSplitFuseScheduler(engine, token_budget=64, max_burst=8)
+        for i in range(3):
+            p = np.tile(rng.randint(0, 256, 6).astype(np.int32), 5)
+            sched.add_request(uid0 + i, p, max_new_tokens=32)
+        out = sched.run_to_completion()
+        return [out[uid0 + i] for i in range(3)]
+    rng = np.random.RandomState(4)
+    on = run(eng, 100)
+    rng = np.random.RandomState(4)
+    assert run(_spec_engine(cuda, spec=False), 100) == on
+    assert eng.spec.stats()["verify_steps"] > 0, eng.spec.stats()
+
+
+def test_dfa_mask_and_constrained_engine_on_card(cuda):
+    """``apply_dfa_mask`` and the DFA advance on the card equal the CPU's;
+    a constrained engine on the card keeps its slabs there and emits
+    schema-valid JSON, sampled and greedy, each replaying per seed."""
+    import json
+    from deepspeed_tpu_torch.inference.structured import CompiledSchema, byte_vocab, detokenize
+    from deepspeed_tpu_torch.inference.structured.sampling import apply_dfa_mask
+    from deepspeed_tpu_torch.inference.v2 import DynamicSplitFuseScheduler
+    schema = {"type": "object", "properties": {"ok": {"type": "boolean"},
+                                               "mode": {"enum": ["fast", "safe"]}}}
+    eng = _spec_engine(cuda, structured=True)
+    vocab = byte_vocab(eng.model_config.vocab_size)
+    compiled = CompiledSchema(schema, vocab, eos_token_id=2)
+    eng.bind_schema(1, compiled)
+    masks, trans = eng.structured.slabs()
+    assert masks.is_cuda and trans.is_cuda and trans.dtype == torch.int32
+    rng = np.random.RandomState(5)
+    logits = torch.from_numpy(rng.randn(4, 256).astype(np.float32))
+    slots = torch.tensor([0, 1, 1, 1], dtype=torch.int32)
+    states = torch.tensor([0, 0, 5, 9], dtype=torch.int32)
+    got = apply_dfa_mask(logits.to(cuda), masks, slots.to(cuda), states.to(cuda))
+    want = apply_dfa_mask(logits, masks.cpu(), slots, states)
+    assert torch.equal(got.cpu(), want)
+    pick = got.argmax(dim=-1)
+    assert torch.equal(trans[slots.to(cuda).long(), states.to(cuda).long(), pick].cpu(),
+                       trans.cpu()[slots.long(), states.long(), pick.cpu()])
+    eng.structured.release(1)  # bound, never prefilled: no sequence to flush
+
+    def run(uid0, specs):
+        sched = DynamicSplitFuseScheduler(eng, max_burst=8, eos_token_id=2)
+        for i, s in enumerate(specs):
+            sched.add_request(uid0 + i, rng.randint(0, 256, 12).astype(np.int32),
+                              max_new_tokens=64, sample=s, schema=compiled)
+        out = sched.run_to_completion()
+        return [out[uid0 + i] for i in range(len(specs))]
+    specs = [{"temperature": 1.1, "top_k": 40, "seed": 500 + i} for i in range(3)] + [None]
+    rng = np.random.RandomState(6)
+    first = run(0, specs)
+    rng = np.random.RandomState(6)
+    assert run(100, specs) == first
+    for toks in first:
+        assert toks[-1] == 2, toks
+        doc = json.loads(detokenize(toks[:-1], vocab))
+        assert isinstance(doc["ok"], bool) and doc["mode"] in ("fast", "safe")
+
+
+def test_serving_rms_rows_do_not_move(cuda):
+    """The serving path's RMS norm (K2's RMS forward on CUDA) at the row
+    counts of a decode step, a verify forward and a prefill: every row
+    the same bits as at 512 rows and as alone. PyTorch's eager mean took
+    another summation order at 40 and 64 rows and moved a row's bits."""
+    from deepspeed_tpu_torch.inference.v2.model_runner import _rms
+    from deepspeed_tpu_torch.ops.kernels.fused_norms import rms_norm_fwd
+    g = torch.Generator(cuda).manual_seed(3)
+    x = (torch.randn(512, 4096, generator=g, device=cuda) * 3).to(torch.bfloat16)
+    sc = (1 + 0.1 * torch.randn(4096, generator=g, device=cuda)).to(torch.bfloat16)
+    n0 = rms_norm_fwd.launches
+    full = _rms(x, sc, 1e-5)
+    assert rms_norm_fwd.launches == n0 + 1
+    for M in (1, 2, 7, 8, 16, 40, 64, 255):
+        assert torch.equal(_rms(x[:M], sc, 1e-5), full[:M]), M
+    for r in range(0, 512, 37):
+        assert torch.equal(_rms(x[r:r + 1], sc, 1e-5), full[r:r + 1]), r

@@ -9,10 +9,11 @@
 - Each config switch of a feature the port does not serve or train yet
   raises ``NotImplementedError`` at engine (or model) construction, naming
   its ROADMAP item; so do the training engine's checkpoint methods. The
-  prefix cache and the KV spill tier are ported: their configs build an
-  engine that serves. MoE models serve and train, dropless or
-  capacity-routed. On-device sampling is ported: an invalid spec raises
-  ``ValueError`` at the engine and the scheduler."""
+  prefix cache, the KV spill tier, speculative decoding and constrained
+  decoding are ported: their configs build an engine that serves. MoE
+  models serve and train, dropless or capacity-routed. On-device sampling
+  is ported: an invalid spec raises ``ValueError`` at the engine and the
+  scheduler."""
 
 import ast
 import pathlib
@@ -146,12 +147,34 @@ SLICE17_MODULES = ("deepspeed_tpu_torch.inference.sampling",
 
 def test_scans_cover_the_sampling_slice():
     """The AST scan and the jax-free import above reach the sampling
-    modules; the structured package exports ``derive_seed`` and nothing of
-    constrained decoding."""
+    modules; the structured package exports what the JAX package's does."""
     assert set(SLICE17_MODULES) <= set(_modules())
     from deepspeed_tpu_torch.inference import structured
-    assert structured.__all__ == ["derive_seed"]
-    assert not hasattr(structured, "constrained_enabled")
+    assert structured.__all__ == [
+        "CompiledSchema", "SchemaCompileError", "SchemaCompilerCache", "StructuredStore",
+        "byte_vocab", "constrained_enabled", "derive_seed", "detokenize", "schema_cache"]
+    assert all(hasattr(structured, name) for name in structured.__all__)
+
+
+SLICE18_MODULES = ("deepspeed_tpu_torch.utils.env",
+                   "deepspeed_tpu_torch.inference.v2.spec",
+                   "deepspeed_tpu_torch.inference.v2.spec.drafter",
+                   "deepspeed_tpu_torch.inference.v2.spec.state",
+                   "deepspeed_tpu_torch.inference.structured.grammar",
+                   "deepspeed_tpu_torch.inference.structured.store")
+
+
+def test_scans_cover_the_spec_and_structured_slice():
+    """The AST scan and the jax-free import above reach the speculative
+    and constrained decoding modules; the spec package exports what the
+    JAX package's does, and the switches read only their own knobs."""
+    assert set(SLICE18_MODULES) <= set(_modules())
+    from deepspeed_tpu_torch.inference.v2 import spec
+    from deepspeed_tpu_torch.utils import env
+    assert spec.__all__ == ["NGramDrafter", "SpecDecodeState", "spec_decode_enabled"]
+    assert sorted(env.KNOBS) == ["DS_CONSTRAINED", "DS_SPEC_DECODE", "DS_SPEC_DRAFT_LEN"]
+    with pytest.raises(KeyError, match="unregistered"):
+        env.env_int("DS_SEED")
 
 
 def test_default_device_is_the_gpu():
@@ -173,9 +196,7 @@ def test_default_device_is_the_gpu():
 
 
 OFF_SLICE = {
-    "spec_decode": dict(spec_decode={"enabled": True}),
     "lora": dict(lora={"enabled": True, "publish_root": "adapters"}),  # the disk tier
-    "structured": dict(structured={"enabled": True}),
     "async_burst": dict(async_burst={"enabled": True}),
     "tensor_parallel_degree": dict(tensor_parallel_degree=2),
     "expert_parallel_degree": dict(expert_parallel_degree=2),
@@ -189,23 +210,27 @@ def test_off_slice_feature_raises(flag):
         InferenceEngineV2("debug", cfg, dtype=torch.float32, device="cpu")
 
 
-ON_SLICE = {
-    "prefix_cache": dict(prefix_cache={"enabled": True}),
-    "kv_tier": dict(prefix_cache={"enabled": True}, kv_tier={"enabled": True, "quantize": True}),
+ON_SLICE = {  # flag: (config, the engine's attribute, prompt tokens the second request reuses)
+    "prefix_cache": (dict(prefix_cache={"enabled": True}), "prefix_cache", 8),
+    "kv_tier": (dict(prefix_cache={"enabled": True},
+                     kv_tier={"enabled": True, "quantize": True}), "kv_tier", 8),
+    "spec_decode": (dict(spec_decode={"enabled": True}), "spec", 0),
+    "structured": (dict(structured={"enabled": True}), "structured", 0),
 }
 
 
 @pytest.mark.parametrize("flag", sorted(ON_SLICE))
 def test_ported_feature_builds_and_serves(flag):
-    cfg = RaggedInferenceEngineConfig(kv_block_size=4, **ON_SLICE[flag])
+    config, attr, cached = ON_SLICE[flag]
+    cfg = RaggedInferenceEngineConfig(kv_block_size=4, **config)
     eng = InferenceEngineV2("debug", cfg, dtype=torch.float32, device="cpu")
-    assert getattr(eng, flag) is not None
+    assert getattr(eng, attr) is not None
     sched = DynamicSplitFuseScheduler(eng)
-    for uid in (1, 2):  # the second request finds the first one's prompt cached
+    for uid in (1, 2):  # with a prefix cache, the second request finds the first one's prompt
         sched.add_request(uid, list(range(3, 14)), max_new_tokens=3)
         out = sched.run_to_completion()
     assert out[1] == out[2] and len(out[1]) == 3
-    assert sched.requests[2].prefix_cached_tokens == 8
+    assert sched.requests[2].prefix_cached_tokens == cached
     eng.destroy()
 
 

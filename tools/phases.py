@@ -1,6 +1,6 @@
 """Runs some of ``chip_smoke.py``'s phases alone, on one GPU.
 
-    python3 tools/phases.py sparse bert k7 sampled
+    python3 tools/phases.py sparse bert k7 invariance sampled spec json
 
 Builds the kernel sources those phases need (one ``nvcc`` each, all
 started together), then runs each named phase as ``chip_smoke.py`` runs
@@ -14,8 +14,14 @@ it, with its checks, and prints its lines. The phases:
 - ``k7``: phase 16's kernel cases (``k7_cases``: K7's quantize and
   dequantize at the KV tier's shapes, each timed by CUDA events and by
   the profiler);
+- ``invariance``: phase 4b (``batch_invariance_phase``: the per-op rows
+  reading, K3's chunk reading and the 2-layer engine's trace, gated);
 - ``sampled``: phase 26 (``sampled_serving_phase``: on-device sampling on
-  the Mistral-7B engine under ``bench_serving_2b_sampled``'s protocol).
+  the Mistral-7B engine under ``bench_serving_2b_sampled``'s protocol);
+- ``spec``: phase 27 (``spec_serving_phase``: speculative decoding on the
+  Mistral-7B engine under ``bench_serving_2b_spec``'s protocol);
+- ``json``: phase 28 (``json_serving_phase``: constrained decoding on the
+  Mistral-7B engine under ``bench_serving_2b_json``'s protocol).
 
 Run it from the root of a checkout on a machine with a CUDA device. The
 last line is ``{"ok": true}`` when every phase passed.
@@ -36,12 +42,16 @@ import chip_smoke as cs  # noqa: E402
 from deepspeed_tpu_torch.ops.kernels import build  # noqa: E402
 
 SPARSE = ("block_sparse_attention.cu", "fused_norms.cu", "flash_attention.cu")
+SERVING = ("paged_attention.cu", "fused_quant_matmul.cu", "fused_norms.cu")
 PHASES = {  # name: (sources, run(device, flush))
     "sparse": (SPARSE, cs.sparse_kernel_phase),
     "bert_parity": (SPARSE, lambda device, flush: cs.bert_parity_phase(device)),
     "bert": (SPARSE, lambda device, flush: cs.bert_training_phase(device)),
     "k7": (("quantization.cu",), cs.k7_cases),
-    "sampled": (("paged_attention.cu", "fused_quant_matmul.cu"), cs.sampled_serving_phase),
+    "invariance": (SERVING, lambda device, flush: cs.batch_invariance_phase(device)),
+    "sampled": (SERVING, cs.sampled_serving_phase),
+    "spec": (SERVING, lambda device, flush: cs.spec_serving_phase(device)),
+    "json": (SERVING, lambda device, flush: cs.json_serving_phase(device)),
 }
 
 
