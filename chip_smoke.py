@@ -495,6 +495,24 @@ each of which fails the run if it fails:
    Prints the DFA's states, compile and bind ms, the slabs' bytes and
    plain vs constrained generated tokens/s, the overhead a reading beside
    the JAX bench's 10% bound.
+29. pipelined bursts — ``bench_serving_v2_ragged``'s protocol (16 random
+   128-token prompts from seed 0 x 64 new tokens, budget 512, bursts of
+   16, KV block 32) on the same weights, a synchronous and a pipelined
+   (``async_burst``, depth 2) engine in the same call, over greedy,
+   sampled (per-request seeds, top_k/top_p) and constrained (phase 28's
+   schema) lanes. Gates: each lane's streams equal between the engines
+   (constrained ones valid JSON ending at EOS), every forward's K2, K3 and
+   K4 launches (none on K4's first design) and the lanes' launches equal,
+   syncs per generated token dropping at least 4x, a lane whose request 0
+   stops at EOS mid-pipeline leaving the free blocks of the start on both
+   engines, a chained burst dispatched under
+   ``set_sync_debug_mode("error")`` (no synchronizing call before its
+   fence) emitting what two synchronous bursts emit, and under
+   ``DS_SANITIZE=1`` a clean run equal to the plain engine's and a
+   NaN-poisoned weight raising ``SanitizerNaNError``. Prints generated
+   tokens/s of both engines, the device's busy share over a profiled
+   window of chained bursts, host ms to dispatch a burst, and K2/K3/K4
+   launches by design, beside the card.
 
 The last lines are the card, one JSON object with every kernel's numbers
 and, last, ``{"ok": true, "device": {...}}``."""
@@ -587,6 +605,11 @@ SPEC_BUDGET = SPEC_PROMPT + SPEC_N_REQ
 JSON_N_REQ, JSON_PROMPT, JSON_NEW, JSON_BURST, JSON_REPEATS, JSON_EOS = 8, 64, 64, 8, 3, 2
 JSON_BUDGET = JSON_PROMPT + JSON_N_REQ
 JSON_OVERHEAD_BOUND = 0.10  # the JAX bench's bound on the constrained overhead: a reading here
+# phase 29: bench.py's bench_serving_v2_ragged (N_REQ x PROMPT x NEW, BUDGET, bursts of BURST)
+# in a synchronous and a pipelined lane; the EOS lane stops at greedy request 0's token
+# ASYNC_EOS_AT; the profiled window is ASYNC_WINDOW chained bursts; the sanitized run serves
+# 4 of the prompts ASYNC_SANITIZE_NEW tokens
+ASYNC_DEPTH, ASYNC_EOS_AT, ASYNC_WINDOW, ASYNC_SANITIZE_NEW = 2, 20, 2, 16
 
 
 def log(msg):
@@ -2432,8 +2455,9 @@ def forward_split(engine, counters=None):
         finally:
             state["burst"] = False
 
-    def restore():
-        del engine._forward, engine.decode_burst
+    def restore():  # the engine's own forward back: the DS_SANITIZE gate's result
+        engine._forward = fwd
+        del engine.decode_burst
 
     engine._forward, engine.decode_burst = timed, in_burst
     return records, restore
@@ -5599,6 +5623,322 @@ def mixed_spec_check(cfg, params, device, compiled, json_prompts, specs, valid):
             "verify_steps_after": len(verifies), "tokens_drafted": stats["tokens_drafted"]}
 
 
+# ---------------------------------------------------------------- phase 29
+def async_engine(cfg, params, device, async_on, max_states=64):
+    """Phase 29's engine over ``params``: ``bench_serving_v2_ragged``'s
+    state manager, the pipeline on or off at depth ``ASYNC_DEPTH``,
+    constrained decoding live (an unbound request takes the plain path,
+    so greedy and sampled lanes run as on an engine without it)."""
+    from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig, InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    engine = InferenceEngineV2(cfg, RaggedInferenceEngineConfig(
+        kv_block_size=BS, async_burst={"enabled": async_on, "depth": ASYNC_DEPTH},
+        structured={"enabled": True, "max_schemas": 4, "max_states": max_states},
+        state_manager=DSStateManagerConfig(
+            max_ragged_batch_size=BUDGET, max_ragged_sequence_count=N_REQ,
+            max_tracked_sequences=N_REQ + 4, max_context=PROMPT + NEW)),
+        params=params, device=device)
+    if engine.async_burst != async_on or engine._sanitize:
+        raise AssertionError(f"async lane engine: async_burst {engine.async_burst} (want "
+                             f"{async_on}), sanitize {engine._sanitize} (want off)")
+    return engine
+
+
+def serving_counters():
+    """K2's, K3's and K4's launches so far, K3's and K4's by design."""
+    from deepspeed_tpu_torch.ops.kernels.fused_norms import rms_norm_fwd
+    from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import dense_matmul
+    from deepspeed_tpu_torch.ops.kernels.paged_attention import paged_decode_attention
+    return {"rms_norm_fwd": rms_norm_fwd.launches,
+            "paged_decode_attention": paged_decode_attention.launches,
+            "dense_matmul": dense_matmul.launches,
+            "paged_by_design": paged_designs(), "dense_by_design": k4_designs("dense")}
+
+
+def counters_since(before):
+    now = serving_counters()
+    return {k: ({d: n - before[k][d] for d, n in v.items()} if isinstance(v, dict)
+                else v - before[k]) for k, v in now.items()}
+
+
+def timed_dispatches(engine, name):
+    """Wraps ``engine.<name>``: the host ms of each call (no synchronize
+    around it). → (ms list, restore)."""
+    times, inner = [], getattr(engine, name)
+
+    def call(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = inner(*args, **kwargs)
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+    setattr(engine, name, call)
+    return times, lambda: delattr(engine, name)
+
+
+def async_lane(engine, uid0, prompts, ntok, specs=None, schemas=None, eos=None):
+    """One lane of phase 29: the traffic to completion under one scheduler
+    (``fleet``), with the engine's counts around it → a record."""
+    c0 = serving_counters()
+    syncs0, toks0, fwd0 = engine.host_syncs, engine.tokens_emitted, engine.forward_steps
+    bursts0 = dict(engine.bursts)
+    name = "decode_burst_async" if engine.async_burst else "decode_burst"
+    times, restore = timed_dispatches(engine, name)
+    try:
+        dt, streams = fleet(engine, uid0, prompts, ntok, specs, burst=BURST, budget=BUDGET,
+                            eos=eos, schemas=schemas)
+    finally:
+        restore()
+    fwd = engine.forward_steps - fwd0
+    syncs, toks = engine.host_syncs - syncs0, engine.tokens_emitted - toks0
+    return {"streams": streams, "time_s": dt, "forwards": fwd,
+            "gen_tokens_per_sec": sum(map(len, streams)) / dt,
+            "host_syncs": syncs, "syncs_per_token": syncs / max(toks, 1),
+            "bursts": {k: v - bursts0[k] for k, v in engine.bursts.items()},
+            "burst_call_ms": times, "launches": counters_since(c0)}
+
+
+def check_lane_launches(rec, layers, where):
+    """Every forward of a lane launched K3 once a layer, K4 7 times a layer
+    and once for the head (none on its first design) and K2's RMS forward
+    twice a layer and once for the final norm."""
+    n, got = rec["forwards"], rec["launches"]
+    want = {"paged_decode_attention": layers * n, "dense_matmul": (7 * layers + 1) * n,
+            "rms_norm_fwd": (2 * layers + 1) * n}
+    if n == 0 or any(got[k] != v for k, v in want.items()) or got["dense_by_design"]["general"]:
+        raise AssertionError(f"{where}: {n} forwards launched {got}, want {want} a lane")
+
+
+def chained_burst_check(engines, prompts):
+    """A cold-start pipelined burst, then a chained one dispatched under
+    ``torch.cuda.set_sync_debug_mode("error")``: any synchronizing call
+    before its fence raises. Both bursts' tokens must equal two
+    synchronous bursts' on the sync engine. → host ms of the chained
+    dispatch."""
+    sync, eng = engines
+    uids = list(range(800, 800 + len(prompts)))
+    first = [prefill_each(e, uids, prompts, [None] * len(prompts)) for e in engines]
+    if not np.array_equal(first[0], first[1]):
+        raise AssertionError("chained check: the engines' prefill tokens differ")
+    want = [sync.decode_burst(uids, [[int(t)] for t in first[0]], BURST)]
+    want.append(sync.decode_burst(uids, [[int(t)] for t in want[0][-1]], BURST))
+    h0 = eng.decode_burst_async(uids, [[int(t)] for t in first[1]], BURST)
+    torch.cuda.synchronize()  # the cold start's own copies settled: the check is the chain's
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        h1 = eng.decode_burst_async(uids, None, BURST, prev=h0)
+        dispatch_ms = (time.perf_counter() - t0) * 1e3
+    except RuntimeError as err:
+        raise AssertionError(f"a chained burst's dispatch synchronized: {err}") from err
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = [h0.fetch(), h1.fetch()]
+    if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("chained bursts' tokens differ from two synchronous bursts'")
+    for e in engines:
+        for uid in uids:
+            e.flush(uid)
+    return dispatch_ms
+
+
+def chained_window(engine, prompts, bursts=ASYNC_WINDOW):
+    """The device's busy share over a steady pipelined window: after the
+    prompts' prefill, ``bursts`` chained bursts of ``BURST`` steps
+    dispatched as the scheduler does (each fence one burst behind the
+    dispatch), then the last fence, under the profiler → ``_summarize``'s
+    record."""
+    from torch.profiler import ProfilerActivity, profile
+    uids = list(range(850, 850 + len(prompts)))
+    first = prefill_each(engine, uids, prompts, [None] * len(prompts))
+    torch.cuda.synchronize()
+    f0 = engine.forward_steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        live = [engine.decode_burst_async(uids, [[int(t)] for t in first], BURST)]
+        for _ in range(bursts - 1):
+            live.append(engine.decode_burst_async(uids, None, BURST, prev=live[-1]))
+            if len(live) > ASYNC_DEPTH:
+                live.pop(0).fetch()
+        for h in live:
+            h.fetch()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    for uid in uids:
+        engine.flush(uid)
+    return _summarize(prof, wall_ms, engine.forward_steps - f0)
+
+
+def sanitize_check(cfg, params, device, plain, prompts):
+    """``DS_SANITIZE=1``: an engine built under it serves ``prompts``
+    (greedy, pipelined) to the streams the unsanitized engine ``plain``
+    gives, and a NaN-poisoned weight (the final norm, in a copy of the
+    params dict) raises ``SanitizerNaNError`` at its next forward. The
+    unsanitized engines' forward is the gate's result, the method itself.
+    → readings."""
+    import os
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.utils.sanitize import SanitizerNaNError
+    if getattr(plain._forward, "_ds_sanitized", False) or \
+            plain._forward.__func__ is not InferenceEngineV2._forward:
+        raise AssertionError("an unsanitized engine's forward is wrapped")
+    saved = os.environ.get("DS_SANITIZE")
+    os.environ["DS_SANITIZE"] = "1"
+    from deepspeed_tpu_torch.inference.v2 import DSStateManagerConfig, RaggedInferenceEngineConfig
+    try:
+        engine = InferenceEngineV2(cfg, RaggedInferenceEngineConfig(
+            kv_block_size=BS, async_burst={"enabled": True, "depth": ASYNC_DEPTH},
+            state_manager=DSStateManagerConfig(
+                max_ragged_batch_size=BUDGET, max_ragged_sequence_count=N_REQ,
+                max_tracked_sequences=N_REQ, max_context=PROMPT + NEW)),
+            params=params, device=device)
+    finally:
+        if saved is None:
+            os.environ.pop("DS_SANITIZE", None)
+        else:
+            os.environ["DS_SANITIZE"] = saved
+    if not (engine._sanitize and engine._forward._ds_sanitized):
+        raise AssertionError("DS_SANITIZE=1 built an unsanitized engine")
+    _, want = fleet(plain, 70_000, prompts, ASYNC_SANITIZE_NEW, burst=BURST, budget=BUDGET)
+    dt, got = fleet(engine, 70_000, prompts, ASYNC_SANITIZE_NEW, burst=BURST, budget=BUDGET)
+    if got != want:
+        raise AssertionError("the sanitized engine's streams differ from the plain engine's")
+    engine.params = dict(engine.params, norm=torch.full_like(params["norm"], float("nan")))
+    try:
+        engine.put([1], [prompts[0]], sample="greedy")
+    except SanitizerNaNError as err:
+        caught = str(err)
+    else:
+        raise AssertionError("a NaN-poisoned weight passed the sanitized forward")
+    engine.destroy()
+    return {"clean_run_s": dt, "clean_streams_equal": True, "poisoned": caught[:120]}
+
+
+def async_serving_phase(device, weights=None):
+    """Phase 29: ``bench_serving_v2_ragged``'s protocol on the full-depth
+    Mistral-7B engine, a synchronous lane and a pipelined one (depth
+    ``ASYNC_DEPTH``) in the same call. → (result, {kernel: launches in the
+    pipelined greedy lane})."""
+    from deepspeed_tpu_torch.device import gpu_report
+    from deepspeed_tpu_torch.inference.structured import (CompiledSchema, byte_vocab,
+                                                          detokenize)
+    card = gpu_report()
+    cfg, params = weights or serving_params(device)
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    t0 = time.perf_counter()
+    laps = {}
+    schema = {"type": "object", "properties": {"ok": {"type": "boolean"},
+                                               "mode": {"enum": ["fast", "safe"]}},
+              "required": ["ok", "mode"]}
+    vocab = byte_vocab(V)
+    compiled = CompiledSchema(schema, vocab, eos_token_id=JSON_EOS)
+    engines = [async_engine(cfg, params, device, on, max(64, compiled.n_states))
+               for on in (False, True)]
+    free0 = [e.free_blocks for e in engines]
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, V, size=PROMPT).astype(np.int32) for _ in range(N_REQ)]
+    warm = [np.random.RandomState(1).randint(0, V, size=16).astype(np.int32)] * 2
+    for e in engines:  # allocator, pinned staging and host caches
+        fleet(e, 90_000, warm, NEW // 2, burst=BURST, budget=BUDGET)
+        fleet(e, 91_000, warm, NEW // 2, sampled_specs(2), burst=BURST, budget=BUDGET)
+    lanes = {}
+    for name, specs, schemas, eos in (
+            ("greedy", None, None, None),
+            ("sampled", sampled_specs(N_REQ), None, None),
+            ("constrained", [{"temperature": 1.1, "top_k": 40, "seed": 500 + i}
+                             for i in range(N_REQ)], [compiled] * N_REQ, JSON_EOS)):
+        recs = [async_lane(e, 1_000 * (len(lanes) + 1), prompts, NEW, specs, schemas, eos)
+                for e in engines]
+        if recs[0]["streams"] != recs[1]["streams"]:
+            raise AssertionError(f"{name}: pipelined streams differ from the synchronous lane's")
+        if recs[1]["bursts"]["async"] == 0 or recs[1]["bursts"]["sync"] or \
+                recs[0]["bursts"]["async"]:
+            raise AssertionError(f"{name}: bursts by path sync {recs[0]['bursts']}, "
+                                 f"async {recs[1]['bursts']}")
+        for rec, where in zip(recs, ("sync", "async")):
+            check_lane_launches(rec, L, f"{name} {where} lane")
+        per = [{k: v / r["forwards"] for k, v in r["launches"].items()
+                if not isinstance(v, dict)} for r in recs]
+        # without EOS both engines run the same forwards; a lane that ends
+        # at EOS runs the pipeline's dispatched tail past it as well
+        if per[0] != per[1] or (eos is None and recs[0]["launches"] != recs[1]["launches"]):
+            raise AssertionError(f"{name}: launches {recs[0]['launches']} over "
+                                 f"{recs[0]['forwards']} forwards (sync) vs "
+                                 f"{recs[1]['launches']} over {recs[1]['forwards']} (async)")
+        if schemas:
+            for toks in recs[1]["streams"]:
+                if toks[-1] != JSON_EOS:
+                    raise AssertionError(f"constrained lane never reached EOS: {toks}")
+                doc = json.loads(detokenize(toks[:-1], vocab))
+                if not (isinstance(doc.get("ok"), bool) and doc.get("mode") in ("fast", "safe")):
+                    raise AssertionError(f"constrained lane: off-schema JSON {doc}")
+        lanes[name] = recs
+    laps["warm_up_and_lanes"] = time.perf_counter() - t0
+    greedy = lanes["greedy"]
+    drop = greedy[0]["syncs_per_token"] / max(greedy[1]["syncs_per_token"], 1e-9)
+    if drop < 4.0:
+        raise AssertionError(f"syncs per generated token dropped {drop:.2f}x, want >= 4")
+    # EOS found one burst late: request 0 stops mid-pipeline, at the first
+    # token from ASYNC_EOS_AT on that its stream has not emitted before
+    stream0 = greedy[0]["streams"][0]
+    at = next((i for i in range(ASYNC_EOS_AT, NEW - 1) if stream0[i] not in stream0[:i]), None)
+    if at is None:
+        raise AssertionError(f"EOS lane: request 0's greedy stream repeats from "
+                             f"{ASYNC_EOS_AT} on: {stream0}")
+    eos = stream0[at]
+    stop = [async_lane(e, 5_000, prompts, NEW, eos=eos) for e in engines]
+    if stop[0]["streams"] != stop[1]["streams"] or len(stop[1]["streams"][0]) != at + 1:
+        raise AssertionError(f"EOS lane: streams equal {stop[0]['streams'] == stop[1]['streams']}"
+                             f", request 0 emitted {len(stop[1]['streams'][0])}, want {at + 1}")
+    free = [e.free_blocks for e in engines]
+    if free != free0:
+        raise AssertionError(f"free blocks after the EOS lanes {free}, at the start {free0}")
+    laps["eos_lanes"] = time.perf_counter() - t0 - sum(laps.values())
+    dispatch_ms = chained_burst_check(engines, prompts)
+    windows = {"async": chained_window(engines[1], prompts)}
+    laps["chained_check_and_window"] = time.perf_counter() - t0 - sum(laps.values())
+    sanitize = sanitize_check(cfg, params, device, engines[1], prompts[:4])
+    laps["sanitize"] = time.perf_counter() - t0 - sum(laps.values())
+    for e in engines:
+        e.destroy()
+    launches = {k: greedy[1]["launches"][k] for k in ("paged_decode_attention", "dense_matmul",
+                                                      "rms_norm_fwd")}
+    result = {"card": card, "requests": N_REQ, "prompt_len": PROMPT, "new_tokens": NEW,
+              "token_budget": BUDGET, "max_burst": BURST, "depth": ASYNC_DEPTH,
+              "gen_tokens_per_sec": {k: [r["gen_tokens_per_sec"] for r in v]
+                                     for k, v in lanes.items()},
+              "syncs_per_token": {k: [r["syncs_per_token"] for r in v]
+                                  for k, v in lanes.items()},
+              "syncs_per_token_drop": drop,
+              "host_syncs": {k: [r["host_syncs"] for r in v] for k, v in lanes.items()},
+              "forwards": {k: [r["forwards"] for r in v] for k, v in lanes.items()},
+              "burst_host_ms_median": {
+                  "sync_decode_burst": float(np.median(greedy[0]["burst_call_ms"])),
+                  "async_dispatch": float(np.median(greedy[1]["burst_call_ms"]))},
+              "chained_dispatch_ms_under_sync_debug": dispatch_ms,
+              "launches_by_design": {k: greedy[1]["launches"][k]
+                                     for k in ("paged_by_design", "dense_by_design")},
+              "launches_per_forward": {k: v / greedy[1]["forwards"] for k, v in launches.items()},
+              "eos_lane": {"eos": int(eos), "request0_tokens": at + 1,
+                           "forwards": [r["forwards"] for r in stop],
+                           "free_blocks": free},
+              "chained_window": windows["async"], "sanitize": sanitize, "phase_s": laps}
+    log(f"[async-serving] {card}: generated tokens/s sync vs pipelined: "
+        + ", ".join(f"{k} {v[0]:.1f} vs {v[1]:.1f}"
+                    for k, v in result["gen_tokens_per_sec"].items())
+        + f"; syncs/token {greedy[0]['syncs_per_token']:.4f} vs "
+        f"{greedy[1]['syncs_per_token']:.4f} ({drop:.1f}x)")
+    log(f"[async-serving] {card}: device busy share over {ASYNC_WINDOW} chained bursts "
+        f"{windows['async']['device_busy_share']}; host ms to dispatch a burst (median) "
+        f"{result['burst_host_ms_median']['async_dispatch']:.2f} pipelined vs "
+        f"{result['burst_host_ms_median']['sync_decode_burst']:.2f} a whole synchronous "
+        f"burst; launches K2/K3/K4 {launches}, by design "
+        f"{json.dumps(result['launches_by_design'])}")
+    log(f"[async-serving] {json.dumps({k: v for k, v in result.items()})}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result, launches
+
+
 def grid_fraction_of(cfg):
     """The layout density the model's sparse section gives at BERT_S."""
     from deepspeed_tpu_torch.models.bert import _sparse_self_attention
@@ -5721,10 +6061,11 @@ def main():
     weights = serving_params(device)
     _, spec_launches = spec_serving_phase(device, weights)
     _, json_launches = json_serving_phase(device, weights)
+    _, async_launches = async_serving_phase(device, weights)
     del weights
     gc.collect()
     torch.cuda.empty_cache()
-    lap("phases 27-28 (speculative and constrained decoding)")
+    lap("phases 27-29 (speculative and constrained decoding, pipelined bursts)")
 
     main_case = next(c for c in cases if c["case"] == "serving_decode")
     kernels = [{"name": "paged_decode_attention", "route": "cuda",
@@ -5741,6 +6082,7 @@ def main():
                 "launches_sampled_serving": sampled_launches["paged_decode_attention"],
                 "launches_spec_verify": spec_launches["paged_decode_attention"],
                 "launches_constrained_serving": json_launches["paged_decode_attention"],
+                "launches_async_serving": async_launches["paged_decode_attention"],
                 "cases": cases}]
     train_kernels = {
         "flash_fwd": ("flash_attention.cu", "flash_attention.py:46",
@@ -5768,6 +6110,7 @@ def main():
             kernels[-1]["library_call"] = main_row["library_call"]
         if name == "rms_norm_fwd":  # the serving path's norms too
             kernels[-1]["launches_spec_verify"] = spec_launches["rms_norm_fwd"]
+            kernels[-1]["launches_async_serving"] = async_launches["rms_norm_fwd"]
     slice3 = {  # name: (source, TPU kernel, cases, main case, launches, shape)
         "quant_matmul": ("fused_quant_matmul.cu", "fused_quant_matmul.py:90", qmm_cases,
                          "int8_M8_{}x{}".format(*ATTN_SHAPES[0]), int8_launches["quant_matmul"],
@@ -5875,6 +6218,7 @@ def main():
                     "launches_sampled_serving": sampled_launches["dense_matmul"],
                     "launches_spec_verify": spec_launches["dense_matmul"],
                     "launches_constrained_serving": json_launches["dense_matmul"],
+                    "launches_async_serving": async_launches["dense_matmul"],
                     "cases": dense_cases})
     slice7 = {  # name: (source, TPU kernel, shape)
         "block_sparse_fwd": ("block_sparse_attention.cu", "block_sparse_attention.py:71",

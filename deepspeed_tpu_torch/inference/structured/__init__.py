@@ -23,7 +23,7 @@ sampled and schema-constrained serving on the v2 ragged engine:
 ``DS_CONSTRAINED`` env kill switch; off, no DFA metadata is packed and
 no mask is applied."""
 
-from deepspeed_tpu_torch.utils.env import env_opt_bool
+from deepspeed_tpu_torch.utils.env_registry import env_opt_bool
 
 
 def constrained_enabled(config) -> bool:

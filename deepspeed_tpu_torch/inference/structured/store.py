@@ -6,9 +6,8 @@ two objects:
 - :class:`SchemaCompilerCache` — ONE per process, thread-shared (client
   submit threads compile concurrently): token-DFA compilation is
   O(states x vocab) host work, so each (schema hash, vocab signature)
-  pair compiles exactly once. Its lock is a plain ``threading.Lock``
-  (the ``DS_SANITIZE`` lock tracking is not ported yet, ROADMAP.md port
-  queue item 4).
+  pair compiles exactly once. Under ``DS_SANITIZE`` its lock is
+  order-tracked (``tracked_lock``).
 - :class:`StructuredStore` — one per engine, PUMP-THREAD ONLY (like the
   sequence descriptors it annotates): owns the device-resident DFA
   slabs (``masks`` bool / ``trans`` int32, ``[max_schemas + 1,
@@ -29,6 +28,7 @@ from deepspeed_tpu_torch.inference.structured.grammar import (CompiledSchema,
                                                               SchemaCompileError,
                                                               schema_fingerprint,
                                                               vocab_signature)
+from deepspeed_tpu_torch.utils.sanitize import tracked_lock
 
 
 class SchemaCompilerCache:
@@ -43,7 +43,7 @@ class SchemaCompilerCache:
     writer wins on an identical value)."""
 
     def __init__(self, cap=64):
-        self._lock = threading.Lock()
+        self._lock = tracked_lock(threading.Lock(), "SchemaCompilerCache._lock")
         self._cache = OrderedDict()  # (schema hash, vocab sig) -> CompiledSchema
         self._cap = max(1, int(cap))
         self.compiles = 0  # cache misses that ran the compiler

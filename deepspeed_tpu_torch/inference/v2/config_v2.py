@@ -5,11 +5,12 @@ the same field names and defaults. Sections may be given as dicts. The
 port's engine serves dense and MoE models, in bf16 or with weight-only
 quantized weights (``quantization.quantization_mode`` ``"int8"``,
 ``"fp8"`` or ``"fp6"``), with or without multi-tenant LoRA (``lora``),
-the prefix cache and its KV tier, speculative decoding (``spec_decode``)
-and constrained decoding (``structured``); it raises
-``NotImplementedError`` at construction for a config that turns on a
-feature outside that (``async_burst``, a non-empty ``lora.publish_root``,
-parallel degrees above 1; see ``engine_v2.unported_features``)."""
+the prefix cache and its KV tier, speculative decoding (``spec_decode``),
+constrained decoding (``structured``) and pipelined decode bursts
+(``async_burst``); it raises ``NotImplementedError`` at construction for
+a config that turns on a feature outside that (a non-empty
+``lora.publish_root``, parallel degrees above 1; see
+``engine_v2.unported_features``)."""
 
 from dataclasses import dataclass, field
 

@@ -57,13 +57,29 @@ sequence masks its logits by its DFA state's allowed tokens (rows 4-5 of
 the sampling rows carry the slot and the state), and a burst advances
 the state on the device from the picked token.
 
-Features outside this slice raise ``NotImplementedError`` at
-construction (:func:`unported_features`). Of the ``DS_*`` environment
-variables ``DS_SEED`` (:func:`ds_seed`), ``DS_SPEC_DECODE``,
-``DS_SPEC_DRAFT_LEN`` and ``DS_CONSTRAINED`` (``utils/env.py``) are
-read."""
+Pipelined decode bursts (``async_burst.enabled``, ``DS_ASYNC_BURST``):
+``decode_burst_async`` dispatches a burst and returns an
+:class:`AsyncBurstHandle` without any device→host copy; a chained burst
+takes its entry tokens (and, sampled, its DFA states) from the previous
+handle's device rows, so the host packs burst k+1 while burst k runs, and
+the caller fences one burst late. On one CUDA stream every blocking call
+would drain the younger burst too, so the pipeline keeps none in its
+steady state: the packed vectors go up from a ring of pinned staging
+buffers (:class:`_StagingRing`), and each burst's tokens come down into
+pinned memory right behind its last step, behind a CUDA event that
+``fetch`` waits on alone. The token log takes the burst's tokens as
+pending device segments, fenced by ``flush``, ``suspend``,
+``export_prefix``, ``propose_drafts`` and ``rewind``.
 
-import os
+``DS_SANITIZE`` (sampled once, at construction): off, the forward is the
+plain one, with no wrapper; on, every forward checks its packed batch's
+integer inputs against their ranges and its logits for non-finite values
+(``utils.sanitize.maybe_checkify``), and the allocator, the prefix cache
+and the spill tier audit their invariants after every mutation.
+
+Features outside this slice raise ``NotImplementedError`` at
+construction (:func:`unported_features`). The ``DS_*`` environment
+variables are read through ``utils/env_registry.py``."""
 
 import numpy as np
 import torch
@@ -100,29 +116,36 @@ from deepspeed_tpu_torch.models.llama import (check_servable, init_params,
 from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import SCHEMES
 from deepspeed_tpu_torch.serving.lora import (AdapterStore, lora_hot_set, lora_max_rank,
                                              lora_serving_enabled)
+from deepspeed_tpu_torch.utils.env_registry import env_int, env_opt_bool
 from deepspeed_tpu_torch.utils.logging import logger
+from deepspeed_tpu_torch.utils.sanitize import check_index, maybe_checkify, sanitize_enabled
 
 _QUEUE4 = "ROADMAP.md, port queue item 4 (serving features on the ragged engine)"
 _QUEUE5 = "ROADMAP.md, port queue item 5 (tensor- and expert-parallel serving)"
-DS_SEED_DEFAULT = 42  # the JAX package's env registry default for DS_SEED
 
 
 def ds_seed():
     """``DS_SEED`` (the base of the sampling counter PRNG and of
-    ``draw_seed``'s stream): the environment's integer, else 42, as the
-    JAX package's env registry reads it."""
-    try:
-        return int(os.environ.get("DS_SEED", DS_SEED_DEFAULT))
-    except ValueError:
-        return DS_SEED_DEFAULT
+    ``draw_seed``'s stream), through the env registry (default 42)."""
+    return env_int("DS_SEED")
+
+
+def async_burst_enabled(config) -> bool:
+    """Config gate plus the ``DS_ASYNC_BURST`` kill switch: when the env
+    var is set it wins in BOTH directions (``0``/``false``/``off``
+    forces the pre-pipeline loop, anything else forces pipelining);
+    unset defers to ``config.enabled``. The emitted streams are the same
+    either way."""
+    forced = env_opt_bool("DS_ASYNC_BURST")
+    if forced is not None:
+        return forced
+    return bool(getattr(config, "enabled", False))
 
 
 def unported_features(config):
     """→ [(feature, roadmap item)] the config turns on that the port
     does not serve yet."""
     out = []
-    if config.async_burst.enabled:
-        out.append(("async_burst", _QUEUE4))
     if config.lora.enabled and config.lora.publish_root:
         out.append(("lora.publish_root (the adapter disk tier)", _QUEUE4))
     for name in ("tensor_parallel_degree", "expert_parallel_degree"):
@@ -131,13 +154,16 @@ def unported_features(config):
     return out
 
 
-def _burst_layout(ms, mb, lora=False, sampled=False):
+def _burst_layout(ms, mb, lora=False, sampled=False, async_entry=False):
     """Wire format of the decode-burst metadata vector: field → (start,
     end) offsets into the flat int32 vector (the JAX engine's
-    ``_burst_layout`` with async entry off). ``lora`` appends the
-    per-sequence adapter-slot row and ``sampled`` the per-sequence
-    sampling-spec rows after it."""
+    ``_burst_layout``). ``async_entry`` drops ``tokens0``: a pipelined
+    burst's entry tokens come from the previous burst's last output row
+    on the device. ``lora`` appends the per-sequence adapter-slot row and
+    ``sampled`` the per-sequence sampling-spec rows after it."""
     fields = [("tokens0", ms), ("token_seq", ms), ("pos0", ms), ("tables", (ms + 1) * mb)]
+    if async_entry:
+        fields = fields[1:]
     if lora:
         fields.append(("seq_adapters", ms + 1))
     if sampled:
@@ -168,6 +194,114 @@ def _offsets(fields):
         lay[name] = (o, o + size)
         o += size
     return lay
+
+
+class _StagingRing:
+    """``n`` pinned host buffers for the host→device copies of the packed
+    int32 vectors. A copy from pageable memory is one PyTorch completes
+    with a stream synchronize, which would drain every burst enqueued
+    before it; from pinned memory with ``non_blocking`` it is queued like
+    a kernel. A buffer is written again only after the event recorded
+    behind its last copy has passed (with ``n`` = depth + 1 that copy
+    fed a burst the caller has fenced already, so the wait is free)."""
+
+    def __init__(self, n):
+        self._bufs = [None] * n
+        self._events = [None] * n
+        self._next = 0
+
+    def upload(self, arr, device):
+        i = self._next
+        self._next = (i + 1) % len(self._bufs)
+        event = self._events[i]
+        if event is not None and not event.query():
+            event.synchronize()
+        buf = self._bufs[i]
+        if buf is None or buf.numel() < arr.size:
+            buf = self._bufs[i] = torch.empty(max(arr.size, 1024), dtype=torch.int32,
+                                              pin_memory=True)
+        host = buf[:arr.size]
+        host.numpy()[:] = arr
+        out = host.to(device, non_blocking=True)
+        event = self._events[i] = torch.cuda.Event()
+        event.record()
+        return out
+
+
+class AsyncBurstHandle:
+    """One dispatched but unfenced pipelined decode burst (the JAX
+    engine's handle).
+
+    ``out`` is the device ``[k, max_seqs]`` token tensor the burst's
+    steps produced; ``out[-1]`` is the next chained burst's entry row and
+    ``st`` (sampled bursts only) the chained DFA state row. On the card
+    the burst's device→host copy is enqueued into pinned memory right
+    behind its last step, with a CUDA event recorded after it, so
+    ``fetch()`` waits on this burst alone and never on a younger one
+    dispatched since. Until ``fetch`` the host knows nothing of the
+    burst's tokens: EOS, the accept loop and the token log all learn them
+    one burst late, when the scheduler fences."""
+
+    def __init__(self, engine, uids, descs, k, out, st=None, entry_np=None, prev=None):
+        self.uids = list(uids)
+        self.k = int(k)
+        self.out = out            # device [k, max_seqs] int32
+        self.st = st              # device [max_seqs] chained DFA state (sampled)
+        self._engine = engine
+        self._descs = descs
+        self._entry_np = entry_np  # host entry tokens, or None when chained
+        self._prev = prev          # previous handle in the device chain
+        self._toks = None
+        self._host = self._event = None
+        if out.is_cuda:
+            self._host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            self._host.copy_(out, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+
+    @property
+    def entry_next(self):
+        """Device entry row for the next chained burst (no sync)."""
+        return self.out[-1]
+
+    def entry_values(self):
+        """Host values of this burst's entry tokens ([n] np.int32). For
+        a chained burst this reads the PREVIOUS handle's fetched output:
+        in-order fencing makes that a cached re-read, never an early wait
+        on a younger burst."""
+        if self._entry_np is None:
+            self._entry_np = self._prev.fetch()[-1][:len(self.uids)]
+        return self._entry_np
+
+    def fetch(self):
+        """THE one device→host copy of this burst → np.int32 [k, n].
+        Idempotent; counts the engine's per-burst sync site once. After
+        it the handle drops its device buffer and its ``_prev`` link
+        (resolving the host entry row first), so a long pipeline never
+        chains unbounded memory."""
+        if self._toks is None:
+            self._engine.count_host_sync()
+            if self._event is not None:
+                self._event.synchronize()  # this burst's copy, not the stream
+                host = self._host
+            else:
+                host = self.out
+            self._toks = host.numpy()[:, :len(self.uids)].copy()
+            self.out = self._host = self._event = None
+            if self._prev is not None:
+                if self._entry_np is None:
+                    self._entry_np = self._prev.fetch()[-1][:len(self.uids)]
+                self._prev = None
+        return self._toks
+
+    def fence_logs(self):
+        """Materialize the pending token-log segments of every sequence
+        this burst touched. A descriptor's log fences in append order
+        across bursts, so this fetches any younger in-flight burst over
+        the same rows: call it at drain time, never from the steady-state
+        fence loop."""
+        for desc in self._descs:
+            desc.tokens.fence()
 
 
 class InferenceEngineV2:
@@ -237,6 +371,18 @@ class InferenceEngineV2:
         self.host_syncs = 0
         self.tokens_emitted = 0
         self.forward_steps = 0
+        # Pipelined decode bursts: schedulers consult these to run the
+        # dispatch/fence pump instead of the fetch-every-burst loop.
+        self.async_burst = async_burst_enabled(self._config.async_burst)
+        self.async_burst_depth = max(1, int(getattr(self._config.async_burst, "depth", 2)))
+        self.bursts = {"sync": 0, "async": 0}  # decode bursts dispatched, by path
+        self._staging = _StagingRing(self.async_burst_depth + 1)
+        # DS_SANITIZE, sampled once: off, the gate hands back the forward
+        # itself (no wrapper, no branch a call); on, every forward checks
+        # its batch's indices before it runs and its logits after
+        self._sanitize = sanitize_enabled()
+        self._forward = maybe_checkify(self._forward, check_inputs=self._check_batch,
+                                       enabled=self._sanitize)
         # Counter-PRNG root for sampling: every sampled token's key folds
         # (request seed, absolute position) into this DS_SEED-derived
         # base, so a replica replaying a request reproduces it bit for bit
@@ -333,6 +479,8 @@ class InferenceEngineV2:
                     f"kv_tier={tier} "
                     f"spec_decode={'on' if self.spec is not None else 'off'} "
                     f"structured={'on' if self.structured is not None else 'off'} "
+                    f"async_burst={'on' if self.async_burst else 'off'} "
+                    f"sanitize={'on' if self._sanitize else 'off'} "
                     f"param_bytes={self.quantized_bytes/1e6:.1f}MB "
                     f"kv_bytes={self.kv_cache.bytes()/1e6:.1f}MB")
 
@@ -355,7 +503,22 @@ class InferenceEngineV2:
         return {k: ({n: place(w) for n, w in v.items()} if isinstance(v, dict) else place(v))
                 for k, v in params.items()}
 
+    def _check_batch(self, batch):
+        """The sanitized forward's index checks (checkify's, raised before
+        the gathers): every integer input of the batch within the range
+        the forward reads it against."""
+        T = batch["token_ids"].shape[0]
+        check_index("token_ids", batch["token_ids"], 0, self.model_config.vocab_size)
+        check_index("token_seq", batch["token_seq"], 0, self.max_seqs + 1)
+        check_index("token_pos", batch["token_pos"], 0, self.max_ctx_tokens)
+        check_index("block_tables", batch["block_tables"], 0, self.kv_cache.num_blocks)
+        check_index("last_index", batch["last_index"], 0, T)
+        if "seq_adapters" in batch:
+            check_index("seq_adapters", batch["seq_adapters"], 0, self.lora_store.n_slots)
+
     def _forward(self, batch):
+        """One ragged forward → logits (the instance's ``_forward`` is this
+        method through the ``DS_SANITIZE`` gate)."""
         self.forward_steps += 1
         lora = None
         if self.lora_store is not None:
@@ -466,8 +629,11 @@ class InferenceEngineV2:
 
     def _upload(self, arrays):
         """The one host→device copy of a step's or burst's packed int32
-        metadata vector."""
-        return torch.from_numpy(arrays).to(self.device)
+        metadata vector: on the card from a pinned staging buffer,
+        queued on the stream without a synchronize."""
+        if self.device.type == "cpu":
+            return torch.from_numpy(arrays)
+        return self._staging.upload(arrays, self.device)
 
     @staticmethod
     def _classify_sample(sample, n):
@@ -533,6 +699,13 @@ class InferenceEngineV2:
     def count_host_sync(self, n=1):
         self.host_syncs += n
 
+    @property
+    def syncs_per_generated_token(self):
+        """Host-sync site executions per emitted token: the stepwise loop
+        pays ~2 a token, a fetched-every-burst loop ~(n+1)/(n*k), and the
+        pipelined pump ~1/(n*k)."""
+        return round(self.host_syncs / max(self.tokens_emitted, 1), 4)
+
     def draw_seed(self):
         """One per-request sampling seed from the engine's deterministic
         DS_SEED-rooted stream (``jax.random.split`` then ``randint(0,
@@ -575,85 +748,84 @@ class InferenceEngineV2:
         _, err = self._validate_burst(batch_uids, int(k))
         return err is None
 
-    def _pack_rows(self, descs, batch_tokens, n_tok):
-        """The wire rows a burst and a verify share: each sequence takes
-        row ``i``, its adapter slot and KV blocks for ``n_tok`` more
-        tokens; pad rows write the null slot with the base adapter. →
-        [entry tokens, token_seq, pos0, tables, (adapters)]: the entries a
-        list, the rest the packed vector's arrays in wire order."""
-        ms, mb = self.max_seqs, self.max_blocks_per_seq
-        lora_on = self.lora_store is not None
-        entries = []
-        token_seq = np.full(ms, ms, np.int32)
-        pos0 = np.zeros(ms, np.int32)
-        tables = np.full((ms + 1, mb), NULL_BLOCK, np.int32)
-        adapters = np.zeros(ms + 1, np.int32)
-        for i, (desc, tok) in enumerate(zip(descs, batch_tokens)):
-            desc.slot = i
-            if lora_on:
-                desc.adapter_slot = self.lora_store.slot_of(desc.uid)
-                adapters[i] = desc.adapter_slot
-            self.state_manager.allocate_for(desc, n_tok)
-            self.count_host_sync()
-            entries.append(int(np.asarray(tok).reshape(-1)[-1]))
-            token_seq[i] = i
-            pos0[i] = desc.seen_tokens
-            tables[i, :len(desc.blocks)] = desc.blocks
-        return [entries, token_seq, pos0, tables.ravel()] + ([adapters] if lora_on else [])
-
-    def decode_burst(self, batch_uids, batch_tokens, k, sample=None):
-        """Run ``k`` decode steps for one current token per uid: each
-        step's token feeds the next on the device, and the host copies
-        the tokens once, at the end. ``sample=None`` decodes greedily; a
-        spec dict or a per-uid list of dict/None draws with counter keys
-        ``(seed, absolute position)``, so burst length and scheduling
-        never change the emitted stream. Returns int32 tokens ``[k,
-        len(uids)]``. Sequences with a bound schema mask their logits by
-        their DFA state at every step, and the state advances on the
-        device from the picked token. KV blocks for all ``k`` tokens are
-        reserved up front, so the block tables are fixed across the
-        burst."""
+    def _burst_setup(self, batch_uids, k, sample, prev=None):
+        """Validation and sampling mode shared by ``decode_burst`` and
+        ``decode_burst_async`` → ``(k, sampled, specs, descs)``."""
         k = int(k)
         if k < 1:
             raise ValueError("k must be >= 1")
+        if prev is not None and list(prev.uids) != list(batch_uids):
+            raise ValueError("chained async burst must keep its predecessor's uid order — "
+                             "drain the pipeline when the live set changes")
         mode, specs = self._classify_sample(sample, len(batch_uids))
         if mode == "logits":
             mode = "greedy"  # a burst has no raw-logits mode
         mode, specs = self._constrain_mode(batch_uids, mode, specs)
         sampled = mode == "packed"
-        if len(batch_uids) != len(batch_tokens):
-            raise ValueError(f"{len(batch_uids)} uids vs {len(batch_tokens)} tokens")
+        if sampled and prev is not None and prev.st is None:
+            raise ValueError("sampled async burst chained onto a greedy handle — drain the "
+                             "pipeline before changing decode mode")
         if len(batch_uids) > self.max_seqs:
             raise ValueError(f"{len(batch_uids)} sequences > "
                              f"max_ragged_sequence_count={self.max_seqs}")
-        ms, mb = self.max_seqs, self.max_blocks_per_seq
         descs, err = self._validate_burst(batch_uids, k)
         if err is not None:
             raise err
+        return k, sampled, specs, descs
 
+    def _entries(self, batch_tokens):
+        """Each sequence's entry token, from the host (one host-sync site
+        a sequence, as the JAX engine counts them) → list of ints."""
+        entries = []
+        for tok in batch_tokens:
+            self.count_host_sync()  # the previous step's or burst's host copy
+            entries.append(int(np.asarray(tok).reshape(-1)[-1]))
+        return entries
+
+    def _pack_rows(self, descs, n_tok, advance=False):
+        """The wire rows the bursts and the verify share after their
+        tokens: each sequence takes row ``i``, its adapter slot and KV
+        blocks for ``n_tok`` more tokens (and advances by ``n_tok`` when
+        ``advance``); pad rows write the null slot with the base adapter.
+        → [token_seq, pos0, tables, (adapters)] in wire order."""
+        ms, mb = self.max_seqs, self.max_blocks_per_seq
         lora_on = self.lora_store is not None
-        tokens0 = np.zeros(ms, np.int32)
-        rows = self._pack_rows(descs, batch_tokens, k)
-        tokens0[:len(descs)] = rows[0]
-        for desc in descs:
-            desc.advance(k)
-        parts = [tokens0] + rows[1:]
-        if sampled:
-            self._resolve_seeds(specs)
-            parts.append(pack_sample_meta(specs, ms, dfa=self._dfa_rows(batch_uids)))
-        meta = self._upload(np.concatenate(parts))
-        lay = _burst_layout(ms, mb, lora=lora_on, sampled=sampled)
-        toks = meta[slice(*lay["tokens0"])]
+        token_seq = np.full(ms, ms, np.int32)   # pad rows write the null slot
+        pos0 = np.zeros(ms, np.int32)
+        tables = np.full((ms + 1, mb), NULL_BLOCK, np.int32)
+        adapters = np.zeros(ms + 1, np.int32)   # pad row stays slot 0 = base
+        for i, desc in enumerate(descs):
+            desc.slot = i
+            if lora_on:
+                desc.adapter_slot = self.lora_store.slot_of(desc.uid)
+                adapters[i] = desc.adapter_slot
+            self.state_manager.allocate_for(desc, n_tok)
+            token_seq[i] = i
+            pos0[i] = desc.seen_tokens
+            tables[i, :len(desc.blocks)] = desc.blocks
+            if advance:
+                desc.advance(n_tok)
+        return [token_seq, pos0, tables.ravel()] + ([adapters] if lora_on else [])
+
+    def _run_burst(self, meta, lay, k, sampled, toks, st=None):
+        """The burst's ``k`` steps on the device: each step's token feeds
+        the next, and a constrained row's DFA state advances from its
+        pick. ``toks``: the entry row [ms]; ``st``: the chained DFA state
+        row, or None for the packed one. → (out [k, ms] int32, final DFA
+        state row or None); nothing here reads a device value on the
+        host."""
+        ms, mb = self.max_seqs, self.max_blocks_per_seq
         batch = {"token_seq": meta[slice(*lay["token_seq"])],
                  "block_tables": meta[slice(*lay["tables"])].reshape(ms + 1, mb),
                  "last_index": torch.arange(ms, dtype=torch.int32, device=self.device)}
-        if lora_on:
+        if "seq_adapters" in lay:
             batch["seq_adapters"] = meta[slice(*lay["seq_adapters"])]
         pos0 = meta[slice(*lay["pos0"])]
         slabs = None
         if sampled:
-            temp, topk, topp, seed, slot, st = unpack_sample_meta(
+            temp, topk, topp, seed, slot, st_meta = unpack_sample_meta(
                 meta[slice(*lay["sample_meta"])], ms)
+            st = st_meta if st is None else st
             seed_keys = fold_in_rows(self._base_key, seed)  # the first fold, once a burst
             if self.structured is not None:
                 slabs = self.structured.slabs()
@@ -673,6 +845,36 @@ class InferenceEngineV2:
             else:
                 toks = logits.argmax(dim=-1).to(torch.int32)
             out[i] = toks
+        return out, (st if sampled else None)
+
+    def decode_burst(self, batch_uids, batch_tokens, k, sample=None):
+        """Run ``k`` decode steps for one current token per uid: each
+        step's token feeds the next on the device, and the host copies
+        the tokens once, at the end. ``sample=None`` decodes greedily; a
+        spec dict or a per-uid list of dict/None draws with counter keys
+        ``(seed, absolute position)``, so burst length and scheduling
+        never change the emitted stream. Returns int32 tokens ``[k,
+        len(uids)]``. Sequences with a bound schema mask their logits by
+        their DFA state at every step, and the state advances on the
+        device from the picked token. KV blocks for all ``k`` tokens are
+        reserved up front, so the block tables are fixed across the
+        burst."""
+        if len(batch_uids) != len(batch_tokens):
+            raise ValueError(f"{len(batch_uids)} uids vs {len(batch_tokens)} tokens")
+        k, sampled, specs, descs = self._burst_setup(batch_uids, k, sample)
+        ms = self.max_seqs
+        entries = self._entries(batch_tokens)
+        tokens0 = np.zeros(ms, np.int32)
+        tokens0[:len(entries)] = entries
+        parts = [tokens0] + self._pack_rows(descs, k, advance=True)
+        if sampled:
+            self._resolve_seeds(specs)
+            parts.append(pack_sample_meta(specs, ms, dfa=self._dfa_rows(batch_uids)))
+        meta = self._upload(np.concatenate(parts))
+        lay = _burst_layout(ms, self.max_blocks_per_seq, lora=self.lora_store is not None,
+                            sampled=sampled)
+        out, _ = self._run_burst(meta, lay, k, sampled, meta[slice(*lay["tokens0"])])
+        self.bursts["sync"] += 1
         self.count_host_sync()
         self.tokens_emitted += k * len(batch_uids)
         toks = out.cpu().numpy()[:, :len(batch_uids)]  # the one device→host copy
@@ -681,10 +883,65 @@ class InferenceEngineV2:
             # input token's KV, so positions [seen, seen+k) hold the entry
             # token followed by the first k-1 outputs
             for i, desc in enumerate(descs):
-                desc.tokens.fence()
-                desc.tokens.append(int(rows[0][i]))
+                desc.tokens.fence()  # order after drained pipelined segments
+                desc.tokens.append(entries[i])
                 desc.tokens.extend(int(t) for t in toks[:-1, i])
         return toks
+
+    def decode_burst_async(self, batch_uids, batch_tokens, k, sample=None, prev=None):
+        """Pipelined ``decode_burst``: dispatches the k-step burst and
+        returns an :class:`AsyncBurstHandle` WITHOUT any device→host
+        wait; the caller fences one burst late, so the host packs and
+        dispatches burst k+1 while burst k executes.
+
+        ``prev=None`` is the pipeline's cold start: entry tokens come
+        from ``batch_tokens`` (host ints, e.g. ``put()``'s last outputs).
+        With ``prev``, entry tokens chain ON THE DEVICE from the previous
+        handle's last output row (``prev.entry_next``) and
+        ``batch_tokens`` is ignored; the uid order must match ``prev``'s
+        exactly (the scheduler drains the pipeline whenever the live set
+        changes). Sampled chains also carry the DFA state row from
+        ``prev.st``, so constrained streams equal the sync path's.
+        Token-log segments go in as pending device segments
+        (:meth:`TokenLog.append_device`), fenced when something reads
+        them."""
+        k, sampled, specs, descs = self._burst_setup(batch_uids, k, sample, prev)
+        ms = self.max_seqs
+        parts = self._pack_rows(descs, k, advance=True)
+        if sampled:
+            self._resolve_seeds(specs)
+            parts.append(pack_sample_meta(specs, ms, dfa=self._dfa_rows(batch_uids)))
+        meta = np.concatenate(parts)
+        entry_np = None
+        if prev is None:
+            # cold start: the host entry row rides behind the vector, one copy
+            entry_full = np.zeros(ms, np.int32)
+            for i, tok in enumerate(batch_tokens):
+                entry_full[i] = int(np.asarray(tok).reshape(-1)[-1])
+            entry_np = entry_full[:len(batch_uids)].copy()
+            wire = self._upload(np.concatenate([meta, entry_full]))
+            meta, entry = wire[:meta.size], wire[meta.size:]
+        else:
+            meta, entry = self._upload(meta), prev.entry_next  # the device row, no sync
+        lay = _burst_layout(ms, self.max_blocks_per_seq, lora=self.lora_store is not None,
+                            sampled=sampled, async_entry=True)
+        # a sampled chain's DFA states carry on the device; the packed
+        # state row (the host's, one burst behind) serves the cold start
+        out, st = self._run_burst(meta, lay, k, sampled, entry,
+                                  st=prev.st if prev is not None else None)
+        self.bursts["async"] += 1
+        self.tokens_emitted += k * len(batch_uids)
+        handle = AsyncBurstHandle(self, batch_uids, descs, k, out, st=st, entry_np=entry_np,
+                                  prev=prev)
+        if self._log_tokens:
+            # KV content over [seen, seen+k) = the entry token plus the
+            # first k-1 outputs, as in the sync path, pending on the
+            # device until something fences
+            for i, desc in enumerate(descs):
+                desc.tokens.append_device(
+                    lambda i=i, h=handle: [int(h.entry_values()[i])]
+                    + [int(t) for t in h.fetch()[:-1, i]])
+        return handle
 
     # -------------------------------------------- speculative decoding
     def propose_drafts(self, batch_uids, batch_tokens, max_lens=None):
@@ -761,13 +1018,13 @@ class InferenceEngineV2:
         lora_on = self.lora_store is not None
         toks = np.zeros((ms, d + 1), np.int32)
         dlen = np.zeros(ms, np.int32)
-        rows = self._pack_rows(descs, batch_tokens, d + 1)
-        entries = rows[0]
+        entries = self._entries(batch_tokens)
+        rows = self._pack_rows(descs, d + 1)
         for i, (entry, drafts) in enumerate(zip(entries, batch_drafts)):
             toks[i] = entry  # inert pad past the drafts: dlen masks acceptance
             toks[i, 1:1 + len(drafts)] = [int(t) for t in drafts]
             dlen[i] = len(drafts)
-        parts = [toks.ravel(), dlen] + rows[1:]
+        parts = [toks.ravel(), dlen] + rows
         if sampled:
             self._resolve_seeds(specs)
             parts.append(pack_sample_meta(specs, ms))
@@ -775,8 +1032,10 @@ class InferenceEngineV2:
         lay = _verify_layout(ms, mb, d, lora=lora_on, sampled=sampled)
         nxt, acc = self._verify(meta, lay, ms, d, sampled)
         # THE one device→host copy of a verify: tokens and accept counts
-        # leave together (counted as the JAX engine's two sync sites)
-        self.count_host_sync(2)
+        # leave together. The JAX engine packs them into one vector only
+        # under async_burst and counts its two copies as two sync sites
+        # otherwise: the count follows its
+        self.count_host_sync(1 if self.async_burst else 2)
         wire = torch.cat([nxt.reshape(-1), acc]).cpu().numpy()
         out = wire[:ms * (d + 1)].reshape(ms, d + 1)
         acc = wire[ms * (d + 1):].astype(np.int64)

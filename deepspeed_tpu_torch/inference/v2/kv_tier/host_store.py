@@ -21,15 +21,17 @@ at acquire), the tier's prefetch worker (peek + stage), and client
 threads (stats) all touch the table — every mutation runs under the
 store lock.
 
-Port: a copy of ``deepspeed_tpu/inference/v2/kv_tier/host_store.py``
-with a plain ``RLock`` and without the ``DS_SANITIZE`` audit after each
-mutation (callers run ``utils.sanitize.check_kv_tier_store``).
+Port: a copy of ``deepspeed_tpu/inference/v2/kv_tier/host_store.py``.
+Under ``DS_SANITIZE`` the lock is order-tracked and every mutation
+re-derives the records' keys and byte total (``check_kv_tier_store``).
 """
 
 import threading
 from collections import OrderedDict
 
 from deepspeed_tpu_torch.inference.v2.prefix_cache.radix_index import _chunk_key
+from deepspeed_tpu_torch.utils.sanitize import (check_kv_tier_store,
+                                          sanitize_enabled, tracked_lock)
 
 
 class HostKVStore:
@@ -44,10 +46,15 @@ class HostKVStore:
         self.evictions = 0   # blocks dropped for the byte budget
         self.lookups = 0     # contains/peek probes
         self.hits = 0
-        self._lock = threading.RLock()
+        self._lock = tracked_lock(threading.RLock(), "HostKVStore._lock")
+        self._sanitize = sanitize_enabled()
 
     def __len__(self):
         return len(self._records)
+
+    def _check_locked(self):
+        if self._sanitize:
+            check_kv_tier_store(self)
 
     # ------------------------------------------------------------- writes
     def put(self, parent_key, tokens, handle, nbytes, quant_error=None):
@@ -65,6 +72,7 @@ class HostKVStore:
             if old is not None:
                 self.bytes_resident -= old["nbytes"]
             if nbytes > self.capacity_bytes:
+                self._check_locked()
                 return False
             while self._records and \
                     self.bytes_resident + nbytes > self.capacity_bytes:
@@ -74,6 +82,7 @@ class HostKVStore:
             self._records[(parent_key, tokens)] = rec
             self.bytes_resident += nbytes
             self.demotions += 1
+            self._check_locked()
             return True
 
     def pop(self, parent_key, tokens):
@@ -89,6 +98,7 @@ class HostKVStore:
                 self.hits += 1
                 self.bytes_resident -= rec["nbytes"]
                 self.promotions += 1
+                self._check_locked()
             return rec
 
     # ------------------------------------------------------------- reads

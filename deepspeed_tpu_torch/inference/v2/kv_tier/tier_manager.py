@@ -30,8 +30,8 @@ Lock order (deadlock-free by construction): ``manager._lock`` →
 manager lock is taken, because the worker needs the manager lock for
 its trie walk.
 
-Port of ``deepspeed_tpu/inference/v2/kv_tier/tier_manager.py`` with
-plain ``RLock``s.
+Port of ``deepspeed_tpu/inference/v2/kv_tier/tier_manager.py``; under
+``DS_SANITIZE`` the locks are order-tracked (``tracked_lock``).
 """
 
 import threading
@@ -44,7 +44,7 @@ from deepspeed_tpu_torch.inference.v2.kv_tier.host_store import HostKVStore
 from deepspeed_tpu_torch.inference.v2.kv_tier.quant import (handle_nbytes, quantize_handle,
                                                             split_blocks)
 from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import to_host
-from deepspeed_tpu_torch.utils.sanitize import check_handoff_record
+from deepspeed_tpu_torch.utils.sanitize import check_handoff_record, tracked_lock
 
 _MAX_STAGED = 32      # staged device copies kept (LRU) awaiting promotion
 _MAX_INFLIGHT = 256   # prefetch fences kept for never-acquired submits
@@ -88,7 +88,7 @@ class TierManager:
         self.exported_blocks = 0
         self.imported_blocks = 0
         self.import_rejects = 0
-        self._lock = threading.RLock()
+        self._lock = tracked_lock(threading.RLock(), "TierManager._lock")
 
     # ------------------------------------------------------------- demotion
     def demote(self, victims):

@@ -21,21 +21,28 @@ ownership on top of :class:`BlockedKVCache`/:class:`BlockedAllocator`:
   space for hits — it can never starve live sequences.
 
 Port: a copy of ``deepspeed_tpu/inference/v2/prefix_cache/manager.py``.
-``prefix_cache_enabled`` reads the config only (the ``DS_PREFIX_CACHE``
-switch waits with the other ``DS_*`` switches), the lock is a plain
-``RLock``, and the ``DS_SANITIZE`` audit after every mutation is left to
-callers (:func:`deepspeed_tpu_torch.utils.sanitize.check_prefix_index`);
-ROADMAP.md, port queue item 4. A promotion restores the claimed chain
-through the pool's ``restore`` on the pool's device.
+Under ``DS_SANITIZE`` the lock is order-tracked and the trie's
+accounting is re-derived after every mutation, as in the JAX package. A
+promotion restores the claimed chain through the pool's ``restore`` on
+the pool's device.
 """
 
 import threading
 
 from deepspeed_tpu_torch.inference.v2.prefix_cache.radix_index import RadixPrefixIndex
+from deepspeed_tpu_torch.utils.env_registry import env_opt_bool
+from deepspeed_tpu_torch.utils.sanitize import (check_prefix_index,
+                                          sanitize_enabled, tracked_lock)
 
 
 def prefix_cache_enabled(config) -> bool:
-    """The config gate (``config.enabled``)."""
+    """Config gate plus the ``DS_PREFIX_CACHE`` kill switch: when the env
+    var is set it wins in BOTH directions (``0``/``false``/``off`` force
+    the cache off, anything else forces it on); unset defers to
+    ``config.enabled``."""
+    forced = env_opt_bool("DS_PREFIX_CACHE")
+    if forced is not None:
+        return forced
     return bool(getattr(config, "enabled", False))
 
 
@@ -61,7 +68,13 @@ class PrefixCacheManager:
         # the gateway pump thread and client threads (suspend/flush)
         # both mutate the trie + lease table; RLock because release()
         # re-enters release_lease()
-        self._lock = threading.RLock()
+        self._lock = tracked_lock(threading.RLock(),
+                                  "PrefixCacheManager._lock")
+        self._sanitize = sanitize_enabled()
+
+    def _check(self):
+        if self._sanitize:
+            check_prefix_index(self.index)
 
     # ------------------------------------------------------------- capacity
     @property
@@ -101,6 +114,7 @@ class PrefixCacheManager:
                 freed = self._evict_locked(deficit)
                 if freed:
                     self.kv_cache.free(freed)
+            self._check()
 
     def reserve(self, num_blocks):
         """Drop-in for ``BlockedKVCache.reserve`` that reclaims cached
@@ -147,6 +161,7 @@ class PrefixCacheManager:
             if tier2_blocks:
                 self.tier2_hits += 1
                 self.tier2_tokens_saved += tier2_blocks * self.block_size
+            self._check()
             return [node.block_id for node in path], cached
 
     def _promote_tier_hits_locked(self, prompt_tokens, max_blocks):
@@ -197,6 +212,7 @@ class PrefixCacheManager:
             node = self.index.insert_child(node, chunk, block)
             node.tier2 = True
         tier.note_promoted(len(claimed))
+        self._check()
 
     def invalidate_for_version(self, version):
         """Weight-refresh invalidation: drop EVERY cached block (both the
@@ -218,6 +234,7 @@ class PrefixCacheManager:
                 self.kv_cache.free(freed)
             if self.tier is not None:
                 self.tier.invalidate()
+            self._check()
 
     def match_len(self, prompt_tokens):
         """Read-only probe: how many leading tokens of ``prompt_tokens``
@@ -244,6 +261,7 @@ class PrefixCacheManager:
         with self._lock:
             for node in self._leases.pop(uid, ()):
                 self.index.decref(node)
+            self._check()
 
     def release(self, uid, desc):
         """Retire ``desc``: insert its completed full blocks into the
@@ -287,6 +305,7 @@ class PrefixCacheManager:
             self.release_lease(uid)
             if freed:
                 self.kv_cache.free(freed)
+            self._check()
 
     # -------------------------------------------------------------- metrics
     def stats(self):

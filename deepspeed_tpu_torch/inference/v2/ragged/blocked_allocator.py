@@ -9,14 +9,13 @@ the scheduler builds from it.
 The free list is a FIFO list (allocation order stays deterministic —
 tests and block-table goldens rely on it) mirrored by a set, so the
 double-free check in ``free()`` is O(1) per block instead of a scan of
-the whole free list (O(free²) per call at pool scale).
-
-Port: a copy without the JAX package's ``DS_SANITIZE`` allocator audit
-(``utils/sanitize.py`` imports jax); ROADMAP.md queues it."""
+the whole free list (O(free²) per call at pool scale)."""
 
 import threading
 
 import numpy as np
+
+from deepspeed_tpu_torch.utils.sanitize import check_allocator, sanitize_enabled
 
 
 class BlockedAllocator:
@@ -30,6 +29,7 @@ class BlockedAllocator:
         # serving runs allocate/free from both the gateway pump thread
         # and client threads (suspend/flush); mutations stay atomic
         self._lock = threading.Lock()
+        self._sanitize = sanitize_enabled()
 
     @property
     def free_blocks(self) -> int:
@@ -41,6 +41,8 @@ class BlockedAllocator:
 
     def allocate(self, num_blocks: int) -> np.ndarray:
         with self._lock:
+            if self._sanitize:
+                check_allocator(self)
             if num_blocks > len(self._free):
                 raise ValueError(
                     f"requested {num_blocks} blocks but only {len(self._free)} free")
@@ -52,6 +54,8 @@ class BlockedAllocator:
     def free(self, blocks) -> None:
         blocks = [int(b) for b in np.atleast_1d(blocks)]
         with self._lock:
+            if self._sanitize:
+                check_allocator(self)
             # validate the WHOLE batch (including duplicates within it)
             # before mutating, so a failed free leaves the list untouched
             seen = set()

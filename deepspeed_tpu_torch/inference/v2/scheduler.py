@@ -13,9 +13,11 @@ sampled decoding on the device (``sampling=`` for every request, or a
 per-request ``sample``), a host ``sample_fn``, speculative verify bursts
 (when the engine's ``spec`` is on) and schema-constrained requests
 (``add_request(schema=)``, when the engine's ``structured`` is on; such a
-batch takes plain bursts, never a verify) work. The pipelined-burst path
-is kept as in the JAX package and stays inert: the port's engine has no
-``async_burst``."""
+batch takes plain bursts, never a verify) work, and so do pipelined
+bursts (when the engine's ``async_burst`` is on): ``_try_async_start``
+and ``_continue_pipeline`` dispatch chained bursts and fence one burst
+late, EOS found at a fence finishes the request, and ``_drain_pipeline``
+rewinds the dispatched tail and flushes when the chain breaks."""
 
 from collections import OrderedDict, deque
 

@@ -8,9 +8,8 @@ matching prefix is accepted on device — bit-identical greedy outputs
 by construction, no extra weights.
 
 Port of ``deepspeed_tpu/inference/v2/spec``: the drafter and the state
-are copies (the state's lock is a plain ``threading.Lock``; the
-``DS_SANITIZE`` lock tracking is not ported yet, ROADMAP.md port queue
-item 4)."""
+are copies (the state's lock is a plain ``threading.Lock``, untracked
+by ``DS_SANITIZE``, as in the JAX package)."""
 
 from deepspeed_tpu_torch.inference.v2.spec.drafter import NGramDrafter
 from deepspeed_tpu_torch.inference.v2.spec.state import SpecDecodeState, spec_decode_enabled

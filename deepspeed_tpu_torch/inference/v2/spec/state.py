@@ -13,7 +13,7 @@ of a slowdown.
 import threading
 
 from deepspeed_tpu_torch.inference.v2.spec.drafter import NGramDrafter
-from deepspeed_tpu_torch.utils.env import env_int, env_opt_bool
+from deepspeed_tpu_torch.utils.env_registry import env_int, env_opt_bool
 
 
 def spec_decode_enabled(config) -> bool:

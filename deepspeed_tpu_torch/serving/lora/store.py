@@ -31,9 +31,8 @@ Leases: :meth:`bind` (admission) takes a per-uid refcount on the
 adapter's slot and :meth:`release` (flush) drops it; eviction only ever
 considers refcount-0 slots, so a slot is never repurposed under an
 in-flight sequence (the structural half of tenant isolation; the
-arithmetic half is the segmented kernel's row independence). The lock is
-a plain ``threading.RLock`` (the JAX store's ``tracked_lock`` belongs to
-the ``DS_SANITIZE`` audit, queue item 4).
+arithmetic half is the segmented kernel's row independence). Under
+``DS_SANITIZE`` the lock is order-tracked (``tracked_lock``).
 """
 
 import threading
@@ -45,6 +44,7 @@ import torch
 from deepspeed_tpu_torch.device import resolve_device
 from deepspeed_tpu_torch.roadmap import not_ported
 from deepspeed_tpu_torch.serving.admission import ServingError
+from deepspeed_tpu_torch.utils.sanitize import tracked_lock
 
 _MAX_STAGED = 8       # staged device copies kept (LRU) awaiting promotion
 _MAX_INFLIGHT = 64    # prefetch fences kept for never-promoted kicks
@@ -128,7 +128,7 @@ class AdapterStore:
         self.stage_hits = 0
         self.prefetch_errors = 0
         self.publish_rejects = 0  # rejected publications (disk tier)
-        self._lock = threading.RLock()
+        self._lock = tracked_lock(threading.RLock(), "AdapterStore._lock")
 
     # --------------------------------------------------------------- helpers
     def _validate(self, adapter_id, layers, alpha):

@@ -9,6 +9,8 @@ import logging
 import os
 import sys
 
+from deepspeed_tpu_torch.utils.env_registry import env_str
+
 log_levels = {
     "debug": logging.DEBUG,
     "info": logging.INFO,
@@ -39,7 +41,7 @@ class LoggerFactory:
 
 logger = LoggerFactory.create_logger(
     name="DeepSpeedTorch",
-    level=log_levels.get(os.environ.get("DS_TPU_LOG_LEVEL", ""), logging.INFO))
+    level=log_levels.get(env_str("DS_TPU_LOG_LEVEL"), logging.INFO))
 
 
 @functools.lru_cache(None)

@@ -1,21 +1,58 @@
-"""Host-side invariant checks of the prefix cache and the KV spill tier.
+"""Runtime sanitizers behind the ``DS_SANITIZE`` env knob.
 
-Port of the part of ``deepspeed_tpu/utils/sanitize.py`` that the radix
-prefix cache and the KV tier need: the typed errors and three checks.
-``check_handoff_record`` runs on every ``TierManager.import_chain`` (a
-handoff record is untrusted input); ``check_prefix_index`` and
-``check_kv_tier_store`` are for callers and tests. The JAX package runs
-those two after every mutation under ``DS_SANITIZE``; that switch, the
-``checkify`` device checks and the lock-order tracker are not ported
-(ROADMAP.md, port queue item 4).
+Port of ``deepspeed_tpu/utils/sanitize.py`` (the wire-frame and weight
+publication checks wait for the fleet and the refresh controller). Three
+layers, all OFF by default with zero hot-path cost:
+
+- device-side: :func:`maybe_checkify` wraps an engine forward. Off, it
+  returns the callable itself (no wrapper, no branch per call, no
+  launch). On, it checks the packed batch's integer inputs against their
+  ranges before the call (:class:`SanitizerIndexError`, where JAX's
+  checkify reports an out-of-bounds gather) and every floating output
+  for non-finite values after it (:class:`SanitizerNaNError`). The
+  checks read device values on the host, so the checked form
+  synchronizes: it is a debugging mode.
+- host-side: the blocked allocator, the prefix-cache manager and the KV
+  spill tier's store run the ``check_*`` invariant assertions after
+  every mutation. Violations raise typed errors instead of silently
+  corrupting block ownership. ``check_handoff_record`` runs on every
+  ``TierManager.import_chain`` whatever the switch says (a handoff
+  record is untrusted input).
+- locks: :func:`tracked_lock` wraps the named locks in an order-tracking
+  proxy that raises :class:`LockOrderViolationError` on the first
+  acquisition that closes a cycle in the process-wide lock graph.
+
+Enablement is sampled once per object construction (engine, allocator,
+manager, store), not per call, so flipping the env var mid-run does not
+resurrect checks on live objects.
 """
+
+import threading
+import traceback
+
+from deepspeed_tpu_torch.utils.env_registry import env_bool
 
 
 class SanitizerError(RuntimeError):
-    """Base class of the invariant failures. ``retry_elsewhere`` is False:
-    an invariant trip is a bug, not a capacity signal."""
+    """Base class of the DS_SANITIZE failures. ``retry_elsewhere`` is
+    False: an invariant trip is a bug, not a capacity signal."""
     reason = "sanitizer"
     retry_elsewhere = False
+
+
+class SanitizerNaNError(SanitizerError):
+    """A sanitized forward produced a non-finite value (or, through
+    :class:`SanitizerIndexError`, was handed an out-of-range index)."""
+
+
+class SanitizerIndexError(SanitizerNaNError):
+    """A sanitized forward's integer input (token id, position, block
+    id, sequence slot, adapter slot) lies outside the range the forward
+    gathers from: checkify's index check, raised before the gather."""
+
+
+class AllocatorCorruptionError(SanitizerError):
+    """BlockedAllocator free-list/free-set mirror disagreement."""
 
 
 class PrefixCacheCorruptionError(SanitizerError):
@@ -26,6 +63,90 @@ class KVTierCorruptionError(SanitizerError):
     """Host KV spill-tier record whose stored chained key no longer
     re-derives from its (parent_key, tokens) identity — promotion would
     graft wrong-content KV into the trie — or byte accounting drift."""
+
+
+class LockOrderViolationError(SanitizerError):
+    """An acquisition closed a cycle in the global lock-order graph
+    (two threads can take the same two locks in opposite orders), or a
+    non-reentrant lock was blocking-re-acquired by its holder. The
+    message names both acquisition stacks: the current thread's and the
+    recorded one that established the conflicting edge."""
+
+
+def sanitize_enabled() -> bool:
+    return env_bool("DS_SANITIZE")
+
+
+def _tensors(out):
+    """The tensors of a (nested tuple/list/dict) result, in order."""
+    if isinstance(out, dict):
+        for v in out.values():
+            yield from _tensors(v)
+    elif isinstance(out, (tuple, list)):
+        for v in out:
+            yield from _tensors(v)
+    elif hasattr(out, "is_floating_point"):
+        yield out
+
+
+def check_finite(out, where="forward") -> None:
+    """Raise :class:`SanitizerNaNError` when a floating tensor of ``out``
+    holds a NaN or an Inf (checkify's float check)."""
+    import torch
+    for t in _tensors(out):
+        if t.is_floating_point() and t.numel() and not bool(torch.isfinite(t).all()):
+            bad = int((~torch.isfinite(t)).sum())
+            raise SanitizerNaNError(f"{where}: {bad} non-finite value(s) in a "
+                                    f"{tuple(t.shape)} {t.dtype} output")
+
+
+def check_index(name, t, lo, hi) -> None:
+    """Raise :class:`SanitizerIndexError` unless every entry of the
+    integer tensor ``t`` lies in ``[lo, hi)`` (checkify's index check)."""
+    if t.numel() == 0:
+        return
+    tmin, tmax = int(t.min()), int(t.max())
+    if tmin < lo or tmax >= hi:
+        raise SanitizerIndexError(f"{name} out of bounds: values span [{tmin}, {tmax}], "
+                                  f"the gather admits [{lo}, {hi})")
+
+
+def maybe_checkify(fn, check_inputs=None, enabled=None):
+    """The torch counterpart of the JAX package's ``maybe_checkify_jit``.
+
+    When ``enabled`` is falsy this returns ``fn`` ITSELF: no wrapper
+    object, no per-call branch, no launch. When enabled, each call first
+    runs ``check_inputs(*args, **kwargs)`` (when given: range checks of
+    the integer inputs, raising :class:`SanitizerIndexError`), then
+    ``fn``, then :func:`check_finite` over every floating output,
+    raising :class:`SanitizerNaNError`."""
+    if enabled is None:
+        enabled = sanitize_enabled()
+    if not enabled:
+        return fn
+
+    def run(*args, **kwargs):
+        if check_inputs is not None:
+            check_inputs(*args, **kwargs)
+        out = fn(*args, **kwargs)
+        check_finite(out, getattr(fn, "__qualname__", "forward"))
+        return out
+
+    run.__wrapped__ = fn
+    run._ds_sanitized = True
+    return run
+
+
+def check_allocator(alloc) -> None:
+    """Free-list vs free-set mirror: same length, same membership. A
+    disagreement means a double free slipped past (or a free was lost)
+    and block ownership is corrupt."""
+    free, mirror = alloc._free, alloc._free_set
+    if len(free) != len(mirror) or set(free) != mirror:
+        raise AllocatorCorruptionError(
+            f"free-list/free-set mirror out of sync: list has "
+            f"{len(free)} entries, set has {len(mirror)} "
+            f"(symmetric difference: {sorted(set(free) ^ mirror)[:8]})")
 
 
 def check_kv_tier_store(store) -> None:
@@ -136,3 +257,209 @@ def check_prefix_index(index) -> None:
         raise PrefixCacheCorruptionError(
             f"trie has {ref0} ref-0 (reclaimable) blocks but the "
             f"evictable counter says {index.evictable_blocks}")
+
+
+# -------------------------------------------------- lock-order sanitizer
+# Runtime twin of the graft-lint ``lock-order`` rule: under DS_SANITIZE=1
+# every registered lock is wrapped in an order-tracking proxy. Each
+# acquisition while other tracked locks are held merges directed edges
+# (held -> acquiring) into one process-global graph; the first
+# acquisition that would close a cycle raises LockOrderViolationError
+# BEFORE touching the underlying lock — naming the current thread's
+# stack and the recorded stack of the conflicting edge — so the test
+# suite reports the inversion instead of deadlocking on it.
+#
+# The graph is guarded by a plain (untracked) module lock and persists
+# across objects: edges recorded by a TierManager in one test conflict
+# with inversions from another, which is exactly what makes the tier-1
+# suite a dynamic deadlock harness. Tests isolate via reset_lock_graph().
+
+_LOCK_GRAPH_GUARD = threading.Lock()
+_LOCK_GRAPH = {}  # src name -> {dst name: {"thread", "held", "stack"}}
+_HELD = threading.local()  # .stack: list of (proxy, name) per thread
+
+
+def reset_lock_graph() -> None:
+    """Drop all recorded acquisition edges (test isolation)."""
+    with _LOCK_GRAPH_GUARD:
+        _LOCK_GRAPH.clear()
+
+
+def lock_graph_snapshot():
+    """{src: {dst: owning thread name}} copy of the global edge set."""
+    with _LOCK_GRAPH_GUARD:
+        return {src: {dst: info["thread"] for dst, info in dsts.items()}
+                for src, dsts in _LOCK_GRAPH.items()}
+
+
+def _held_stack():
+    stack = getattr(_HELD, "stack", None)
+    if stack is None:
+        stack = _HELD.stack = []
+    return stack
+
+
+def _reaches(src, dst):
+    """True if ``dst`` is reachable from ``src`` in _LOCK_GRAPH (caller
+    holds _LOCK_GRAPH_GUARD)."""
+    seen = set()
+    frontier = [src]
+    while frontier:
+        node = frontier.pop()
+        if node == dst:
+            return True
+        if node in seen:
+            continue
+        seen.add(node)
+        frontier.extend(_LOCK_GRAPH.get(node, ()))
+    return False
+
+
+class _TrackedLock:
+    """Order-tracking proxy around a Lock/RLock. Forwards everything to
+    the wrapped lock; acquire/release additionally maintain the
+    per-thread held stack and the global acquisition graph.
+
+    Reentrancy: re-acquiring a lock already on this thread's held stack
+    records no edges (an RLock holder re-entering is legal and must not
+    self-edge); a BLOCKING re-acquire of a plain non-reentrant Lock is
+    raised as a guaranteed self-deadlock instead of hanging.
+
+    ``threading.Condition(tracked_plain_lock)`` is supported: Condition
+    probes the lock for ``_release_save``/``_acquire_restore``, the
+    proxy's ``__getattr__`` raises AttributeError for them (plain Locks
+    have none), and Condition falls back to plain ``release()`` /
+    ``acquire()`` — which keep the held stack correct across ``wait()``.
+    Do NOT hand a tracked RLock to a Condition: the probe would find the
+    real RLock's ``_release_save`` via forwarding and bypass tracking.
+    """
+
+    __slots__ = ("_inner", "_name")
+
+    def __init__(self, inner, name):
+        self._inner = inner
+        self._name = name
+
+    def acquire(self, blocking=True, timeout=-1):
+        held = _held_stack()
+        reentrant = any(entry[0] is self for entry in held)
+        if reentrant:
+            if blocking and isinstance(self._inner,
+                                       type(threading.Lock())):
+                raise LockOrderViolationError(
+                    f"self-deadlock: thread "
+                    f"{threading.current_thread().name!r} blocking-"
+                    f"re-acquires non-reentrant {self._name} it already "
+                    f"holds\n--- current stack ---\n"
+                    + "".join(traceback.format_stack()))
+        else:
+            self._check_and_record(held)
+        ok = self._inner.acquire(blocking, timeout)
+        if ok:
+            held.append((self, self._name))
+        elif not reentrant:
+            # nothing was pushed; recorded edges stay — the ATTEMPTED
+            # ordering is what matters for deadlock potential
+            pass
+        return ok
+
+    def _check_and_record(self, held):
+        if not held:
+            return
+        me = self._name
+        held_names = [name for _proxy, name in held]
+        with _LOCK_GRAPH_GUARD:
+            for src in held_names:
+                if src == me:
+                    continue
+                # would edge (src -> me) close a cycle? i.e. me -> src
+                # already reachable through recorded edges
+                if _reaches(me, src):
+                    info = self._conflict_info(me, src)
+                    raise LockOrderViolationError(
+                        f"lock-order cycle: thread "
+                        f"{threading.current_thread().name!r} acquires "
+                        f"{me} while holding {held_names} but the "
+                        f"reverse order {me} -> {src} is already on "
+                        f"record (thread {info['thread']!r} held "
+                        f"{info['held']})\n"
+                        f"--- current acquisition stack ---\n"
+                        f"{''.join(traceback.format_stack())}"
+                        f"--- conflicting acquisition stack "
+                        f"(thread {info['thread']!r}) ---\n"
+                        f"{''.join(info['stack'])}")
+            stack = traceback.format_stack()
+            thread = threading.current_thread().name
+            for src in held_names:
+                if src == me:
+                    continue
+                _LOCK_GRAPH.setdefault(src, {}).setdefault(
+                    me, {"thread": thread, "held": list(held_names),
+                         "stack": stack})
+
+    @staticmethod
+    def _conflict_info(src, dst):
+        """First recorded edge on some path src -> ... -> dst (caller
+        holds the guard); falls back to the direct edge if present."""
+        direct = _LOCK_GRAPH.get(src, {}).get(dst)
+        if direct is not None:
+            return direct
+        seen = set()
+        frontier = [(src, None)]
+        while frontier:
+            node, first = frontier.pop()
+            if node in seen:
+                continue
+            seen.add(node)
+            for nxt, info in _LOCK_GRAPH.get(node, {}).items():
+                carried = first or info
+                if nxt == dst:
+                    return carried
+                frontier.append((nxt, carried))
+        return {"thread": "?", "held": [], "stack": []}
+
+    def release(self):
+        held = _held_stack()
+        for i in range(len(held) - 1, -1, -1):
+            if held[i][0] is self:
+                del held[i]
+                break
+        self._inner.release()
+
+    def __enter__(self):
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc):
+        self.release()
+        return False
+
+    def locked(self):
+        return self._inner.locked()
+
+    def __getattr__(self, name):
+        # _release_save/_acquire_restore/_is_owned must NOT forward to a
+        # wrapped RLock (Condition would bypass held tracking); plain
+        # Locks lack them, so AttributeError here preserves Condition's
+        # documented fallback to acquire()/release()
+        if name in ("_release_save", "_acquire_restore", "_is_owned"):
+            raise AttributeError(name)
+        return getattr(self._inner, name)
+
+    def __repr__(self):
+        return f"<_TrackedLock {self._name} wrapping {self._inner!r}>"
+
+
+def tracked_lock(lock, name, enabled=None):
+    """Wrap ``lock`` in an order-tracking proxy under DS_SANITIZE=1.
+
+    Off-state returns ``lock`` VERBATIM: zero wrapper, zero per-acquire
+    branch, same discipline as :func:`maybe_checkify`. ``name`` is the
+    ``Class.attr`` key the JAX package gives the same lock, so reports
+    from both packages speak the same language.
+    """
+    if enabled is None:
+        enabled = sanitize_enabled()
+    if not enabled:
+        return lock
+    return _TrackedLock(lock, name)

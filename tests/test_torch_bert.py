@@ -34,6 +34,8 @@ from deepspeed_tpu_torch.models import (bert_params_from_jax, bert_params_to_jax
                                         load_bert_params)
 from deepspeed_tpu_torch.ops.sparse_attention import SparseAttentionUtils
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 TOL = dict(atol=5e-5, rtol=5e-5)
 BIGBIRD = {"sparse_attention": {"mode": "bigbird", "block": 16, "num_random_blocks": 1,
                                 "num_sliding_window_blocks": 3, "num_global_blocks": 1}}

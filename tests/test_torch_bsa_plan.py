@@ -51,6 +51,8 @@ from deepspeed_tpu_torch.ops.kernels.flash_attention import row_scaled_err
 from deepspeed_tpu_torch.ops.sparse_attention import (BigBirdSparsityConfig,
                                                       FixedSparsityConfig)
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 ROWS = 64        # rows a consumer warpgroup owns
 DKV_QROWS = 64   # query rows a dK/dV tile
 ROW_TOL = 6.0

@@ -27,6 +27,8 @@ from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig, DynamicSplit
                                               InferenceEngineV2, RaggedInferenceEngineConfig)
 from deepspeed_tpu_torch.models import LlamaConfig, params_from_jax
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 SM = dict(max_ragged_batch_size=32, max_ragged_sequence_count=4, max_tracked_sequences=4,
           max_context=64)
 PRESETS = {

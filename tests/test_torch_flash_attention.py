@@ -25,6 +25,8 @@ from deepspeed_tpu.ops.pallas.flash_attention import _bwd_impl, _fwd_impl
 from deepspeed_tpu.ops.pallas.flash_attention import flash_attention as jax_flash
 from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 TOL = dict(atol=1e-5, rtol=1e-5)
 BLOCK = 32
 

@@ -49,6 +49,8 @@ import jax.numpy as jnp
 from deepspeed_tpu.ops.pallas.flash_attention import _bwd_impl, _fwd_impl
 from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 ROWS = 128       # query rows (forward) or keys (dK/dV) a block: WG_ROWS
 FWD_KEYS = 128   # keys a forward stage
 DKV_QROWS = 64   # query rows a dK/dV stage

@@ -17,6 +17,8 @@ import jax.numpy as jnp
 from deepspeed_tpu.ops.pallas.fused_norms import fused_rms_norm as jax_rms
 from deepspeed_tpu_torch.ops.kernels.fused_norms import fused_rms_norm, rms_norm_fwd
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 

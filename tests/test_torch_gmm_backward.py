@@ -31,6 +31,8 @@ from deepspeed_tpu.ops.pallas import grouped_matmul as jgm
 from deepspeed_tpu_torch.models.convert import carrier_from_jax
 from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 RTOL = 1e-5
 CASES = {  # name: (rows per expert, K, N, tm)
     "empty_expert": ((5, 0, 17, 9), 64, 48, 8),

@@ -31,6 +31,8 @@ import deepspeed_tpu.ops.grouped_gemm as jgg
 import deepspeed_tpu.ops.pallas.grouped_matmul as jgm
 from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 FIELDS = 5  # first row, rows, expert, group's first item, group's item count
 
 

@@ -36,6 +36,8 @@ from deepspeed_tpu_torch.models.convert import carrier_from_jax
 from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
 from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import dequantize_grouped
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 BOX = 64 * 64 * 2  # one [64 K][64 N] bf16 box: 8 KB (csrc RING_BOX)
 SIZES = (40, 0, 23, 57)  # rows per expert: expert 1 empty
 E, K, N, G = 4, 256, 512, 128

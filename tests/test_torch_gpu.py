@@ -2647,3 +2647,100 @@ def test_serving_rms_rows_do_not_move(cuda):
         assert torch.equal(_rms(x[:M], sc, 1e-5), full[:M]), M
     for r in range(0, 512, 37):
         assert torch.equal(_rms(x[r:r + 1], sc, 1e-5), full[r:r + 1]), r
+
+
+# ------------------------------------------------------- pipelined decode bursts
+def _async_engine(cuda, async_on, structured=False):
+    from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig, InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.models import init_params, llama_config
+    cfg = llama_config("debug", hidden_size=256, num_attention_heads=4,
+                       num_key_value_heads=2, num_hidden_layers=2)
+    params = init_params(cfg, cuda, torch.bfloat16, torch.Generator(cuda).manual_seed(5),
+                         std=0.05)
+    return InferenceEngineV2(cfg, RaggedInferenceEngineConfig(
+        kv_block_size=16, async_burst={"enabled": async_on, "depth": 2},
+        structured={"enabled": structured}, state_manager=DSStateManagerConfig(
+            max_ragged_batch_size=64, max_ragged_sequence_count=4, max_tracked_sequences=8,
+            max_context=128)), params=params, device=cuda)
+
+
+def test_chained_async_burst_on_card_equals_sync_under_sync_debug(cuda):
+    """On the card a chained pipelined burst dispatches with no
+    synchronizing call (``set_sync_debug_mode("error")`` around its
+    dispatch), its tokens come down through its own pinned copy, and two
+    chained bursts emit what two synchronous bursts emit, greedy and
+    sampled, with the same KV launches a forward; then schedulers on a
+    pipelined and a synchronous engine give the same streams."""
+    from deepspeed_tpu_torch.inference.v2 import DynamicSplitFuseScheduler
+    from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import dense_matmul
+    from deepspeed_tpu_torch.ops.kernels.paged_attention import paged_decode_attention
+    engines = [_async_engine(cuda, False), _async_engine(cuda, True)]
+    rng = np.random.RandomState(7)
+    prompts = [rng.randint(0, 256, n).astype(np.int32) for n in (13, 30, 22)]
+    uids = [1, 2, 3]
+    spec = [{"temperature": 1.1, "top_k": 24, "seed": 8 + i} for i in range(3)]
+    for sample in (None, spec):
+        first = [np.concatenate([e.put([u], [p], sample=[sample[i]] if sample else "greedy")
+                                 for i, (u, p) in enumerate(zip(uids, prompts))])
+                 for e in engines]
+        assert first[0].tolist() == first[1].tolist()
+        sync, eng = engines
+        a0, a1, f0 = paged_decode_attention.launches, dense_matmul.launches, sync.forward_steps
+        want = [sync.decode_burst(uids, [[int(t)] for t in first[0]], 8, sample=sample)]
+        want.append(sync.decode_burst(uids, [[int(t)] for t in want[0][-1]], 8, sample=sample))
+        per_sync = ((paged_decode_attention.launches - a0) / (sync.forward_steps - f0),
+                    (dense_matmul.launches - a1) / (sync.forward_steps - f0))
+        a0, a1, f0 = paged_decode_attention.launches, dense_matmul.launches, eng.forward_steps
+        h0 = eng.decode_burst_async(uids, [[int(t)] for t in first[1]], 8, sample=sample)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            h1 = eng.decode_burst_async(uids, None, 8, sample=sample, prev=h0)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert h0._host.is_pinned() and h1._event is not None
+        got = [h0.fetch(), h1.fetch()]
+        assert all(np.array_equal(g, w) for g, w in zip(got, want)), sample
+        assert ((paged_decode_attention.launches - a0) / (eng.forward_steps - f0),
+                (dense_matmul.launches - a1) / (eng.forward_steps - f0)) == per_sync == (2, 15)
+        for e in engines:
+            for u in uids:
+                e.flush(u)
+
+    def run(engine, uid0, sample):
+        sched = DynamicSplitFuseScheduler(engine, token_budget=64, max_burst=8)
+        for i, p in enumerate(prompts):
+            sched.add_request(uid0 + i, p, max_new_tokens=30, sample=sample[i] if sample else None)
+        out = sched.run_to_completion()
+        return [out[uid0 + i] for i in range(len(prompts))]
+    for sample in (None, spec):
+        assert run(engines[1], 100, sample) == run(engines[0], 100, sample)
+    assert engines[1].bursts["async"] > 0 and engines[0].bursts["async"] == 0
+
+
+def test_sanitize_gate_on_card(cuda, monkeypatch):
+    """``DS_SANITIZE=1`` on the card: a clean pipelined run equals the
+    unsanitized engine's, and a NaN-poisoned weight raises
+    ``SanitizerNaNError`` at the next forward; off, the forward is the
+    gate's input itself."""
+    from deepspeed_tpu_torch.inference.v2 import DynamicSplitFuseScheduler, InferenceEngineV2
+    from deepspeed_tpu_torch.utils.sanitize import SanitizerNaNError
+    plain = _async_engine(cuda, True)
+    assert plain._forward.__func__ is InferenceEngineV2._forward
+    monkeypatch.setenv("DS_SANITIZE", "1")
+    checked = _async_engine(cuda, True)
+    assert checked._forward._ds_sanitized
+    rng = np.random.RandomState(9)
+    prompts = [rng.randint(0, 256, n).astype(np.int32) for n in (11, 27)]
+
+    def run(engine):
+        sched = DynamicSplitFuseScheduler(engine, token_budget=64, max_burst=8)
+        for i, p in enumerate(prompts):
+            sched.add_request(i, p, max_new_tokens=20)
+        return sched.run_to_completion()
+    assert run(checked) == run(plain)
+    checked.params = dict(checked.params, norm=torch.full_like(checked.params["norm"],
+                                                               float("nan")))
+    with pytest.raises(SanitizerNaNError):
+        checked.put([5], [prompts[0]], sample="greedy")

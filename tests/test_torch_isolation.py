@@ -9,8 +9,9 @@
 - Each config switch of a feature the port does not serve or train yet
   raises ``NotImplementedError`` at engine (or model) construction, naming
   its ROADMAP item; so do the training engine's checkpoint methods. The
-  prefix cache, the KV spill tier, speculative decoding and constrained
-  decoding are ported: their configs build an engine that serves. MoE
+  prefix cache, the KV spill tier, speculative decoding, constrained
+  decoding and pipelined decode bursts are ported: their configs build an
+  engine that serves. MoE
   models serve and train, dropless or capacity-routed. On-device sampling
   is ported: an invalid spec raises ``ValueError`` at the engine and the
   scheduler."""
@@ -28,6 +29,8 @@ from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2, DynamicSplitFus
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch.models import build_bert, build_llama, init_params, llama_config
 from deepspeed_tpu_torch.models.llama import init_quantized_params
+
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "deepspeed_tpu_torch"
@@ -156,7 +159,7 @@ def test_scans_cover_the_sampling_slice():
     assert all(hasattr(structured, name) for name in structured.__all__)
 
 
-SLICE18_MODULES = ("deepspeed_tpu_torch.utils.env",
+SLICE18_MODULES = ("deepspeed_tpu_torch.utils.env_registry",
                    "deepspeed_tpu_torch.inference.v2.spec",
                    "deepspeed_tpu_torch.inference.v2.spec.drafter",
                    "deepspeed_tpu_torch.inference.v2.spec.state",
@@ -167,14 +170,36 @@ SLICE18_MODULES = ("deepspeed_tpu_torch.utils.env",
 def test_scans_cover_the_spec_and_structured_slice():
     """The AST scan and the jax-free import above reach the speculative
     and constrained decoding modules; the spec package exports what the
-    JAX package's does, and the switches read only their own knobs."""
+    JAX package's does, and the switches read registered knobs of their
+    own kinds."""
     assert set(SLICE18_MODULES) <= set(_modules())
     from deepspeed_tpu_torch.inference.v2 import spec
-    from deepspeed_tpu_torch.utils import env
+    from deepspeed_tpu_torch.utils import env_registry
     assert spec.__all__ == ["NGramDrafter", "SpecDecodeState", "spec_decode_enabled"]
-    assert sorted(env.KNOBS) == ["DS_CONSTRAINED", "DS_SPEC_DECODE", "DS_SPEC_DRAFT_LEN"]
-    with pytest.raises(KeyError, match="unregistered"):
-        env.env_int("DS_SEED")
+    kinds = {k: env_registry.get_knob(k).kind
+             for k in ("DS_CONSTRAINED", "DS_SPEC_DECODE", "DS_SPEC_DRAFT_LEN")}
+    assert kinds == {"DS_CONSTRAINED": "optional_bool", "DS_SPEC_DECODE": "optional_bool",
+                     "DS_SPEC_DRAFT_LEN": "int"}
+    with pytest.raises(KeyError, match="not registered"):
+        env_registry.env_int("DS_SPEC_DRAFT")
+
+
+SLICE19_MODULES = ("deepspeed_tpu_torch.utils.env_registry", "deepspeed_tpu_torch.utils.sanitize",
+                   "deepspeed_tpu_torch.inference.v2.engine_v2",
+                   "deepspeed_tpu_torch.inference.v2.scheduler")
+
+
+def test_scans_cover_the_async_and_sanitize_slice():
+    """The AST scan and the jax-free import above reach the registry, the
+    sanitizer and the pipelined engine; the old partial copy of the
+    registry is gone, and the sanitizer's gate and lock tracker exist."""
+    assert set(SLICE19_MODULES) <= set(_modules())
+    assert "deepspeed_tpu_torch.utils.env" not in _modules()
+    from deepspeed_tpu_torch.inference.v2.engine_v2 import AsyncBurstHandle, InferenceEngineV2
+    from deepspeed_tpu_torch.utils import sanitize
+    assert callable(InferenceEngineV2.decode_burst_async) and AsyncBurstHandle.fetch
+    assert all(callable(getattr(sanitize, n)) for n in ("maybe_checkify", "tracked_lock",
+                                                         "check_allocator", "sanitize_enabled"))
 
 
 def test_default_device_is_the_gpu():
@@ -197,7 +222,6 @@ def test_default_device_is_the_gpu():
 
 OFF_SLICE = {
     "lora": dict(lora={"enabled": True, "publish_root": "adapters"}),  # the disk tier
-    "async_burst": dict(async_burst={"enabled": True}),
     "tensor_parallel_degree": dict(tensor_parallel_degree=2),
     "expert_parallel_degree": dict(expert_parallel_degree=2),
 }
@@ -216,15 +240,20 @@ ON_SLICE = {  # flag: (config, the engine's attribute, prompt tokens the second 
                      kv_tier={"enabled": True, "quantize": True}), "kv_tier", 8),
     "spec_decode": (dict(spec_decode={"enabled": True}), "spec", 0),
     "structured": (dict(structured={"enabled": True}), "structured", 0),
+    "async_burst": (dict(async_burst={"enabled": True}), "async_burst", 0),
 }
+# the engine at small state-manager sizes: the plain paged attention
+# gathers every token's whole table, which the defaults make 8192 long
+SMALL = dict(max_ragged_batch_size=64, max_ragged_sequence_count=4, max_tracked_sequences=4,
+             max_context=128)
 
 
 @pytest.mark.parametrize("flag", sorted(ON_SLICE))
 def test_ported_feature_builds_and_serves(flag):
     config, attr, cached = ON_SLICE[flag]
-    cfg = RaggedInferenceEngineConfig(kv_block_size=4, **config)
+    cfg = RaggedInferenceEngineConfig(kv_block_size=4, state_manager=SMALL, **config)
     eng = InferenceEngineV2("debug", cfg, dtype=torch.float32, device="cpu")
-    assert getattr(eng, attr) is not None
+    assert getattr(eng, attr) not in (None, False)
     sched = DynamicSplitFuseScheduler(eng)
     for uid in (1, 2):  # with a prefix cache, the second request finds the first one's prompt
         sched.add_request(uid, list(range(3, 14)), max_new_tokens=3)

@@ -36,6 +36,8 @@ from deepspeed_tpu.ops.pallas import fused_quant_matmul as jfq
 from deepspeed_tpu_torch.models.convert import carrier_from_jax
 from deepspeed_tpu_torch.ops.kernels import fused_quant_matmul as fq
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 INV_GEMMS = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 32000))
 K = 512
 ROWS = (1, 7, 16, 37, 264)

@@ -35,6 +35,8 @@ from deepspeed_tpu.ops.pallas import quantization as jq
 from deepspeed_tpu_torch.models import kv_handle_from_jax
 from deepspeed_tpu_torch.ops.kernels import quantization as tq
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 SLAB = 32 * 8 * 128  # one Mistral-7B (layer, block) slab: chip_smoke's K7 slab groups
 SMS = 132            # the H100's SMs
 # the slab, then groups whose 8-value units do not divide into the cluster's

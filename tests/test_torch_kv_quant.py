@@ -38,6 +38,8 @@ from deepspeed_tpu_torch.inference.v2.kv_tier import quant as tquant
 from deepspeed_tpu_torch.models import kv_handle_from_jax
 from deepspeed_tpu_torch.ops.kernels import quantization as tq
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 
 def _pair(x, dtype):
     """numpy fp32 ``x`` → (the JAX side's numpy array, the port's CPU tensor)

@@ -46,6 +46,8 @@ from deepspeed_tpu_torch.inference.v2.ragged import (BlockedKVCache, DSStateMana
 from deepspeed_tpu_torch.models import kv_handle_from_jax, kv_handle_to_jax
 from deepspeed_tpu_torch.utils.sanitize import KVTierCorruptionError, check_kv_tier_store
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 DTYPES = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 
 

@@ -51,6 +51,8 @@ from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig, DynamicSplit
 from deepspeed_tpu_torch.inference.v2 import engine_v2 as port_engine_module
 from deepspeed_tpu_torch.models import LlamaConfig, params_from_jax
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 BS, N_REQ, SYS, SFX, NEW, BURST = 4, 4, 64, 4, 8, 16
 PROMPT = SYS + SFX
 BUDGET = PROMPT + N_REQ

@@ -18,6 +18,8 @@ from deepspeed_tpu.ops.pallas.fused_norms import fused_layer_norm as jax_ln
 from deepspeed_tpu_torch.ops.kernels.fused_norms import (fused_layer_norm, layer_norm_fwd,
                                                          layer_norm_ref)
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 

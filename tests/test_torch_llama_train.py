@@ -22,6 +22,8 @@ import jax.numpy as jnp
 from deepspeed_tpu.models import build_llama as jax_build_llama
 from deepspeed_tpu_torch.models import build_llama, load_jax_params, params_to_jax
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 TOL = dict(atol=2e-5, rtol=2e-5)
 
 CASES = {

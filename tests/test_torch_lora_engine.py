@@ -48,6 +48,8 @@ from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig, DynamicSplit
 from deepspeed_tpu_torch.models import LlamaConfig, params_from_jax
 from deepspeed_tpu_torch.serving.lora import AdapterCapacityError
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 SM = dict(max_ragged_batch_size=32, max_ragged_sequence_count=4, max_tracked_sequences=6,
           max_context=64)
 ADAPTERS = {101: (1, 2, 4.0), 102: (2, 3, 6.0), 103: (3, 4, 8.0)}  # id: (seed, rank, alpha)
@@ -70,11 +72,14 @@ def _jax(preset, seed=0):
 
 def _engines(model, params, lora=True, hot_set=4, mode="none", port_params=None):
     """A JAX and a port engine with the same LoRA config, the adapters
-    registered in both when LoRA is on."""
+    registered in both when LoRA is on. ``port_params="jax"`` gives the
+    port the JAX engine's own carriers."""
     lora_kw = dict(enabled=lora, hot_set=hot_set, max_rank=4, prefetch=False)
     jeng = JaxEngine(model=model, config=JaxCfg(
         kv_block_size=8, state_manager=JaxSM(**SM), lora=JaxLoRA(**lora_kw),
         quantization={"quantization_mode": mode}), params=params, dtype=jnp.float32)
+    if port_params == "jax":  # the JAX engine's own carriers
+        port_params = params_from_jax(jeng.params)
     teng = InferenceEngineV2(LlamaConfig(**dataclasses.asdict(model.config)),
                              RaggedInferenceEngineConfig(
                                  kv_block_size=8, state_manager=DSStateManagerConfig(**SM),
@@ -260,9 +265,7 @@ def test_flush_releases_and_capacity(debug):
 
 def test_int8_moe_lora_matches_jax():
     model, params = _jax("mixtral-debug", seed=1)
-    jeng, _ = _engines(model, params, mode="int8")
-    jeng, teng = _engines(model, params, mode="int8",
-                          port_params=params_from_jax(jeng.params))  # the JAX carriers
+    jeng, teng = _engines(model, params, mode="int8", port_params="jax")  # the JAX carriers
     outs = []
     for eng in (jeng, teng):
         eng.bind_adapter(1, 102)

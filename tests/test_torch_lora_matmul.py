@@ -32,6 +32,8 @@ from deepspeed_tpu_torch.ops.kernels.lora_matmul import (apply_lora_delta, lora_
                                                          lora_delta_ref, lora_layout,
                                                          segment_tokens)
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 
 def _rand_case(seed=0, T=13, K=16, N=24, G=4, r=3, bucket=None):
     """The JAX tests' case (slot 0 = base: zero slabs and scale); with

@@ -25,6 +25,8 @@ import jax.numpy as jnp
 from deepspeed_tpu.ops.pallas import lora_matmul as jlora
 from deepspeed_tpu_torch.ops.kernels import lora_matmul as lm
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 SLICES = 16  # the K cut
 STEP = 16   # k an mma step sums
 

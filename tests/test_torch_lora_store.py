@@ -32,6 +32,8 @@ from deepspeed_tpu.serving.lora import UnknownAdapterError as JaxUnknownError
 from deepspeed_tpu_torch.serving.lora import (AdapterCapacityError, AdapterStore,
                                               UnknownAdapterError)
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 DIMS = {"q_proj": (8, 12), "k_proj": (8, 4), "v_proj": (8, 4), "o_proj": (12, 8)}
 L = 2
 DTYPES = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}

@@ -24,6 +24,8 @@ from deepspeed_tpu_torch.inference.v2.model_runner import ragged_forward
 from deepspeed_tpu_torch.inference.v2.ragged.ragged_wrapper import unpack_batch
 from deepspeed_tpu_torch.models import LlamaConfig, params_from_jax
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 BS, NB, MS, MT, MB = 8, 16, 4, 32, 4
 

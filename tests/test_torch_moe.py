@@ -30,6 +30,8 @@ from deepspeed_tpu_torch.inference.v2.model_runner import top_k
 from deepspeed_tpu_torch.models.convert import carrier_from_jax
 from deepspeed_tpu_torch.ops import grouped_gemm as tgg
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 E, D, I = 4, 64, 128
 RTOL = 1e-5
 

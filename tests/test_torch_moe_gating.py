@@ -26,6 +26,8 @@ import jax.numpy as jnp
 from deepspeed_tpu.moe import sharded_moe as jmoe
 from deepspeed_tpu_torch.moe import sharded_moe as tmoe
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 TOL = dict(atol=2e-5, rtol=2e-5)
 
 

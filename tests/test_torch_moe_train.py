@@ -40,6 +40,8 @@ from deepspeed_tpu_torch.models import build_llama, load_jax_params, params_to_j
 from deepspeed_tpu_torch.models.convert import carrier_from_jax
 from deepspeed_tpu_torch.ops import grouped_gemm as tgg
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 TOL = dict(atol=2e-5, rtol=2e-5)
 CASES = {
     # name: (overrides, B, S)

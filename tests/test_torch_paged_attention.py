@@ -17,6 +17,8 @@ from deepspeed_tpu.ops.pallas.paged_attention import (paged_decode_attention as 
 from deepspeed_tpu_torch.ops.kernels.paged_attention import (paged_attention_ref,
                                                              paged_decode_attention)
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 ATOL = 1e-5
 
 

@@ -38,6 +38,8 @@ from deepspeed_tpu.ops.pallas.paged_attention import (paged_decode_attention as 
                                                       xla_paged_attention)
 from deepspeed_tpu_torch.ops.kernels import paged_attention as pa
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 

@@ -32,6 +32,8 @@ from deepspeed_tpu_torch.inference.v2.ragged import BlockedKVCache, DSStateManag
 from deepspeed_tpu_torch.inference.v2.config_v2 import PrefixCacheConfig
 from deepspeed_tpu_torch.utils.sanitize import PrefixCacheCorruptionError, check_prefix_index
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 BS, NB = 4, 24
 
 

@@ -22,6 +22,8 @@ from deepspeed_tpu.inference.structured import prng as jprng
 from deepspeed_tpu_torch.inference.structured import derive_seed
 from deepspeed_tpu_torch.inference.structured import prng
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 SEEDS = (0, 42, 2 ** 31 - 1)
 
 

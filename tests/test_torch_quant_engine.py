@@ -45,6 +45,8 @@ from deepspeed_tpu_torch.models import LlamaConfig, params_from_jax
 from deepspeed_tpu_torch.models.llama import (count_params, init_params,
                                               init_quantized_params, llama_config)
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 SM = dict(max_ragged_batch_size=32, max_ragged_sequence_count=4, max_tracked_sequences=4,
           max_context=64)
 PROMPTS = [(np.arange(11) * 7 + 3) % 120, (np.arange(4) * 5 + 1) % 120,
@@ -144,9 +146,10 @@ def test_quantized_engine_matches_jax(preset, scheme):
         assert _rel(got, want) <= 1e-5
     np.testing.assert_array_equal(bursts[1], bursts[0])
 
-    # the port quantizing the raw tree itself (eager carriers, see above)
+    # the port quantizing the raw tree itself (eager carriers, see above),
+    # against the same JAX engine: _drive flushed every sequence it began
     own = _port_engine(model, params_from_jax(params), scheme)
-    logits, _ = _drive(_jax_engine(model, params, scheme), own)
+    logits, _ = _drive(jeng, own)
     for want, got in logits:
         assert _rel(got, want) <= 1e-4
     raw = sum(np.asarray(x).nbytes for x in jax.tree.leaves(params))

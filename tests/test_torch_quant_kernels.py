@@ -32,6 +32,8 @@ from deepspeed_tpu_torch.ops.kernels import grouped_matmul as tgm
 from deepspeed_tpu_torch.ops.kernels.flash_attention import row_scaled_err
 from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import quant_matmul, quant_matmul_ref
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 SCHEMES = ("int8", "fp8", "fp6")
 RTOL = 1e-5
 

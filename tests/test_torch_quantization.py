@@ -31,6 +31,8 @@ from deepspeed_tpu_torch.inference.quantization.quantization import (
 from deepspeed_tpu_torch.models import params_from_jax
 from deepspeed_tpu_torch.ops.fp_quantizer import quantize as tq
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 SCHEMES = ("int8", "fp8", "fp6")
 
 

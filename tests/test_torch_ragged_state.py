@@ -14,6 +14,8 @@ import jax.numpy as jnp
 from deepspeed_tpu.inference.v2 import ragged as jr
 from deepspeed_tpu_torch.inference.v2 import ragged as tr
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 BS = 8
 
 

@@ -47,6 +47,8 @@ from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig, DynamicSplit
                                               RaggedInferenceEngineConfig)
 from deepspeed_tpu_torch.models import LlamaConfig, params_from_jax
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 SM = dict(max_ragged_batch_size=32, max_ragged_sequence_count=4, max_tracked_sequences=6,
           max_context=64)
 PRESETS = {
@@ -70,11 +72,14 @@ def _jax(preset, seed=0):
 
 def _engines(model, params, sm=SM, block=8, lora=False, mode="none", port_params=None):
     """A JAX and a port engine over the same weights (adapters registered
-    in both when LoRA is on)."""
+    in both when LoRA is on). ``port_params="jax"`` gives the port the JAX
+    engine's own carriers."""
     lora_kw = dict(enabled=lora, hot_set=4, max_rank=4, prefetch=False)
     jeng = JaxEngine(model=model, config=JaxCfg(
         kv_block_size=block, state_manager=JaxSM(**sm), lora=JaxLoRA(**lora_kw),
         quantization={"quantization_mode": mode}), params=params, dtype=jnp.float32)
+    if port_params == "jax":  # the JAX engine's own carriers
+        port_params = params_from_jax(jeng.params)
     teng = InferenceEngineV2(LlamaConfig(**dataclasses.asdict(model.config)),
                              RaggedInferenceEngineConfig(
                                  kv_block_size=block, state_manager=DSStateManagerConfig(**sm),
@@ -267,9 +272,7 @@ def test_lora_sampled_stream_matches_jax():
 
 def test_int8_moe_sampled_stream_matches_jax():
     model, params = _jax("mixtral-debug", seed=1)
-    jeng, _ = _engines(model, params, mode="int8")
-    jeng, teng = _engines(model, params, mode="int8",
-                          port_params=params_from_jax(jeng.params))  # the JAX carriers
+    jeng, teng = _engines(model, params, mode="int8", port_params="jax")  # the JAX carriers
     assert teng.params["layers"]["wq"].scheme == "int8"
     scheds = [cls(eng, token_budget=16, max_burst=4)
               for cls, eng in ((JaxSched, jeng), (DynamicSplitFuseScheduler, teng))]

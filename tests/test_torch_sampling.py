@@ -31,6 +31,8 @@ from deepspeed_tpu_torch.inference import sampling
 from deepspeed_tpu_torch.inference.structured import prng
 from deepspeed_tpu_torch.inference.structured import sampling as structured
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 SOFTMAX_ULPS = 16
 CUMSUM_ABS = 2.0 ** -20
 

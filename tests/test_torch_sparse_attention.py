@@ -34,6 +34,8 @@ from deepspeed_tpu_torch.ops.kernels.flash_attention import flash_delta
 from deepspeed_tpu_torch.ops import sparse_attention as sa
 from deepspeed_tpu_torch.ops.sparse_attention import sparse_attention_utils as utils
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 FWD_TOL = dict(rtol=2e-5, atol=2e-5)
 GRAD_TOL = dict(rtol=5e-5, atol=5e-5)
 

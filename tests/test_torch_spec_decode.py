@@ -56,6 +56,8 @@ from deepspeed_tpu_torch.inference.v2.spec import (NGramDrafter, SpecDecodeState
                                                    spec_decode_enabled)
 from deepspeed_tpu_torch.models import LlamaConfig, params_from_jax
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 BS = 8
 SM = dict(max_ragged_batch_size=64, max_ragged_sequence_count=4, max_tracked_sequences=6,
           max_context=128)
@@ -107,13 +109,16 @@ def _register_adapters(engines):
 def _engines(model, params, spec=True, prefix=False, lora=False, mode="none", sm=SM,
              port_params=None, **spec_kw):
     """A JAX and a port engine over the same weights (adapters registered
-    in both when LoRA is on)."""
+    in both when LoRA is on). ``port_params="jax"`` gives the port the JAX
+    engine's own carriers."""
     jeng = JaxEngine(model=model, config=JaxCfg(
         kv_block_size=BS, quantization={"quantization_mode": mode}, state_manager=JaxSM(**sm),
         spec_decode=JaxSpecCfg(enabled=spec, draft_len=4, **spec_kw),
         prefix_cache=JaxPrefix(enabled=prefix),
         lora=JaxLoRA(enabled=lora, hot_set=4, max_rank=4, prefetch=False)),
         params=params, dtype=jnp.float32)
+    if port_params == "jax":  # the JAX engine's own carriers
+        port_params = params_from_jax(jeng.params)
     teng = _port_engine(model, params, spec, prefix, lora, mode, sm, port_params, **spec_kw)
     if lora:
         _register_adapters([jeng, teng])
@@ -508,9 +513,7 @@ def test_lora_spec_streams_match_jax(debug):
 
 def test_int8_moe_spec_streams_match_jax():
     model, params = _jax("mixtral-debug", seed=1)
-    jeng, _ = _engines(model, params, mode="int8")
-    jeng, teng = _engines(model, params, mode="int8",
-                          port_params=params_from_jax(jeng.params))  # the JAX carriers
+    jeng, teng = _engines(model, params, mode="int8", port_params="jax")  # the JAX carriers
     vocab = model.config.vocab_size
     prompts = [REPETITIVE % vocab, (REPETITIVE + 5) % vocab]
     _spec_fleet(jeng, teng, prompts, SPECS[:2], max_new=16)

@@ -55,6 +55,8 @@ from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig, DynamicSplit
                                               SpecDecodeConfig, StructuredConfig)
 from deepspeed_tpu_torch.models import LlamaConfig, params_from_jax
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 EOS = 2
 SCHEMA = {"type": "object",
           "properties": {"ok": {"type": "boolean"}, "mode": {"enum": ["fast", "safe"]}},

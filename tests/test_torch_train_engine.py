@@ -31,6 +31,8 @@ from deepspeed_tpu.models import build_llama as jax_build_llama
 from deepspeed_tpu.parallel import groups
 from deepspeed_tpu_torch.models import build_llama, load_jax_params, params_to_jax
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 B, S, GAS, STEPS = 2, 16, 2, 3
 
 

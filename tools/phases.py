@@ -1,6 +1,6 @@
 """Runs some of ``chip_smoke.py``'s phases alone, on one GPU.
 
-    python3 tools/phases.py sparse bert k7 invariance sampled spec json
+    python3 tools/phases.py sparse bert k7 invariance sampled spec json async
 
 Builds the kernel sources those phases need (one ``nvcc`` each, all
 started together), then runs each named phase as ``chip_smoke.py`` runs
@@ -21,7 +21,10 @@ it, with its checks, and prints its lines. The phases:
 - ``spec``: phase 27 (``spec_serving_phase``: speculative decoding on the
   Mistral-7B engine under ``bench_serving_2b_spec``'s protocol);
 - ``json``: phase 28 (``json_serving_phase``: constrained decoding on the
-  Mistral-7B engine under ``bench_serving_2b_json``'s protocol).
+  Mistral-7B engine under ``bench_serving_2b_json``'s protocol);
+- ``async``: phase 29 (``async_serving_phase``: pipelined decode bursts
+  against synchronous ones on the Mistral-7B engine under
+  ``bench_serving_v2_ragged``'s protocol, with the ``DS_SANITIZE`` gate).
 
 Run it from the root of a checkout on a machine with a CUDA device. The
 last line is ``{"ok": true}`` when every phase passed.
@@ -52,6 +55,7 @@ PHASES = {  # name: (sources, run(device, flush))
     "sampled": (SERVING, cs.sampled_serving_phase),
     "spec": (SERVING, lambda device, flush: cs.spec_serving_phase(device)),
     "json": (SERVING, lambda device, flush: cs.json_serving_phase(device)),
+    "async": (SERVING, lambda device, flush: cs.async_serving_phase(device)),
 }
 
 
