@@ -183,8 +183,9 @@ each of which fails the run if it fails:
    prefill put and a mixed put must give last-token logits within
    MOE_PATH_TOL_ULPS = 8 bf16 ulps at the largest logit's magnitude
    (readings 1.25-2.16); every launch count must be what the path implies;
-11. quantized MoE serving — the full 32-layer ``mixtral-8x7b`` preset
-   (46.7 B params) in int8, weights drawn into carriers by
+11. quantized MoE serving — the ``mixtral-8x7b`` preset at its widths and
+   MOE_INT8_LAYERS of its 32 layers (for the run's time limit; the full
+   depth, 46.7 B params, fits the card) in int8, weights drawn into carriers by
    ``init_quantized_params`` from a seeded generator, under ``bench.py``'s
    ``bench_serving_2b_moe`` traffic: 8 requests x 256-token prompts x 64
    new tokens, block 32, token budget 264, bursts of 16. Every request must
@@ -235,7 +236,8 @@ each of which fails the run if it fails:
    PATH_TOL_ULPS bf16 ulps, and the same puts with every request on the
    base must differ from the adapter run by more than 10x that (the check
    is not vacuous); K6 launches 4 x L per forward;
-15. LoRA serving — the full 32-layer ``mistral-7b`` with LoRA on under
+15. LoRA serving — ``mistral-7b`` at its widths and LORA_SERVING_LAYERS of
+   its 32 layers (the run's time limit) with LoRA on under
    ``bench.py``'s ``bench_serving_2b_lora`` traffic: 8 adapters of rank 8
    and alpha 16 on q, k, v and o (N(0, 0.02²) from a seeded generator),
    hot set 8, rank bucket 8, 16 requests x 128-token prompts x 64 new
@@ -513,11 +515,46 @@ each of which fails the run if it fails:
    tokens/s of both engines, the device's busy share over a profiled
    window of chained bursts, host ms to dispatch a burst, and K2/K3/K4
    launches by design, beside the card.
+30. gateway and weight refresh — on the same weights and phase 29's
+   synchronous engine config with LoRA serving on (hot set 4, rank 8) and
+   its disk tier under a temp dir: (a) ``bench_serving_v2_ragged``'s
+   traffic run directly by ``DynamicSplitFuseScheduler``, then through a
+   ``ServingGateway`` whose pump thread drives the engine, from 16 client
+   threads each consuming its stream: nothing lost, every stream equal to
+   the direct run's, K2/K3/K4 launches a forward as phase 29's (none on
+   K4's first design); (b) v1 = the stand-in train step on the device
+   (``p - REFRESH_STEP·p·z``, z ~ N(0, 1) from seed 1, every floating
+   leaf; the JAX bench's ``p - 1e-3·p`` moves no bf16 value), published
+   by the port's ``WeightPublisher`` into the temp dir and loaded back;
+   (c) ``bench_serving_2b_refresh``'s protocol on one gateway: a second
+   wave of 16 streams, ``refresh_weights(v1, 1)`` from a control thread
+   once they stream, REFRESH_QUEUED requests submitted behind the staged
+   swap: nothing lost, the in-flight streams equal v0's, the queued ones
+   equal a cold-started engine's on the same v1 tree (the canary's
+   oracle) and differ from v0's, ``weight_version`` 1; a swap with a live
+   sequence refused; (d) a bit-flipped payload and a forged manifest each
+   rejected with ``WeightPublicationError``, the version and the probe's
+   stream unchanged; (f) two adapters (rank 8, q/k/v/o) published to the
+   engine's disk tier and adopted lazily at ``submit(adapter_id=...)``
+   stream what they stream registered in memory on the cold engine (and
+   not the base streams), v2 of one adopted streams the in-memory v2's,
+   a torn publication is rejected typed and counted; (e) an int8 engine
+   at REFRESH_QUANT_LAYERS of 32 layers, swapped to v1, holds carriers and
+   scales byte-equal to a cold start's and serves its streams; then a
+   third wave drained (``drain`` frees the engine's device memory). The
+   temp dir is removed. Prints gateway and direct tokens/s, TTFT and
+   inter-token p50/p99 from ``ServingMetrics``, host syncs a token,
+   launches a forward, publish and load bytes, seconds and GB/s (free
+   disk and host RAM before, the chain hash), the refresh's wall time,
+   its wait for in-flight streams, the swap alone and the device memory
+   peak over it, drain plus cold restart and ``drain_over_refresh``, and
+   p99 inter-token gap during the refresh against steady state.
 
 The last lines are the card, one JSON object with every kernel's numbers
 and, last, ``{"ok": true, "device": {...}}``."""
 
 import contextlib
+import dataclasses
 import functools
 import gc
 import json
@@ -545,6 +582,7 @@ MOE_PATH_TOL_ULPS = 8         # phase 10
 MOE_N_REQ, MOE_PROMPT, MOE_NEW, MOE_BURST = 8, 256, 64, 16
 MOE_BUDGET = MOE_PROMPT + MOE_N_REQ
 MOE_BF16_LAYERS = 8           # phase 12: bf16 Mixtral-8x7B fits one card at 8 of 32 layers
+MOE_INT8_LAYERS = 8           # phase 11: int8 Mixtral-8x7B, cut from 32 for the run's time
 ATTN_SHAPES = ((4096, 4096), (4096, 1024))   # Mixtral [K, N]: q and o; k and v
 MLP_SHAPES = ((4096, 14336), (14336, 4096))  # a dense quantized MLP; the expert stacks'
 HEAD_SHAPE = (4096, 32000)                   # Mixtral's lm_head [K, N]: groups of 500
@@ -556,6 +594,7 @@ LORA_SHAPES = {"q_proj": (4096, 4096), "k_proj": (4096, 1024)}  # Mistral-7B [K,
 LORA_TOL = 4.0                # phase 13, units of row_scaled_err
 LORA_PATH_TOL_ULPS = PATH_TOL_ULPS  # phase 14
 LORA_ROUNDS = 3               # phase 15: each run in turn, three times
+LORA_SERVING_LAYERS = 16      # phase 15: Mistral-7B's depth, cut from 32 for the run's time
 K7_LAYERS = 32                # phase 16: Mistral-7B's layers in one demoted handle
 K7_GROUP = 2048               # phase 16: quantize_int8's default group, beside the slab
 # bench.py's bench_serving_2b_prefix (phase 18 a) and bench_serving_2b_kv_tier (18 b)
@@ -610,6 +649,11 @@ JSON_OVERHEAD_BOUND = 0.10  # the JAX bench's bound on the constrained overhead:
 # ASYNC_EOS_AT; the profiled window is ASYNC_WINDOW chained bursts; the sanitized run serves
 # 4 of the prompts ASYNC_SANITIZE_NEW tokens
 ASYNC_DEPTH, ASYNC_EOS_AT, ASYNC_WINDOW, ASYNC_SANITIZE_NEW = 2, 20, 2, 16
+# phase 30: bench_serving_v2_ragged's traffic through a ServingGateway, then
+# bench_serving_2b_refresh's protocol on one gateway: REFRESH_QUEUED requests queue behind
+# the staged swap; v1 = p - REFRESH_STEP·p·z (z ~ N(0, 1), seed 1) on every floating leaf;
+# the int8 swap at REFRESH_QUANT_LAYERS of Mistral's 32 layers
+REFRESH_STEP, REFRESH_QUEUED, REFRESH_QUANT_LAYERS = 1e-2, 4, 2
 
 
 def log(msg):
@@ -2807,14 +2851,14 @@ def lora_serving_phase(device):
                                                   RaggedInferenceEngineConfig)
     from deepspeed_tpu_torch.models import llama_config
     from deepspeed_tpu_torch.ops.kernels.lora_matmul import lora_delta
-    cfg = llama_config("mistral-7b")
+    cfg = llama_config("mistral-7b", num_hidden_layers=LORA_SERVING_LAYERS)
     L, V = cfg.num_hidden_layers, cfg.vocab_size
     t0 = time.perf_counter()
     engine = lora_engine(cfg, device, BUDGET, N_REQ, PROMPT + NEW, prefetch=True)
     store = engine.lora_store
     torch.cuda.synchronize()
-    log(f"[lora-serving] mistral-7b + {LORA_N_ADAPTERS} adapters (rank {LORA_RANK}, alpha "
-        f"{LORA_ALPHA}): built in {time.perf_counter() - t0:.2f} s, hot slabs "
+    log(f"[lora-serving] mistral-7b at {L} layers + {LORA_N_ADAPTERS} adapters (rank "
+        f"{LORA_RANK}, alpha {LORA_ALPHA}): built in {time.perf_counter() - t0:.2f} s, hot slabs "
         f"{sum(t.nbytes for d in store.slabs()[:2] for t in d.values()) / 1e6:.1f} MB")
     rs = np.random.RandomState(0)
     prompts = [rs.randint(3, V, size=PROMPT).astype(np.int32) for _ in range(N_REQ)]
@@ -5256,16 +5300,17 @@ def spec_engine(cfg, params, device, spec, structured=False):
 
 
 def fleet(engine, uid0, prompts, ntok, specs=None, burst=SPEC_BURST, budget=SPEC_BUDGET,
-          eos=None, schemas=None):
-    """Every prompt (with its spec, greedy when None; its schema when
-    given) to completion under one scheduler, timed to a synchronize, the
-    requests retired after → (seconds, streams)."""
+          eos=None, schemas=None, adapters=None):
+    """Every prompt (with its spec, greedy when None; its schema and its
+    adapter when given) to completion under one scheduler, timed to a
+    synchronize, the requests retired after → (seconds, streams)."""
     from deepspeed_tpu_torch.inference.v2 import DynamicSplitFuseScheduler
     sched = DynamicSplitFuseScheduler(engine, token_budget=budget, max_burst=burst,
                                       eos_token_id=eos)
     for i, p in enumerate(prompts):
         sched.add_request(uid0 + i, p, max_new_tokens=ntok, sample=specs[i] if specs else None,
-                          schema=schemas[i] if schemas else None)
+                          schema=schemas[i] if schemas else None,
+                          adapter_id=adapters[i] if adapters else None)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = sched.run_to_completion(max_steps=100_000)
@@ -5939,6 +5984,483 @@ def async_serving_phase(device, weights=None):
     return result, launches
 
 
+# ---------------------------------------------------------------- phase 30
+def gateway_engine(cfg, params, device, publish_root=""):
+    """Phase 30's engine over ``params``: phase 29's synchronous config
+    with LoRA serving on (hot set 4, rank bucket ``LORA_RANK``), its disk
+    tier under ``publish_root`` when given."""
+    from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig, InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    return InferenceEngineV2(cfg, RaggedInferenceEngineConfig(
+        kv_block_size=BS, structured={"enabled": True, "max_schemas": 4},
+        lora={"enabled": True, "hot_set": 4, "max_rank": LORA_RANK, "prefetch": False,
+              "publish_root": publish_root},
+        state_manager=DSStateManagerConfig(
+            max_ragged_batch_size=BUDGET, max_ragged_sequence_count=N_REQ,
+            max_tracked_sequences=N_REQ + REFRESH_QUEUED + 4, max_context=PROMPT + NEW)),
+        params=params, device=device)
+
+
+def stepped(params, seed):
+    """The stand-in train step on every floating leaf, leaf by leaf on the
+    leaf's device: ``p - REFRESH_STEP·p·z``, z ~ N(0, 1) from ``seed``, in
+    fp32, stored in the leaf's dtype. (The JAX bench's ``p - 1e-3·p``
+    moves no bf16 value: 1e-3 is below half a bf16 ulp.)"""
+    def step(w, g):
+        if not w.is_floating_point():
+            return w
+        z = torch.randn(w.shape, generator=g, device=w.device)
+        return (w.float() - REFRESH_STEP * w.float() * z).to(w.dtype)
+    g = torch.Generator(params["norm"].device).manual_seed(seed)
+    return {k: ({n: step(w, g) for n, w in v.items()} if isinstance(v, dict) else step(v, g))
+            for k, v in params.items()}
+
+
+def first_layers(params, n):
+    """The tree at its first ``n`` layers (views of the stacked leaves)."""
+    return {k: ({m: w[:n] for m, w in v.items()} if k == "layers" else v)
+            for k, v in params.items()}
+
+
+def tree_bytes(tree):
+    return sum(w.numel() * w.element_size()
+               for v in tree.values() for w in (v.values() if isinstance(v, dict) else [v]))
+
+
+def gateway_wave(gw, prompts, ntok=NEW, during=None, adapters=None, wait_streaming=True):
+    """Submit ``prompts`` from client threads and consume each stream on its
+    own thread; once every stream has its first token, run ``during()``
+    (on this thread). → {streams, wall_s, gaps_ms, lost, during}: nothing
+    lost is the caller's check."""
+    import threading
+    n = len(prompts)
+    streams, gaps, lost, handles = [None] * n, [], [], [None] * n
+    lock = threading.Lock()
+    started = threading.Barrier(n + 1)
+
+    def client(i):
+        prev = None
+        got = []
+        try:
+            handles[i] = gw.submit(prompts[i], max_new_tokens=ntok,
+                                   adapter_id=adapters[i] if adapters else None)
+            started.wait()
+            for tok in handles[i].tokens(timeout=600):
+                now = time.perf_counter()
+                if prev is not None:
+                    with lock:
+                        gaps.append((now - prev) * 1e3)
+                prev = now
+                got.append(tok)
+            streams[i] = got
+        except Exception as err:  # noqa: BLE001 — the zero-lost audit
+            with lock:
+                lost.append(f"request {i}: {type(err).__name__}: {err}")
+            started.abort()
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    started.wait(timeout=600)
+    out = None
+    if during is not None:
+        while wait_streaming and not all(h._first_token_at is not None for h in handles):
+            time.sleep(0.001)
+        out = during()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        lost.append("a stream hung")
+    return {"streams": streams, "wall_s": wall, "gaps_ms": gaps, "lost": lost, "during": out,
+            "tokens": sum(len(s) for s in streams if s)}
+
+
+def p99(xs):
+    return float(np.percentile(xs, 99)) if xs else 0.0
+
+
+def publication_readings(tree, root):
+    """Phase 30 (b): publish ``tree`` (device tensors) with the port's
+    ``WeightPublisher`` under ``root`` and load it back → (host tree,
+    publisher, readings)."""
+    import os
+    import shutil
+    from deepspeed_tpu_torch.serving import WeightPublisher
+    nbytes = tree_bytes(tree)
+    free_disk = shutil.disk_usage(root).free
+    host_ram = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+    pub = WeightPublisher(os.path.join(root, "weights"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    manifest = pub.publish(tree)
+    publish_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded, m = pub.load(1, expect_parent_chain=None)
+    load_s = time.perf_counter() - t0
+    if m != manifest or pub.rejects or pub.publishes != 1:
+        raise AssertionError("publication: the loaded manifest differs from the published one")
+    size = manifest["files"]["payload.bin"]["bytes"]
+    if size != nbytes:
+        raise AssertionError(f"publication: {size} payload bytes for a {nbytes}-byte tree")
+    return loaded, pub, {"bytes": size, "leaves": len(manifest["tree"]), "publish_s": publish_s,
+                         "publish_gb_per_s": size / publish_s / 1e9, "load_s": load_s,
+                         "load_gb_per_s": size / load_s / 1e9, "free_disk_before": free_disk,
+                         "host_ram_available_before": host_ram, "chain": manifest["chain"]}
+
+
+def publication_faults(pub, gw, probe, want):
+    """Phase 30 (d): a bit-flipped payload and a forged manifest of the
+    adopted publication are each rejected with ``WeightPublicationError``;
+    the gateway's version and the probe's stream stay. → readings."""
+    import os
+    from deepspeed_tpu_torch.utils.sanitize import WeightPublicationError
+    pdir = os.path.join(pub.dir, "v00000001")
+    faults = {}
+    payload = os.path.join(pdir, "payload.bin")
+    mpath = os.path.join(pdir, "weight_manifest.json")
+    size = os.path.getsize(payload)
+    with open(payload, "r+b") as fd:
+        fd.seek(size // 2)
+        byte = fd.read(1)
+        fd.seek(size // 2)
+        fd.write(bytes([byte[0] ^ 0xFF]))
+    with open(mpath) as fd:
+        saved = fd.read()
+    for name, undo in (("bitflip", None), ("forged_manifest", saved)):
+        if name == "forged_manifest":
+            with open(payload, "r+b") as fd:  # the payload as published again
+                fd.seek(size // 2)
+                fd.write(byte)
+            forged = json.loads(saved)
+            forged["files"]["payload.bin"]["bytes"] += 1
+            with open(mpath, "w") as fd:
+                json.dump(forged, fd)
+        t0 = time.perf_counter()
+        try:
+            pub.load(1)
+        except WeightPublicationError as err:
+            faults[name] = {"rejected": type(err).__name__, "message": str(err)[:100],
+                            "s": time.perf_counter() - t0}
+        else:
+            raise AssertionError(f"a {name} publication loaded")
+        if undo is not None:
+            with open(mpath, "w") as fd:
+                fd.write(undo)
+    if pub.rejects != 2 or gw.weight_version != 1:
+        raise AssertionError(f"faults: rejects {pub.rejects}, version {gw.weight_version}")
+    got = gateway_wave(gw, [probe])
+    if got["lost"] or got["streams"][0] != want:
+        raise AssertionError(f"faults: the probe's stream moved {got['lost']}")
+    return faults
+
+
+def quantized_swap_check(cfg, v0, v1, device, prompts):
+    """Phase 30 (e): an int8 engine at ``REFRESH_QUANT_LAYERS`` of Mistral's
+    layers, swapped from ``v0`` to ``v1`` (quantized on the device), holds
+    carriers and scales byte-equal to a cold start's on ``v1``, and serves
+    its greedy streams. → readings."""
+    from deepspeed_tpu_torch.inference.quantization import QuantizedWeight
+    from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig, InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    qcfg = dataclasses.replace(cfg, num_hidden_layers=REFRESH_QUANT_LAYERS)
+    ecfg = RaggedInferenceEngineConfig(
+        kv_block_size=BS, quantization={"quantization_mode": "int8"},
+        state_manager=DSStateManagerConfig(
+            max_ragged_batch_size=BUDGET, max_ragged_sequence_count=len(prompts),
+            max_tracked_sequences=len(prompts) + 2, max_context=PROMPT + NEW))
+    L = REFRESH_QUANT_LAYERS
+    engine = InferenceEngineV2(qcfg, ecfg, params=first_layers(v0, L), device=device)
+    _, before = fleet(engine, 0, prompts, NEW // 2, burst=BURST, budget=BUDGET)
+    engine.swap_params(first_layers(v1, L), 1)
+    cold = InferenceEngineV2(qcfg, ecfg, params=first_layers(v1, L), device=device)
+
+    def parts(tree):
+        for k, v in sorted(tree.items()):
+            for n, w in (sorted(v.items()) if isinstance(v, dict) else [(k, v)]):
+                yield from (((n, w.values), (n, w.scales)) if isinstance(w, QuantizedWeight)
+                            else ((n, w),))
+    pairs = list(zip(parts(engine.params), parts(cold.params)))
+    carriers = sum(isinstance(w, QuantizedWeight) for w in engine.params["layers"].values())
+    if carriers == 0 or not all(torch.equal(a, b) for (_, a), (_, b) in pairs):
+        raise AssertionError(f"int8 swap: {carriers} carriers, params differ from a cold start")
+    _, got = fleet(engine, 100, prompts, NEW // 2, burst=BURST, budget=BUDGET)
+    _, want = fleet(cold, 100, prompts, NEW // 2, burst=BURST, budget=BUDGET)
+    if got != want:
+        raise AssertionError("int8 swap: greedy streams differ from a cold start's")
+    out = {"layers": L, "carrier_leaves": carriers, "tensors_equal": len(pairs),
+           "bytes": engine.quantized_bytes, "streams_moved": sum(a != b for a, b in
+                                                                 zip(got, before))}
+    engine.destroy()
+    cold.destroy()
+    return out
+
+
+def lora_disk_check(gw, cold, prompts, base):
+    """Phase 30 (f): two adapters (rank ``LORA_RANK``, q/k/v/o) published
+    to the gateway engine's disk tier and adopted lazily at
+    ``submit(adapter_id=...)`` stream what the same adapters registered in
+    memory on ``cold`` stream (and not the ``base`` streams: the check is
+    not vacuous); v2 of one, adopted, streams the in-memory v2's; a torn
+    publication is rejected typed and counted. → readings."""
+    from deepspeed_tpu_torch.serving.lora import AdapterPublisher
+    from deepspeed_tpu_torch.utils.sanitize import WeightPublicationError
+    store = gw.engine.lora_store
+    layers = {aid: lora_adapter(store, seed, LORA_RANK) for aid, seed in
+              ((101, 1), (102, 2), (201, 3))}
+    t0 = time.perf_counter()
+    for aid in (101, 102):
+        store.publish(aid, layers[aid], alpha=LORA_ALPHA)
+        cold.register_adapter(aid, layers[aid], alpha=LORA_ALPHA)
+    publish_s = time.perf_counter() - t0
+    if not (store.known(101) and not store.has_adapter(101)):
+        raise AssertionError("lora disk: a published adapter is not known, or already hot")
+    ids = [101, 102, None, 101]
+
+    def in_memory():
+        return fleet(cold, 600, prompts, NEW // 2, burst=BURST, budget=BUDGET, adapters=ids)[1]
+    want = in_memory()
+    got = gateway_wave(gw, prompts, NEW // 2, adapters=ids)
+    promoted = store.stats()["promotions"]
+    if got["lost"] or got["streams"] != want or want[0] == base[0] or promoted < 2:
+        raise AssertionError(f"lora disk: streams equal {got['streams'] == want}, "
+                             f"lost {got['lost']}, promotions {promoted}")
+    store.publish(101, layers[201], alpha=LORA_ALPHA)
+    if gw.engine.adopt_adapter(101) != 2:
+        raise AssertionError("lora disk: v2 not adopted")
+    cold.lora_store.invalidate()  # a registration installs the host tier only
+    cold.register_adapter(101, layers[201], alpha=LORA_ALPHA, version=2)
+    want2 = in_memory()
+    got2 = gateway_wave(gw, prompts, NEW // 2, adapters=ids)
+    if got2["lost"] or got2["streams"] != want2 or want2[0] == want[0]:
+        raise AssertionError("lora disk: the adopted v2 does not stream the in-memory v2's")
+
+    def crash(point, detail=None):
+        if point == "before_manifest":
+            raise RuntimeError("torn adapter publication")
+    try:
+        AdapterPublisher(store.publisher.root, test_hook=crash).publish(102, layers[201],
+                                                                        LORA_ALPHA)
+    except RuntimeError:
+        pass
+    try:
+        store.adopt(102, version=2)
+    except WeightPublicationError as err:
+        torn = str(err)[:100]
+    else:
+        raise AssertionError("lora disk: a torn adapter publication was adopted")
+    stats = store.stats()
+    if stats["publish_rejects"] != 1 or store.version_of(102) != 1:
+        raise AssertionError(f"lora disk: rejects {stats['publish_rejects']}, "
+                             f"version {store.version_of(102)}")
+    return {"adapters": 2, "rank": LORA_RANK, "publish_s": publish_s, "promotions": promoted,
+            "swaps": stats["swaps"], "publish_rejects": stats["publish_rejects"],
+            "torn": torn, "streams_moved_by_v2": sum(a != b for a, b in zip(want2, want))}
+
+
+def gateway_refresh_phase(device, weights=None):
+    """Phase 30: ``bench_serving_v2_ragged``'s traffic through a
+    ``ServingGateway`` (pump thread, client threads) on the full-depth
+    Mistral-7B engine, then a live refresh under
+    ``bench_serving_2b_refresh``'s protocol: publication, staged swap under
+    traffic, faults, an int8 swap, the LoRA disk tier, drain. → (result,
+    {kernel: launches in the gateway wave})."""
+    import shutil
+    import tempfile
+    import threading
+    from deepspeed_tpu_torch.device import gpu_report
+    from deepspeed_tpu_torch.serving import ServingConfig, ServingGateway
+    card = gpu_report()
+    cfg, params = weights or serving_params(device)
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    root = tempfile.mkdtemp(prefix="ds_refresh_")
+    laps, t_phase = {}, time.perf_counter()
+
+    def lap(name):
+        laps[name] = time.perf_counter() - t_phase - sum(laps.values())
+    try:
+        engine = gateway_engine(cfg, params, device, publish_root=f"{root}/adapters")
+        rng = np.random.RandomState(0)
+        prompts = [rng.randint(0, V, size=PROMPT).astype(np.int32) for _ in range(N_REQ)]
+        warm = [np.random.RandomState(1).randint(0, V, size=16).astype(np.int32)] * 2
+        fleet(engine, 90_000, warm, NEW // 2, burst=BURST, budget=BUDGET)
+        # (a) direct run, then the same traffic through the gateway
+        direct_s, want0 = fleet(engine, 1_000, prompts, NEW, burst=BURST, budget=BUDGET)
+        gw = ServingGateway(engine, config=ServingConfig(
+            token_budget=BUDGET, max_burst=BURST, max_queue_depth=4 * N_REQ,
+            drain_timeout_s=600.0))
+        gateway_wave(gw, warm, NEW // 2)  # the pump thread's first forwards
+        c0 = serving_counters()
+        syncs0, toks0, fwd0 = engine.host_syncs, engine.tokens_emitted, engine.forward_steps
+        from deepspeed_tpu_torch.ops.kernels.lora_matmul import lora_delta
+        k6 = lora_delta.launches
+        wave1 = gateway_wave(gw, prompts)
+        rec = {"forwards": engine.forward_steps - fwd0, "launches": counters_since(c0)}
+        k6 = lora_delta.launches - k6
+        if wave1["lost"] or wave1["streams"] != want0:
+            raise AssertionError(f"gateway: lost {wave1['lost']}, streams equal "
+                                 f"{wave1['streams'] == want0}")
+        check_lane_launches(rec, L, "gateway wave")
+        snap = gw.snapshot()
+        gateway = {"gen_tokens_per_sec": wave1["tokens"] / wave1["wall_s"],
+                   "direct_gen_tokens_per_sec": sum(map(len, want0)) / direct_s,
+                   "ttft_ms": {k: snap["ttft"][k] for k in ("p50_ms", "p99_ms")},
+                   "inter_token_ms": {k: snap["token_latency"][k] for k in ("p50_ms", "p99_ms")},
+                   "syncs_per_token": (engine.host_syncs - syncs0) /
+                   max(engine.tokens_emitted - toks0, 1),
+                   "forwards": rec["forwards"],
+                   "launches_per_forward": {k: v / rec["forwards"] for k, v in
+                                            rec["launches"].items() if not isinstance(v, dict)},
+                   "lora_delta_launches": k6,
+                   "launches_by_design": {k: rec["launches"][k] for k in ("paged_by_design",
+                                                                          "dense_by_design")}}
+        lap("gateway_wave")
+        # (b) v1 = the stand-in train step on the device, published and loaded
+        v1_dev = stepped(params, 1)
+        loaded, pub, publication = publication_readings(v1_dev, root)
+        del v1_dev
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap("publication")
+        # (c) live refresh under a second wave; REFRESH_QUEUED requests queue behind it
+        swap_times = {}
+        inner = engine.swap_params
+
+        def timed_swap(new_params, version):
+            torch.cuda.synchronize(device)
+            swap_times["allocated_before"] = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            swap_times["start"] = time.perf_counter()
+            out = inner(new_params, version)
+            torch.cuda.synchronize(device)
+            swap_times["end"] = time.perf_counter()
+            swap_times["peak_allocated"] = torch.cuda.max_memory_allocated(device)
+            swap_times["allocated_after"] = torch.cuda.memory_allocated(device)
+            return out
+        engine.swap_params = timed_swap
+        queued, control = {}, {}
+
+        def refresh():
+            def stage():
+                control["staged"] = time.perf_counter()
+                control["version"] = gw.refresh_weights(loaded, 1, timeout=600)
+                control["applied"] = time.perf_counter()
+            ctl = threading.Thread(target=stage)
+            ctl.start()
+            while gw._pending_refresh is None and ctl.is_alive():
+                time.sleep(0.0005)
+            queued["wave"] = gateway_wave(gw, prompts[:REFRESH_QUEUED])
+            ctl.join(timeout=600)
+        wave2 = gateway_wave(gw, prompts, during=refresh)
+        del engine.swap_params  # the wrapper goes; the method stays
+        behind = queued["wave"]
+        if wave2["lost"] or behind["lost"] or control.get("version") != 1:
+            raise AssertionError(f"refresh: lost {wave2['lost'] + behind['lost']}, "
+                                 f"version {control.get('version')}")
+        if wave2["streams"] != want0:
+            raise AssertionError("refresh: streams admitted before the swap differ from v0's")
+        lap("refresh_wave")
+        # the canary's oracle: a cold-started engine on the same v1 tree
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cold = gateway_engine(cfg, loaded, device)
+        cold.put([99_999], [warm[0]], sample="greedy")
+        torch.cuda.synchronize()
+        cold_restart_s = time.perf_counter() - t0
+        cold.flush(99_999)
+        _, want1 = fleet(cold, 2_000, prompts[:REFRESH_QUEUED], NEW, burst=BURST,
+                         budget=BUDGET)
+        if behind["streams"] != want1:
+            raise AssertionError("refresh: requests queued behind the swap differ from a cold "
+                                 "v1 engine's streams")
+        moved = sum(a != b for a, b in zip(want1, want0))
+        if moved == 0 or gw.weight_version != 1:
+            raise AssertionError(f"refresh: {moved} probes moved, version {gw.weight_version}")
+        refresh_wall = control["applied"] - control["staged"]
+        refresh = {"wall_s": refresh_wall,
+                   "waiting_for_inflight_s": swap_times["start"] - control["staged"],
+                   "swap_s": swap_times["end"] - swap_times["start"],
+                   "device_allocated_before_gb": swap_times["allocated_before"] / 1e9,
+                   "device_peak_during_swap_gb": swap_times["peak_allocated"] / 1e9,
+                   "device_allocated_after_gb": swap_times["allocated_after"] / 1e9,
+                   "params_gb": tree_bytes(loaded) / 1e9,
+                   "cold_restart_s": cold_restart_s, "probes_moved": moved,
+                   "queued_behind": REFRESH_QUEUED,
+                   "p99_gap_steady_ms": p99(wave1["gaps_ms"]),
+                   "p99_gap_during_refresh_ms": p99(wave2["gaps_ms"] + behind["gaps_ms"])}
+        # a swap with a live sequence raises
+        cold.put([1], [prompts[0]], sample="greedy")
+        try:
+            cold.swap_params(loaded, 2)
+        except RuntimeError as err:
+            refresh["live_swap_refused"] = str(err)[:80]
+        else:
+            raise AssertionError("a swap with a live sequence went through")
+        cold.flush(1)
+        lap("oracle")
+        # (d) faults, (f) the LoRA disk tier, (e) the int8 swap
+        faults = publication_faults(pub, gw, prompts[0], want1[0])
+        lap("faults")
+        lora = lora_disk_check(gw, cold, prompts[:4], [s[:NEW // 2] for s in want1])
+        lap("lora_disk")
+        quant = quantized_swap_check(cfg, params, loaded, device, prompts[:4])
+        lap("int8_swap")
+        cold.destroy()
+        del cold
+        gc.collect()
+        # drain with a third wave in flight: the alternative to a refresh is a
+        # drain and a cold restart
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(device)
+
+        def drain():
+            t0 = time.perf_counter()
+            gw.drain(timeout=600)
+            return time.perf_counter() - t0
+        wave3 = gateway_wave(gw, prompts, during=drain)
+        if wave3["lost"] or wave3["streams"][:REFRESH_QUEUED] != want1 or \
+                any(len(s) != NEW for s in wave3["streams"]):
+            raise AssertionError(f"drain: lost {wave3['lost']}, or streams cut or moved")
+        freed = held - torch.cuda.memory_allocated(device)
+        if gw.state != "stopped" or engine.kv_cache is not None or \
+                freed < 0.9 * tree_bytes(loaded):
+            raise AssertionError(f"drain: state {gw.state}, {freed / 1e9:.2f} GB freed")
+        refresh.update(drain_s=wave3["during"], device_freed_by_drain_gb=freed / 1e9,
+                       drain_over_refresh=(wave3["during"] + cold_restart_s) / refresh_wall)
+        lap("drain")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k: rec["launches"][k] for k in ("paged_decode_attention", "dense_matmul",
+                                                "rms_norm_fwd")}
+    result = {"card": card, "requests": N_REQ, "prompt_len": PROMPT, "new_tokens": NEW,
+              "token_budget": BUDGET, "max_burst": BURST, "lost_requests": 0,
+              "gateway": gateway, "publication": publication, "refresh": refresh,
+              "faults": faults, "int8_swap": quant, "lora_disk": lora, "phase_s": laps}
+    log(f"[gateway-refresh] {card}: generated tokens/s gateway {gateway['gen_tokens_per_sec']:.1f}"
+        f" vs direct {gateway['direct_gen_tokens_per_sec']:.1f}; inter-token p50/p99 "
+        f"{gateway['inter_token_ms']['p50_ms']:.2f}/{gateway['inter_token_ms']['p99_ms']:.2f} ms,"
+        f" TTFT p50/p99 {gateway['ttft_ms']['p50_ms']:.1f}/{gateway['ttft_ms']['p99_ms']:.1f} "
+        f"ms; syncs/token {gateway['syncs_per_token']:.4f}; launches K2/K3/K4 a forward "
+        f"{json.dumps(gateway['launches_per_forward'])}")
+    log(f"[gateway-refresh] {card}: published {publication['bytes']} bytes (free disk "
+        f"{publication['free_disk_before']}, host RAM available "
+        f"{publication['host_ram_available_before']} bytes before) in "
+        f"{publication['publish_s']:.2f} s ({publication['publish_gb_per_s']:.2f} GB/s), loaded "
+        f"in {publication['load_s']:.2f} s ({publication['load_gb_per_s']:.2f} GB/s); chain "
+        f"{publication['chain'][:16]}; refresh {refresh['wall_s']:.2f} s (waiting "
+        f"{refresh['waiting_for_inflight_s']:.2f}, swap {refresh['swap_s']:.2f}), peak "
+        f"{refresh['device_peak_during_swap_gb']:.2f} GB; drain + cold restart "
+        f"{refresh['drain_s'] + refresh['cold_restart_s']:.2f} s, drain_over_refresh "
+        f"{refresh['drain_over_refresh']:.2f}; p99 gap {refresh['p99_gap_steady_ms']:.1f} "
+        f"steady vs {refresh['p99_gap_during_refresh_ms']:.1f} ms during the refresh")
+    log(f"[gateway-refresh] {json.dumps(result)}")
+    return result, launches
+
+
 def grid_fraction_of(cfg):
     """The layout density the model's sparse section gives at BERT_S."""
     from deepspeed_tpu_torch.models.bert import _sparse_self_attention
@@ -6003,7 +6525,7 @@ def main():
     del flush
     torch.cuda.empty_cache()
     moe_parity_phase(device)
-    int8_serving, int8_launches = moe_serving_phase(device, "int8", 32)
+    int8_serving, int8_launches = moe_serving_phase(device, "int8", MOE_INT8_LAYERS)
     _, bf16_launches = moe_serving_phase(device, "none", MOE_BF16_LAYERS)
     lap("phases 9-12 (quantized and MoE serving)")
 
@@ -6062,10 +6584,14 @@ def main():
     _, spec_launches = spec_serving_phase(device, weights)
     _, json_launches = json_serving_phase(device, weights)
     _, async_launches = async_serving_phase(device, weights)
+    lap("phases 27-29 (speculative and constrained decoding, pipelined bursts)")
+
+    # the serving gateway and live weight refresh on the same weights
+    _, gateway_launches = gateway_refresh_phase(device, weights)
     del weights
     gc.collect()
     torch.cuda.empty_cache()
-    lap("phases 27-29 (speculative and constrained decoding, pipelined bursts)")
+    lap("phase 30 (gateway, weight refresh)")
 
     main_case = next(c for c in cases if c["case"] == "serving_decode")
     kernels = [{"name": "paged_decode_attention", "route": "cuda",
@@ -6083,6 +6609,7 @@ def main():
                 "launches_spec_verify": spec_launches["paged_decode_attention"],
                 "launches_constrained_serving": json_launches["paged_decode_attention"],
                 "launches_async_serving": async_launches["paged_decode_attention"],
+                "launches_gateway": gateway_launches["paged_decode_attention"],
                 "cases": cases}]
     train_kernels = {
         "flash_fwd": ("flash_attention.cu", "flash_attention.py:46",
@@ -6111,6 +6638,7 @@ def main():
         if name == "rms_norm_fwd":  # the serving path's norms too
             kernels[-1]["launches_spec_verify"] = spec_launches["rms_norm_fwd"]
             kernels[-1]["launches_async_serving"] = async_launches["rms_norm_fwd"]
+            kernels[-1]["launches_gateway"] = gateway_launches["rms_norm_fwd"]
     slice3 = {  # name: (source, TPU kernel, cases, main case, launches, shape)
         "quant_matmul": ("fused_quant_matmul.cu", "fused_quant_matmul.py:90", qmm_cases,
                          "int8_M8_{}x{}".format(*ATTN_SHAPES[0]), int8_launches["quant_matmul"],
@@ -6219,6 +6747,7 @@ def main():
                     "launches_spec_verify": spec_launches["dense_matmul"],
                     "launches_constrained_serving": json_launches["dense_matmul"],
                     "launches_async_serving": async_launches["dense_matmul"],
+                    "launches_gateway": gateway_launches["dense_matmul"],
                     "cases": dense_cases})
     slice7 = {  # name: (source, TPU kernel, shape)
         "block_sparse_fwd": ("block_sparse_attention.cu", "block_sparse_attention.py:71",

@@ -27,8 +27,18 @@ an adapter in the host tier, ``bind_adapter`` (the scheduler calls it at
 ``add_request(adapter_id=)``) leases its hot slot to a sequence, every
 batch re-resolves each sequence's slot into the adapter row of the packed
 vector, and ``flush`` drops the lease. Off, nothing changes: the wire
-format and the forward are the pre-LoRA ones. The adapter disk tier
-(``publish_root``, ``adopt_adapter``) raises.
+format and the forward are the pre-LoRA ones. With ``lora.publish_root``
+the store's disk tier serves sha256-validated adapter publications
+(``adopt_adapter``, and a lazy adopt when a bind promotes an adapter only
+the disk holds).
+
+Live weight refresh: ``swap_params(new_params, version)`` places a new
+tree through the constructor's ``_place_params`` (quantizing it on the
+device when the config names a mode), so a swapped engine serves what a
+cold start on the new tree serves; it bumps :attr:`weight_version`, which
+re-keys the prefix trie's root (every cached identity and exported
+handoff record is version-tagged), and drops the adapter hot set. It
+refuses while any sequence is tracked or suspended.
 
 Radix prefix cache (``prefix_cache.enabled``): retired sequences' full
 blocks become content-addressable, and ``prefix_match`` (the scheduler
@@ -120,7 +130,6 @@ from deepspeed_tpu_torch.utils.env_registry import env_int, env_opt_bool
 from deepspeed_tpu_torch.utils.logging import logger
 from deepspeed_tpu_torch.utils.sanitize import check_index, maybe_checkify, sanitize_enabled
 
-_QUEUE4 = "ROADMAP.md, port queue item 4 (serving features on the ragged engine)"
 _QUEUE5 = "ROADMAP.md, port queue item 5 (tensor- and expert-parallel serving)"
 
 
@@ -146,8 +155,6 @@ def unported_features(config):
     """→ [(feature, roadmap item)] the config turns on that the port
     does not serve yet."""
     out = []
-    if config.lora.enabled and config.lora.publish_root:
-        out.append(("lora.publish_root (the adapter disk tier)", _QUEUE4))
     for name in ("tensor_parallel_degree", "expert_parallel_degree"):
         if int(getattr(config, name)) > 1:
             out.append((f"{name}={getattr(config, name)}", _QUEUE5))
@@ -338,6 +345,11 @@ class InferenceEngineV2:
             params = init_params(cfg, self.device, dtype, generator)
         self.params = self._place_params(params)
         self.quantized_bytes = quantized_bytes(self.params)
+        # monotone weight-version tag: bumped by swap_params (live weight
+        # refresh); stamped into the prefix trie's root key so every
+        # cached KV identity — and every exported handoff record — is
+        # version-tagged (version 0 == the trie's historical root key)
+        self.weight_version = 0
 
         self.max_tokens = int(sm.max_ragged_batch_size)
         self.max_seqs = int(sm.max_ragged_sequence_count)
@@ -449,6 +461,7 @@ class InferenceEngineV2:
         # Multi-tenant LoRA: per-request adapter ids bind to hot slots of
         # the store, whose slabs live on the engine's device in its dtype
         self.lora_store = None
+        self._burst_lora = None  # the slabs a running burst took for all its steps
         if lora_serving_enabled(self._config.lora):
             lcfg = self._config.lora
             H, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -459,7 +472,8 @@ class InferenceEngineV2:
             self.lora_store = AdapterStore(
                 dims, cfg.num_hidden_layers, n_hot=lora_hot_set(lcfg),
                 max_rank=lora_max_rank(lcfg), host_bytes=int(lcfg.host_bytes),
-                prefetch=bool(lcfg.prefetch), dtype=dtype, device=self.device)
+                publish_root=(lcfg.publish_root or None), prefetch=bool(lcfg.prefetch),
+                dtype=dtype, device=self.device)
         self._batch = RaggedBatchWrapper(self.max_tokens, self.max_seqs,
                                          self.max_blocks_per_seq,
                                          lora=self.lora_store is not None)
@@ -503,6 +517,42 @@ class InferenceEngineV2:
         return {k: ({n: place(w) for n, w in v.items()} if isinstance(v, dict) else place(v))
                 for k, v in params.items()}
 
+    def swap_params(self, new_params, version):
+        """Live weight refresh: adopt ``new_params`` in place, bumping
+        :attr:`weight_version` and invalidating every piece of KV derived
+        from the old weights (prefix trie, tier-2 store, staged copies)
+        and the adapter hot set. The new tree goes through
+        :meth:`_place_params`, as at construction (a quantized engine
+        quantizes it on the device), so the engine serves what a cold
+        start on ``new_params`` serves. The old tree is released once the
+        new one is placed: the peak holds both.
+
+        Requires an idle engine (no tracked or suspended sequences, which
+        also means no pipelined burst left unfetched): the serving
+        gateway quiesces in-flight work before calling this. Returns the
+        adopted version."""
+        if self.state_manager is None:
+            raise RuntimeError("swap_params on a destroyed engine")
+        if self.state_manager.n_tracked_sequences:
+            raise RuntimeError(
+                f"swap_params with {self.state_manager.n_tracked_sequences} "
+                f"live sequence(s) — quiesce the engine first")
+        if self._suspended:
+            raise RuntimeError(
+                f"swap_params with {len(self._suspended)} suspended "
+                f"sequence(s) — their host KV predates the new weights")
+        version = int(version)
+        self.params = self._place_params(new_params)
+        self.quantized_bytes = quantized_bytes(self.params)
+        self.weight_version = version
+        if self.prefix_cache is not None:
+            self.prefix_cache.invalidate_for_version(version)
+        if self.lora_store is not None:
+            # hot adapter deltas were tuned against the OLD base weights;
+            # drop them so every tenant re-adopts against the new base
+            self.lora_store.invalidate()
+        return version
+
     def _check_batch(self, batch):
         """The sanitized forward's index checks (checkify's, raised before
         the gathers): every integer input of the batch within the range
@@ -518,11 +568,13 @@ class InferenceEngineV2:
 
     def _forward(self, batch):
         """One ragged forward → logits (the instance's ``_forward`` is this
-        method through the ``DS_SANITIZE`` gate)."""
+        method through the ``DS_SANITIZE`` gate). The adapter slabs are
+        the ones a running burst took for all its steps, else taken now:
+        every layer of every step reads one adapter version."""
         self.forward_steps += 1
         lora = None
         if self.lora_store is not None:
-            a, b, scales = self.lora_store.slabs()
+            a, b, scales = self._burst_lora or self.lora_store.slabs()
             lora = (a, b, scales, batch["seq_adapters"])
         logits, _, _ = ragged_forward(self.params, self.kv_cache.k, self.kv_cache.v, batch,
                                       self.model_config, self.dtype,
@@ -830,21 +882,27 @@ class InferenceEngineV2:
             if self.structured is not None:
                 slabs = self.structured.slabs()
                 slot = slot.long()
+        # one adapter version for the whole burst, as the JAX burst's one
+        # dispatch binds its slabs once
+        self._burst_lora = self.lora_store.slabs() if self.lora_store is not None else None
         out = torch.empty((k, ms), dtype=torch.int32, device=self.device)
-        for i in range(k):
-            logits = self._forward(dict(batch, token_ids=toks, token_pos=pos0 + i))
-            if sampled:
-                if slabs is not None:
-                    logits = apply_dfa_mask(logits, slabs[0], slot, st)
-                # step i's token lands at absolute position pos0 + i + 1,
-                # so its counter key matches the stepwise path exactly
-                toks = sample_rows(logits, fold_in_rows(seed_keys, pos0 + i + 1), temp, topk,
-                                   topp)
-                if slabs is not None:
-                    st = slabs[1][slot, st.long(), toks.long()]  # the DFA advance, on the device
-            else:
-                toks = logits.argmax(dim=-1).to(torch.int32)
-            out[i] = toks
+        try:
+            for i in range(k):
+                logits = self._forward(dict(batch, token_ids=toks, token_pos=pos0 + i))
+                if sampled:
+                    if slabs is not None:
+                        logits = apply_dfa_mask(logits, slabs[0], slot, st)
+                    # step i's token lands at absolute position pos0 + i + 1,
+                    # so its counter key matches the stepwise path exactly
+                    toks = sample_rows(logits, fold_in_rows(seed_keys, pos0 + i + 1), temp,
+                                       topk, topp)
+                    if slabs is not None:  # the DFA advance, on the device
+                        st = slabs[1][slot, st.long(), toks.long()]
+                else:
+                    toks = logits.argmax(dim=-1).to(torch.int32)
+                out[i] = toks
+        finally:
+            self._burst_lora = None
         return out, (st if sampled else None)
 
     def decode_burst(self, batch_uids, batch_tokens, k, sample=None):
@@ -1251,8 +1309,9 @@ class InferenceEngineV2:
         self.lora_store.register(int(adapter_id), layers, alpha, version=version)
 
     def adopt_adapter(self, adapter_id, version=None):
-        """Adopting a published adapter version needs the disk tier, which
-        is not ported yet: raises."""
+        """Adopt a published adapter version (sha256-validated commit
+        protocol; raises WeightPublicationError with nothing adopted on
+        a forged/torn publication). Hot copies hot-swap in place."""
         if self.lora_store is None:
             raise RuntimeError("LoRA serving is disabled")
         return self.lora_store.adopt(int(adapter_id), version=version)

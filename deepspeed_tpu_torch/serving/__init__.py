@@ -1,6 +1,31 @@
 """The serving stack above the ragged engine.
 
-Port of the parts of ``deepspeed_tpu/serving`` the ported engine uses:
-``ServingError`` (:mod:`.admission`) and multi-tenant LoRA serving
-(:mod:`.lora`). The gateway, admission control, fleet routing and weight
-refresh are not ported yet (ROADMAP.md, port queue item 4)."""
+Port of ``deepspeed_tpu/serving``: the request-level gateway
+(:class:`ServingGateway`: submit from any thread, stream tokens through a
+:class:`RequestHandle`, KV-aware admission with priority preemption,
+drain, and the staged no-drain weight refresh), its config, admission
+control and SLO metrics, live weight refresh's publisher
+(:mod:`.refresh`), and multi-tenant LoRA serving with its disk tier
+(:mod:`.lora`). The fleet (router, replicas, health, the wire protocol,
+the rolling refresh controller) and the serving autotuner are not ported
+yet (ROADMAP.md, port queue item 4, step 7)."""
+
+from deepspeed_tpu_torch.serving.admission import (AdmissionQueue, CapacityGate,
+                                                   DeadlineExceededError, GatewayClosedError,
+                                                   GatewayFailedError, QueueFullError,
+                                                   RequestCancelledError, RequestShedError,
+                                                   RequestTooLargeError, ServingError)
+from deepspeed_tpu_torch.serving.config import (ServingAutotuneConfig, ServingConfig,
+                                                get_serving_config)
+from deepspeed_tpu_torch.serving.gateway import RequestHandle, ServingGateway
+from deepspeed_tpu_torch.serving.metrics import ServingMetrics
+from deepspeed_tpu_torch.serving.refresh import WeightPublisher
+
+__all__ = [
+    "ServingGateway", "RequestHandle", "ServingConfig",
+    "ServingAutotuneConfig", "get_serving_config",
+    "ServingMetrics", "AdmissionQueue", "CapacityGate", "ServingError",
+    "GatewayClosedError", "GatewayFailedError", "QueueFullError",
+    "RequestTooLargeError", "RequestShedError", "RequestCancelledError",
+    "DeadlineExceededError", "WeightPublisher",
+]

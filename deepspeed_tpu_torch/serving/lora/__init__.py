@@ -8,11 +8,12 @@ every tenant's delta in one grouped pass per projection, and an
 adapters between device slabs and host memory.
 
 The helpers take the ``DS_LORA*`` environment overrides first
-(``utils/env_registry.py``), as the JAX package's do. The disk tier
-(``AdapterPublisher``, ``publish_root``) waits with the serving stack
-(ROADMAP.md, port queue item 4). ``lora.enabled = False`` builds the exact pre-LoRA
-pipeline: no slot row packed, no delta computed."""
+(``utils/env_registry.py``), as the JAX package's do. The store's disk
+tier (``publish_root``) serves sha256-validated adapter publications
+(:class:`AdapterPublisher`). ``lora.enabled = False`` builds the exact
+pre-LoRA pipeline: no slot row packed, no delta computed."""
 
+from deepspeed_tpu_torch.serving.lora.publisher import AdapterPublisher
 from deepspeed_tpu_torch.serving.lora.store import (LORA_SITES, AdapterCapacityError,
                                                      AdapterStore, UnknownAdapterError)
 from deepspeed_tpu_torch.utils.env_registry import env_int, env_opt_bool
@@ -47,5 +48,5 @@ def lora_max_rank(config) -> int:
     return int(getattr(config, "max_rank", 16))
 
 
-__all__ = ["AdapterStore", "AdapterCapacityError", "UnknownAdapterError", "LORA_SITES",
-           "lora_serving_enabled", "lora_hot_set", "lora_max_rank"]
+__all__ = ["AdapterPublisher", "AdapterStore", "AdapterCapacityError", "UnknownAdapterError",
+           "LORA_SITES", "lora_serving_enabled", "lora_hot_set", "lora_max_rank"]

@@ -1,24 +1,30 @@
 """AdapterStore: the multi-tenant LoRA adapter pool (S-LoRA's paging).
 
-Port of ``deepspeed_tpu/serving/lora/store.py``, with two tiers:
+Port of ``deepspeed_tpu/serving/lora/store.py``. Three tiers:
 
 - **hot (device)** — the adapters currently servable, stacked into
   per-site rank-bucketed slabs ``A[site] [L, S, in, r]`` /
   ``B[site] [L, S, r, out]`` in the engine's dtype, on its device, plus
   ``scales [S]`` fp32 (alpha/true_rank per slot). Slot 0 is the base model
-  (zero slabs, zero scale). Promotion, eviction and hot writes update the
-  slabs IN PLACE on the current (serving) stream, where the JAX store
-  builds new arrays: a write is ordered after every forward already
-  dispatched on that stream, and the next forward reads the new rows, so
-  the slabs' identity (and every shape) never changes.
+  (zero slabs, zero scale). Promotion and eviction write a slot no
+  in-flight sequence leases, so they update the slabs IN PLACE on the
+  current stream; a hot swap (:meth:`adopt` onto a HOT slot) rewrites a
+  slot live traffic reads, so it builds new slab tensors under the lock
+  and rebinds them, as the JAX store's ``.at[].set`` does: a forward that
+  took :meth:`slabs` before the swap runs every layer on the old version.
+  Shapes never change.
 - **host (RAM)** — cold adapters as numpy payloads under a byte-budget
   LRU; promotion pads the true rank to the bucket with zeros (exactly
   zero contribution: zero A columns x zero B rows), then rounds to the
   slab dtype (round-half-even, as the JAX store's numpy cast).
-
-The disk tier (``publish_root``, :meth:`publish`, :meth:`adopt` and the
-lazy adopt on promotion) is not ported yet: it raises, naming ROADMAP.md's
-port queue item 4, which holds the serving stack it stands on.
+- **disk (publications)** — sha256-validated
+  :class:`~deepspeed_tpu_torch.serving.lora.publisher.AdapterPublisher`
+  versions under ``publish_root``, byte for byte the JAX package's;
+  :meth:`adopt` is the rollout/rollback edge, and adopting onto a HOT
+  adapter rebinds new slabs holding its rows under the lock — a no-drain
+  hot swap (a forward that already took the slabs reads the old version
+  in every layer, the next one the new version). A promotion of an adapter only the disk
+  holds adopts its latest publication first (the lazy adopt).
 
 Prefetch follows the JAX store: one daemon worker *stages* padded rows of
 host payloads on the device and never writes the slabs. On CUDA it copies
@@ -42,8 +48,9 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.device import resolve_device
-from deepspeed_tpu_torch.roadmap import not_ported
 from deepspeed_tpu_torch.serving.admission import ServingError
+from deepspeed_tpu_torch.serving.lora.publisher import AdapterPublisher
+from deepspeed_tpu_torch.utils.logging import logger
 from deepspeed_tpu_torch.utils.sanitize import tracked_lock
 
 _MAX_STAGED = 8       # staged device copies kept (LRU) awaiting promotion
@@ -53,12 +60,10 @@ _MAX_INFLIGHT = 64    # prefetch fences kept for never-promoted kicks
 # LoRA site set; mlp sites would stack the same way)
 LORA_SITES = ("q_proj", "k_proj", "v_proj", "o_proj")
 
-_DISK_TIER = "the LoRA adapter disk tier (lora.publish_root, publish, adopt)"
-
 
 class UnknownAdapterError(ServingError):
     """The request named an adapter no tier knows about — not hot, not
-    host-resident. Terminal: no replica can serve it."""
+    host-resident, never published. Terminal: no replica can serve it."""
     reason = "unknown_adapter"
     retry_elsewhere = False
 
@@ -76,13 +81,12 @@ class AdapterCapacityError(ServingError):
 class AdapterStore:
 
     def __init__(self, dims, num_layers, *, n_hot=8, max_rank=16, host_bytes=1 << 30,
-                 publish_root=None, prefetch=True, dtype=torch.float32, device=None):
+                 publish_root=None, keep=None, prefetch=True, dtype=torch.float32,
+                 device=None, test_hook=None):
         """``dims`` maps site name → ``(in_dim, out_dim)``; only sites
         present here are servable. ``n_hot`` counts ADAPTER slots — the
         slabs carry ``n_hot + 1`` rows (slot 0 = base). ``device=None`` is
-        the GPU."""
-        if publish_root:
-            raise not_ported(_DISK_TIER, 4)
+        the GPU. ``publish_root`` roots the disk tier (None: off)."""
         self.dims = {str(k): (int(i), int(o)) for k, (i, o) in dims.items()}
         self.sites = tuple(sorted(self.dims))
         self.num_layers = int(num_layers)
@@ -92,6 +96,9 @@ class AdapterStore:
         self.host_budget = int(host_bytes)
         self.prefetch_enabled = bool(prefetch)
         self.dtype = dtype
+        self.publisher = AdapterPublisher(publish_root, keep=keep,
+                                          test_hook=test_hook) \
+            if publish_root else None
         self.device = resolve_device(device)
 
         L, S, r = self.num_layers, self.n_slots, self.rank_bucket
@@ -123,11 +130,11 @@ class AdapterStore:
         self.host_evictions = 0
         self.hot_hits = 0
         self.hot_misses = 0
-        self.swaps = 0          # in-place hot-swaps of a live slot (disk tier)
+        self.swaps = 0          # hot swaps of a live slot (adopt onto a hot adapter)
         self.prefetched = 0
         self.stage_hits = 0
         self.prefetch_errors = 0
-        self.publish_rejects = 0  # rejected publications (disk tier)
+        self.publish_rejects = 0
         self._lock = tracked_lock(threading.RLock(), "AdapterStore._lock")
 
     # --------------------------------------------------------------- helpers
@@ -215,10 +222,46 @@ class AdapterStore:
         return rank
 
     def publish(self, adapter_id, layers, alpha, version=None):
-        raise not_ported(_DISK_TIER, 4)
+        """Publish an adapter version to disk (sha256 + lineage chain);
+        does NOT adopt — call :meth:`adopt` to roll it out."""
+        if self.publisher is None:
+            raise ValueError("AdapterStore has no publish_root configured")
+        adapter_id, layers, _rank, alpha = self._validate(
+            adapter_id, layers, alpha)
+        return self.publisher.publish(adapter_id, layers, alpha,
+                                      version=version)
 
     def adopt(self, adapter_id, version=None):
-        raise not_ported(_DISK_TIER, 4)
+        """Roll a published adapter version out (or back): validate the
+        publication, install it in the host tier, and — when the adapter
+        is currently HOT — rebind slabs holding the new rows so live
+        traffic picks the new version up at its next forward. Typed rejection
+        with nothing adopted on any integrity failure."""
+        if self.publisher is None:
+            raise ValueError("AdapterStore has no publish_root configured")
+        adapter_id = int(adapter_id)
+        try:
+            alpha, rank, layers, manifest = self.publisher.load(
+                adapter_id, version=version)
+            adapter_id, layers, rank, alpha = self._validate(
+                adapter_id, layers, alpha)
+        except Exception:
+            with self._lock:
+                self.publish_rejects += 1
+            raise
+        payload = {"layers": layers, "alpha": alpha, "rank": rank,
+                   "version": int(manifest["weight_version"]),
+                   "nbytes": self._payload_nbytes(layers)}
+        with self._lock:
+            self._install_host_locked(adapter_id, payload)
+            self._staged.pop(adapter_id, None)  # staged copy is stale now
+            slot = self._hot.get(adapter_id)
+            if slot is not None:
+                self._write_slot_locked(slot, adapter_id, payload, rebind=True)
+                self.swaps += 1
+                logger.info(f"lora: hot-swapped adapter {adapter_id} to "
+                            f"v{payload['version']} in slot {slot}")
+        return payload["version"]
 
     def _install_host_locked(self, adapter_id, payload):
         with self._lock:  # re-entrant; caller already holds the RLock
@@ -238,7 +281,10 @@ class AdapterStore:
                 self.host_evictions += 1
 
     # ----------------------------------------------------------- hot slots
-    def _write_slot_locked(self, slot, adapter_id, payload, staged=None):
+    def _write_slot_locked(self, slot, adapter_id, payload, staged=None, rebind=False):
+        """Write ``slot``'s rows and scale. ``rebind``: into copies of the
+        slabs, then swap them in (a slot live traffic reads); else in
+        place (a slot no in-flight sequence leases)."""
         with self._lock:  # re-entrant; caller already holds the RLock
             if staged is not None and staged["version"] == payload["version"]:
                 a_rows, b_rows = staged["a"], staged["b"]
@@ -252,9 +298,13 @@ class AdapterStore:
             else:
                 a_rows, b_rows = self._padded(payload)
             for site in self.sites:
-                self._a[site][:, slot].copy_(a_rows[site])
-                self._b[site][:, slot].copy_(b_rows[site])
-            self._scales[slot] = payload["alpha"] / float(payload["rank"])
+                for slabs, rows in ((self._a, a_rows), (self._b, b_rows)):
+                    slab = slabs[site].clone() if rebind else slabs[site]
+                    slab[:, slot].copy_(rows[site])
+                    slabs[site] = slab
+            scales = self._scales.clone() if rebind else self._scales
+            scales[slot] = payload["alpha"] / float(payload["rank"])
+            self._scales = scales
             self._slot_meta[slot] = {"adapter_id": adapter_id,
                                      "version": payload["version"],
                                      "rank": payload["rank"],
@@ -263,13 +313,19 @@ class AdapterStore:
     def _promote_locked(self, adapter_id):
         with self._lock:  # re-entrant; caller already holds the RLock
             payload = self._host.get(adapter_id)
+            if payload is None and self.publisher is not None and \
+                    self.publisher.latest_version(adapter_id) is not None:
+                # lazily adopt the latest publication (validated load; the
+                # store lock is an RLock, so adopt() re-enters cleanly)
+                self.adopt(adapter_id)
+                payload = self._host.get(adapter_id)
             if payload is None:
                 raise UnknownAdapterError(
                     f"adapter {adapter_id} is not registered in any tier",
                     adapter_id=adapter_id)
             slot = self._hot.get(adapter_id)
             if slot is not None:
-                return slot
+                return slot  # the lazy adopt above may have promoted already
             if self._free:
                 slot = self._free.pop()
             else:
@@ -357,7 +413,10 @@ class AdapterStore:
             return True
         adapter_id = int(adapter_id)
         with self._lock:
-            return adapter_id in self._hot or adapter_id in self._host
+            if adapter_id in self._hot or adapter_id in self._host:
+                return True
+        return self.publisher is not None and \
+            self.publisher.latest_version(adapter_id) is not None
 
     def hot_set(self):
         with self._lock:
@@ -378,8 +437,10 @@ class AdapterStore:
 
     def slabs(self):
         """The hot tier: ``(a, b, scales)`` with ``a[site] [L, S, in, r]``,
-        ``b[site] [L, S, r, out]``, ``scales [S]`` fp32 — the live tensors,
-        which later writes update in place."""
+        ``b[site] [L, S, r, out]``, ``scales [S]`` fp32. Take them once a
+        forward (or burst): a hot swap rebinds new tensors, so the ones
+        taken keep the version they were taken at in every slot a live
+        sequence leases."""
         with self._lock:
             return dict(self._a), dict(self._b), self._scales
 
@@ -397,7 +458,7 @@ class AdapterStore:
             if adapter_id in self._hot or adapter_id in self._inflight:
                 return
             if adapter_id not in self._host:
-                return
+                return  # nothing staged from disk: adopt() validates there
             while len(self._inflight) >= _MAX_INFLIGHT:
                 self._inflight.popitem(last=False)
             ev = threading.Event()

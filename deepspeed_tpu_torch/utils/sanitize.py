@@ -1,8 +1,7 @@
 """Runtime sanitizers behind the ``DS_SANITIZE`` env knob.
 
-Port of ``deepspeed_tpu/utils/sanitize.py`` (the wire-frame and weight
-publication checks wait for the fleet and the refresh controller). Three
-layers, all OFF by default with zero hot-path cost:
+Port of ``deepspeed_tpu/utils/sanitize.py`` (the wire-frame checks wait
+for the fleet). Three layers, all OFF by default with zero hot-path cost:
 
 - device-side: :func:`maybe_checkify` wraps an engine forward. Off, it
   returns the callable itself (no wrapper, no branch per call, no
@@ -16,8 +15,9 @@ layers, all OFF by default with zero hot-path cost:
   spill tier's store run the ``check_*`` invariant assertions after
   every mutation. Violations raise typed errors instead of silently
   corrupting block ownership. ``check_handoff_record`` runs on every
-  ``TierManager.import_chain`` whatever the switch says (a handoff
-  record is untrusted input).
+  ``TierManager.import_chain`` and ``check_weight_publication`` on every
+  weight publication load whatever the switch says (both cross a trust
+  boundary: they are untrusted input).
 - locks: :func:`tracked_lock` wraps the named locks in an order-tracking
   proxy that raises :class:`LockOrderViolationError` on the first
   acquisition that closes a cycle in the process-wide lock graph.
@@ -63,6 +63,12 @@ class KVTierCorruptionError(SanitizerError):
     """Host KV spill-tier record whose stored chained key no longer
     re-derives from its (parent_key, tokens) identity — promotion would
     graft wrong-content KV into the trie — or byte accounting drift."""
+
+
+class WeightPublicationError(SanitizerError):
+    """A weight publication manifest is torn, forged, or out of chain —
+    adopting it could serve half-written or wrong-lineage weights. The
+    publication is rejected typed and nothing is adopted."""
 
 
 class LockOrderViolationError(SanitizerError):
@@ -227,6 +233,102 @@ def check_handoff_record(record, block_size=None, root_key=None) -> None:
                 f"handoff entry {i} handle lacks k/v carriers — torn "
                 f"record")
         pk = entry["key"]
+
+
+def publication_chain_hash(parent_chain, files):
+    """The chained content hash of one weight publication: sha256 over
+    the parent publication's chain hash plus every payload file's
+    identity (relpath, size, sha256) in sorted order. Chaining makes a
+    publication's hash cover its entire version lineage, the same way a
+    radix node's chained key covers its token history."""
+    import hashlib
+    h = hashlib.sha256()
+    h.update((parent_chain or "").encode())
+    for rel in sorted(files):
+        info = files[rel]
+        h.update(f"{rel}:{int(info['bytes'])}:{info['sha256']}".encode())
+    return h.hexdigest()
+
+
+def check_weight_publication(manifest, pub_dir=None, expect_version=None,
+                             parent_chain=None, digests=None) -> None:
+    """Validate a weight-publication manifest BEFORE anything is
+    adopted. Unconditional (never gated on DS_SANITIZE): the manifest
+    crossed a trust boundary — written by a train-side publisher,
+    consumed by serving replicas — so it is untrusted input, exactly
+    like a KV handoff record. A torn write surfaces as missing fields,
+    a forged or half-written publication fails the chained-hash
+    re-derivation, and on-disk payload corruption fails the per-file
+    sha256 when ``pub_dir`` is given. ``digests`` maps a file to the
+    ``(bytes, sha256)`` of the copy the caller already read: those files
+    are checked by it, not read again, so what the caller adopts is what
+    was verified. Raises :class:`WeightPublicationError`; nothing is
+    adopted."""
+    if not isinstance(manifest, dict) or "files" not in manifest:
+        raise WeightPublicationError(
+            "publication manifest is not a dict with a 'files' map — "
+            "torn or truncated publication")
+    if manifest.get("version") != 1:
+        raise WeightPublicationError(
+            f"publication manifest version {manifest.get('version')!r} "
+            f"is not 1")
+    wv = manifest.get("weight_version")
+    if not isinstance(wv, int) or wv < 1:
+        raise WeightPublicationError(
+            f"publication weight_version {wv!r} is not a positive int")
+    if expect_version is not None and wv != int(expect_version):
+        raise WeightPublicationError(
+            f"publication claims weight_version {wv}, expected "
+            f"{expect_version}")
+    files = manifest["files"]
+    if not isinstance(files, dict) or not files:
+        raise WeightPublicationError(
+            "publication manifest lists no payload files — torn "
+            "publication")
+    for rel, info in files.items():
+        if not isinstance(info, dict) or "bytes" not in info \
+                or "sha256" not in info:
+            raise WeightPublicationError(
+                f"publication file entry '{rel}' lacks bytes/sha256 — "
+                f"torn manifest")
+    if parent_chain is not None and manifest.get("parent_chain") != parent_chain:
+        raise WeightPublicationError(
+            f"publication parent_chain {manifest.get('parent_chain')!r} "
+            f"does not extend the adopted chain {parent_chain!r} — "
+            f"wrong lineage")
+    derived = publication_chain_hash(manifest.get("parent_chain"), files)
+    if manifest.get("chain") != derived:
+        raise WeightPublicationError(
+            f"publication chain hash re-derives {derived[:12]}… but the "
+            f"manifest claims {str(manifest.get('chain'))[:12]}… — forged "
+            f"or half-written publication")
+    import os
+    from deepspeed_tpu_torch.nebula.service import file_sha256
+    digests = digests or {}
+    for rel, info in files.items():
+        if rel in digests:
+            actual, digest = digests[rel]
+        elif pub_dir is None:
+            continue
+        else:
+            full = os.path.join(pub_dir, rel)
+            if not os.path.isfile(full):
+                raise WeightPublicationError(
+                    f"publication payload '{rel}' is missing on disk — "
+                    f"torn publication")
+            actual, digest = os.path.getsize(full), None
+        if actual != int(info["bytes"]):
+            raise WeightPublicationError(
+                f"publication payload '{rel}' is {actual} bytes, "
+                f"manifest says {info['bytes']} — truncated")
+        if digest is None:
+            digest = file_sha256(full)
+        if digest != info["sha256"]:
+            raise WeightPublicationError(
+                f"publication payload '{rel}' hashes "
+                f"sha256:{digest[:12]}…, manifest says "
+                f"sha256:{info['sha256'][:12]}… — bit-level "
+                f"corruption")
 
 
 def check_prefix_index(index) -> None:

@@ -60,7 +60,13 @@ emits the stepwise stream bit for bit through the kernels, and spec on
 gives the spec-off greedy streams; the serving RMS norm's rows keep their
 bits at every row count; constrained decoding: the DFA mask and
 advance on the card equal the CPU's, and a constrained engine on the card
-emits schema-valid JSON."""
+emits schema-valid JSON. The serving gateway and weight refresh: client
+threads streaming through a gateway whose pump thread drives the card get
+the streams a scheduler driving the engine directly gets, and ``drain``
+returns the engine's memory; an engine swapped to new weights on the
+card (bf16, and int8 carriers quantized on the card) serves what a cold
+start on them serves, its carriers byte-equal; a publication of CUDA
+tensors loads back bit for bit."""
 
 import numpy as np
 import pytest
@@ -2744,3 +2750,109 @@ def test_sanitize_gate_on_card(cuda, monkeypatch):
                                                                float("nan")))
     with pytest.raises(SanitizerNaNError):
         checked.put([5], [prompts[0]], sample="greedy")
+
+
+# ------------------------------------------------------- gateway, weight refresh
+def _greedy(engine, prompts, uid0, new=24):
+    from deepspeed_tpu_torch.inference.v2 import DynamicSplitFuseScheduler
+    sched = DynamicSplitFuseScheduler(engine, token_budget=64, max_burst=8)
+    for i, p in enumerate(prompts):
+        sched.add_request(uid0 + i, p, max_new_tokens=new)
+    out = sched.run_to_completion()
+    for i in range(len(prompts)):
+        sched.retire(uid0 + i)
+    return [out[uid0 + i] for i in range(len(prompts))]
+
+
+def test_gateway_streams_on_card_equal_direct_run(cuda):
+    """Client threads submit and stream through a gateway whose pump thread
+    drives the card: every stream equals the direct scheduler's on the
+    same engine, and ``drain`` destroys the engine and frees its KV pool."""
+    import threading
+    from deepspeed_tpu_torch.serving import ServingConfig, ServingGateway
+    engine = _async_engine(cuda, False)
+    rng = np.random.RandomState(11)
+    prompts = [rng.randint(0, 256, n).astype(np.int32) for n in (9, 30, 17, 22, 5, 12)]
+    want = _greedy(engine, prompts, 0)
+    gw = ServingGateway(engine, config=ServingConfig(token_budget=64, max_burst=8))
+    streams = {}
+
+    def client(i):
+        streams[i] = list(gw.submit(prompts[i], max_new_tokens=24).tokens(timeout=120))
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert [streams[i] for i in range(len(prompts))] == want
+    c = gw.snapshot()["counters"]
+    assert c["completed"] == len(prompts) and c["failed"] == 0
+    kv = engine.kv_cache.bytes()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda)
+    gw.drain(timeout=60)
+    assert engine.kv_cache is None and gw.state == "stopped"
+    assert before - torch.cuda.memory_allocated(cuda) >= kv
+
+
+@pytest.mark.parametrize("mode", ["none", "int8"])
+def test_swap_on_card_equals_cold_start(cuda, mode):
+    """``swap_params`` on the card (int8: the new tree quantized there)
+    serves what a cold start on the new weights serves, its params equal
+    the cold start's byte for byte, and the streams moved."""
+    from deepspeed_tpu_torch.inference.quantization import QuantizedWeight
+    from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig, InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.models import init_params, llama_config
+    cfg = llama_config("mixtral-debug" if mode == "int8" else "debug", hidden_size=256,
+                       num_attention_heads=4, num_key_value_heads=2, num_hidden_layers=2)
+    v0 = init_params(cfg, cuda, torch.bfloat16, torch.Generator(cuda).manual_seed(6), std=0.05)
+    from chip_smoke import stepped  # the stand-in train step of phase 30
+    v1 = stepped(v0, 1)
+    ecfg = RaggedInferenceEngineConfig(
+        kv_block_size=16, quantization={"quantization_mode": mode},
+        state_manager=DSStateManagerConfig(max_ragged_batch_size=64, max_ragged_sequence_count=4,
+                                           max_tracked_sequences=8, max_context=128))
+    rng = np.random.RandomState(12)
+    prompts = [rng.randint(0, 256, n).astype(np.int32) for n in (13, 30, 22)]
+    engine = InferenceEngineV2(cfg, ecfg, params=v0, device=cuda)
+    before = _greedy(engine, prompts, 0)
+    v1_host = {k: ({n: w.cpu() for n, w in v.items()} if isinstance(v, dict) else v.cpu())
+               for k, v in v1.items()}
+    assert engine.swap_params(v1_host, 1) == 1 and engine.weight_version == 1
+    cold = InferenceEngineV2(cfg, ecfg, params=v1, device=cuda)
+    got = _greedy(engine, prompts, 100)
+    assert got == _greedy(cold, prompts, 100) and got != before
+
+    def parts(tree):
+        for k, v in sorted(tree.items()):
+            for n, w in (sorted(v.items()) if isinstance(v, dict) else [("", v)]):
+                yield from ((w.values, w.scales) if isinstance(w, QuantizedWeight) else (w,))
+    pairs = list(zip(parts(engine.params), parts(cold.params)))
+    assert len(pairs) == len(list(parts(cold.params)))
+    assert all(a.device.type == cuda.type and torch.equal(a, b) for a, b in pairs)
+    if mode == "int8":
+        assert any(isinstance(w, QuantizedWeight) for w in engine.params["layers"].values())
+
+
+def test_publication_of_cuda_tensors_round_trips(cuda, tmp_path, monkeypatch):
+    """A tree of CUDA tensors (bf16, fp32, int8, a 0-d leaf) publishes leaf
+    by leaf in chunks and loads back as CPU tensors bit for bit."""
+    from deepspeed_tpu_torch.serving import WeightPublisher
+    from deepspeed_tpu_torch.serving.refresh import publisher
+    monkeypatch.setattr(publisher, "_CHUNK_BYTES", 1 << 16)
+    g = torch.Generator(cuda).manual_seed(13)
+    tree = {"layers": {"wq": torch.randn(2, 256, 384, generator=g, device=cuda).to(torch.bfloat16),
+                       "norm": torch.rand(2, 256, generator=g, device=cuda)},
+            "q": torch.randint(-128, 127, (64, 96), generator=g, device=cuda).to(torch.int8),
+            "step": torch.tensor(7, device=cuda)}
+    pub = WeightPublisher(tmp_path)
+    manifest = pub.publish(tree)
+    loaded, m = pub.load(1)
+    assert m == manifest and manifest["tree"]["layers/wq"]["dtype"] == "bfloat16"
+    for k in ("q", "step"):
+        assert loaded[k].device.type == "cpu" and torch.equal(loaded[k], tree[k].cpu())
+    for n in ("wq", "norm"):
+        assert torch.equal(loaded["layers"][n], tree["layers"][n].cpu())
+    assert loaded["step"].shape == ()
+

@@ -10,8 +10,8 @@
   raises ``NotImplementedError`` at engine (or model) construction, naming
   its ROADMAP item; so do the training engine's checkpoint methods. The
   prefix cache, the KV spill tier, speculative decoding, constrained
-  decoding and pipelined decode bursts are ported: their configs build an
-  engine that serves. MoE
+  decoding, pipelined decode bursts and the LoRA disk tier are ported:
+  their configs build an engine that serves. MoE
   models serve and train, dropless or capacity-routed. On-device sampling
   is ported: an invalid spec raises ``ValueError`` at the engine and the
   scheduler."""
@@ -202,6 +202,38 @@ def test_scans_cover_the_async_and_sanitize_slice():
                                                          "check_allocator", "sanitize_enabled"))
 
 
+SLICE20_MODULES = ("deepspeed_tpu_torch.serving", "deepspeed_tpu_torch.serving.admission",
+                   "deepspeed_tpu_torch.serving.config", "deepspeed_tpu_torch.serving.metrics",
+                   "deepspeed_tpu_torch.serving.gateway", "deepspeed_tpu_torch.serving.refresh",
+                   "deepspeed_tpu_torch.serving.refresh.publisher",
+                   "deepspeed_tpu_torch.serving.lora.publisher",
+                   "deepspeed_tpu_torch.serving.lora.store", "deepspeed_tpu_torch.nebula",
+                   "deepspeed_tpu_torch.nebula.service",
+                   "deepspeed_tpu_torch.runtime.checkpoint_engine",
+                   "deepspeed_tpu_torch.runtime.checkpoint_engine.sharded_checkpoint_engine")
+
+
+def test_scans_cover_the_serving_and_refresh_slice():
+    """The AST scan and the jax-free import above reach every module under
+    ``serving/``, ``nebula/`` and ``runtime/checkpoint_engine/`` (the
+    gateway, admission, config, metrics, the publishers and the helpers
+    they copy), none of which imports ml_dtypes either; the engine swaps
+    weights and the gateway stages a refresh."""
+    mods = set(_modules())
+    assert set(SLICE20_MODULES) <= mods
+    for sub in ("serving", "nebula", "runtime/checkpoint_engine"):
+        files = sorted((PKG / sub).rglob("*.py"))
+        assert files and set(files) <= set(_port_files())
+        for path in files:
+            tree = ast.parse(path.read_text())
+            names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+            names += [n.module or "" for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+            assert not any(m.split(".")[0] == "ml_dtypes" for m in names), path
+    from deepspeed_tpu_torch.serving import ServingGateway, WeightPublisher
+    assert callable(InferenceEngineV2.swap_params) and callable(ServingGateway.refresh_weights)
+    assert callable(WeightPublisher.publish) and callable(WeightPublisher.load)
+
+
 def test_default_device_is_the_gpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None would rightly use it")
@@ -221,7 +253,6 @@ def test_default_device_is_the_gpu():
 
 
 OFF_SLICE = {
-    "lora": dict(lora={"enabled": True, "publish_root": "adapters"}),  # the disk tier
     "tensor_parallel_degree": dict(tensor_parallel_degree=2),
     "expert_parallel_degree": dict(expert_parallel_degree=2),
 }
@@ -241,6 +272,7 @@ ON_SLICE = {  # flag: (config, the engine's attribute, prompt tokens the second 
     "spec_decode": (dict(spec_decode={"enabled": True}), "spec", 0),
     "structured": (dict(structured={"enabled": True}), "structured", 0),
     "async_burst": (dict(async_burst={"enabled": True}), "async_burst", 0),
+    "lora": (dict(lora={"enabled": True, "publish_root": "adapters"}), "lora_store", 0),
 }
 # the engine at small state-manager sizes: the plain paged attention
 # gathers every token's whole table, which the defaults make 8192 long
@@ -249,8 +281,10 @@ SMALL = dict(max_ragged_batch_size=64, max_ragged_sequence_count=4, max_tracked_
 
 
 @pytest.mark.parametrize("flag", sorted(ON_SLICE))
-def test_ported_feature_builds_and_serves(flag):
+def test_ported_feature_builds_and_serves(flag, tmp_path):
     config, attr, cached = ON_SLICE[flag]
+    if "lora" in config:  # the disk tier's publish root, under the test's directory
+        config = {"lora": dict(config["lora"], publish_root=str(tmp_path / "adapters"))}
     cfg = RaggedInferenceEngineConfig(kv_block_size=4, state_manager=SMALL, **config)
     eng = InferenceEngineV2("debug", cfg, dtype=torch.float32, device="cpu")
     assert getattr(eng, attr) not in (None, False)

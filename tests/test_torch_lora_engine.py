@@ -281,9 +281,9 @@ def test_int8_moe_lora_matches_jax():
 
 
 def test_adapter_api_surface(debug):
-    """The engine's adapter queries answer as the JAX engine's; the disk
-    tier raises naming its ROADMAP item; an engine with LoRA off refuses
-    adapter routing."""
+    """The engine's adapter queries answer as the JAX engine's; adopting a
+    publication without a publish root raises as the JAX engine does; an
+    engine with LoRA off refuses adapter routing."""
     model, params = debug
     jeng, teng = _engines(model, params)
     for eng in (jeng, teng):
@@ -293,8 +293,9 @@ def test_adapter_api_surface(debug):
         assert eng.has_adapter(101)
         eng.prefetch_adapter(102)  # prefetch is off in this config: a no-op
     assert teng.lora_store.stats() == jeng.lora_store.stats()
-    with pytest.raises(NotImplementedError, match="disk tier.*port queue item 4 "):
-        teng.adopt_adapter(101)
+    for eng in (jeng, teng):
+        with pytest.raises(ValueError, match="no publish_root configured"):
+            eng.adopt_adapter(101)
     teng.destroy()
     assert teng.lora_store is None
     _, off = _engines(model, params, lora=False)

@@ -10,8 +10,9 @@ even on both (numpy's ``astype`` of ml_dtypes, torch's ``.to``).
 Also: ``AdapterCapacityError`` with the JAX store's ``details``; unknown,
 over-rank, wrong-site and wrong-shape adapters rejected; ``invalidate``;
 a prefetch followed by a bind counts a ``stage_hit`` and writes the same
-rows; ``publish_root``, ``publish`` and ``adopt`` raise naming ROADMAP.md
-port queue item 4; and a time-bounded stress of prefetch kicks from
+rows; ``publish`` and ``adopt`` on a store without a ``publish_root`` raise
+the JAX store's ``ValueError`` (the disk tier itself:
+``test_torch_lora_disk.py``); and a time-bounded stress of prefetch kicks from
 several threads against binds and releases on the caller's thread keeps
 every lease count exact.
 """
@@ -182,12 +183,13 @@ def test_prefetch_then_bind_counts_a_stage_hit(dtype):
 
 
 def test_disk_tier_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, port queue item 4 "):
-        AdapterStore(DIMS, L, publish_root="adapters", device="cpu")
-    _, ts = stores()
-    for call in (lambda: ts.publish(11, mk_layers(1, 2), 4.0), lambda: ts.adopt(11)):
-        with pytest.raises(NotImplementedError, match="disk tier.*port queue item 4 "):
-            call()
+    """Without a ``publish_root`` the disk tier's calls raise the JAX
+    store's error, naming the missing setting, on both packages."""
+    for st in stores():
+        for call in (lambda: st.publish(11, mk_layers(1, 2), 4.0), lambda: st.adopt(11)):
+            with pytest.raises(ValueError, match="no publish_root configured"):
+                call()
+        assert st.publisher is None and not st.known(11)
 
 
 def test_prefetch_kicks_race_binds_and_releases():

@@ -1,6 +1,6 @@
 """Runs some of ``chip_smoke.py``'s phases alone, on one GPU.
 
-    python3 tools/phases.py sparse bert k7 invariance sampled spec json async
+    python3 tools/phases.py sparse bert k7 invariance sampled spec json async refresh
 
 Builds the kernel sources those phases need (one ``nvcc`` each, all
 started together), then runs each named phase as ``chip_smoke.py`` runs
@@ -24,7 +24,11 @@ it, with its checks, and prints its lines. The phases:
   Mistral-7B engine under ``bench_serving_2b_json``'s protocol);
 - ``async``: phase 29 (``async_serving_phase``: pipelined decode bursts
   against synchronous ones on the Mistral-7B engine under
-  ``bench_serving_v2_ragged``'s protocol, with the ``DS_SANITIZE`` gate).
+  ``bench_serving_v2_ragged``'s protocol, with the ``DS_SANITIZE`` gate);
+- ``refresh``: phase 30 (``gateway_refresh_phase``: the serving gateway
+  under ``bench_serving_v2_ragged``'s traffic, then a live weight refresh
+  under ``bench_serving_2b_refresh``'s protocol, publication faults, an
+  int8 swap and the LoRA disk tier, on the Mistral-7B engine).
 
 Run it from the root of a checkout on a machine with a CUDA device. The
 last line is ``{"ok": true}`` when every phase passed.
@@ -46,6 +50,7 @@ from deepspeed_tpu_torch.ops.kernels import build  # noqa: E402
 
 SPARSE = ("block_sparse_attention.cu", "fused_norms.cu", "flash_attention.cu")
 SERVING = ("paged_attention.cu", "fused_quant_matmul.cu", "fused_norms.cu")
+GATEWAY = SERVING + ("lora_matmul.cu",)
 PHASES = {  # name: (sources, run(device, flush))
     "sparse": (SPARSE, cs.sparse_kernel_phase),
     "bert_parity": (SPARSE, lambda device, flush: cs.bert_parity_phase(device)),
@@ -56,6 +61,7 @@ PHASES = {  # name: (sources, run(device, flush))
     "spec": (SERVING, lambda device, flush: cs.spec_serving_phase(device)),
     "json": (SERVING, lambda device, flush: cs.json_serving_phase(device)),
     "async": (SERVING, lambda device, flush: cs.async_serving_phase(device)),
+    "refresh": (GATEWAY, lambda device, flush: cs.gateway_refresh_phase(device)),
 }
 
 
