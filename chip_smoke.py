@@ -294,7 +294,8 @@ each of which fails the run if it fails:
    measured quantization error bitwise; each demotion launches 2 quantize
    and 2 dequantize kernels (k and v, and their measured error), each
    quantized restore 2 dequantize kernels;
-18. KV tier serving — the full 32-layer ``mistral-7b`` in bf16, weights
+18. KV tier serving — ``mistral-7b`` at its widths and TIER_LAYERS of its
+   32 layers (cut for the run's time), bf16, weights
    built once from a seeded generator for every engine of the phase:
    (a) ``bench.py``'s ``bench_serving_2b_prefix`` traffic (8 requests x (512
    shared + 32) prompt x 64 new, block 32, budget 552, bursts of 16), a cold
@@ -432,8 +433,8 @@ each of which fails the run if it fails:
    the step and K8's device ms beside the wgmma design's; then the same model without a sparse
    section (K1 non-causal) for its step time and peak;
 26. sampled serving — ``bench_serving_2b_sampled``'s protocol (``bench.py``)
-   on the full 32-layer Mistral-7B-width engine (bf16, random weights from a
-   seeded generator): 8 requests x 256-token prompts x 64 new tokens, block
+   on the Mistral-7B-width engine at SAMPLED_LAYERS of its 32 layers (cut
+   for the run's time; bf16, random weights from a seeded generator): 8 requests x 256-token prompts x 64 new tokens, block
    32, budget 264, bursts of 8, each request with its own spec (the lane's
    temperature, top_k and top_p pattern, seed 1000 + i). A greedy and a
    sampled warm-up, then the greedy and the sampled run, timed. Gates: 64
@@ -499,7 +500,8 @@ each of which fails the run if it fails:
    the JAX bench's 10% bound.
 29. pipelined bursts — ``bench_serving_v2_ragged``'s protocol (16 random
    128-token prompts from seed 0 x 64 new tokens, budget 512, bursts of
-   16, KV block 32) on the same weights, a synchronous and a pipelined
+   16, KV block 32) on the same weights' first ASYNC_LAYERS layers (cut
+   for the run's time), a synchronous and a pipelined
    (``async_burst``, depth 2) engine in the same call, over greedy,
    sampled (per-request seeds, top_k/top_p) and constrained (phase 28's
    schema) lanes. Gates: each lane's streams equal between the engines
@@ -532,9 +534,11 @@ each of which fails the run if it fails:
    swap: nothing lost, the in-flight streams equal v0's, the queued ones
    equal a cold-started engine's on the same v1 tree (the canary's
    oracle) and differ from v0's, ``weight_version`` 1; a swap with a live
-   sequence refused; (d) a bit-flipped payload and a forged manifest each
-   rejected with ``WeightPublicationError``, the version and the probe's
-   stream unchanged; (f) two adapters (rank 8, q/k/v/o) published to the
+   sequence refused; (d) v1 at REFRESH_FAULT_LAYERS layers published
+   beside it (the depth cut for the run's time), then a bit-flipped payload
+   and a forged manifest of it each rejected with
+   ``WeightPublicationError``, the version and the probe's stream
+   unchanged; (f) two adapters (rank 8, q/k/v/o) published to the
    engine's disk tier and adopted lazily at ``submit(adapter_id=...)``
    stream what they stream registered in memory on the cold engine (and
    not the base streams), v2 of one adopted streams the in-memory v2's,
@@ -549,6 +553,45 @@ each of which fails the run if it fails:
    its wait for in-flight streams, the swap alone and the device memory
    peak over it, drain plus cold restart and ``drain_over_refresh``, and
    p99 inter-token gap during the refresh against steady state.
+31. fleet — the in-process serving fleet on the same weights: two
+   ``GatewayReplica``s (each a ``FaultyReplica`` with no fault armed until
+   a lane arms one) behind a ``FleetRouter`` (heartbeat 0.2 s, retry
+   backoff 0.05 s, stream token timeout 120 s), every engine of the phase
+   (replicas, restarts, cold references, the direct runs) over the one
+   device tree of its version (gated: no engine places a copy). (a)
+   ``bench_serving_2b_fleet``'s protocol: 3 x 8 random 256-token prompts
+   from ``RandomState(0)`` x 32 new tokens, budget 264, bursts of 16, in
+   three parts: healthy; r0 killed once any stream has a token, 2 sampled
+   requests (temperature 1.1, top_k 40, the seed derived by the router
+   from its uid) beside the 8; after ``restart_replica("r0")``. Gates:
+   nothing lost, every greedy stream equal to one engine's direct run,
+   each sampled stream equal to its uninterrupted run on that engine with
+   the router's seed, failovers >= 1, r0 back HEALTHY. (b)
+   ``bench_serving_2b_refresh``'s fleet protocol with the canary on
+   (``FleetRefreshController``, its ``reference_fn`` a cold-started
+   engine on the target tree, the canary prompts the probe and the first
+   prompt, 32 tokens each): v1 and v2 by phase 30's step, rolled out with
+   the second and third 8 prompts in flight. Gates: no rollback, both
+   replicas refreshed, the canary passed, nothing lost, every in-flight
+   stream one version's direct stream, the probe's stream then equal on
+   both replicas and a cold v2 engine's and not v0's. Then r1 killed and
+   restarted on v2 (``drain_restart_s``), and from v2 to v3 (the step on
+   v2) a crash mid-swap on r1 (rolled back, r1 DOWN, then restarted) and
+   a version lie on r0 (the canary diverges, rolled back), the probe's
+   stream on v2 on both replicas after each. (c)
+   ``bench_serving_2b_disagg``'s trace (12 requests alternating 384-token
+   prompts x 12 new tokens and 64-token prompts x 48, in bursts of 4 0.25
+   s apart, budget 396) through a unified pair, then a prefill/decode
+   pair (2 tokens from the prefill replica), each engine with the prefix
+   cache and a 1 GiB bf16 KV tier. Gate: the pair's streams equal the
+   unified fleet's, nothing lost. K2, K3 and K4 launch their counts over
+   every forward of every engine of the phase (none on K4's first
+   design). Prints, beside the card: tokens/s of each part of (a),
+   failovers, retries and the restart's seconds; each rollout's wall time,
+   ``drain_restart_s``, ``drain_over_refresh``, the p99 inter-token gap
+   steady (part A of (a)) and during the rollouts, the faults' reasons; both fleets' p99 TTFT and coefficient of
+   variation of inter-token gaps, handoffs and fallbacks; the device peak
+   over (a) and (b) beside one tree's bytes.
 
 The last lines are the card, one JSON object with every kernel's numbers
 and, last, ``{"ok": true, "device": {...}}``."""
@@ -605,6 +648,7 @@ TIER_BUDGET = TIER_PROMPT + TIER_N_REQ
 TIER_KV_BLOCKS = TIER_N_REQ * -(-(TIER_PROMPT + TIER_NEW) // BS) + 1 + 4  # 81: B evicts A
 TIER_CONTROL_BLOCKS = 256     # nothing is evicted: A's and B's retired chains fit beside B
 TIER_HOST_BYTES = 4 << 30
+TIER_LAYERS = 16              # phase 18: Mistral-7B's depth, cut from 32 for the run's time
 # phases 19-21: Mixtral-8x7B width, 2 of 32 layers; T·k = 8192 rows (B 2 x S 2048, top-2)
 MOE_TRAIN_SIZES = (2048, 1638, 1229, 1065, 819, 737, 656, 0)  # skewed, expert 7 empty
 DW_SMALL_SIZES = (40, 0, 16, 9, 30, 3, 20, 10)  # 128 rows, 16 an expert: 16-row tiles
@@ -633,6 +677,7 @@ BERT_GRAD_ROW_TOL = 256.0     # phase 24, units of row_scaled_err per parameter 
 SAMPLED_N_REQ, SAMPLED_PROMPT, SAMPLED_NEW, SAMPLED_BURST = 8, 256, 64, 8
 SAMPLED_BUDGET = SAMPLED_PROMPT + SAMPLED_N_REQ
 SAMPLED_STEP_TOKENS = 16
+SAMPLED_LAYERS = 16           # phase 26: Mistral-7B's depth, cut from 32 for the run's time
 # phase 27: bench.py's bench_serving_2b_spec: 8 requests x (a 256-token system prompt, a
 # 16-token pattern tiled, + a 64-token template, an 8-token pattern tiled, its first token + i)
 # x 64 new tokens, draft_len 4, bursts of 16, token budget prompt_len + n_req
@@ -649,11 +694,24 @@ JSON_OVERHEAD_BOUND = 0.10  # the JAX bench's bound on the constrained overhead:
 # ASYNC_EOS_AT; the profiled window is ASYNC_WINDOW chained bursts; the sanitized run serves
 # 4 of the prompts ASYNC_SANITIZE_NEW tokens
 ASYNC_DEPTH, ASYNC_EOS_AT, ASYNC_WINDOW, ASYNC_SANITIZE_NEW = 2, 20, 2, 16
+ASYNC_LAYERS = 16             # phase 29: the shared weights' first layers, cut for the run's time
 # phase 30: bench_serving_v2_ragged's traffic through a ServingGateway, then
 # bench_serving_2b_refresh's protocol on one gateway: REFRESH_QUEUED requests queue behind
 # the staged swap; v1 = p - REFRESH_STEP·p·z (z ~ N(0, 1), seed 1) on every floating leaf;
 # the int8 swap at REFRESH_QUANT_LAYERS of Mistral's 32 layers
 REFRESH_STEP, REFRESH_QUEUED, REFRESH_QUANT_LAYERS = 1e-2, 4, 2
+STEP_CHUNK = 1 << 26      # phases 30-31: values the stand-in train step takes at a time
+REFRESH_FAULT_LAYERS = 2  # phase 30 (d): the faulted publication's depth, cut for the run's time
+# phase 31: bench_serving_2b_fleet's trace (3 x FLEET_N_REQ random FLEET_PROMPT-token prompts
+# from RandomState(0) x FLEET_NEW new tokens, budget prompt + n_req, bursts of 16) on two
+# replicas, FLEET_SAMPLED sampled requests beside the kill; bench_serving_2b_disagg's
+# (DISAGG_N_REQ requests alternating DISAGG_LONG-token prompts x DISAGG_NEW // 4 new tokens
+# and DISAGG_SHORT-token prompts x DISAGG_NEW, in bursts of 4, DISAGG_PREFILL tokens from
+# the prefill replica, a DISAGG_TIER_BYTES bf16 KV tier)
+FLEET_N_REQ, FLEET_PROMPT, FLEET_NEW, FLEET_BURST, FLEET_SAMPLED = 8, 256, 32, 16, 2
+FLEET_BUDGET = FLEET_PROMPT + FLEET_N_REQ
+DISAGG_N_REQ, DISAGG_LONG, DISAGG_SHORT, DISAGG_NEW, DISAGG_PREFILL = 12, 384, 64, 48, 2
+DISAGG_BUDGET, DISAGG_TIER_BYTES = DISAGG_LONG + DISAGG_N_REQ, 1 << 30
 
 
 def log(msg):
@@ -3620,14 +3678,16 @@ def tier_lane(cfg, device, params):
 
 
 def kv_tier_phase(device):
-    """Phase 18: Mistral-7B, 32 layers, bf16, seeded weights built once."""
+    """Phase 18: Mistral-7B at TIER_LAYERS layers, bf16, seeded weights
+    built once."""
     from deepspeed_tpu_torch.models import init_params, llama_config
-    cfg = llama_config("mistral-7b")
+    cfg = llama_config("mistral-7b", num_hidden_layers=TIER_LAYERS)
     t0 = time.perf_counter()
     params = init_params(cfg, device, torch.bfloat16,
                          torch.Generator(device=device).manual_seed(0))
     torch.cuda.synchronize()
-    log(f"[kv-tier] mistral-7b weights built in {time.perf_counter() - t0:.2f} s")
+    log(f"[kv-tier] mistral-7b weights ({TIER_LAYERS} layers) built in "
+        f"{time.perf_counter() - t0:.2f} s")
     prefix = prefix_lane(cfg, device, params)
     tier, launches = tier_lane(cfg, device, params)
     del params
@@ -5102,8 +5162,9 @@ def sampler_cost(logits, keys, meta, flush):
 
 
 def sampled_serving_phase(device, flush):
-    """Phase 26: ``bench_serving_2b_sampled``'s protocol on the full-depth
-    Mistral-7B engine. → (result, {kernel: launches in the sampled run})."""
+    """Phase 26: ``bench_serving_2b_sampled``'s protocol on the Mistral-7B
+    engine at SAMPLED_LAYERS layers. → (result, {kernel: launches in the
+    sampled run})."""
     from deepspeed_tpu_torch.device import gpu_report
     from deepspeed_tpu_torch.inference.structured import prng
     from deepspeed_tpu_torch.inference.structured.sampling import (pack_sample_meta,
@@ -5115,7 +5176,7 @@ def sampled_serving_phase(device, flush):
     from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import dense_matmul
     from deepspeed_tpu_torch.ops.kernels.paged_attention import paged_decode_attention
     card = gpu_report()
-    cfg = llama_config("mistral-7b")
+    cfg = llama_config("mistral-7b", num_hidden_layers=SAMPLED_LAYERS)
     n, plen, ntok = SAMPLED_N_REQ, SAMPLED_PROMPT, SAMPLED_NEW
     engine = InferenceEngineV2(cfg, RaggedInferenceEngineConfig(
         kv_block_size=BS, state_manager=DSStateManagerConfig(
@@ -5859,15 +5920,17 @@ def sanitize_check(cfg, params, device, plain, prompts):
 
 
 def async_serving_phase(device, weights=None):
-    """Phase 29: ``bench_serving_v2_ragged``'s protocol on the full-depth
-    Mistral-7B engine, a synchronous lane and a pipelined one (depth
-    ``ASYNC_DEPTH``) in the same call. → (result, {kernel: launches in the
-    pipelined greedy lane})."""
+    """Phase 29: ``bench_serving_v2_ragged``'s protocol on the Mistral-7B
+    engine over the first ASYNC_LAYERS layers of ``weights``, a synchronous
+    lane and a pipelined one (depth ``ASYNC_DEPTH``) in the same call. →
+    (result, {kernel: launches in the pipelined greedy lane})."""
     from deepspeed_tpu_torch.device import gpu_report
     from deepspeed_tpu_torch.inference.structured import (CompiledSchema, byte_vocab,
                                                           detokenize)
     card = gpu_report()
     cfg, params = weights or serving_params(device)
+    cfg, params = (dataclasses.replace(cfg, num_hidden_layers=ASYNC_LAYERS),
+                   first_layers(params, ASYNC_LAYERS))
     L, V = cfg.num_hidden_layers, cfg.vocab_size
     t0 = time.perf_counter()
     laps = {}
@@ -6004,13 +6067,20 @@ def gateway_engine(cfg, params, device, publish_root=""):
 def stepped(params, seed):
     """The stand-in train step on every floating leaf, leaf by leaf on the
     leaf's device: ``p - REFRESH_STEP·p·z``, z ~ N(0, 1) from ``seed``, in
-    fp32, stored in the leaf's dtype. (The JAX bench's ``p - 1e-3·p``
-    moves no bf16 value: 1e-3 is below half a bf16 ulp.)"""
+    fp32, stored in the leaf's dtype, STEP_CHUNK values at a time (a
+    stacked [32, 4096, 14336] leaf in fp32 at once would hold ~30 GB of
+    temporaries). (The JAX bench's ``p - 1e-3·p`` moves no bf16 value: 1e-3
+    is below half a bf16 ulp.)"""
     def step(w, g):
         if not w.is_floating_point():
             return w
-        z = torch.randn(w.shape, generator=g, device=w.device)
-        return (w.float() - REFRESH_STEP * w.float() * z).to(w.dtype)
+        out = torch.empty_like(w)
+        src, dst = w.reshape(-1), out.view(-1)
+        for i in range(0, src.numel(), STEP_CHUNK):
+            x = src[i:i + STEP_CHUNK].float()
+            z = torch.randn(x.shape, generator=g, device=w.device)
+            dst[i:i + STEP_CHUNK] = (x - REFRESH_STEP * x * z).to(w.dtype)
+        return out
     g = torch.Generator(params["norm"].device).manual_seed(seed)
     return {k: ({n: step(w, g) for n, w in v.items()} if isinstance(v, dict) else step(v, g))
             for k, v in params.items()}
@@ -6022,9 +6092,12 @@ def first_layers(params, n):
             for k, v in params.items()}
 
 
+def tree_leaves(tree):
+    return [w for v in tree.values() for w in (v.values() if isinstance(v, dict) else [v])]
+
+
 def tree_bytes(tree):
-    return sum(w.numel() * w.element_size()
-               for v in tree.values() for w in (v.values() if isinstance(v, dict) else [v]))
+    return sum(w.numel() * w.element_size() for w in tree_leaves(tree))
 
 
 def gateway_wave(gw, prompts, ntok=NEW, during=None, adapters=None, wait_streaming=True):
@@ -6110,12 +6183,17 @@ def publication_readings(tree, root):
                          "host_ram_available_before": host_ram, "chain": manifest["chain"]}
 
 
-def publication_faults(pub, gw, probe, want):
-    """Phase 30 (d): a bit-flipped payload and a forged manifest of the
-    adopted publication are each rejected with ``WeightPublicationError``;
-    the gateway's version and the probe's stream stay. → readings."""
+def publication_faults(tree, root, gw, probe, want):
+    """Phase 30 (d): ``tree`` at its first REFRESH_FAULT_LAYERS layers
+    published under ``root`` (cut for the run's time: a bit flip is found
+    by hashing the whole payload), then a bit-flipped payload and a forged
+    manifest of it each rejected with ``WeightPublicationError``; the
+    gateway's version and the probe's stream stay. → readings."""
     import os
+    from deepspeed_tpu_torch.serving import WeightPublisher
     from deepspeed_tpu_torch.utils.sanitize import WeightPublicationError
+    pub = WeightPublisher(os.path.join(root, "faults"))
+    pub.publish(first_layers(tree, REFRESH_FAULT_LAYERS))
     pdir = os.path.join(pub.dir, "v00000001")
     faults = {}
     payload = os.path.join(pdir, "payload.bin")
@@ -6400,7 +6478,7 @@ def gateway_refresh_phase(device, weights=None):
         cold.flush(1)
         lap("oracle")
         # (d) faults, (f) the LoRA disk tier, (e) the int8 swap
-        faults = publication_faults(pub, gw, prompts[0], want1[0])
+        faults = publication_faults(loaded, root, gw, prompts[0], want1[0])
         lap("faults")
         lora = lora_disk_check(gw, cold, prompts[:4], [s[:NEW // 2] for s in want1])
         lap("lora_disk")
@@ -6458,6 +6536,363 @@ def gateway_refresh_phase(device, weights=None):
         f"{refresh['drain_over_refresh']:.2f}; p99 gap {refresh['p99_gap_steady_ms']:.1f} "
         f"steady vs {refresh['p99_gap_during_refresh_ms']:.1f} ms during the refresh")
     log(f"[gateway-refresh] {json.dumps(result)}")
+    return result, launches
+
+
+# ---------------------------------------------------------------- phase 31
+class FleetEngines:
+    """Phase 31's engines, each over the device tree of its version that it
+    is handed (``_place_params`` moves nothing already on the card in
+    bf16, so replicas, restarts and cold references share one tree a
+    version), kept for the phase's launch gate."""
+
+    def __init__(self, cfg, device):
+        self.cfg, self.device, self.built = cfg, device, []
+
+    def make(self, params, disagg=False):
+        """Phase 31a/b's engine, or with ``disagg`` 31c's: the prefix cache
+        and a DISAGG_TIER_BYTES bf16 KV tier."""
+        from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig, InferenceEngineV2,
+                                                      RaggedInferenceEngineConfig)
+        n, budget, ctx = ((DISAGG_N_REQ, DISAGG_BUDGET, DISAGG_LONG + DISAGG_NEW) if disagg
+                          else (FLEET_N_REQ, FLEET_BUDGET, FLEET_PROMPT + FLEET_NEW))
+        engine = InferenceEngineV2(self.cfg, RaggedInferenceEngineConfig(
+            kv_block_size=BS, prefix_cache={"enabled": disagg},
+            kv_tier={"enabled": disagg, "host_bytes": DISAGG_TIER_BYTES, "quantize": False},
+            state_manager=DSStateManagerConfig(
+                max_ragged_batch_size=budget, max_ragged_sequence_count=n,
+                max_tracked_sequences=n, max_context=ctx)), params=params, device=self.device)
+        shared = [(a.data_ptr(), b.data_ptr()) for a, b in zip(tree_leaves(engine.params),
+                                                             tree_leaves(params))]
+        if not shared or any(a != b for a, b in shared):
+            raise AssertionError("fleet: an engine placed a second copy of the weights")
+        self.built.append(engine)
+        return engine
+
+    def forwards(self):
+        return sum(e.forward_steps for e in self.built)
+
+
+def router_wave(router, prompts, news, specs=None, during=None, pause_every=0):
+    """Submit ``prompts`` (``news[i]`` new tokens each, sampled by
+    ``specs[i]`` or greedy) to ``router``, ``pause_every`` at a time 0.25 s
+    apart when given, and consume each stream on its own thread; once any
+    stream has a token, run ``during()`` on this thread. → {streams,
+    handles, wall_s, gaps_ms, ttft_ms, lost, during, tokens}: nothing lost
+    is the caller's check."""
+    import threading
+    n = len(prompts)
+    streams, ttft, gaps, lost, handles = [None] * n, [None] * n, [], [], [None] * n
+    lock = threading.Lock()
+
+    def consume(i, t_submit):
+        prev, got = None, []
+        try:
+            for tok in handles[i].tokens(timeout=600):
+                now = time.perf_counter()
+                if prev is None:
+                    ttft[i] = (now - t_submit) * 1e3
+                else:
+                    with lock:
+                        gaps.append((now - prev) * 1e3)
+                prev = now
+                got.append(int(tok))
+            streams[i] = got
+        except Exception as err:  # noqa: BLE001 — the zero-lost audit
+            with lock:
+                lost.append(f"request {i}: {type(err).__name__}: {err}")
+
+    threads = []
+    t0 = time.perf_counter()
+    for i in range(n):
+        if pause_every and i and i % pause_every == 0:
+            time.sleep(0.25)  # a burst boundary
+        handles[i] = router.submit(prompts[i], max_new_tokens=news[i],
+                                   sample=specs[i] if specs else None)
+        threads.append(threading.Thread(target=consume, args=(i, time.perf_counter())))
+        threads[-1].start()
+    out = None
+    if during is not None:
+        while not any(h._collected for h in handles) and not all(h.done for h in handles):
+            time.sleep(0.001)
+        out = during()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        lost.append("a stream hung")
+    return {"streams": streams, "handles": handles, "wall_s": wall, "gaps_ms": gaps,
+            "ttft_ms": ttft, "lost": lost, "during": out,
+            "tokens": sum(len(x) for x in streams if x)}
+
+
+def cov(xs):
+    return float(np.std(xs) / np.mean(xs)) if xs else 0.0
+
+
+def fleet_failover(router, reps, direct, trace, sampled_prompts, spec):
+    """Phase 31a: ``bench_serving_2b_fleet``'s three parts → readings."""
+    n = FLEET_N_REQ
+    new = [FLEET_NEW] * (n + FLEET_SAMPLED)
+    want = direct["want"]
+    router_wave(router, trace[:2], [2, 2])  # the pumps' first forwards
+    a = router_wave(router, trace[:n], new[:n])
+    b = router_wave(router, trace[n:2 * n] + sampled_prompts, new,
+                    specs=[None] * n + [dict(spec)] * FLEET_SAMPLED, during=reps[0].kill)
+    t0 = time.perf_counter()
+    recovered = router.restart_replica("r0", timeout=600)
+    restart_s = time.perf_counter() - t0
+    c = router_wave(router, trace[2 * n:], new[:n])
+    for name, wave, lo in (("A", a, 0), ("B", b, n), ("C", c, 2 * n)):
+        if wave["lost"] or wave["streams"][:n] != want[lo:lo + n]:
+            raise AssertionError(f"fleet part {name}: lost {wave['lost']}, greedy streams "
+                                 f"equal the direct run's: {wave['streams'][:n] == want[lo:lo + n]}")
+    seeds = [h.sample["seed"] for h in b["handles"][n:]]
+    _, alone = fleet(direct["engine"], 5_000, sampled_prompts, FLEET_NEW,
+                     specs=[dict(spec, seed=sd) for sd in seeds], burst=FLEET_BURST,
+                     budget=FLEET_BUDGET)
+    if b["streams"][n:] != alone:
+        raise AssertionError("fleet: a sampled stream killed mid-generation differs from its "
+                             "uninterrupted run")
+    counters = router.snapshot()["counters"]
+    if counters["failovers"] < 1 or counters["failed"] or not recovered or \
+            router.health["r0"].state != "healthy":
+        raise AssertionError(f"fleet: failovers {counters['failovers']}, failed "
+                             f"{counters['failed']}, r0 recovered {recovered} "
+                             f"({router.health['r0'].state})")
+    return {"tokens_per_sec": {k: w["tokens"] / w["wall_s"] for k, w in
+                               (("before", a), ("during", b), ("after", c))},
+            "failovers": counters["failovers"], "retries": counters["retries"],
+            "restart_s": restart_s, "replica_recovered": recovered, "sampled_seeds": seeds,
+            "p99_gap_steady_ms": p99(a["gaps_ms"])}
+
+
+def fleet_refresh(router, reps, current, cold_run, direct, trace, probe):
+    """Phase 31b: ``bench_serving_2b_refresh``'s fleet protocol with the
+    canary on, then a crash mid-swap and a version lie → readings."""
+    from deepspeed_tpu_torch.serving import FleetRefreshController
+    n = FLEET_N_REQ
+    v0 = current["params"]
+    ctrl = FleetRefreshController(
+        router, reference_fn=lambda params, prompt, new: cold_run(params, [prompt], new)[0],
+        canary_prompts=[list(probe), list(trace[0])], baseline_params=v0)
+    streams = {0: {"probe": direct["probe"], "trace": direct["want"]}}
+    trees = {0: v0}
+    for v in (1, 2):
+        trees[v] = stepped(trees[v - 1], v)
+        got = cold_run(trees[v], [probe] + trace[n:], FLEET_NEW)
+        streams[v] = {"probe": got[0], "trace": [None] * n + got[1:]}
+    rollouts, waves, gaps = {}, {}, []
+    for v, lo in ((1, n), (2, 2 * n)):
+        wave = router_wave(router, trace[lo:lo + n], [FLEET_NEW] * n,
+                           during=lambda v=v: ctrl.rollout(version=v, params=trees[v]))
+        rep = wave["during"]
+        old, new = streams[v - 1]["trace"][lo:lo + n], streams[v]["trace"][lo:lo + n]
+        mixed = [s == a for s, a in zip(wave["streams"], old)]
+        if wave["lost"] or rep["rolled_back"] or sorted(rep["refreshed"]) != ["r0", "r1"] or \
+                rep["canary"] != "passed" or \
+                any(s not in (a, b) for s, a, b in zip(wave["streams"], old, new)):
+            raise AssertionError(f"fleet refresh to v{v}: lost {wave['lost']}, report {rep}")
+        current["params"] = trees[v]
+        gaps += wave["gaps_ms"]
+        rollouts[v], waves[v] = rep, {"old_version_streams": sum(mixed),
+                                      "new_version_streams": n - sum(mixed)}
+    after = [[int(t) for t in r.submit(probe, max_new_tokens=FLEET_NEW).tokens(timeout=600)]
+             for r in reps]
+    if after != [streams[2]["probe"]] * 2 or after[0] == streams[0]["probe"]:
+        raise AssertionError("fleet refresh: the replicas' probe streams after v2 differ from "
+                             "each other or from a cold v2 engine's, or equal v0's")
+    # the alternative: drain one replica and cold-restart it on the new weights
+    reps[1].kill()
+    t0 = time.perf_counter()
+    if not router.restart_replica("r1", timeout=600):
+        raise AssertionError("fleet refresh: r1 did not come back on v2")
+    router.submit(probe, max_new_tokens=2).result(timeout=600)
+    drain_restart_s = time.perf_counter() - t0
+    # faults, each from v2 to v3 = the step on v2: a crash mid-swap on the second replica,
+    # then a version lie on the first; the fleet back on v2 after each
+    del trees[1]
+    cold_run(None, [], 0)  # the cold v1 engine goes with its tree
+    trees[3] = stepped(trees[2], 3)
+    faults = {}
+    for fault, rep_i in (("crash_mid_swap", 1), ("lie_version", 0)):
+        setattr(reps[rep_i], fault, True)
+        report = ctrl.rollout(version=3, params=trees[3])
+        setattr(reps[rep_i], fault, False)
+        state = router.health[reps[rep_i].name].state
+        restarted = None
+        if fault == "crash_mid_swap":
+            restarted = router.restart_replica(reps[rep_i].name, timeout=600)
+        probes = [[int(t) for t in r.submit(probe, max_new_tokens=FLEET_NEW).tokens(timeout=600)]
+                  for r in reps]
+        want_state, want_canary = (("down", "passed") if fault == "crash_mid_swap"
+                                   else ("healthy", "diverged"))
+        if not report["rolled_back"] or ctrl.current_version != 2 or state != want_state or \
+                report["canary"] != want_canary or restarted is False or \
+                probes != [streams[2]["probe"]] * 2:
+            raise AssertionError(f"fleet {fault}: report {report}, {reps[rep_i].name} "
+                                 f"{state}, restarted {restarted}, probes on v2 "
+                                 f"{probes == [streams[2]['probe']] * 2}")
+        faults[fault] = {k: report[k] for k in ("rolled_back", "canary", "demoted")}
+        faults[fault]["reason"] = report["reason"][:100]  # a canary's reason lists the prompt
+        faults[fault].update(rolled_back_replicas=report.get("rolled_back_replicas"),
+                             replica_state=state, restarted=restarted)
+    counters = router.snapshot()["counters"]
+    return {"rollouts": {v: {k: r[k] for k in ("wall_s", "refreshed", "canary")}
+                         for v, r in rollouts.items()},
+            "in_flight": waves, "drain_restart_s": drain_restart_s,
+            "drain_over_refresh": drain_restart_s / rollouts[2]["wall_s"],
+            "p99_gap_during_refresh_ms": p99(gaps),
+            "faults": faults, "refreshes": counters["refreshes"],
+            "refresh_rollbacks": counters["refresh_rollbacks"],
+            "canary_divergences": counters["canary_divergences"]}
+
+
+def fleet_disagg(E, v0, vocab):
+    """Phase 31c: ``bench_serving_2b_disagg``'s trace through a unified
+    two-replica fleet, then a prefill/decode pair → readings."""
+    from deepspeed_tpu_torch.serving import FleetConfig, FleetRouter, GatewayReplica, ServingConfig
+    rng = np.random.RandomState(0)
+    prompts, news = [], []
+    for i in range(DISAGG_N_REQ):
+        long = i % 2 == 0
+        prompts.append(rng.randint(0, vocab, size=DISAGG_LONG if long else DISAGG_SHORT)
+                       .astype(np.int32))
+        news.append(DISAGG_NEW // 4 if long else DISAGG_NEW)
+    warm = [np.random.RandomState(2).randint(0, vocab, size=DISAGG_SHORT).astype(np.int32)
+            for _ in range(2)]
+    scfg = ServingConfig(token_budget=DISAGG_BUDGET, max_burst=FLEET_BURST,
+                         drain_timeout_s=600.0)
+    runs = {}
+    for mode, roles in (("unified", (None, None)), ("disagg", ("prefill", "decode"))):
+        reps = [GatewayReplica(name, lambda: E.make(v0, disagg=True), serving_config=scfg,
+                               role=role) for name, role in zip(("a", "b"), roles)]
+        router = FleetRouter(reps, config=FleetConfig(
+            disagg=mode == "disagg", prefill_max_tokens=DISAGG_PREFILL,
+            heartbeat_interval_s=0.2, retry_backoff_s=0.05, stream_token_timeout_s=120.0))
+        try:
+            router_wave(router, warm, [2, 2])
+            wave = router_wave(router, prompts, news, pause_every=4)
+            snap = router.snapshot()
+        finally:
+            router.shutdown()
+        if wave["lost"] or snap["counters"]["failed"]:
+            raise AssertionError(f"fleet {mode}: lost {wave['lost']}")
+        runs[mode] = {"streams": wave["streams"], "p99_ttft_ms": p99(wave["ttft_ms"]),
+                      "mean_ttft_ms": float(np.mean(wave["ttft_ms"])),
+                      "decode_gap_cov": cov(wave["gaps_ms"]),
+                      "tokens_per_sec": wave["tokens"] / wave["wall_s"],
+                      "handoffs_acked": (snap.get("disagg") or {}).get("handoffs", {})
+                      .get("acked", 0),
+                      "handoff_failures": snap["counters"]["handoff_failures"],
+                      "unified_fallbacks": snap["counters"]["unified_fallbacks"]}
+    if runs["disagg"]["streams"] != runs["unified"]["streams"]:
+        raise AssertionError("fleet: the prefill/decode pair's streams differ from the unified "
+                             "fleet's")
+    for r in runs.values():
+        del r["streams"]
+    return runs
+
+
+def fleet_phase(device, weights):
+    """Phase 31: the in-process fleet on two Mistral-7B replicas sharing
+    one device tree a version: failover under ``bench_serving_2b_fleet``'s
+    protocol, the rolling refresh controller with its canary under
+    ``bench_serving_2b_refresh``'s, the disaggregated pair under
+    ``bench_serving_2b_disagg``'s. → (result, {kernel: launches in the
+    phase, over every engine})."""
+    from deepspeed_tpu_torch.device import gpu_report
+    from deepspeed_tpu_torch.serving import (FaultyReplica, FleetConfig, FleetRouter,
+                                             GatewayReplica, ServingConfig)
+    card = gpu_report()
+    cfg, v0 = weights
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    E = FleetEngines(cfg, device)
+    torch.cuda.reset_peak_memory_stats(device)
+    c0 = serving_counters()
+    laps, t_phase = {}, time.perf_counter()
+
+    def lap(name):
+        laps[name] = time.perf_counter() - t_phase - sum(laps.values())
+    rng = np.random.RandomState(0)
+    trace = [rng.randint(0, V, size=FLEET_PROMPT).astype(np.int32)
+             for _ in range(3 * FLEET_N_REQ)]
+    probe = rng.randint(0, V, size=FLEET_PROMPT).astype(np.int32)
+    sampled_prompts = [rng.randint(0, V, size=FLEET_PROMPT).astype(np.int32)
+                       for _ in range(FLEET_SAMPLED)]
+    spec = {"temperature": 1.1, "top_k": 40}
+    cold, uids = {}, iter(range(100_000, 10**9, 1_000))
+
+    def cold_run(params, prompts, new):
+        """Greedy streams of a cold-started engine on ``params`` (one kept
+        a tree: it never swaps); None drops it."""
+        if cold.get("params") is not params:
+            if cold.get("engine") is not None:
+                cold["engine"].destroy()
+            cold.clear()
+            if params is None:
+                return None
+            cold.update(params=params, engine=E.make(params))
+        return fleet(cold["engine"], next(uids), prompts, new, burst=FLEET_BURST,
+                     budget=FLEET_BUDGET)[1]
+    direct_engine = E.make(v0)
+    _, want = fleet(direct_engine, 1_000, trace + [probe], FLEET_NEW, burst=FLEET_BURST,
+                    budget=FLEET_BUDGET)
+    direct = {"engine": direct_engine, "want": want[:-1], "probe": want[-1]}
+    lap("direct")
+    current = {"params": v0}
+    scfg = ServingConfig(token_budget=FLEET_BUDGET, max_burst=FLEET_BURST,
+                         drain_timeout_s=600.0)
+    reps = [FaultyReplica(GatewayReplica(name, lambda: E.make(current["params"]),
+                                         serving_config=scfg)) for name in ("r0", "r1")]
+    router = FleetRouter(reps, config=FleetConfig(
+        heartbeat_interval_s=0.2, retry_backoff_s=0.05, stream_token_timeout_s=120.0,
+        refresh_timeout_s=600.0, refresh_canary_max_new=FLEET_NEW))
+    try:
+        failover = fleet_failover(router, reps, direct, trace, sampled_prompts, spec)
+        direct_engine.destroy()
+        lap("31a_failover")
+        refresh = fleet_refresh(router, reps, current, cold_run, direct, trace, probe)
+        lap("31b_refresh")
+    finally:
+        router.shutdown()
+        cold_run(None, [], 0)
+    del current
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_refresh = torch.cuda.max_memory_allocated(device)
+    disagg = fleet_disagg(E, v0, V)
+    lap("31c_disagg")
+    rec = {"forwards": E.forwards(), "launches": counters_since(c0)}
+    check_lane_launches(rec, L, "fleet phase (every engine)")
+    launches = {k: rec["launches"][k] for k in ("paged_decode_attention", "dense_matmul",
+                                                "rms_norm_fwd")}
+    result = {"card": card, "replicas": 2, "trace": [3 * FLEET_N_REQ, FLEET_PROMPT, FLEET_NEW],
+              "engines_built": len(E.built), "forwards": rec["forwards"],
+              "launches": launches, "launches_by_design": {
+                  k: rec["launches"][k] for k in ("paged_by_design", "dense_by_design")},
+              "lost_requests": 0, "failover": failover, "refresh": refresh, "disagg": disagg,
+              "device_peak_gb": peak_refresh / 1e9, "tree_gb": tree_bytes(v0) / 1e9,
+              "phase_s": laps}
+    tps = failover["tokens_per_sec"]
+    log(f"[fleet] {card}: 31a tokens/s before/during/after the kill {tps['before']:.1f}/"
+        f"{tps['during']:.1f}/{tps['after']:.1f}, failovers {failover['failovers']}, retries "
+        f"{failover['retries']}, restart {failover['restart_s']:.2f} s")
+    log(f"[fleet] {card}: 31b rollouts v0->v1 {refresh['rollouts'][1]['wall_s']:.2f} s, "
+        f"v1->v2 {refresh['rollouts'][2]['wall_s']:.2f} s; drain + restart "
+        f"{refresh['drain_restart_s']:.2f} s, drain_over_refresh "
+        f"{refresh['drain_over_refresh']:.2f}; p99 inter-token gap steady "
+        f"{failover['p99_gap_steady_ms']:.1f} ms, during the rollouts "
+        f"{refresh['p99_gap_during_refresh_ms']:.1f} ms; faults "
+        f"{json.dumps({k: v['reason'] for k, v in refresh['faults'].items()})}")
+    log(f"[fleet] {card}: 31c unified p99 TTFT {disagg['unified']['p99_ttft_ms']:.1f} ms, gap "
+        f"CoV {disagg['unified']['decode_gap_cov']:.3f}; disagg p99 TTFT "
+        f"{disagg['disagg']['p99_ttft_ms']:.1f} ms, gap CoV "
+        f"{disagg['disagg']['decode_gap_cov']:.3f}, handoffs {disagg['disagg']['handoffs_acked']}"
+        f", fallbacks {disagg['disagg']['unified_fallbacks']}; device peak "
+        f"{peak_refresh / 1e9:.2f} GB (a tree {tree_bytes(v0) / 1e9:.2f} GB); launches "
+        f"{json.dumps(launches)} over {rec['forwards']} forwards of {len(E.built)} engines")
+    log(f"[fleet] {json.dumps(result)}")
     return result, launches
 
 
@@ -6588,10 +7023,16 @@ def main():
 
     # the serving gateway and live weight refresh on the same weights
     _, gateway_launches = gateway_refresh_phase(device, weights)
-    del weights
     gc.collect()
     torch.cuda.empty_cache()
     lap("phase 30 (gateway, weight refresh)")
+
+    # the in-process fleet and its rolling refresh: two replicas on the same weights
+    _, fleet_launches = fleet_phase(device, weights)
+    del weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("phase 31 (fleet)")
 
     main_case = next(c for c in cases if c["case"] == "serving_decode")
     kernels = [{"name": "paged_decode_attention", "route": "cuda",
@@ -6610,6 +7051,7 @@ def main():
                 "launches_constrained_serving": json_launches["paged_decode_attention"],
                 "launches_async_serving": async_launches["paged_decode_attention"],
                 "launches_gateway": gateway_launches["paged_decode_attention"],
+                "launches_fleet": fleet_launches["paged_decode_attention"],
                 "cases": cases}]
     train_kernels = {
         "flash_fwd": ("flash_attention.cu", "flash_attention.py:46",
@@ -6639,6 +7081,7 @@ def main():
             kernels[-1]["launches_spec_verify"] = spec_launches["rms_norm_fwd"]
             kernels[-1]["launches_async_serving"] = async_launches["rms_norm_fwd"]
             kernels[-1]["launches_gateway"] = gateway_launches["rms_norm_fwd"]
+            kernels[-1]["launches_fleet"] = fleet_launches["rms_norm_fwd"]
     slice3 = {  # name: (source, TPU kernel, cases, main case, launches, shape)
         "quant_matmul": ("fused_quant_matmul.cu", "fused_quant_matmul.py:90", qmm_cases,
                          "int8_M8_{}x{}".format(*ATTN_SHAPES[0]), int8_launches["quant_matmul"],
@@ -6748,6 +7191,7 @@ def main():
                     "launches_constrained_serving": json_launches["dense_matmul"],
                     "launches_async_serving": async_launches["dense_matmul"],
                     "launches_gateway": gateway_launches["dense_matmul"],
+                    "launches_fleet": fleet_launches["dense_matmul"],
                     "cases": dense_cases})
     slice7 = {  # name: (source, TPU kernel, shape)
         "block_sparse_fwd": ("block_sparse_attention.cu", "block_sparse_attention.py:71",

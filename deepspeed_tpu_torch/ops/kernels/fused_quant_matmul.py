@@ -32,6 +32,7 @@ parameters.
 """
 
 import ctypes
+import threading
 
 import torch
 
@@ -232,13 +233,20 @@ def fill_split(M, N, K):
 
 
 _WORKSPACE = {}  # (device index, raw stream) → (fp32 partial sums, int32 arrival counts)
+# Held from _workspace to the enqueue of the launch that reads its buffers. Two
+# threads (two engines serving in one process) share a set: without it, one could
+# replace a buffer that is too small, and the caching allocator hand the freed
+# block out again, between the other's read of the old pointer and its launch.
+# A block freed after its launch is enqueued is reused only after it, in stream order.
+WORKSPACE_LOCK = threading.Lock()
 
 
 def _workspace(device, stream, partials, arrivals):
     """Views of a cached fp32 buffer of at least ``partials`` elements and
     of a zeroed int32 buffer of at least ``arrivals`` (every launch leaves
     the counts zero), one set for each (device, stream): the calls that
-    share a set run in stream order, so no two of them overlap. (A kernel
+    share a set run in stream order, so no two of them overlap. The caller
+    holds :data:`WORKSPACE_LOCK` until its launch is enqueued. (A kernel
     that faults mid-launch could leave a count raised, but a fault on the
     card ends the CUDA context, and with it every later launch.)"""
     key = device.index, stream
@@ -262,13 +270,15 @@ def _launch(x2, w, scales, M, K, N, ng, scheme_code, plan):
     stream = torch._C._cuda_getCurrentRawStream(dev)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x2.device)
     part = arr = None
-    if splits > 1 and not (design == "wgmma" and scheme_code == BF16_CODE and tile != 256):
-        part, arr = _workspace(x2.device, stream, splits * M * N,
-                               2 * cdiv(M, RING_ROWS) * cdiv(N, RING_COLS))
-        part, arr = part.data_ptr(), arr.data_ptr()
-    rc = _entry()(x2.data_ptr(), w.data_ptr(), None if scales is None else scales.data_ptr(),
-                  out.data_ptr(), part, arr, M, K, N, ng, scheme_code, _DESIGN_CODE[design],
-                  splits, chunk, tile, stream)
+    with WORKSPACE_LOCK:
+        if splits > 1 and not (design == "wgmma" and scheme_code == BF16_CODE and tile != 256):
+            part, arr = _workspace(x2.device, stream, splits * M * N,
+                                   2 * cdiv(M, RING_ROWS) * cdiv(N, RING_COLS))
+            part, arr = part.data_ptr(), arr.data_ptr()
+        rc = _entry()(x2.data_ptr(), w.data_ptr(),
+                      None if scales is None else scales.data_ptr(), out.data_ptr(), part, arr,
+                      M, K, N, ng, scheme_code, _DESIGN_CODE[design], splits, chunk, tile,
+                      stream)
     if rc != 0:
         raise RuntimeError(f"K4 kernel ({design} design) failed to launch: cudaError {rc}")
     return out

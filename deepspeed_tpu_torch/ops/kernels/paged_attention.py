@@ -191,12 +191,16 @@ def paged_decode_attention(q, kc, vc, block_tables, token_pos, design=None):
                 token_pos.data_ptr(), out.data_ptr())
         if design == "tiled":
             chunks = -(-MB * bs // CHUNK)
-            ws = counts = None
             if chunks > 1:  # fp32 partials (m, l, acc) a row and chunk; arrivals a tile
-                from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import _workspace
-                ws, counts = _workspace(q.device, stream, T * H * chunks * (Dh + 2), T * Hkv)
-                ws, counts = ws.data_ptr(), counts.data_ptr()
-            rc = _entry("tiled")(*args, ws, counts, T, H, Hkv, Dh, bs, MB, stream)
+                from deepspeed_tpu_torch.ops.kernels.fused_quant_matmul import (
+                    WORKSPACE_LOCK, _workspace)
+                with WORKSPACE_LOCK:
+                    ws, counts = _workspace(q.device, stream, T * H * chunks * (Dh + 2),
+                                            T * Hkv)
+                    rc = _entry("tiled")(*args, ws.data_ptr(), counts.data_ptr(), T, H, Hkv,
+                                         Dh, bs, MB, stream)
+            else:
+                rc = _entry("tiled")(*args, None, None, T, H, Hkv, Dh, bs, MB, stream)
         else:
             rc = _entry("token")(*args, T, H, Hkv, Dh, bs, MB, stream)
     if rc != 0:

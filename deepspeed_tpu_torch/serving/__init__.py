@@ -4,11 +4,13 @@ Port of ``deepspeed_tpu/serving``: the request-level gateway
 (:class:`ServingGateway`: submit from any thread, stream tokens through a
 :class:`RequestHandle`, KV-aware admission with priority preemption,
 drain, and the staged no-drain weight refresh), its config, admission
-control and SLO metrics, live weight refresh's publisher
-(:mod:`.refresh`), and multi-tenant LoRA serving with its disk tier
-(:mod:`.lora`). The fleet (router, replicas, health, the wire protocol,
-the rolling refresh controller) and the serving autotuner are not ported
-yet (ROADMAP.md, port queue item 4, step 7)."""
+control and SLO metrics, the in-process fleet (:mod:`.fleet`: the router
+with failover, rolling restart, prefix-aware and disaggregated placement
+over gateway replicas), live weight refresh (:mod:`.refresh`: the
+publisher and the fleet's rolling refresh controller with its canary),
+and multi-tenant LoRA serving with its disk tier (:mod:`.lora`). The
+fleet's wire protocol and the serving autotuner are not ported yet
+(ROADMAP.md, port queue item 4)."""
 
 from deepspeed_tpu_torch.serving.admission import (AdmissionQueue, CapacityGate,
                                                    DeadlineExceededError, GatewayClosedError,
@@ -17,9 +19,14 @@ from deepspeed_tpu_torch.serving.admission import (AdmissionQueue, CapacityGate,
                                                    RequestTooLargeError, ServingError)
 from deepspeed_tpu_torch.serving.config import (ServingAutotuneConfig, ServingConfig,
                                                 get_serving_config)
+from deepspeed_tpu_torch.serving.fleet import (FaultyReplica, FleetConfig, FleetRouter,
+                                               GatewayReplica, HandoffFailedError,
+                                               HandoffManager, PoolScheduler, Replica,
+                                               ReplicaHealth, get_fleet_config)
 from deepspeed_tpu_torch.serving.gateway import RequestHandle, ServingGateway
 from deepspeed_tpu_torch.serving.metrics import ServingMetrics
-from deepspeed_tpu_torch.serving.refresh import WeightPublisher
+from deepspeed_tpu_torch.serving.refresh import (CanaryDivergenceError, FleetRefreshController,
+                                                 WeightPublisher, WeightRefreshError)
 
 __all__ = [
     "ServingGateway", "RequestHandle", "ServingConfig",
@@ -27,5 +34,10 @@ __all__ = [
     "ServingMetrics", "AdmissionQueue", "CapacityGate", "ServingError",
     "GatewayClosedError", "GatewayFailedError", "QueueFullError",
     "RequestTooLargeError", "RequestShedError", "RequestCancelledError",
-    "DeadlineExceededError", "WeightPublisher",
+    "DeadlineExceededError",
+    "FleetRouter", "FleetConfig", "get_fleet_config", "Replica",
+    "GatewayReplica", "FaultyReplica", "ReplicaHealth",
+    "PoolScheduler", "HandoffManager", "HandoffFailedError",
+    "WeightPublisher", "FleetRefreshController",
+    "WeightRefreshError", "CanaryDivergenceError",
 ]

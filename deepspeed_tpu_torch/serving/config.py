@@ -23,7 +23,7 @@ def get_serving_config(param_dict):
     return ServingConfig(**param_dict.get("serving", {}))
 
 
-def _bounded(section, name, kind, ge=None, gt=None):
+def _bounded(section, name, kind, ge=None, gt=None, le=None):
     """Coerce ``section.name`` to ``kind`` (pydantic's lax mode: an int
     field takes an integral float or a numeric string) and check its
     bound."""
@@ -39,6 +39,8 @@ def _bounded(section, name, kind, ge=None, gt=None):
         raise ValueError(f"{type(section).__name__}.{name}={value!r}: must be >= {ge}")
     if gt is not None and coerced <= gt:
         raise ValueError(f"{type(section).__name__}.{name}={value!r}: must be > {gt}")
+    if le is not None and coerced > le:
+        raise ValueError(f"{type(section).__name__}.{name}={value!r}: must be <= {le}")
     setattr(section, name, coerced)
 
 

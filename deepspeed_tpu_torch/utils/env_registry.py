@@ -320,26 +320,26 @@ register("DS_SPEC_DRAFT_LEN", "int", 0,
 register("DS_FLEET_FAILOVER", "bool", True,
          "Kill switch for cross-replica failover retries in the fleet "
          "router; off, a failed attempt fails the request immediately.",
-         "deepspeed_tpu/serving/fleet/router.py")
+         "deepspeed_tpu_torch/serving/fleet/router.py")
 register("DS_FLEET_PREFIX_ROUTING", "bool", True,
          "Kill switch for prefix-cache-aware replica placement; off, "
          "the router always picks the least-loaded routable replica.",
-         "deepspeed_tpu/serving/fleet/router.py")
+         "deepspeed_tpu_torch/serving/fleet/router.py")
 register("DS_DISAGG", "optional_bool", None,
          "Kill switch for disaggregated prefill/decode serving; set it "
          "wins in both directions, unset defers to fleet.disagg.",
-         "deepspeed_tpu/serving/fleet/router.py",
+         "deepspeed_tpu_torch/serving/fleet/router.py",
          tuning="offline")
 register("DS_DISAGG_HANDOFF_DEADLINE_S", "int", 0,
          "Deadline (seconds) a published prefill->decode KV handoff may "
          "wait before it expires and the request is re-planned; 0 "
          "defers to fleet.handoff_deadline_s.",
-         "deepspeed_tpu/serving/fleet/router.py")
+         "deepspeed_tpu_torch/serving/fleet/router.py")
 register("DS_DISAGG_FALLBACK", "bool", True,
          "Kill switch for graceful degradation to unified serving when "
          "the disagg path fails; off, a failed handoff fails the "
          "request with a typed error instead of falling back.",
-         "deepspeed_tpu/serving/fleet/router.py")
+         "deepspeed_tpu_torch/serving/fleet/router.py")
 register("DS_FLEET_TRANSPORT", "optional_str", None,
          "Fleet replica transport: 'inproc' (default — replicas are "
          "in-process GatewayReplica objects, byte-identical to the "
@@ -365,12 +365,12 @@ register("DS_REFRESH_CANARY", "optional_bool", None,
          "refreshed replica verified bit-identically against a cold-"
          "started engine on the new weights); set it wins in both "
          "directions, unset defers to fleet.refresh_canary.",
-         "deepspeed_tpu/serving/refresh/controller.py")
+         "deepspeed_tpu_torch/serving/refresh/controller.py")
 register("DS_REFRESH_TIMEOUT_S", "int", 0,
          "Per-replica budget (seconds) for a staged live weight swap "
          "to land before the attempt is abandoned and retried; 0 "
          "defers to fleet.refresh_timeout_s.",
-         "deepspeed_tpu/serving/refresh/controller.py")
+         "deepspeed_tpu_torch/serving/refresh/controller.py")
 register("DS_REFRESH_KEEP", "int", 2,
          "Weight publications the publisher's retention GC keeps on "
          "disk (never fewer than the live and previous versions, so "

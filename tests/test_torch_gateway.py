@@ -49,13 +49,14 @@ from deepspeed_tpu.inference.v2.config_v2 import (LoRAServingConfig as JaxLoRA,
                                                   StructuredConfig as JaxStructured)
 from deepspeed_tpu.models import build_llama
 from deepspeed_tpu import serving as jserving
-from deepspeed_tpu.serving.fleet import ReplicaDiedError
+from deepspeed_tpu.serving.fleet import ReplicaDiedError as JaxReplicaDiedError
 from deepspeed_tpu_torch import serving
 from deepspeed_tpu_torch.inference.structured.grammar import CompiledSchema, byte_vocab
 from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig, DynamicSplitFuseScheduler,
                                               InferenceEngineV2, LoRAServingConfig,
                                               RaggedInferenceEngineConfig, StructuredConfig)
 from deepspeed_tpu_torch.models import LlamaConfig, params_from_jax
+from deepspeed_tpu_torch.serving.fleet import ReplicaDiedError
 from deepspeed_tpu_torch.serving.lora import UnknownAdapterError
 from unit.inference.serving.test_admission import FakeEngine
 
@@ -231,9 +232,9 @@ def test_lifecycle_with_live_streams_lockstep(how):
         p.call("shutdown")
     elif how == "kill":
         p.call("kill")
-    elif how == "kill_typed":
-        err = ReplicaDiedError("induced crash")
-        p.call("kill", err)
+    elif how == "kill_typed":  # each gateway fails with its own package's error
+        p.j.kill(JaxReplicaDiedError("induced crash"))
+        p.t.kill(ReplicaDiedError("induced crash"))
     else:
         assert p.call("shed_queued", jserving.QueueFullError("handing off")) == [2, 2]
         p.pump_until(lambda gw: all(h.done for _, h in p.handles))
@@ -246,6 +247,8 @@ def test_lifecycle_with_live_streams_lockstep(how):
     if how.startswith("kill") or how == "shutdown":
         assert p.t.engine.destroyed and p.j.engine.destroyed
         assert all(h.status == "failed" for _, h in p.handles)
+    if how == "kill_typed":
+        assert all(type(h.error) is ReplicaDiedError for _, h in p.handles)
 
 
 def test_pump_crash_fails_every_handle_typed():

@@ -66,7 +66,12 @@ the streams a scheduler driving the engine directly gets, and ``drain``
 returns the engine's memory; an engine swapped to new weights on the
 card (bf16, and int8 carriers quantized on the card) serves what a cold
 start on them serves, its carriers byte-equal; a publication of CUDA
-tensors loads back bit for bit."""
+tensors loads back bit for bit. The fleet: two engines over one weight
+tree, each behind its own gateway pump thread, stream what each streams
+alone (they share the split-K workspace); two replicas behind a
+``FleetRouter`` replay a killed replica's streams bit for bit; a
+``FleetRefreshController`` rollout passes its canary against a cold
+start."""
 
 import numpy as np
 import pytest
@@ -2856,3 +2861,135 @@ def test_publication_of_cuda_tensors_round_trips(cuda, tmp_path, monkeypatch):
         assert torch.equal(loaded["layers"][n], tree["layers"][n].cpu())
     assert loaded["step"].shape == ()
 
+
+
+# ------------------------------------------------------- the fleet: two engines on one card
+def _wide(cuda, layers=2):
+    """Mistral-7B's widths at ``layers`` layers, bf16 weights on the card."""
+    from deepspeed_tpu_torch.models import init_params, llama_config
+    cfg = llama_config("mistral-7b", num_hidden_layers=layers)
+    return cfg, init_params(cfg, cuda, torch.bfloat16, torch.Generator(cuda).manual_seed(21))
+
+
+def _wide_engine(cuda, cfg, params, max_context=320):
+    from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig, InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    return InferenceEngineV2(cfg, RaggedInferenceEngineConfig(
+        kv_block_size=32, state_manager=DSStateManagerConfig(
+            max_ragged_batch_size=512, max_ragged_sequence_count=8, max_tracked_sequences=8,
+            max_context=max_context)), params=params, device=cuda)
+
+
+def test_two_engines_two_pumps_one_card_equal_serial_runs(cuda):
+    """Two engines over one weight tree, each behind its own gateway pump
+    thread, serve traffic that grows the shared split-K workspace (decode
+    buckets, and 512-token chunks over contexts past 512, where K3's tiled
+    design takes it too) at the same time, the cache emptied before each
+    round and the interpreter switching threads every 10 µs: each engine's
+    streams equal its streams served alone, one engine after the other,
+    three times over."""
+    import sys
+    import threading
+    from deepspeed_tpu_torch.ops.kernels import fused_quant_matmul
+    from deepspeed_tpu_torch.serving import ServingConfig, ServingGateway
+    cfg, params = _wide(cuda)
+    engines = [_wide_engine(cuda, cfg, params, max_context=1280) for _ in range(2)]
+    rng = np.random.RandomState(22)
+    traffic = [[rng.randint(0, 32000, n).astype(np.int32) for n in lens]
+               for lens in ((1100, 600, 48, 200), (900, 700, 30, 64))]
+    gws = [ServingGateway(e, config=ServingConfig(token_budget=512, max_burst=8))
+           for e in engines]
+
+    def serve(i, out):
+        handles = [gws[i].submit(p, max_new_tokens=16) for p in traffic[i]]
+        out[i] = [list(h.tokens(timeout=300)) for h in handles]
+    alone = {}
+    for i in range(2):
+        serve(i, alone)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for _ in range(3):
+            fused_quant_matmul._WORKSPACE.clear()  # both pumps grow it again, together
+            together = {}
+            threads = [threading.Thread(target=serve, args=(i, together)) for i in range(2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            assert not any(t.is_alive() for t in threads)
+            assert together == alone
+    finally:
+        sys.setswitchinterval(interval)
+        for gw in gws:
+            gw.shutdown()
+    assert all(len(s) == 16 for streams in alone.values() for s in streams)
+
+
+def _fleet_direct(cuda, cfg, params, prompts, new):
+    """Greedy streams of a cold-started engine on ``params``."""
+    engine = _wide_engine(cuda, cfg, params)
+    out = _greedy(engine, prompts, 0, new)
+    engine.destroy()
+    return out
+
+
+def test_fleet_failover_on_card_equals_direct_run(cuda):
+    """Two replicas at 2 layers of Mistral-7B width over one weight tree
+    behind a ``FleetRouter``; the first dies at its third streamed token:
+    every request completes on the survivor with the direct run's stream
+    (the replay verified token for token), and the dead replica is DOWN."""
+    from deepspeed_tpu_torch.serving import (FaultyReplica, FleetConfig, FleetRouter,
+                                             GatewayReplica, ServingConfig)
+    cfg, params = _wide(cuda)
+    rng = np.random.RandomState(23)
+    prompts = [rng.randint(0, 32000, n).astype(np.int32) for n in (200, 17, 96, 250, 33, 128)]
+    want = _fleet_direct(cuda, cfg, params, prompts, 24)
+    scfg = ServingConfig(token_budget=512, max_burst=8)
+    reps = [GatewayReplica(n, lambda: _wide_engine(cuda, cfg, params), serving_config=scfg)
+            for n in ("r0", "r1")]
+    router = FleetRouter([FaultyReplica(reps[0], crash_at_token=3), reps[1]],
+                         config=FleetConfig(retry_backoff_s=0.01, stream_token_timeout_s=120),
+                         auto_heartbeat=False)
+    try:
+        handles = [router.submit(p, max_new_tokens=24) for p in prompts]
+        got = [[int(t) for t in h.tokens(timeout=300)] for h in handles]
+        c = router.snapshot()["counters"]
+        assert got == want
+        assert c["failovers"] >= 1 and c["completed"] == len(prompts) and c["failed"] == 0
+        assert router.health["r0"].state == "down"
+    finally:
+        router.shutdown()
+
+
+def test_controller_rollout_on_card_canary_passes(cuda):
+    """A ``FleetRefreshController`` rolls v1 (phase 30's stand-in train step
+    on the card) over two replicas at 2 layers of Mistral-7B width, the
+    canary a cold-started engine on the v1 tree: the canary passes, both
+    replicas serve v1, and their probe streams equal the cold engine's and
+    differ from v0's."""
+    from chip_smoke import stepped
+    from deepspeed_tpu_torch.serving import (FleetConfig, FleetRefreshController, FleetRouter,
+                                             GatewayReplica, ServingConfig)
+    cfg, v0 = _wide(cuda)
+    v1 = stepped(v0, 1)
+    probe = np.random.RandomState(24).randint(0, 32000, 160).astype(np.int32)
+    scfg = ServingConfig(token_budget=512, max_burst=8)
+    reps = [GatewayReplica(n, lambda: _wide_engine(cuda, cfg, v0), serving_config=scfg)
+            for n in ("r0", "r1")]
+    router = FleetRouter(reps, config=FleetConfig(refresh_timeout_s=120), auto_heartbeat=False)
+    ctrl = FleetRefreshController(
+        router, canary_prompts=[list(probe)], baseline_params=v0,
+        reference_fn=lambda params, prompt, new: _fleet_direct(
+            cuda, cfg, params, [np.asarray(prompt, np.int32)], new)[0])
+    try:
+        before = [int(t) for t in reps[0].submit(probe, max_new_tokens=16).tokens(timeout=300)]
+        report = ctrl.rollout(version=1, params=v1)
+        assert report["canary"] == "passed" and report["refreshed"] == ["r0", "r1"]
+        assert not report["rolled_back"] and [r.weight_version() for r in reps] == [1, 1]
+        after = [[int(t) for t in r.submit(probe, max_new_tokens=16).tokens(timeout=300)]
+                 for r in reps]
+        cold = _fleet_direct(cuda, cfg, v1, [probe], 16)[0]
+        assert after == [cold, cold] and cold != before
+    finally:
+        router.shutdown()

@@ -234,6 +234,33 @@ def test_scans_cover_the_serving_and_refresh_slice():
     assert callable(WeightPublisher.publish) and callable(WeightPublisher.load)
 
 
+SLICE21_MODULES = ("deepspeed_tpu_torch.serving.fleet", "deepspeed_tpu_torch.serving.fleet.config",
+                   "deepspeed_tpu_torch.serving.fleet.health",
+                   "deepspeed_tpu_torch.serving.fleet.handoff",
+                   "deepspeed_tpu_torch.serving.fleet.replica",
+                   "deepspeed_tpu_torch.serving.fleet.router",
+                   "deepspeed_tpu_torch.serving.refresh.controller")
+
+
+def test_scans_cover_the_fleet_slice():
+    """The AST scan and the jax-free import above reach every module of
+    ``serving/fleet/`` and the refresh controller; the fleet's wire
+    protocol is not ported, and what the router and the controller
+    export is the JAX package's list."""
+    assert set(SLICE21_MODULES) <= set(_modules())
+    files = sorted((PKG / "serving" / "fleet").rglob("*.py"))
+    assert {p.stem for p in files} == {"__init__", "config", "health", "handoff", "replica",
+                                       "router"}
+    assert set(files) | {PKG / "serving" / "refresh" / "controller.py"} <= set(_port_files())
+    from deepspeed_tpu_torch.serving import fleet, refresh
+    assert fleet.__all__ and all(callable(getattr(fleet, n)) or isinstance(getattr(fleet, n), str)
+                                 for n in fleet.__all__)
+    assert {"FleetRefreshController", "WeightRefreshError", "CanaryDivergenceError",
+            "WeightPublisher"} == set(refresh.__all__)
+    assert callable(fleet.FleetRouter.rolling_restart)
+    assert callable(refresh.FleetRefreshController.rollout)
+
+
 def test_default_device_is_the_gpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None would rightly use it")

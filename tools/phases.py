@@ -1,6 +1,6 @@
 """Runs some of ``chip_smoke.py``'s phases alone, on one GPU.
 
-    python3 tools/phases.py sparse bert k7 invariance sampled spec json async refresh
+    python3 tools/phases.py sparse bert k7 invariance sampled spec json async refresh fleet
 
 Builds the kernel sources those phases need (one ``nvcc`` each, all
 started together), then runs each named phase as ``chip_smoke.py`` runs
@@ -28,7 +28,12 @@ it, with its checks, and prints its lines. The phases:
 - ``refresh``: phase 30 (``gateway_refresh_phase``: the serving gateway
   under ``bench_serving_v2_ragged``'s traffic, then a live weight refresh
   under ``bench_serving_2b_refresh``'s protocol, publication faults, an
-  int8 swap and the LoRA disk tier, on the Mistral-7B engine).
+  int8 swap and the LoRA disk tier, on the Mistral-7B engine);
+- ``fleet``: phase 31 (``fleet_phase``: two Mistral-7B replicas behind a
+  ``FleetRouter`` under ``bench_serving_2b_fleet``'s protocol with a
+  replica killed mid-trace, the ``FleetRefreshController``'s rollouts
+  with the canary, a crash mid-swap and a version lie, and a
+  prefill/decode pair against a unified fleet).
 
 Run it from the root of a checkout on a machine with a CUDA device. The
 last line is ``{"ok": true}`` when every phase passed.
@@ -62,6 +67,7 @@ PHASES = {  # name: (sources, run(device, flush))
     "json": (SERVING, lambda device, flush: cs.json_serving_phase(device)),
     "async": (SERVING, lambda device, flush: cs.async_serving_phase(device)),
     "refresh": (GATEWAY, lambda device, flush: cs.gateway_refresh_phase(device)),
+    "fleet": (GATEWAY, lambda device, flush: cs.fleet_phase(device, cs.serving_params(device))),
 }
 
 
