@@ -593,6 +593,38 @@ each of which fails the run if it fails:
    variation of inter-token gaps, handoffs and fallbacks; the device peak
    over (a) and (b) beside one tree's bytes.
 
+32. wire — the fleet's wire transport on the same weights, under
+   ``bench_serving_2b_fleet_mp``'s protocol (``bench.py:1201-1325``) at
+   Mistral-7B's widths and full depth: 2 + 3 x 6 random 64-token prompts
+   from ``RandomState(0)`` x 24 new tokens, budget 70, bursts of 16. The
+   reference is phase 31's in-process fleet (two ``GatewayReplica``s on
+   the parent's one device tree behind a ``FleetRouter``) on the same
+   trace: a warm-up of 2 prompts x 2 tokens, then parts A, B and C of 6
+   each; its streams, mean and p99 TTFT and tokens/s (part A) are kept,
+   then it is freed. A ``FleetSupervisor`` then spawns two replica
+   processes of the port's entry point (``python -m
+   deepspeed_tpu_torch.serving.fleet.wire.ds_replica --config``: the
+   ``mistral-7b`` preset, the reference's engine and serving config,
+   ``device`` cuda; each draws the seed-0 weights itself) on unix sockets
+   under a temporary run directory, reached by ``WireReplica``s behind a
+   ``FleetRouter``: (A) healthy; (B) the r0 process ``SIGKILL``ed once any
+   stream has a token, then the wait until the supervisor has relaunched
+   it and it answers a probe; (C) healthy again. Gates: nothing lost, A
+   and C complete 6 of 6, B's each completes or fails typed, every
+   completed stream (failover replays included) equal to the reference's
+   stream for its prompt (so each process drew the parent's weights),
+   failovers >= 1, r0 relaunched once; at the clean stop each process
+   (r1 and the relaunched r0) reports the card and K3/K4/K2 launches of
+   32/225/65 a forward, all of K3's tiled and none of K4's on the first
+   design. A child that cannot reach the GPU raises, and one that crashes
+   until its budget is spent fails the phase; there is no CPU child.
+   Prints, beside the card: wire against in-process mean and p99 TTFT and
+   tokens/s (``wire_vs_inproc_tok_s``), failovers and retries, each
+   process's start-up seconds (spawn to its first true probe), r0's
+   relaunch seconds (kill to probe), the frame format, free device memory
+   before the spawn, after the kill and after the relaunch, the phase's
+   laps.
+
 The last lines are the card, one JSON object with every kernel's numbers
 and, last, ``{"ok": true, "device": {...}}``."""
 
@@ -602,6 +634,7 @@ import functools
 import gc
 import json
 import math
+import os
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -712,6 +745,14 @@ FLEET_N_REQ, FLEET_PROMPT, FLEET_NEW, FLEET_BURST, FLEET_SAMPLED = 8, 256, 32, 1
 FLEET_BUDGET = FLEET_PROMPT + FLEET_N_REQ
 DISAGG_N_REQ, DISAGG_LONG, DISAGG_SHORT, DISAGG_NEW, DISAGG_PREFILL = 12, 384, 64, 48, 2
 DISAGG_BUDGET, DISAGG_TIER_BYTES = DISAGG_LONG + DISAGG_N_REQ, 1 << 30
+# phase 32: bench_serving_2b_fleet_mp's trace (2 + 3 x WIRE_N_REQ random WIRE_PROMPT-token
+# prompts from RandomState(0) x WIRE_NEW new tokens, budget prompt + n_req, bursts of 16) on
+# two replica processes of the port's entry point, reached over the wire; the children's
+# config: WIRE_PRESET, WIRE_MODEL overrides, on WIRE_DEVICE in WIRE_DTYPE
+WIRE_N_REQ, WIRE_PROMPT, WIRE_NEW, WIRE_BURST = 6, 64, 24, 16
+WIRE_BUDGET = WIRE_PROMPT + WIRE_N_REQ
+WIRE_PRESET, WIRE_MODEL, WIRE_DEVICE, WIRE_DTYPE = "mistral-7b", {}, "cuda", "bfloat16"
+WIRE_START_S = 600.0  # a child's budget from spawn (or the kill) to its first true probe
 
 
 def log(msg):
@@ -6896,6 +6937,297 @@ def fleet_phase(device, weights):
     return result, launches
 
 
+def wire_engine_config():
+    """Phase 32's engine config, as the replica entry point's JSON takes it
+    (``bench.py:_fleet_mp_engine_cfg``)."""
+    return {"kv_block_size": BS,
+            "state_manager": {"max_ragged_batch_size": WIRE_BUDGET,
+                              "max_ragged_sequence_count": WIRE_N_REQ,
+                              "max_tracked_sequences": WIRE_N_REQ,
+                              "max_context": WIRE_PROMPT + WIRE_NEW}}
+
+
+def wire_part(router, prompts, kill=None):
+    """One part of ``bench_serving_2b_fleet_mp`` (``bench.py:_fleet_mp_run_phase``):
+    submit ``prompts`` (WIRE_NEW tokens each), consume each stream on its
+    own thread, run ``kill()`` once any stream has a token. A request is
+    lost only if it neither completes nor fails with a typed
+    ``ServingError``. → {streams, ok, typed, lost, wall_s, mean_ttft_ms,
+    p99_ttft_ms, tok_s}."""
+    import threading
+    from deepspeed_tpu_torch.serving import ServingError
+    n = len(prompts)
+    streams, ttft, outcome = [None] * n, [None] * n, ["lost"] * n
+
+    def consume(i, h, t_sub):
+        toks = []
+        try:
+            for tok in h.tokens(timeout=600):
+                if ttft[i] is None:
+                    ttft[i] = time.perf_counter() - t_sub
+                toks.append(int(tok))
+            streams[i], outcome[i] = toks, "ok"
+        except ServingError:
+            outcome[i] = "typed"
+        except Exception:  # noqa: BLE001 — counted as lost, the gate's business
+            outcome[i] = "lost"
+
+    handles, threads = [], []
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        handles.append(router.submit(p, max_new_tokens=WIRE_NEW))
+        threads.append(threading.Thread(target=consume, args=(i, handles[-1], time.perf_counter()),
+                                        daemon=True))
+        threads[-1].start()
+    if kill is not None:
+        while not any(h._collected for h in handles):
+            time.sleep(0.005)
+        kill()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    done = [x * 1e3 for x in ttft if x is not None]
+    return {"streams": streams, "ok": outcome.count("ok"), "typed": outcome.count("typed"),
+            "lost": outcome.count("lost"), "wall_s": wall,
+            "mean_ttft_ms": float(np.mean(done)) if done else None,
+            "p99_ttft_ms": float(np.percentile(done, 99)) if done else None,
+            "tok_s": sum(len(x) for x in streams if x) / wall}
+
+
+def wire_reference(device, weights, trace):
+    """Phase 32's in-process reference: two ``GatewayReplica``s on the
+    parent's one device tree behind a ``FleetRouter``, the trace's warm-up
+    and three parts → (record, the engines' forwards)."""
+    from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig, InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.serving import FleetConfig, FleetRouter, GatewayReplica, ServingConfig
+    cfg, params = weights
+    ecfg, built = wire_engine_config(), []
+
+    def factory():
+        engine = InferenceEngineV2(cfg, RaggedInferenceEngineConfig(
+            kv_block_size=ecfg["kv_block_size"],
+            state_manager=DSStateManagerConfig(**ecfg["state_manager"])), params=params,
+            dtype=getattr(torch, WIRE_DTYPE), device=device)
+        if any(a.data_ptr() != b.data_ptr() for a, b in zip(tree_leaves(engine.params),
+                                                            tree_leaves(params))):
+            raise AssertionError("wire reference: an engine placed a second copy of the weights")
+        built.append(engine)
+        return engine
+    scfg = ServingConfig(token_budget=WIRE_BUDGET, max_burst=WIRE_BURST)
+    router = FleetRouter([GatewayReplica(n, factory, serving_config=scfg) for n in ("r0", "r1")],
+                         config=FleetConfig(heartbeat_interval_s=0.2, retry_backoff_s=0.05,
+                                            stream_token_timeout_s=120.0))
+    n = WIRE_N_REQ
+    try:
+        for p in trace[:2]:
+            router.submit(p, max_new_tokens=2).result(timeout=900)
+        parts = [wire_part(router, trace[2 + k * n:2 + (k + 1) * n]) for k in range(3)]
+    finally:
+        router.shutdown()
+    streams = [x for part in parts for x in part["streams"]]
+    if any(part["ok"] != n for part in parts) or not all(streams):
+        raise AssertionError(f"wire reference: completed {[p['ok'] for p in parts]} of {n}")
+    forwards = sum(e.forward_steps for e in built)
+    return {"streams": streams, "mean_ttft_ms": parts[0]["mean_ttft_ms"],
+            "p99_ttft_ms": parts[0]["p99_ttft_ms"], "tok_s": parts[0]["tok_s"]}, forwards
+
+
+def wire_stop_reports(sup, names):
+    """Each child's clean-stop line (``[ds_replica] <name> stopped {json}``)
+    from its log → {name: [report per clean stop]}."""
+    out = {}
+    for name in names:
+        head = f"[ds_replica] {name} stopped "
+        with open(os.path.join(sup.run_dir, f"{name}.log")) as fd:
+            out[name] = [json.loads(line[len(head):]) for line in fd.read().splitlines()
+                         if line.startswith(head)]
+    return out
+
+
+def check_wire_report(report, layers, where):
+    """A child's stop report: the card named, K3 once a layer, K4 7 times a
+    layer and once for the head, K2 twice a layer and once for the final
+    norm, a forward; K3 all on the tiled design, K4 none on the first."""
+    n, got = report["forwards"], report["launches"]
+    want = {"paged_decode_attention": layers * n, "dense_matmul": (7 * layers + 1) * n,
+            "rms_norm_fwd": (2 * layers + 1) * n}
+    if not report["card"] or not n or got != want or \
+            report["paged_by_design"].get("tiled") != got["paged_decode_attention"] or \
+            report["dense_by_design"].get("general"):
+        raise AssertionError(f"wire {where}: report {report}, want {want} over {n} forwards")
+
+
+def child_log_tail(sup, name, lines=30):
+    try:
+        with open(os.path.join(sup.run_dir, f"{name}.log")) as fd:
+            return "\n".join(fd.read().splitlines()[-lines:])
+    except OSError as e:
+        return f"(no log: {e})"
+
+
+def free_gb(device):
+    return torch.cuda.mem_get_info(device)[0] / 1e9
+
+
+def wait_child(sup, clients, name, t0, make_client):
+    """Poll until the supervised child ``name`` has announced and answers a
+    probe → seconds since ``t0``; raises with its log's tail when it
+    crashed past its budget or missed WIRE_START_S."""
+    announce = os.path.join(sup.run_dir, f"{name}.addr")
+    while True:
+        state = sup.stats()[name]["state"]
+        if state == "failed":
+            raise AssertionError(f"wire: replica {name} crashed past its budget:\n"
+                                 f"{child_log_tail(sup, name)}")
+        if time.perf_counter() - t0 > WIRE_START_S:
+            raise AssertionError(f"wire: replica {name} did not answer a probe in "
+                                 f"{WIRE_START_S:.0f} s:\n{child_log_tail(sup, name)}")
+        if name not in clients and os.path.exists(announce):
+            clients[name] = make_client(name)
+        if name in clients and clients[name].probe():
+            return time.perf_counter() - t0
+        time.sleep(0.05)
+
+
+def wire_phase(device, weights):
+    """Phase 32: the fleet's wire transport under
+    ``bench_serving_2b_fleet_mp``'s protocol, two replica processes of the
+    port's entry point on this card against phase 31's in-process fleet.
+    → (result, {kernel: launches in the replica processes that stopped
+    cleanly})."""
+    import shutil
+    import signal
+    import tempfile
+    from deepspeed_tpu_torch.device import gpu_report
+    from deepspeed_tpu_torch.models import llama_config
+    from deepspeed_tpu_torch.serving import FleetConfig, FleetRouter
+    from deepspeed_tpu_torch.serving.fleet.wire import (FleetSupervisor, ReplicaProcSpec,
+                                                        WireReplica)
+    from deepspeed_tpu_torch.serving.fleet.wire.codec import frame_format
+    card = gpu_report()
+    cfg, _ = weights
+    layers = llama_config(WIRE_PRESET, **WIRE_MODEL).num_hidden_layers
+    laps, t_phase = {}, time.perf_counter()
+
+    def lap(name):
+        laps[name] = time.perf_counter() - t_phase - sum(laps.values())
+    rng = np.random.RandomState(0)
+    trace = [rng.randint(0, cfg.vocab_size, size=WIRE_PROMPT).tolist()
+             for _ in range(2 + 3 * WIRE_N_REQ)]
+    c0 = serving_counters()
+    ref, ref_forwards = wire_reference(device, weights, trace)
+    check_lane_launches({"forwards": ref_forwards, "launches": counters_since(c0)}, layers,
+                        "wire reference (in-process fleet)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("reference")
+
+    n, names = WIRE_N_REQ, ("r0", "r1")
+    child = {"preset": WIRE_PRESET, "model": dict(WIRE_MODEL), "engine": wire_engine_config(),
+             "serving": {"token_budget": WIRE_BUDGET, "max_burst": WIRE_BURST},
+             "device": WIRE_DEVICE, "dtype": WIRE_DTYPE}
+    run_dir = tempfile.mkdtemp(prefix="dsw")
+    unix = len(run_dir) + len("/r0.sock") < 100  # a unix socket path's limit is 108 bytes
+    specs = [ReplicaProcSpec(name, config=dict(child, name=name),
+                             bind=None if unix else "127.0.0.1:0") for name in names]
+    mem = {"before_spawn_gb": free_gb(device)}
+    sup = FleetSupervisor(specs, run_dir=run_dir, max_restarts=3, monitor_interval=0.2,
+                          watchdog_timeout=0, grace=10.0)
+    clients, router = {}, None
+
+    def make_client(name):
+        return WireReplica(name, sup.address(name, timeout=5.0), timeout_s=600.0,
+                           probe_timeout_s=5.0, connect_timeout_s=10.0, backoff_s=0.2)
+    try:
+        t_spawn = time.perf_counter()
+        sup.start()
+        start_s = {name: wait_child(sup, clients, name, t_spawn, make_client) for name in names}
+        lap("spawn")
+        router = FleetRouter([clients[name] for name in names], config=FleetConfig(
+            heartbeat_interval_s=0.5, retry_backoff_s=0.1, stream_token_timeout_s=600.0))
+        for p in trace[:2]:
+            router.submit(p, max_new_tokens=2).result(timeout=900)
+        a = wire_part(router, trace[2:2 + n])
+        lap("A")
+        killed = {}
+
+        def kill():
+            killed["t"] = time.perf_counter()
+            os.kill(sup.pid("r0"), signal.SIGKILL)
+            deadline = time.monotonic() + 30
+            while sup.stats()["r0"]["restarts"] < 1 and time.monotonic() < deadline:
+                time.sleep(0.01)  # the monitor reaped it: its memory is back
+            mem["after_kill_gb"] = free_gb(device)
+        b = wire_part(router, trace[2 + n:2 + 2 * n], kill=kill)
+        lap("B")
+        relaunch_s = wait_child(sup, clients, "r0", killed["t"], make_client)
+        mem["after_relaunch_gb"] = free_gb(device)
+        deadline = time.monotonic() + 120
+        while router.health["r0"].state != "healthy":  # the router's own probes readmit it
+            if time.monotonic() > deadline:
+                raise AssertionError(f"wire: r0 answers probes but the router keeps it "
+                                     f"{router.health['r0'].state}")
+            time.sleep(0.05)
+        lap("relaunch")
+        c = wire_part(router, trace[2 + 2 * n:])
+        lap("C")
+        counters = router.snapshot()["counters"]
+        restarts = sup.stats()["r0"]["restarts"]
+    finally:
+        if router is not None:
+            router.shutdown()  # detaches the clients: the processes stop below
+        for cli in clients.values():
+            cli.close()
+        sup.stop()
+        reports = wire_stop_reports(sup, names) if os.path.isdir(run_dir) else {}
+        shutil.rmtree(run_dir, ignore_errors=True)
+    lap("stop")
+    parts = (a, b, c)
+    lost = sum(p["lost"] for p in parts)
+    diverged = [(k, i) for k, p in enumerate(parts) for i, x in enumerate(p["streams"])
+                if x is not None and x != ref["streams"][k * n + i]]
+    if lost or a["ok"] != n or c["ok"] != n or b["ok"] + b["typed"] != n or diverged:
+        raise AssertionError(f"wire: lost {lost}, completed {[p['ok'] for p in parts]}, typed "
+                             f"{[p['typed'] for p in parts]}, streams differing from the "
+                             f"in-process fleet's {diverged}")
+    if counters["failovers"] < 1 or restarts != 1:
+        raise AssertionError(f"wire: failovers {counters['failovers']}, r0 relaunched "
+                             f"{restarts} times")
+    clean = {"r1": reports.get("r1", []), "r0": reports.get("r0", [])}
+    if len(clean["r1"]) != 1 or len(clean["r0"]) != 1:
+        raise AssertionError(f"wire: clean stops {[(r, len(v)) for r, v in clean.items()]}, "
+                             f"want one each (r1, the relaunched r0)")
+    for name, (report,) in clean.items():
+        check_wire_report(report, layers, f"replica {name}")
+    launches = {k: sum(r[0]["launches"][k] for r in clean.values())
+                for k in ("paged_decode_attention", "dense_matmul", "rms_norm_fwd")}
+    result = {
+        "card": card, "replicas": 2, "transport": "wire(unix)" if unix else "wire(tcp)",
+        "frame_format": frame_format(), "trace": [2 + 3 * n, WIRE_PROMPT, WIRE_NEW],
+        "lost_requests": lost, "completed": [p["ok"] for p in parts],
+        "typed_failures": [p["typed"] for p in parts], "failovers": counters["failovers"],
+        "retries": counters["retries"], "victim_restarts": restarts,
+        "streams_equal_inproc": True,
+        "wire_mean_ttft_ms": a["mean_ttft_ms"], "inproc_mean_ttft_ms": ref["mean_ttft_ms"],
+        "wire_p99_ttft_ms": a["p99_ttft_ms"], "inproc_p99_ttft_ms": ref["p99_ttft_ms"],
+        "wire_tok_s": a["tok_s"], "inproc_tok_s": ref["tok_s"],
+        "wire_vs_inproc_tok_s": a["tok_s"] / ref["tok_s"],
+        "tok_s_by_part": [p["tok_s"] for p in parts], "start_s": start_s,
+        "relaunch_s": relaunch_s, "free_device_gb": mem,
+        "replica_reports": {k: v[0] for k, v in clean.items()}, "launches": launches,
+        "phase_s": laps}
+    log(f"[wire] {card}: wire vs in-process mean TTFT {a['mean_ttft_ms']:.1f} / "
+        f"{ref['mean_ttft_ms']:.1f} ms, p99 {a['p99_ttft_ms']:.1f} / {ref['p99_ttft_ms']:.1f} ms, "
+        f"tokens/s {a['tok_s']:.1f} / {ref['tok_s']:.1f} (wire_vs_inproc_tok_s "
+        f"{result['wire_vs_inproc_tok_s']:.3f}); failovers {counters['failovers']}, retries "
+        f"{counters['retries']}; start-up r0 {start_s['r0']:.1f} s, r1 {start_s['r1']:.1f} s, "
+        f"r0 relaunch {relaunch_s:.1f} s; frames {frame_format()}; free device GB "
+        f"{json.dumps({k: round(v, 2) for k, v in mem.items()})}; launches {json.dumps(launches)}")
+    log(f"[wire] {json.dumps(result)}")
+    return result, launches
+
+
 def grid_fraction_of(cfg):
     """The layout density the model's sparse section gives at BERT_S."""
     from deepspeed_tpu_torch.models.bert import _sparse_self_attention
@@ -7029,10 +7361,16 @@ def main():
 
     # the in-process fleet and its rolling refresh: two replicas on the same weights
     _, fleet_launches = fleet_phase(device, weights)
-    del weights
     gc.collect()
     torch.cuda.empty_cache()
     lap("phase 31 (fleet)")
+
+    # the fleet's wire transport: two replica processes of the port's entry point on this card
+    _, wire_launches = wire_phase(device, weights)
+    del weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("phase 32 (wire)")
 
     main_case = next(c for c in cases if c["case"] == "serving_decode")
     kernels = [{"name": "paged_decode_attention", "route": "cuda",
@@ -7052,6 +7390,7 @@ def main():
                 "launches_async_serving": async_launches["paged_decode_attention"],
                 "launches_gateway": gateway_launches["paged_decode_attention"],
                 "launches_fleet": fleet_launches["paged_decode_attention"],
+                "launches_wire": wire_launches["paged_decode_attention"],
                 "cases": cases}]
     train_kernels = {
         "flash_fwd": ("flash_attention.cu", "flash_attention.py:46",
@@ -7082,6 +7421,7 @@ def main():
             kernels[-1]["launches_async_serving"] = async_launches["rms_norm_fwd"]
             kernels[-1]["launches_gateway"] = gateway_launches["rms_norm_fwd"]
             kernels[-1]["launches_fleet"] = fleet_launches["rms_norm_fwd"]
+            kernels[-1]["launches_wire"] = wire_launches["rms_norm_fwd"]
     slice3 = {  # name: (source, TPU kernel, cases, main case, launches, shape)
         "quant_matmul": ("fused_quant_matmul.cu", "fused_quant_matmul.py:90", qmm_cases,
                          "int8_M8_{}x{}".format(*ATTN_SHAPES[0]), int8_launches["quant_matmul"],
@@ -7192,6 +7532,7 @@ def main():
                     "launches_async_serving": async_launches["dense_matmul"],
                     "launches_gateway": gateway_launches["dense_matmul"],
                     "launches_fleet": fleet_launches["dense_matmul"],
+                    "launches_wire": wire_launches["dense_matmul"],
                     "cases": dense_cases})
     slice7 = {  # name: (source, TPU kernel, shape)
         "block_sparse_fwd": ("block_sparse_attention.cu", "block_sparse_attention.py:71",

@@ -2,7 +2,7 @@
 the errors that name an item when a caller asks for what is not ported."""
 
 PORT_QUEUE = {
-    4: "the serving stack: the fleet's wire protocol, the serving autotuner",
+    4: "the serving autotuner",
     5: "tensor- and expert-parallel serving",
     6: "the GPT family and the rest of the surface",
     7: "ZeRO 1/2/3 across processes over NCCL",

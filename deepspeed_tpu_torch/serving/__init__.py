@@ -6,11 +6,11 @@ Port of ``deepspeed_tpu/serving``: the request-level gateway
 drain, and the staged no-drain weight refresh), its config, admission
 control and SLO metrics, the in-process fleet (:mod:`.fleet`: the router
 with failover, rolling restart, prefix-aware and disaggregated placement
-over gateway replicas), live weight refresh (:mod:`.refresh`: the
+over gateway replicas, and its wire transport: a replica a process,
+:mod:`.fleet.wire`), live weight refresh (:mod:`.refresh`: the
 publisher and the fleet's rolling refresh controller with its canary),
 and multi-tenant LoRA serving with its disk tier (:mod:`.lora`). The
-fleet's wire protocol and the serving autotuner are not ported yet
-(ROADMAP.md, port queue item 4)."""
+serving autotuner is not ported yet (ROADMAP.md, port queue item 4)."""
 
 from deepspeed_tpu_torch.serving.admission import (AdmissionQueue, CapacityGate,
                                                    DeadlineExceededError, GatewayClosedError,

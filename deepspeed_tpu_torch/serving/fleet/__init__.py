@@ -1,10 +1,10 @@
 """Fault-tolerant multi-replica serving fleet (the MII/FastGen
 deployment-layer analogue above :class:`ServingGateway`).
 
-Port of ``deepspeed_tpu/serving/fleet``: the in-process fleet. The wire
-protocol that puts replicas in processes of their own
-(``deepspeed_tpu/serving/fleet/wire``) is not ported yet (ROADMAP.md,
-port queue item 4).
+Port of ``deepspeed_tpu/serving/fleet``: the in-process fleet, and in
+:mod:`.wire` the wire transport that puts each replica in a process of
+its own (``WireReplica`` behind the same router, ``FleetSupervisor``
+over the port's replica entry point; ``DS_FLEET_TRANSPORT``).
 
 - :class:`Replica` / :class:`GatewayReplica` — the engine-facing half of
   the serving stack as a restartable unit; single-replica mode is the

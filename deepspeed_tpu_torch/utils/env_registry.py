@@ -12,7 +12,8 @@ port reads the same switches with the same parsing and defaults:
 
 The table is data: knobs of features the port does not serve yet are
 registered too, with the JAX package's kinds and defaults, and name the
-JAX package's module as their consumer until the port reads them.
+JAX package's module as their consumer until the port reads them; a
+knob the port reads names a port file that reads it.
 """
 
 import dataclasses
@@ -346,20 +347,20 @@ register("DS_FLEET_TRANSPORT", "optional_str", None,
          "pre-wire fleet) or 'wire' (replicas are separate processes "
          "reached over the framed socket protocol); unset behaves as "
          "'inproc'.",
-         "deepspeed_tpu/serving/fleet/wire/__init__.py",
+         "deepspeed_tpu_torch/serving/fleet/wire/__init__.py",
          choices=("inproc", "wire"))
 register("DS_WIRE_TIMEOUT_S", "int", 30,
          "Default I/O deadline (seconds) for unary wire calls from "
          "WireReplica to a replica server (submit ack, handoff claim, "
          "import, drain/restart/refresh get this on top of their own "
          "budgets); a blown deadline raises WireTimeoutError.",
-         "deepspeed_tpu/serving/fleet/wire/client.py",
+         "deepspeed_tpu_torch/serving/fleet/wire/client.py",
          min_value=1, max_value=3600)
 register("DS_WIRE_BIND", "optional_str", None,
          "Default bind address for a replica server when the launcher "
          "passes none: 'host:port' (port 0 = ephemeral) or "
          "'unix:/path.sock'; unset falls back to 127.0.0.1:0.",
-         "deepspeed_tpu/serving/fleet/wire/server.py")
+         "deepspeed_tpu_torch/serving/fleet/wire/server.py")
 register("DS_REFRESH_CANARY", "optional_bool", None,
          "Kill switch for the live-weight-refresh canary gate (first "
          "refreshed replica verified bit-identically against a cold-"
@@ -375,7 +376,7 @@ register("DS_REFRESH_KEEP", "int", 2,
          "Weight publications the publisher's retention GC keeps on "
          "disk (never fewer than the live and previous versions, so "
          "rollback always has a target).",
-         "deepspeed_tpu/serving/refresh/publisher.py")
+         "deepspeed_tpu_torch/serving/refresh/publisher.py")
 register("DS_SANITIZE", "bool", False,
          "Enable runtime sanitizers: non-finite and index checks around "
          "the v2 engine's forwards, lock-order tracking, plus "
@@ -402,12 +403,12 @@ register("DS_PREEMPT_GRACE_S", "int", 30,
          "Grace budget (seconds) between SIGTERM and SIGKILL: the "
          "worker's emergency-checkpoint deadline, and how long the "
          "agent waits before escalating a forwarded/watchdog SIGTERM.",
-         "deepspeed_tpu/elasticity/preemption.py")
+         "deepspeed_tpu_torch/serving/fleet/wire/supervisor.py")
 register("DS_WATCHDOG_TIMEOUT", "int", 0,
          "Hang watchdog: agent kills+relaunches the worker when the "
          "heartbeat step counter makes no progress for this many "
          "seconds. 0 disables the watchdog.",
-         "deepspeed_tpu/elasticity/elastic_agent.py")
+         "deepspeed_tpu_torch/serving/fleet/wire/supervisor.py")
 register("DS_EMERGENCY_CKPT", "bool", True,
          "Kill switch for the SIGTERM emergency-checkpoint path; off, "
          "a preempted worker exits without saving (resume falls back "
@@ -430,7 +431,7 @@ register("DS_AUTOTUNE", "optional_bool", None,
          "gateway (live adjustment of token budget, admission depth, "
          "and spec draft length); set it wins in both directions, "
          "unset defers to serving.autotune.enabled.",
-         "deepspeed_tpu/autotuning/online.py")
+         "deepspeed_tpu_torch/serving/gateway.py")
 register("DS_AUTOTUNE_INTERVAL_S", "int", 0,
          "Seconds between online SLO controller decision ticks; 0 "
          "defers to serving.autotune.interval_s.",
@@ -440,7 +441,7 @@ register("DS_AUTOTUNE_CONFIG", "optional_str", None,
          "Path to a tuned-config JSON emitted by the offline serving "
          "tuner; the gateway applies its serving-scope knobs at "
          "construction, unset leaves the hand-picked config untouched.",
-         "deepspeed_tpu/serving/gateway.py")
+         "deepspeed_tpu_torch/serving/gateway.py")
 register("DS_FORCE_PLATFORM", "optional_str", None,
          "Pin the JAX platform (cpu|tpu) in autotuner experiment "
          "runners; unset uses the default backend.",

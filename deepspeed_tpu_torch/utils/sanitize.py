@@ -1,7 +1,7 @@
 """Runtime sanitizers behind the ``DS_SANITIZE`` env knob.
 
-Port of ``deepspeed_tpu/utils/sanitize.py`` (the wire-frame checks wait
-for the fleet). Three layers, all OFF by default with zero hot-path cost:
+Port of ``deepspeed_tpu/utils/sanitize.py``. Four layers, all OFF by
+default with zero hot-path cost:
 
 - device-side: :func:`maybe_checkify` wraps an engine forward. Off, it
   returns the callable itself (no wrapper, no branch per call, no
@@ -21,6 +21,10 @@ for the fleet). Three layers, all OFF by default with zero hot-path cost:
 - locks: :func:`tracked_lock` wraps the named locks in an order-tracking
   proxy that raises :class:`LockOrderViolationError` on the first
   acquisition that closes a cycle in the process-wide lock graph.
+- wire: :func:`checked_frame_encoder` round-trips every fleet wire frame
+  through the receive path before its first byte is sent
+  (:class:`WireFrameCorruptionError`), and :func:`check_error_registry`
+  audits the wire's error registry once (:class:`WireRegistryError`).
 
 Enablement is sampled once per object construction (engine, allocator,
 manager, store), not per call, so flipping the env var mid-run does not
@@ -77,6 +81,25 @@ class LockOrderViolationError(SanitizerError):
     non-reentrant lock was blocking-re-acquired by its holder. The
     message names both acquisition stacks: the current thread's and the
     recorded one that established the conflicting edge."""
+
+
+class WireFrameCorruptionError(SanitizerError):
+    """DS_SANITIZE wire-codec self-check: a frame failed its pre-send
+    encode→decode→structural-equality round-trip — the payload holds a
+    value the wire format silently mangles (int-keyed dict under JSON,
+    an object neither tagged nor encodable, a NaN-bearing structure the
+    formats disagree on). Raised BEFORE the bytes leave the process, so
+    the corruption is attributed to the sender, not debugged as a
+    mystery on the peer."""
+
+
+class WireRegistryError(SanitizerError):
+    """DS_SANITIZE error-registry audit: a live ``ServingError``
+    subclass is missing from ``_error_registry()`` (its module was
+    imported but never listed — the error would decode as
+    ``WireProtocolError`` with wrong retry semantics), or a registered
+    type is not constructible as ``cls(message)`` the way
+    ``decode_error`` rebuilds it."""
 
 
 def sanitize_enabled() -> bool:
@@ -141,6 +164,130 @@ def maybe_checkify(fn, check_inputs=None, enabled=None):
     run.__wrapped__ = fn
     run._ds_sanitized = True
     return run
+
+
+# ------------------------------------------------------ wire self-checks
+def _tensor_bytes(t):
+    """A torch tensor's bytes, on the host."""
+    import torch
+    flat = t.detach().contiguous().reshape(-1).cpu()
+    return flat.view(torch.uint8).numpy().tobytes() if flat.numel() else b""
+
+
+def wire_structural_equal(a, b):
+    """Structural equality up to the wire codec's *documented*
+    normalizations — tuples compare equal to lists, numpy scalars to
+    their python values, ndarrays and torch tensors by dtype+shape+bytes
+    (a tensor on any device against the CPU tensor it decodes as), NaN
+    to NaN. Any other difference means the payload did not survive its
+    own encode→decode round-trip and the peer would see mangled data."""
+    import numpy as np
+    if isinstance(a, np.generic):
+        a = a.item()
+    if isinstance(b, np.generic):
+        b = b.item()
+    if hasattr(a, "is_floating_point") or hasattr(b, "is_floating_point"):
+        if not (hasattr(a, "is_floating_point") and hasattr(b, "is_floating_point")):
+            return False
+        return (a.dtype == b.dtype and tuple(a.shape) == tuple(b.shape)
+                and _tensor_bytes(a) == _tensor_bytes(b))
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        if not (isinstance(a, np.ndarray) and isinstance(b, np.ndarray)):
+            return False
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and a.tobytes() == b.tobytes())
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        return len(a) == len(b) and all(
+            wire_structural_equal(x, y) for x, y in zip(a, b))
+    if isinstance(a, dict) and isinstance(b, dict):
+        if set(a) != set(b):
+            return False
+        return all(wire_structural_equal(v, b[k]) for k, v in a.items())
+    if isinstance(a, bytearray):
+        a = bytes(a)
+    if isinstance(b, bytearray):
+        b = bytes(b)
+    if isinstance(a, float) and isinstance(b, float):
+        return a == b or (a != a and b != b)  # NaN survives both formats
+    return type(a) is type(b) and a == b
+
+
+def checked_frame_encoder(encode_fn, reparse_fn, enabled=None):
+    """Pre-send wire-frame self-check.
+
+    Off (the default): returns ``encode_fn`` VERBATIM — the codec's
+    encoder IS ``encode_msg``, zero wrapper, zero per-frame cost. On:
+    every encoded frame is immediately re-parsed through ``reparse_fn``
+    (header split + decode_body, the exact receive path) and compared
+    with :func:`wire_structural_equal` against the original message
+    BEFORE any byte leaves the process — a mismatch raises
+    :class:`WireFrameCorruptionError` attributed to the sender instead
+    of surfacing as undebuggable garbage on the peer."""
+    if enabled is None:
+        enabled = sanitize_enabled()
+    if not enabled:
+        return encode_fn
+
+    def checked(msg, prefer=None):
+        data = encode_fn(msg, prefer=prefer)
+        mtype = msg.get("type") if isinstance(msg, dict) else type(msg)
+        try:
+            decoded = reparse_fn(data)
+        except Exception as e:
+            raise WireFrameCorruptionError(
+                f"wire frame (type={mtype!r}) failed to re-decode before "
+                f"send: {e}") from e
+        if not wire_structural_equal(decoded, msg):
+            raise WireFrameCorruptionError(
+                f"wire frame (type={mtype!r}) did not survive its own "
+                f"encode→decode round-trip — the payload holds a value "
+                f"the frame format silently mangles (non-string dict "
+                f"key, untagged object, ...); fix the payload at the "
+                f"send site")
+        return data
+
+    checked.__wrapped__ = encode_fn
+    checked._ds_sanitized = True
+    return checked
+
+
+def check_error_registry(registry, base) -> None:
+    """Live wire-error-registry audit (run once, at the first
+    ``_error_registry()`` build under DS_SANITIZE): every ``base``
+    (ServingError) subclass visible in the process must be registered
+    under its own name, and every registered type must be constructible
+    as ``cls(message)`` — exactly how ``decode_error`` rebuilds remote
+    failures — with class-level ``reason``/``retry_elsewhere`` of the
+    right types on ServingError subclasses."""
+    def walk(cls):
+        yield cls
+        for sub in cls.__subclasses__():
+            yield from walk(sub)
+
+    for cls in walk(base):
+        if registry.get(cls.__name__) is not cls:
+            raise WireRegistryError(
+                f"{cls.__module__}.{cls.__name__} subclasses "
+                f"{base.__name__} but is not in _error_registry() — it "
+                f"would decode as WireProtocolError with wrong retry "
+                f"semantics; add its module to the lazy import list in "
+                f"wire/errors.py")
+    for name, cls in sorted(registry.items()):
+        try:
+            exc = cls("sanitize registry probe")
+        except Exception as e:
+            raise WireRegistryError(
+                f"registered wire error {name} is not constructible as "
+                f"{name}(message) ({e!r}) — decode_error() would crash "
+                f"on the first remote failure of this type")
+        if issubclass(cls, base) and (
+                not isinstance(getattr(exc, "reason", None), str)
+                or not isinstance(getattr(exc, "retry_elsewhere", None),
+                                  bool)):
+            raise WireRegistryError(
+                f"registered wire error {name} lacks class-level "
+                f"reason/retry_elsewhere of the right types — the wire "
+                f"encodes both and routing decisions depend on them")
 
 
 def check_allocator(alloc) -> None:

@@ -11,7 +11,9 @@ against the JAX package's.
 - each switch the port reads through the registry (prefix cache, KV tier,
   LoRA, spec and constrained decoding, pipelined bursts, the sanitizer,
   the seed) gives what the JAX switch gives, set either way or unset;
-- no port module reads a ``DS_*`` variable around the registry."""
+- no port module reads a ``DS_*`` variable around the registry, and every
+  knob a port module reads names, as its ``consumer``, a port file that
+  reads it."""
 
 import pathlib
 import re
@@ -160,3 +162,22 @@ def test_port_reads_ds_variables_only_through_the_registry():
         src = path.read_text()
         assert not re.search(r"environ(\.get)?[\[(]\s*[\"']DS_", src), path
         assert not re.search(r"getenv\(\s*[\"']DS_", src), path
+
+
+def test_consumer_is_a_port_reader():
+    """For every knob a module of ``deepspeed_tpu_torch/`` reads through an
+    ``env_*("NAME")`` call, ``consumer`` names one of the port files that
+    read it, and that file exists."""
+    pkg = ROOT / "deepspeed_tpu_torch"
+    readers = {}
+    for path in pkg.rglob("*.py"):
+        for name in re.findall(r"env_(?:raw|bool|int|str|opt_bool)\(\s*[\"'](DS_[A-Z0-9_]+)",
+                               path.read_text()):
+            readers.setdefault(name, set()).add(path.relative_to(ROOT).as_posix())
+    assert {"DS_FLEET_TRANSPORT", "DS_WIRE_TIMEOUT_S", "DS_WIRE_BIND", "DS_REFRESH_KEEP",
+            "DS_WATCHDOG_TIMEOUT", "DS_PREEMPT_GRACE_S", "DS_AUTOTUNE",
+            "DS_AUTOTUNE_CONFIG"} <= set(readers)
+    for name, files in sorted(readers.items()):
+        consumer = P.get_knob(name).consumer
+        assert consumer in files, (name, consumer, sorted(files))
+        assert (ROOT / consumer).is_file(), consumer

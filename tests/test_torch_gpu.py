@@ -71,7 +71,13 @@ tree, each behind its own gateway pump thread, stream what each streams
 alone (they share the split-K workspace); two replicas behind a
 ``FleetRouter`` replay a killed replica's streams bit for bit; a
 ``FleetRefreshController`` rollout passes its canary against a cold
-start."""
+start. The wire: two replica processes of the port's entry point under a
+``FleetSupervisor`` (2 layers of Mistral-7B width, each drawing the
+seed-0 weights itself) stream what an in-process pair streams and report
+their launches a forward at a clean stop; a ``PublicationRef`` rollout
+passes its canary in both processes and a torn publication is rejected
+typed in the child; a prefill/decode pair over JSON frames hands bf16 KV
+records over the wire and streams what a unified pair streams."""
 
 import numpy as np
 import pytest
@@ -2993,3 +2999,247 @@ def test_controller_rollout_on_card_canary_passes(cuda):
         assert after == [cold, cold] and cold != before
     finally:
         router.shutdown()
+
+
+# ------------------------------------------------------- the wire: a replica a process on one card
+WIRE_ENGINE = {"kv_block_size": 32, "state_manager": {
+    "max_ragged_batch_size": 512, "max_ragged_sequence_count": 8, "max_tracked_sequences": 8,
+    "max_context": 320}}
+WIRE_TIER = {"prefix_cache": {"enabled": True},
+             "kv_tier": {"enabled": True, "host_bytes": 1 << 28, "quantize": False}}
+
+
+def _wire_child_config(tier=False):
+    """The replica entry point's config: 2 layers of Mistral-7B width on the
+    card, the seed-0 weights the child draws itself."""
+    return {"preset": "mistral-7b", "model": {"num_hidden_layers": 2}, "device": "cuda",
+            "engine": dict(WIRE_ENGINE, **(WIRE_TIER if tier else {})),
+            "serving": {"token_budget": 512, "max_burst": 8}}
+
+
+def _wire_parent(cuda, tier=False):
+    """The children's weights drawn in this process (seed 0, as
+    ``InferenceEngineV2(params=None)`` draws them), and a factory of
+    engines on them with the children's config."""
+    from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig, InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.models import init_params, llama_config
+    cfg = llama_config("mistral-7b", num_hidden_layers=2)
+    params = init_params(cfg, cuda, torch.bfloat16)
+    ecfg = dict(WIRE_ENGINE, **(WIRE_TIER if tier else {}))
+
+    def make(tree=None):
+        return InferenceEngineV2(cfg, RaggedInferenceEngineConfig(
+            kv_block_size=ecfg["kv_block_size"],
+            state_manager=DSStateManagerConfig(**ecfg["state_manager"]),
+            **{k: v for k, v in ecfg.items() if k not in ("kv_block_size", "state_manager")}),
+            params=params if tree is None else tree, device=cuda)
+    return cfg, params, make
+
+
+class _WireFleet:
+    """Two replica processes of the port's entry point under a
+    ``FleetSupervisor`` on unix sockets, reached by ``WireReplica``s; the
+    run directory removed and the children stopped on exit."""
+
+    def __init__(self, roles=("unified", "unified"), tier=False, env=None):
+        import tempfile
+        from deepspeed_tpu_torch.serving.fleet.wire import FleetSupervisor, ReplicaProcSpec
+        self.names, self.roles = ("r0", "r1"), roles
+        self.run_dir = tempfile.mkdtemp(prefix="dsw")
+        specs = [ReplicaProcSpec(n, config=dict(_wire_child_config(tier), name=n), role=r,
+                                 env=env or {}) for n, r in zip(self.names, roles)]
+        self.sup = FleetSupervisor(specs, run_dir=self.run_dir, max_restarts=0,
+                                   monitor_interval=0.2, watchdog_timeout=0, grace=10.0)
+        self.clients = []
+
+    def log(self, name):
+        import os
+        with open(os.path.join(self.run_dir, f"{name}.log")) as fd:
+            return fd.read()
+
+    def __enter__(self):
+        import time
+        from deepspeed_tpu_torch.serving.fleet.wire import WireReplica
+        self.sup.start()
+        try:
+            for n, r in zip(self.names, self.roles):
+                cli = WireReplica(n, self.sup.address(n, timeout=300.0), role=r, timeout_s=300.0,
+                                  probe_timeout_s=5.0, connect_timeout_s=10.0, backoff_s=0.2)
+                self.clients.append(cli)
+                deadline = time.monotonic() + 300
+                while not cli.probe():
+                    if self.sup.stats()[n]["state"] != "running" or time.monotonic() > deadline:
+                        raise AssertionError(f"replica {n} never served:\n{self.log(n)[-3000:]}")
+                    time.sleep(0.2)
+        except BaseException:
+            self.__exit__(None, None, None)
+            raise
+        return self
+
+    def __exit__(self, *exc):
+        import shutil
+        for cli in self.clients:
+            cli.close()
+        self.sup.stop()
+        self.reports = {n: [line for line in self.log(n).splitlines()
+                            if line.startswith(f"[ds_replica] {n} stopped ")]
+                        for n in self.names}
+        self.starts = {n: [line for line in self.log(n).splitlines()
+                           if line.startswith(f"[ds_replica] {n} (")] for n in self.names}
+        shutil.rmtree(self.run_dir, ignore_errors=True)
+
+
+def _router_streams(router, prompts, new):
+    handles = [router.submit(p, max_new_tokens=new) for p in prompts]
+    return [[int(t) for t in h.tokens(timeout=300)] for h in handles]
+
+
+def test_wire_fleet_on_card_equals_in_process_fleet(cuda):
+    """Two replica processes at 2 layers of Mistral-7B width, each drawing
+    the seed-0 weights itself, behind a ``FleetRouter`` over the wire:
+    every stream equals a two-replica in-process fleet's on the same
+    weights; each child stops cleanly and reports the card and its
+    K3/K4/K2 launches a forward."""
+    import json
+    from deepspeed_tpu_torch.serving import (FleetConfig, FleetRouter, GatewayReplica,
+                                             ServingConfig)
+    cfg, params, make = _wire_parent(cuda)
+    rng = np.random.RandomState(25)
+    prompts = [rng.randint(0, 32000, n).astype(np.int32) for n in (200, 17, 96, 250, 33, 128)]
+    scfg = ServingConfig(token_budget=512, max_burst=8)
+    router = FleetRouter([GatewayReplica(n, make, serving_config=scfg) for n in ("r0", "r1")],
+                         config=FleetConfig(retry_backoff_s=0.05, stream_token_timeout_s=300))
+    try:
+        want = _router_streams(router, prompts, 24)
+    finally:
+        router.shutdown()
+    del params
+    torch.cuda.empty_cache()
+    with _WireFleet() as fleet:
+        router = FleetRouter(fleet.clients, config=FleetConfig(retry_backoff_s=0.05,
+                                                               stream_token_timeout_s=300))
+        try:
+            got = _router_streams(router, prompts, 24)
+            c = router.snapshot()["counters"]
+        finally:
+            router.shutdown()
+    assert got == want and c["completed"] == len(prompts) and c["failed"] == 0
+    for name in fleet.names:
+        assert len(fleet.reports[name]) == 1, fleet.reports
+        report = json.loads(fleet.reports[name][0].split(" stopped ", 1)[1])
+        n, got_l = report["forwards"], report["launches"]
+        assert report["card"] and n > 0
+        assert got_l == {"paged_decode_attention": 2 * n, "dense_matmul": 15 * n,
+                         "rms_norm_fwd": 5 * n}
+        assert report["paged_by_design"]["tiled"] == 2 * n
+        assert report["dense_by_design"]["general"] == 0
+
+
+def test_wire_publication_rollout_on_card_canary_passes(cuda):
+    """v0 → v1 (phase 30's stand-in step) rolled over two replica
+    processes by a ``FleetRefreshController`` as a ``PublicationRef``, the
+    canary on (a cold engine in this process on the publication's v1):
+    both processes load, verify and adopt it, and their probe streams
+    equal the cold engine's; a publication with a flipped payload byte is
+    rejected typed in the child, which keeps serving v1."""
+    import shutil
+    import tempfile
+    from chip_smoke import stepped
+    from deepspeed_tpu_torch.serving import FleetConfig, FleetRefreshController, FleetRouter
+    from deepspeed_tpu_torch.serving.fleet.wire import PublicationRef
+    from deepspeed_tpu_torch.serving.refresh import WeightPublisher
+    from deepspeed_tpu_torch.utils.sanitize import WeightPublicationError
+    cfg, v0, make = _wire_parent(cuda)
+    v1 = stepped(v0, 1)
+    root = tempfile.mkdtemp(prefix="dswpub")
+    pub = WeightPublisher(root)
+    pub.publish(v1, version=1)
+    probe = np.random.RandomState(26).randint(0, 32000, 160).astype(np.int32)
+
+    def cold(ref, prompt, new):
+        tree, _ = WeightPublisher(ref.publish_dir).load(version=1)
+        engine = make(tree)
+        out = _greedy(engine, [np.asarray(prompt, np.int32)], 0, new)[0]
+        engine.destroy()
+        return out
+    engine = make()
+    want_v0 = _greedy(engine, [probe], 0, 16)[0]
+    engine.destroy()
+    del engine, v0, v1
+    torch.cuda.empty_cache()
+    try:
+        with _WireFleet() as fleet:
+            router = FleetRouter(fleet.clients, config=FleetConfig(refresh_timeout_s=300),
+                                 auto_heartbeat=False)
+            ctrl = FleetRefreshController(router, reference_fn=cold,
+                                          canary_prompts=[list(probe)])
+            try:
+                before = [[int(t) for t in c.submit(probe, max_new_tokens=16).tokens(timeout=300)]
+                          for c in fleet.clients]
+                report = ctrl.rollout(version=1, params=PublicationRef(root))
+                assert report["canary"] == "passed" and report["refreshed"] == ["r0", "r1"]
+                assert not report["rolled_back"]
+                assert [c.weight_version() for c in fleet.clients] == [1, 1]
+                after = [[int(t) for t in c.submit(probe, max_new_tokens=16).tokens(timeout=300)]
+                         for c in fleet.clients]
+                pub.publish(stepped(pub.load(version=1)[0], 2), version=2)
+                payload = f"{root}/v00000002/payload.bin"
+                with open(payload, "r+b") as fd:
+                    fd.seek(4096)
+                    byte = fd.read(1)
+                    fd.seek(4096)
+                    fd.write(bytes([byte[0] ^ 0xFF]))
+                with pytest.raises(WeightPublicationError):
+                    fleet.clients[0].refresh(PublicationRef(root), 2, timeout=300)
+                assert fleet.clients[0].weight_version() == 1
+                again = [int(t) for t in
+                         fleet.clients[0].submit(probe, max_new_tokens=16).tokens(timeout=300)]
+            finally:
+                router.shutdown()
+        cold_v1 = cold(PublicationRef(root), probe, 16)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    assert before == [want_v0, want_v0]
+    assert after[0] == after[1] == again == cold_v1 and cold_v1 != want_v0
+
+
+def test_wire_disagg_pair_over_json_frames_equals_unified_pair(cuda, tmp_path, monkeypatch):
+    """A prefill/decode pair of replica processes with the bf16 KV tier,
+    every frame JSON on both ends (msgpack hidden from the children, and
+    from this process): bf16 handoff records cross the wire as base64
+    and the pair streams what a unified in-process pair streams, every
+    handoff acked."""
+    from deepspeed_tpu_torch.serving import (FleetConfig, FleetRouter, GatewayReplica,
+                                             ServingConfig)
+    from deepspeed_tpu_torch.serving.fleet.wire import codec
+    cfg, params, make = _wire_parent(cuda, tier=True)
+    rng = np.random.RandomState(27)
+    prompts = [rng.randint(0, 32000, n).astype(np.int32) for n in (200, 96, 250, 128, 64, 160)]
+    scfg = ServingConfig(token_budget=512, max_burst=8)
+    router = FleetRouter([GatewayReplica(n, make, serving_config=scfg) for n in ("a", "b")],
+                         config=FleetConfig(retry_backoff_s=0.05, stream_token_timeout_s=300))
+    try:
+        want = _router_streams(router, prompts, 24)
+    finally:
+        router.shutdown()
+    del params
+    torch.cuda.empty_cache()
+    blocker = tmp_path / "no_msgpack" / "msgpack"
+    blocker.mkdir(parents=True)
+    (blocker / "__init__.py").write_text("raise ImportError('hidden: JSON frames only')\n")
+    monkeypatch.setattr(codec, "_msgpack", None)
+    with _WireFleet(roles=("prefill", "decode"), tier=True,
+                    env={"PYTHONPATH": str(blocker.parent)}) as fleet:
+        router = FleetRouter(fleet.clients, config=FleetConfig(
+            disagg=True, prefill_max_tokens=2, retry_backoff_s=0.05,
+            stream_token_timeout_s=300))
+        try:
+            got = _router_streams(router, prompts, 24)
+            snap = router.snapshot()
+        finally:
+            router.shutdown()
+    assert all(s[0].endswith(", J frames") for s in fleet.starts.values()), fleet.starts
+    assert got == want and snap["counters"]["failed"] == 0
+    assert snap["disagg"]["handoffs"]["acked"] == len(prompts)
+    assert snap["counters"]["unified_fallbacks"] == 0

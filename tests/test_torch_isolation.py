@@ -244,11 +244,11 @@ SLICE21_MODULES = ("deepspeed_tpu_torch.serving.fleet", "deepspeed_tpu_torch.ser
 
 def test_scans_cover_the_fleet_slice():
     """The AST scan and the jax-free import above reach every module of
-    ``serving/fleet/`` and the refresh controller; the fleet's wire
-    protocol is not ported, and what the router and the controller
-    export is the JAX package's list."""
+    ``serving/fleet/`` and the refresh controller; what the router and the
+    controller export is the JAX package's list (the wire, in its own
+    package, has a test of its own below)."""
     assert set(SLICE21_MODULES) <= set(_modules())
-    files = sorted((PKG / "serving" / "fleet").rglob("*.py"))
+    files = sorted((PKG / "serving" / "fleet").glob("*.py"))
     assert {p.stem for p in files} == {"__init__", "config", "health", "handoff", "replica",
                                        "router"}
     assert set(files) | {PKG / "serving" / "refresh" / "controller.py"} <= set(_port_files())
@@ -259,6 +259,46 @@ def test_scans_cover_the_fleet_slice():
             "WeightPublisher"} == set(refresh.__all__)
     assert callable(fleet.FleetRouter.rolling_restart)
     assert callable(refresh.FleetRefreshController.rollout)
+
+
+FORBIDDEN_WIRE = FORBIDDEN | {"ml_dtypes"}
+SLICE22_MODULES = ("deepspeed_tpu_torch.utils.proc", "deepspeed_tpu_torch.serving.fleet.wire",
+                   "deepspeed_tpu_torch.serving.fleet.wire.address",
+                   "deepspeed_tpu_torch.serving.fleet.wire.client",
+                   "deepspeed_tpu_torch.serving.fleet.wire.codec",
+                   "deepspeed_tpu_torch.serving.fleet.wire.ds_replica",
+                   "deepspeed_tpu_torch.serving.fleet.wire.errors",
+                   "deepspeed_tpu_torch.serving.fleet.wire.server",
+                   "deepspeed_tpu_torch.serving.fleet.wire.supervisor")
+
+
+def test_scans_cover_the_wire_slice():
+    """The AST scan and the jax-free import above reach every module of
+    ``serving/fleet/wire/`` (the replica entry point among them) and
+    ``utils/proc.py``, none of which imports ml_dtypes either; the wire
+    package exports the JAX package's list, and the sanitizer carries the
+    wire checks."""
+    assert set(SLICE22_MODULES) <= set(_modules())
+    files = sorted((PKG / "serving" / "fleet" / "wire").glob("*.py"))
+    assert {p.stem for p in files} == {"__init__", "address", "client", "codec", "ds_replica",
+                                       "errors", "server", "supervisor"}
+    files.append(PKG / "utils" / "proc.py")
+    assert set(files) <= set(_port_files())
+    for path in files:
+        tree = ast.parse(path.read_text())
+        names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+        names += [n.module or "" for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+        assert not any(m.split(".")[0] in FORBIDDEN_WIRE for m in names), path
+    from deepspeed_tpu_torch.serving.fleet import wire
+    from deepspeed_tpu_torch.utils import sanitize
+    assert wire.__all__ == ["FleetSupervisor", "PublicationRef", "ReplicaProcSpec",
+                            "ReplicaServer", "WireProtocolError", "WireReplica",
+                            "WireTimeoutError", "make_replica", "transport_mode"]
+    assert all(callable(getattr(sanitize, n)) for n in ("wire_structural_equal",
+                                                         "checked_frame_encoder",
+                                                         "check_error_registry"))
+    assert issubclass(sanitize.WireFrameCorruptionError, sanitize.SanitizerError)
+    assert issubclass(sanitize.WireRegistryError, sanitize.SanitizerError)
 
 
 def test_default_device_is_the_gpu():

@@ -1,6 +1,6 @@
 """Runs some of ``chip_smoke.py``'s phases alone, on one GPU.
 
-    python3 tools/phases.py sparse bert k7 invariance sampled spec json async refresh fleet
+    python3 tools/phases.py sparse bert k7 invariance sampled spec json async refresh fleet wire
 
 Builds the kernel sources those phases need (one ``nvcc`` each, all
 started together), then runs each named phase as ``chip_smoke.py`` runs
@@ -34,6 +34,11 @@ it, with its checks, and prints its lines. The phases:
   replica killed mid-trace, the ``FleetRefreshController``'s rollouts
   with the canary, a crash mid-swap and a version lie, and a
   prefill/decode pair against a unified fleet).
+- ``wire``: phase 32 (``wire_phase``: two Mistral-7B replica processes
+  of the port's entry point under a ``FleetSupervisor``, reached over the
+  wire behind a ``FleetRouter``, under ``bench_serving_2b_fleet_mp``'s
+  protocol with r0 ``kill -9``ed mid-trace and relaunched, against the
+  in-process fleet on the same trace).
 
 Run it from the root of a checkout on a machine with a CUDA device. The
 last line is ``{"ok": true}`` when every phase passed.
@@ -68,6 +73,7 @@ PHASES = {  # name: (sources, run(device, flush))
     "async": (SERVING, lambda device, flush: cs.async_serving_phase(device)),
     "refresh": (GATEWAY, lambda device, flush: cs.gateway_refresh_phase(device)),
     "fleet": (GATEWAY, lambda device, flush: cs.fleet_phase(device, cs.serving_params(device))),
+    "wire": (GATEWAY, lambda device, flush: cs.wire_phase(device, cs.serving_params(device))),
 }
 
 
